@@ -1,0 +1,158 @@
+"""Command-line interface of the port: the `sketch` subtree.
+
+Parity: `sourmash_tpu/cli/__init__.py` (itself reference
+`src/sourmash/cli/__init__.py`) — same command names, flags and defaults
+for `sketch`; the other commands are not ported yet.
+"""
+
+from __future__ import annotations
+
+import sys
+from argparse import ArgumentParser, RawDescriptionHelpFormatter, SUPPRESS
+
+from .. import VERSION
+
+
+class SourmashParser(ArgumentParser):
+    _citation_printed = False
+
+    def __init__(self, citation=True, **kwargs):
+        super().__init__(**kwargs)
+        self.citation = citation
+
+    @classmethod
+    def print_citation(cls):
+        if cls._citation_printed:
+            return
+        from ..logging import notify
+
+        notify(f"\n== This is sourmash-tpu-torch version {VERSION}. ==")
+        notify("== Please cite Irber et. al (2024), doi:10.21105/joss.06830. ==\n")
+        cls._citation_printed = True
+
+    def _subparser_from_name(self, name):
+        if name is None:
+            return None
+        for action in self._actions:
+            if action.choices is None:
+                continue
+            elif name in action.choices:
+                return action.choices[name]
+
+    def print_help(self):
+        self.print_citation()
+        super().print_help()
+
+    def parse_args(self, args=None, namespace=None):
+        given = sys.argv[1:] if args is None else args
+        if not len(given):
+            self.print_help()
+            raise SystemExit(1)
+
+        ns = super().parse_args(args=args, namespace=namespace)
+        if self.citation and not getattr(ns, "quiet", False):
+            self.print_citation()
+
+        if hasattr(ns, "subcmd"):
+            if ns.subcmd is None:
+                self._subparser_from_name(ns.cmd).print_help()
+                raise SystemExit(1)
+        return ns
+
+
+def _add_sketch(sub):
+    p = sub.add_parser("sketch", description="create signatures")
+    ssub = p.add_subparsers(dest="subcmd", metavar="subcmd")
+    p.set_defaults(cmd="sketch", func="sketch")
+
+    def _common(sp):
+        sp.add_argument("--license", default="CC0", type=str,
+                        help="signature license. Currently only CC0 is supported.")
+        sp.add_argument("--check-sequence", action="store_true",
+                        help="complain if input sequence is invalid")
+        sp.add_argument("-p", "--param-string", default=[], action="append",
+                        help="signature parameters to use.")
+        sp.add_argument("filenames", nargs="*", help="file(s) of sequences")
+        sp.add_argument("-f", "--force", action="store_true",
+                        help="recompute signatures even if the file exists")
+        sp.add_argument("--from-file",
+                        help="a text file containing a list of sequence files to load")
+        sp.add_argument("-o", "--output",
+                        help="output computed signatures to this file")
+        sp.add_argument("--set-name", "--name", "--merge", dest="merge",
+                        type=str, default="", metavar="FILE",
+                        help="name the output sketch; merges all inputs")
+        sp.add_argument("--output-dir", "--outdir",
+                        help="output computed signatures to this directory")
+        sp.add_argument("--singleton", action="store_true",
+                        help="compute a signature for each sequence record individually")
+        sp.add_argument("--name-from-first", action="store_true",
+                        help="name the signature after the first record in each file")
+        sp.add_argument("--randomize", action="store_true",
+                        help="shuffle the list of input filenames randomly")
+        sp.add_argument("-q", "--quiet", action="store_true")
+
+    sp = ssub.add_parser("dna", aliases=["rna", "nucleotide", "nt"])
+    _common(sp)
+    sp.set_defaults(subfunc="sketch_dna", subcmd="dna")
+
+    sp = ssub.add_parser("protein", aliases=["aa", "prot"])
+    _common(sp)
+    sp.set_defaults(subfunc="sketch_protein", subcmd="protein")
+
+    sp = ssub.add_parser("translate")
+    _common(sp)
+    sp.set_defaults(subfunc="sketch_translate", subcmd="translate")
+
+    sp = ssub.add_parser("fromfile")
+    sp.add_argument("csvs", nargs="+",
+                    help="input CSVs with 'name', 'genome_filename', and 'protein_filename' columns")
+    sp.add_argument("-q", "--quiet", action="store_true")
+    sp.add_argument("-d", "--debug", action="store_true")
+    sp.add_argument("-p", "--param-string", default=[], action="append",
+                    help="signature parameters to use.")
+    sp.add_argument("--already-done", nargs="+", default=[],
+                    help="one or more collections of existing signatures to avoid rebuilding")
+    sp.add_argument("--license", default="CC0", type=str,
+                    help="signature license. Currently only CC0 is supported.")
+    sp.add_argument("--check-sequence", action="store_true",
+                    help="complain if input sequence is invalid")
+    sp.add_argument("-o", "--output-signatures",
+                    help="output computed signatures to this file")
+    sp.add_argument("--force-output-already-exists", action="store_true",
+                    help="overwrite/append to --output-signatures location")
+    sp.add_argument("--ignore-missing", action="store_true",
+                    help="proceed with building possible signatures, even if some input files are missing")
+    sp.add_argument("--output-csv-info",
+                    help="output information about what signatures need to be generated")
+    sp.add_argument("--output-manifest-matching",
+                    help="output a manifest file of already-existing signatures")
+    sp.add_argument("--report-duplicated", action="store_true",
+                    help="report duplicated names")
+    sp.set_defaults(subfunc="sketch_fromfile", subcmd="fromfile")
+
+
+def get_parser():
+    desc = (
+        "Create, compare, and manipulate k-mer sketches of biological sequences."
+    )
+    parser = SourmashParser(
+        prog="sourmash",
+        usage=SUPPRESS,
+        description=desc,
+        formatter_class=RawDescriptionHelpFormatter,
+    )
+    parser._optionals.title = "Options"
+    parser.add_argument("-v", "--version", action="version",
+                        version="sourmash " + VERSION)
+    parser.add_argument("-q", "--quiet", action="store_true",
+                        help="don't print citation information")
+    sub = parser.add_subparsers(title="Instructions", dest="cmd", metavar="cmd",
+                                help=SUPPRESS)
+    _add_sketch(sub)
+    parser._action_groups.reverse()
+    return parser
+
+
+def parse_args(arglist=None):
+    return get_parser().parse_args(arglist)

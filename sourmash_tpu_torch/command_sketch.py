@@ -1,0 +1,570 @@
+"""'sketch dna': sequence files -> DNA signatures.
+
+Counterpart of `sourmash_tpu/command_sketch.py` for the DNA path:
+the parameter-string parser (`_parse_params_str`), `ComputeParameters`,
+the signature factory, `_execute_sketch`, `dna`, `_compute_individual` /
+`_compute_merged` and the DNA branch of `_sketch_whole_file`. Behavior
+parity: reference `src/sourmash/command_sketch.py`; defaults are identical
+(dna k=31,scaled=1000,noabund; seed 42).
+
+Input files are streamed as large concatenated byte batches (records joined
+with k-1 'N' bytes) and hashed on the device in one pass per batch and
+sketch parameter set (see `ops/sketch.py`). The device is the port's default
+(`ops.resolve_device()`: CUDA unless SOURMASH_TORCH_DEVICE names the CPU).
+
+`sketch protein`, `sketch translate` and `sketch fromfile` are not ported
+yet and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from collections import defaultdict
+from dataclasses import dataclass
+
+import numpy as np
+
+from . import sourmash_args
+from .logging import notify, error, set_quiet
+from .minhash import MinHash
+from .signature import MultiSketchSignature
+from .sourmash_args import check_scaled_bounds, check_num_bounds
+from . import sequence_io
+
+DEFAULT_MMHASH_SEED = 42
+
+DEFAULTS = dict(
+    dna="k=31,scaled=1000,noabund",
+    protein="k=10,scaled=200,noabund",
+    dayhoff="k=16,scaled=200,noabund",
+    hp="k=42,scaled=200,noabund",
+)
+
+
+def _value_of(item, key, example, *, number_word=None):
+    "Split 'key=value', demanding '=' directly after the key."
+    if len(item) < len(key) + 2 or item[len(key)] != "=":
+        raise ValueError(f"{key} takes a parameter, e.g. '{example}'")
+    raw = item[len(key) + 1 :]
+    try:
+        return int(raw)
+    except ValueError:
+        if number_word is None:
+            raise
+        raise ValueError(f"cannot parse {key}='{raw}' as {number_word}")
+
+
+def _parse_params_str(params_str):
+    "Parse 'k=31,scaled=1000,abund'-style parameter strings."
+    moltype = None
+    params = {"ksize": []}
+
+    for item in params_str.split(","):
+        if item == "abund":
+            params["track_abundance"] = True
+        elif item == "noabund":
+            params["track_abundance"] = False
+        elif item in ("protein", "dayhoff", "hp", "dna"):
+            moltype = item
+        elif item.startswith("k"):
+            params["ksize"].append(_value_of(item, "k", "k=31"))
+        elif item.startswith("num"):
+            if params.get("scaled"):
+                raise ValueError("cannot set both num and scaled in a single minhash")
+            num = _value_of(item, "num", "num=500", number_word="a number")
+            check_num_bounds(num)
+            params["num"] = num
+            params["scaled"] = 0
+        elif item.startswith("scaled"):
+            if params.get("num"):
+                raise ValueError("cannot set both num and scaled in a single minhash")
+            scaled = _value_of(item, "scaled", "scaled=1000", number_word="an integer")
+            params["scaled"] = check_scaled_bounds(scaled)
+            params["num"] = 0
+        elif item.startswith("seed"):
+            params["seed"] = _value_of(item, "seed", "seed=42")
+        else:
+            raise ValueError(f"unknown component '{item}' in params string")
+
+    return moltype, params
+
+
+@dataclass
+class ComputeParameters:
+    """Sketch-template configuration (reference `cmd.rs:22-130` semantics;
+    ksizes here are stored ALREADY multiplied by 3 for protein moltypes,
+    matching the serialized ksize in .sig files)."""
+
+    ksizes: tuple = (21, 31, 51)
+    seed: int = DEFAULT_MMHASH_SEED
+    protein: bool = False
+    dayhoff: bool = False
+    hp: bool = False
+    dna: bool = True
+    num_hashes: int = 500
+    track_abundance: bool = False
+    scaled: int = 0
+
+    def __post_init__(self):
+        # the CLI passes scaled through a float bounds check; the stored
+        # template value is integral (reference keeps it as u64)
+        self.scaled = int(self.scaled)
+        self.ksizes = list(self.ksizes)
+
+    def make_minhashes(self):
+        """Build minhashes per ksize. Multiple moltype flags may be set at
+        once (legacy 'compute' computes DNA+protein together); emission
+        order per k is protein, dayhoff, hp, dna — reference
+        `cmd.rs:108-180` build_template."""
+        out = []
+        for k in self.ksizes:
+            for molt_flag, kwargs in (
+                (self.protein, dict(is_protein=True)),
+                (self.dayhoff, dict(dayhoff=True)),
+                (self.hp, dict(hp=True)),
+            ):
+                if molt_flag:
+                    out.append(
+                        MinHash(
+                            self.num_hashes,
+                            k // 3,
+                            track_abundance=self.track_abundance,
+                            seed=self.seed,
+                            scaled=int(self.scaled),
+                            **kwargs,
+                        )
+                    )
+            if self.dna:
+                out.append(
+                    MinHash(
+                        self.num_hashes,
+                        k,
+                        track_abundance=self.track_abundance,
+                        seed=self.seed,
+                        scaled=int(self.scaled),
+                    )
+                )
+        return out
+
+
+def signature_from_params(params: ComputeParameters):
+    "Build an (empty, multi-sketch) signature from compute parameters."
+    mhs = params.make_minhashes()
+    return MultiSketchSignature(mhs)
+
+
+class _signatures_for_sketch_factory:
+    "Build signature templates on demand, per 'sketch' CLI configuration."
+
+    def __init__(self, params_str_list, default_moltype):
+        # per-moltype defaults come from parsing the DEFAULTS param strings
+        # themselves (they carry no moltype token by construction)
+        self.defaults = {
+            moltype: _parse_params_str(pstr)[1]
+            for moltype, pstr in DEFAULTS.items()
+        }
+        self.mult_ksize_by_3 = True
+        self.params_list = [
+            (self._resolve_moltype(mt, default_moltype, pstr), params)
+            for mt, params, pstr in (
+                (*_parse_params_str(p), p) for p in params_str_list or ()
+            )
+        ] or [(self._resolve_moltype(None, default_moltype, ""), {})]
+
+    @staticmethod
+    def _resolve_moltype(override, default, params_str):
+        """Reconcile a param string's moltype token with the command's
+        moltype: a dna command rejects protein-family overrides (and vice
+        versa), and SOME moltype must come from one of the two."""
+        if override and override != "dna" and default == "dna":
+            raise ValueError(
+                f"Incompatible sketch type ({default}) and parameter override ({override}) in '{params_str}'; maybe use 'sketch translate'?"
+            )
+        if override == "dna" and default and default != "dna":
+            raise ValueError(
+                f"Incompatible sketch type ({default}) and parameter override ({override}) in '{params_str}'"
+            )
+        if override is None:
+            if default is None:
+                raise ValueError(
+                    "No default moltype and none specified in param string"
+                )
+            return default
+        return override
+
+    def get_compute_params(self, *, split_ksizes=False):
+        for moltype, params_d in self.params_list:
+            default_params = self.defaults[moltype]
+            def_seed = default_params.get("seed", DEFAULT_MMHASH_SEED)
+            def_num = default_params.get("num", 0)
+            def_abund = default_params["track_abundance"]
+            def_scaled = default_params.get("scaled", 0)
+            def_dna = moltype == "dna"
+
+            ksizes = params_d.get("ksize")
+            if not ksizes:
+                ksizes = default_params["ksize"]
+
+            if self.mult_ksize_by_3 and not def_dna:
+                ksizes = [k * 3 for k in ksizes]
+
+            def make_param(ksizes):
+                return ComputeParameters(
+                    ksizes=tuple(ksizes),
+                    seed=params_d.get("seed", def_seed),
+                    protein=moltype == "protein",
+                    dayhoff=moltype == "dayhoff",
+                    hp=moltype == "hp",
+                    dna=def_dna,
+                    num_hashes=params_d.get("num", def_num),
+                    track_abundance=params_d.get("track_abundance", def_abund),
+                    scaled=params_d.get("scaled", def_scaled),
+                )
+
+            if split_ksizes:
+                for ksize in ksizes:
+                    yield make_param([ksize])
+            else:
+                yield make_param(ksizes)
+
+    def __call__(self, *, split_ksizes=False):
+        "Produce a fresh set of signature templates."
+        return [
+            signature_from_params(params)
+            for params in self.get_compute_params(split_ksizes=split_ksizes)
+        ]
+
+
+def _add_from_file_to_filenames(args):
+    from .sourmash_args import load_pathlist_from_file
+
+    if args.from_file:
+        args.filenames.extend(load_pathlist_from_file(args.from_file))
+
+
+def _bail(*messages, code=-1):
+    "Print error line(s) and exit."
+    for msg in messages:
+        error(msg)
+    sys.exit(code)
+
+
+def _read_failure(filename, exc):
+    "Exact console shape for a sequence-read error, then exit."
+    _bail(f"ERROR when reading from '{filename}' - ", str(exc))
+
+
+def _close_save_sigs(save_sigs):
+    "Close a signature sink and report the exact console line."
+    save_sigs.close()
+    notify(
+        f"saved {len(save_sigs)} signature(s) to '{save_sigs.location}'. Note: signature license is CC0."
+    )
+
+
+def _execute_sketch(args, signatures_factory):
+    "Shared sketch runner for dna/protein/translate."
+    set_quiet(args.quiet)
+
+    if not args.filenames:
+        _bail("error: no input filenames provided! nothing to do - exiting.")
+    if args.license != "CC0":
+        _bail("error: sourmash only supports CC0-licensed signatures. sorry!")
+
+    notify(f'computing signatures for files: {", ".join(args.filenames)}')
+
+    if args.merge and not args.output:
+        _bail("ERROR: must specify -o with --merge")
+    if args.output and args.output_dir:
+        _bail("ERROR: --output-dir doesn't make sense with -o/--output")
+
+    num_sigs = len(signatures_factory.params_list)
+    notify(f"Computing a total of {num_sigs} signature(s) for each input.")
+    if num_sigs == 0:
+        _bail("...nothing to calculate!? Exiting!")
+
+    runner = _compute_merged if args.merge else _compute_individual
+    runner(args, signatures_factory)
+
+
+def _run_sketch(args, default_moltype):
+    "Common tail of the sketch commands."
+    try:
+        signatures_factory = _signatures_for_sketch_factory(
+            args.param_string, default_moltype
+        )
+    except ValueError as e:
+        error(f"Error creating signatures: {str(e)}")
+        sys.exit(-1)
+
+    _add_from_file_to_filenames(args)
+    _execute_sketch(args, signatures_factory)
+
+
+def dna(args):
+    "Compute a DNA signature for one or more files."
+    from .ops import resolve_device
+
+    resolve_device()  # no CUDA device and no SOURMASH_TORCH_DEVICE=cpu: fail now
+    args.input_is_protein = False
+    _run_sketch(args, "dna")
+
+
+def _not_ported(what):
+    def command(args):
+        raise NotImplementedError(
+            f"'sketch {what}' is not yet ported to sourmash_tpu_torch; "
+            "use sourmash_tpu for it"
+        )
+
+    command.__name__ = what
+    command.__doc__ = f"'sketch {what}': not yet ported."
+    return command
+
+
+protein = _not_ported("protein")
+translate = _not_ported("translate")
+fromfile = _not_ported("fromfile")
+
+
+def _read_stdin_bytes():
+    "Slurp stdin into a seekable buffer (handles text-only stdin stand-ins)."
+    import io as _io
+
+    stdin = sys.stdin
+    if hasattr(stdin, "buffer"):
+        data = stdin.buffer.read()
+    else:
+        data = stdin.read()
+        if isinstance(data, str):
+            data = data.encode("utf-8")
+    return _io.BytesIO(data)
+
+
+def add_seq(sigs, seq, input_is_protein, check_sequence):
+    "Add one sequence record into all signatures."
+    for sig in sigs:
+        if input_is_protein:
+            sig.add_protein(seq)
+        else:
+            sig.add_sequence(seq, not check_sequence)
+
+
+def set_sig_name(sigs, filename, name=None):
+    if filename == "-":
+        filename = ""
+    for sig in sigs:
+        if name is not None:
+            sig._name = name
+        sig._filename = filename
+
+
+def save_siglist(siglist, sigfile_name):
+    "Save multiple signatures to a filename."
+    with sourmash_args.SaveSignaturesToLocation(sigfile_name) as save_sig:
+        for ss in siglist:
+            save_sig.add(ss)
+        notify(f"saved {len(save_sig)} signature(s) to '{save_sig.location}'")
+
+
+def save_sigs_to_location(siglist, save_sig):
+    "Save multiple signatures to an already-open location."
+    for ss in siglist:
+        save_sig.add(ss)
+
+
+def _sketch_whole_file(sigs, filename, input_is_protein, check_sequence):
+    """Batched sketching of one DNA file into `sigs` (device path).
+
+    Returns (n_records, first_record_name) or (None, None) if empty.
+    Semantics identical to per-record add_seq: records are joined with
+    k-1 'N' separators (invalid windows dropped); with check_sequence,
+    records are validated individually first.
+    """
+    from .ops import encodings as enc
+    from .ops.sketch import seq_chunks_to_hashes
+    from .minhash import MINHASH_MAX_HASH
+
+    if input_is_protein or any(
+        not mh.is_dna for sig in sigs for mh in sig._all_minhashes()
+    ):
+        raise NotImplementedError(
+            "protein-family sketching is not yet ported to sourmash_tpu_torch"
+        )
+
+    # DNA path: batch records per target minhash config.
+    # group target minhashes by (ksize, seed): one device pass per group.
+    targets = defaultdict(list)  # (ksize, seed) -> list of MinHash
+    for sig in sigs:
+        for mh in sig._all_minhashes():
+            targets[(mh.ksize, mh.seed)].append(mh)
+
+    max_ksize = max(k for (k, _) in targets)
+
+    n = None
+    first_name = None
+    batches = []
+    for names, joined in sequence_io.iter_record_batches(filename, max_ksize):
+        if n is None and names:
+            first_name = names[0]
+        n = (n or 0) + len(names)
+        if check_sequence:
+            # separators are 'N' bytes; valid records contain only ACGT
+            # find invalid chars that are not separator-injected
+            # simplest exact check: validate each record separately
+            for rname, rseq in zip(names, _split_joined(joined, names, max_ksize)):
+                rarr = enc.upper(np.frombuffer(rseq, dtype=np.uint8))
+                bad = ~enc.VALID_DNA[rarr]
+                if bad.any():
+                    i = int(np.argmax(bad))
+                    start = max(0, i - max_ksize + 1)
+                    kmer = rseq[start : start + max_ksize].decode("ascii", "replace")
+                    raise ValueError(
+                        f"invalid DNA character in input k-mer: {kmer}"
+                    )
+        batches.append(joined)
+
+    if n is None:
+        return None, None
+
+    for (ksize, seed), mh_list in targets.items():
+        # distinct max_hash values within the group share hash computation
+        by_maxhash = defaultdict(list)
+        for mh in mh_list:
+            key = mh._max_hash if mh._max_hash else MINHASH_MAX_HASH
+            by_maxhash[key].append(mh)
+        for max_hash, mhs in by_maxhash.items():
+            all_hashes = []
+            for joined in batches:
+                hs = seq_chunks_to_hashes(joined, ksize, int(max_hash), seed)
+                all_hashes.append(hs)
+            if all_hashes:
+                flat = np.concatenate(all_hashes)
+                for mh in mhs:
+                    mh._insert_hashes(flat)
+
+    return n, first_name
+
+
+def _split_joined(joined: bytes, names, ksize: int):
+    "Split a separator-joined batch back into records."
+    sep = b"N" * (ksize - 1)
+    if len(names) == 1:
+        return [joined]
+    return joined.split(sep)
+
+
+def _compute_individual(args, signatures_factory):
+    save_sigs = None
+    open_output_each_time = not args.output
+
+    for filename in args.filenames:
+        # stdin can only be read once; buffer it so peek + sketch both work
+        read_obj = filename
+        if filename == "-":
+            read_obj = _read_stdin_bytes()
+        if open_output_each_time:
+            sigfile = os.path.basename(filename) + ".sig"
+            if args.output_dir:
+                sigfile = os.path.join(args.output_dir, sigfile)
+
+            if os.path.exists(sigfile) and not args.force:
+                notify("skipping {} - already done", filename)
+                continue
+
+            assert not save_sigs
+            save_sigs = sourmash_args.SaveSignaturesToLocation(sigfile)
+
+        # peek: empty file?
+        try:
+            peek = next(iter(sequence_io.iter_records_bytes(read_obj)), None)
+        except (OSError, ValueError) as exc:
+            _read_failure(filename, exc)
+        if peek is None:
+            notify(f"no sequences found in '{filename}'?!")
+            continue
+
+        if open_output_each_time:
+            save_sigs.open()
+        elif save_sigs is None:
+            # the single -o sink opens lazily on the first nonempty input
+            save_sigs = sourmash_args.SaveSignaturesToLocation(args.output)
+            save_sigs.open()
+
+        if args.singleton:
+            n_calculated = 0
+            n = 0
+            for n, (rname, rseq) in enumerate(
+                sequence_io.iter_records_bytes(read_obj)
+            ):
+                sigs = signatures_factory()
+                try:
+                    add_seq(sigs, rseq, args.input_is_protein, args.check_sequence)
+                except ValueError as exc:
+                    _read_failure(filename, exc)
+
+                n_calculated += len(sigs)
+                set_sig_name(sigs, filename, name=rname)
+                save_sigs_to_location(sigs, save_sigs)
+
+            notify(
+                "calculated {} signatures for {} sequences in {}",
+                n_calculated, n + 1, filename,
+            )
+        else:
+            sigs = signatures_factory()
+            notify(f"... reading sequences from {filename}")
+            try:
+                n, first_name = _sketch_whole_file(
+                    sigs, read_obj, args.input_is_protein, args.check_sequence
+                )
+            except ValueError as exc:
+                _read_failure(filename, exc)
+
+            name = first_name if args.name_from_first else None
+            set_sig_name(sigs, filename, name)
+            save_sigs_to_location(sigs, save_sigs)
+
+            notify(
+                f"calculated {len(sigs)} signatures for {n} sequences in {filename}"
+            )
+
+        if open_output_each_time:
+            _close_save_sigs(save_sigs)
+            save_sigs = None
+
+    if args.output and save_sigs is not None:
+        _close_save_sigs(save_sigs)
+
+
+def _compute_merged(args, signatures_factory):
+    sigs = signatures_factory()
+
+    total_seq = 0
+    for filename in args.filenames:
+        read_obj = filename
+        if filename == "-":
+            read_obj = _read_stdin_bytes()
+        notify("... reading sequences from {}", filename)
+        try:
+            n, _ = _sketch_whole_file(
+                sigs, read_obj, args.input_is_protein, args.check_sequence
+            )
+        except ValueError as exc:
+            _read_failure(filename, exc)
+        if n is not None:
+            notify("... {} {} sequences", filename, n)
+            total_seq += n
+        else:
+            notify(f"no sequences found in '{filename}'?!")
+
+    if not total_seq:
+        return
+    set_sig_name(sigs, filename, name=args.merge)
+    notify(
+        "calculated 1 signature for {} sequences taken from {} files",
+        total_seq,
+        len(args.filenames),
+    )
+    save_siglist(sigs, args.output)
