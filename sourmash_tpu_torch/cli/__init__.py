@@ -60,6 +60,42 @@ class SourmashParser(ArgumentParser):
         return ns
 
 
+def _bool_pair(parser, names, dest, on_help, off_help, default):
+    "One on/off argparse flag pair sharing a dest (e.g. --hp / --no-hp)."
+    parser.add_argument(
+        *[f"--{n}" for n in names], dest=dest, action="store_true",
+        default=None, help=on_help,
+    )
+    parser.add_argument(
+        *[f"--no-{n}" for n in names], dest=dest, action="store_false",
+        help=off_help,
+    )
+    parser.set_defaults(**{dest: default})
+
+
+# (flag aliases, dest, on-help, off-help, default)
+_MOLTYPE_FLAGS = (
+    (("protein",), "protein",
+     "choose a protein signature; by default, a nucleotide signature is used",
+     "do not choose a protein signature", False),
+    (("dayhoff",), "dayhoff",
+     "choose Dayhoff-encoded amino acid signatures",
+     "do not choose Dayhoff-encoded amino acid signatures", False),
+    (("hp", "hydrophobic-polar"), "hp",
+     "choose hydrophobic-polar-encoded amino acid signatures",
+     "do not choose hydrophobic-polar-encoded amino acid signatures", False),
+    (("dna", "rna", "nucleotide"), "dna",
+     "choose a nucleotide signature (default: True)",
+     "do not choose a nucleotide signature", None),
+)
+
+
+def add_moltype_args(parser):
+    "--protein/--dayhoff/--hp/--dna and their --no- pairs (`sourmash_tpu/cli/utils.py:46`)."
+    for names, dest, on_h, off_h, default in _MOLTYPE_FLAGS:
+        _bool_pair(parser, names, dest, on_h, off_h, default)
+
+
 def _add_sketch(sub):
     p = sub.add_parser("sketch", description="create signatures")
     ssub = p.add_subparsers(dest="subcmd", metavar="subcmd")
@@ -98,10 +134,12 @@ def _add_sketch(sub):
 
     sp = ssub.add_parser("protein", aliases=["aa", "prot"])
     _common(sp)
+    add_moltype_args(sp)
     sp.set_defaults(subfunc="sketch_protein", subcmd="protein")
 
     sp = ssub.add_parser("translate")
     _common(sp)
+    add_moltype_args(sp)
     sp.set_defaults(subfunc="sketch_translate", subcmd="translate")
 
     sp = ssub.add_parser("fromfile")

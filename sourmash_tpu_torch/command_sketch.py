@@ -1,19 +1,23 @@
-"""'sketch dna': sequence files -> DNA signatures.
+"""'sketch dna', 'sketch protein' and 'sketch translate': sequence files ->
+signatures.
 
-Counterpart of `sourmash_tpu/command_sketch.py` for the DNA path:
-the parameter-string parser (`_parse_params_str`), `ComputeParameters`,
-the signature factory, `_execute_sketch`, `dna`, `_compute_individual` /
-`_compute_merged` and the DNA branch of `_sketch_whole_file`. Behavior
+Counterpart of `sourmash_tpu/command_sketch.py`: the parameter-string
+parser (`_parse_params_str`), `ComputeParameters`, the signature factory,
+`_execute_sketch`, `dna`, `protein`, `translate`, `_compute_individual` /
+`_compute_merged`, `_sketch_whole_file` and `_sketch_aa_file`. Behavior
 parity: reference `src/sourmash/command_sketch.py`; defaults are identical
-(dna k=31,scaled=1000,noabund; seed 42).
+(dna k=31,scaled=1000,noabund; protein k=10, dayhoff k=16, hp k=42, each
+scaled=200,noabund; seed 42).
 
-Input files are streamed as large concatenated byte batches (records joined
+DNA files are streamed as large concatenated byte batches (records joined
 with k-1 'N' bytes) and hashed on the device in one pass per batch and
-sketch parameter set (see `ops/sketch.py`). The device is the port's default
+sketch parameter set (see `ops/sketch.py`). Protein files, and the six
+reading frames of DNA files for `translate`, are remapped per moltype,
+joined with zero separators and hashed on the device by K3
+(`_sketch_aa_file`). The device is the port's default
 (`ops.resolve_device()`: CUDA unless SOURMASH_TORCH_DEVICE names the CPU).
 
-`sketch protein`, `sketch translate` and `sketch fromfile` are not ported
-yet and raise NotImplementedError.
+`sketch fromfile` is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -290,6 +294,9 @@ def _execute_sketch(args, signatures_factory):
 
 def _run_sketch(args, default_moltype):
     "Common tail of the sketch commands."
+    from .ops import resolve_device
+
+    resolve_device()  # no CUDA device and no SOURMASH_TORCH_DEVICE=cpu: fail now
     try:
         signatures_factory = _signatures_for_sketch_factory(
             args.param_string, default_moltype
@@ -302,30 +309,42 @@ def _run_sketch(args, default_moltype):
     _execute_sketch(args, signatures_factory)
 
 
+def _protein_family_moltype(args):
+    "Resolve --dayhoff/--hp flags for the protein-output commands."
+    if args.dayhoff and args.hp:
+        raise ValueError("cannot set both --dayhoff and --hp")
+    if args.dayhoff:
+        return "dayhoff"
+    if args.hp:
+        return "hp"
+    return "protein"
+
+
 def dna(args):
     "Compute a DNA signature for one or more files."
-    from .ops import resolve_device
-
-    resolve_device()  # no CUDA device and no SOURMASH_TORCH_DEVICE=cpu: fail now
     args.input_is_protein = False
     _run_sketch(args, "dna")
 
 
-def _not_ported(what):
-    def command(args):
-        raise NotImplementedError(
-            f"'sketch {what}' is not yet ported to sourmash_tpu_torch; "
-            "use sourmash_tpu for it"
-        )
-
-    command.__name__ = what
-    command.__doc__ = f"'sketch {what}': not yet ported."
-    return command
+def protein(args):
+    "Compute a protein signature for one or more files."
+    args.input_is_protein = True
+    args.check_sequence = False
+    _run_sketch(args, _protein_family_moltype(args))
 
 
-protein = _not_ported("protein")
-translate = _not_ported("translate")
-fromfile = _not_ported("fromfile")
+def translate(args):
+    "Compute protein signatures from DNA/RNA input."
+    args.input_is_protein = False
+    _run_sketch(args, _protein_family_moltype(args))
+
+
+def fromfile(args):
+    "'sketch fromfile': not yet ported."
+    raise NotImplementedError(
+        "'sketch fromfile' is not yet ported to sourmash_tpu_torch; "
+        "use sourmash_tpu for it"
+    )
 
 
 def _read_stdin_bytes():
@@ -374,24 +393,44 @@ def save_sigs_to_location(siglist, save_sig):
         save_sig.add(ss)
 
 
+def _add_records(sigs, filename, input_is_protein, check_sequence):
+    "Per-record add_seq over one file: (n_records, first_name) or (None, None)."
+    n = None
+    first_name = None
+    for n, (name, seq) in enumerate(sequence_io.iter_records_bytes(filename)):
+        if n == 0:
+            first_name = name
+        add_seq(sigs, seq, input_is_protein, check_sequence)
+    if n is None:
+        return None, None
+    return n + 1, first_name
+
+
 def _sketch_whole_file(sigs, filename, input_is_protein, check_sequence):
-    """Batched sketching of one DNA file into `sigs` (device path).
+    """Batched sketching of one file into `sigs` (device path).
 
     Returns (n_records, first_record_name) or (None, None) if empty.
-    Semantics identical to per-record add_seq: records are joined with
+    Semantics identical to per-record add_seq: DNA records are joined with
     k-1 'N' separators (invalid windows dropped); with check_sequence,
-    records are validated individually first.
+    records are validated individually first. Protein input, and translate
+    without --check-sequence, go through `_sketch_aa_file`; translate with
+    --check-sequence sketches record by record.
     """
     from .ops import encodings as enc
     from .ops.sketch import seq_chunks_to_hashes
     from .minhash import MINHASH_MAX_HASH
 
-    if input_is_protein or any(
-        not mh.is_dna for sig in sigs for mh in sig._all_minhashes()
-    ):
-        raise NotImplementedError(
-            "protein-family sketching is not yet ported to sourmash_tpu_torch"
-        )
+    if input_is_protein:
+        if not check_sequence:
+            return _sketch_aa_file(sigs, filename, translate=False)
+        return _add_records(sigs, filename, True, check_sequence)
+
+    # translate path (DNA input, protein-family targets)
+    mhs = [mh for sig in sigs for mh in sig._all_minhashes()]
+    if any(not mh.is_dna for mh in mhs):
+        if not check_sequence and not any(mh.is_dna for mh in mhs):
+            return _sketch_aa_file(sigs, filename, translate=True)
+        return _add_records(sigs, filename, False, check_sequence)
 
     # DNA path: batch records per target minhash config.
     # group target minhashes by (ksize, seed): one device pass per group.
@@ -445,6 +484,83 @@ def _sketch_whole_file(sigs, filename, input_is_protein, check_sequence):
                     mh._insert_hashes(flat)
 
     return n, first_name
+
+
+_AA_FLUSH_BYTES = 32 << 20  # aa bytes buffered per target before a device flush
+
+
+def _sketch_aa_file(sigs, filename, *, translate: bool):
+    """Batched device sketching of a protein (or translate) file: every
+    record's amino-acid stream (six frames per record when translating) is
+    remapped per moltype on the host, joined with zero separators and
+    hashed by K3 in as few launches as possible; windows that cross a
+    separator are invalid and dropped. Hash-multiset-identical to the
+    per-record add_protein/add_sequence loop (the reference's per-record
+    SeqToHashes, `signature.rs:307-393`)."""
+    from .ops import encodings as enc
+    from .ops.sketch import aa_chunks_to_hashes
+
+    # mh.ksize is the amino-acid k (ComputeParameters stores it times 3)
+    targets = defaultdict(list)  # (aa_ksize, seed, moltype) -> [MinHash]
+    for sig in sigs:
+        for mh in sig._all_minhashes():
+            targets[(mh.ksize, mh.seed, mh.moltype)].append(mh)
+
+    # remapped frame streams accumulate per target and flush every
+    # _AA_FLUSH_BYTES: insertion is incremental, so files larger than RAM
+    # stream through
+    pending = {key: [] for key in targets}
+    pending_n = dict.fromkeys(targets, 0)
+
+    def flush(key):
+        streams = pending[key]
+        if not streams:
+            return
+        k, seed, _moltype = key
+        sep = np.zeros(k, dtype=np.uint8)
+        parts = []
+        for fr in streams:
+            parts.append(fr)
+            parts.append(sep)
+        joined = np.concatenate(parts[:-1])
+        hashes = aa_chunks_to_hashes(joined, k, seed, mask_invalid=True)
+        for mh in targets[key]:
+            mh._insert_hashes(hashes)
+        pending[key] = []
+        pending_n[key] = 0
+
+    n_records = 0
+    first_name = None
+    for name, seq in sequence_io.iter_records_bytes(filename):
+        if n_records == 0:
+            first_name = name
+        n_records += 1
+        arr = enc.upper(np.frombuffer(seq, dtype=np.uint8))
+        if translate:
+            rc = enc.revcomp(arr)
+            frames = [
+                enc.translate_frame(s)
+                for frame in range(3)
+                for s in (arr[frame:], rc[frame:])
+            ]
+        else:
+            frames = [arr]
+        for key in targets:
+            k, _seed, moltype = key
+            for fr in frames:
+                if fr.shape[0] >= k:
+                    # remap BEFORE joining: the zero separator must stay
+                    # invalid (dayhoff and hp map byte 0 to a class byte)
+                    pending[key].append(enc.remap_aa(fr, moltype))
+                    pending_n[key] += fr.shape[0]
+            if pending_n[key] >= _AA_FLUSH_BYTES:
+                flush(key)
+
+    if n_records == 0:
+        return None, None
+    for key in targets:
+        flush(key)
+    return n_records, first_name
 
 
 def _split_joined(joined: bytes, names, ksize: int):

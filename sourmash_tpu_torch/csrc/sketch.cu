@@ -1,10 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels for the DNA sketch hot path.
+// Hand-written Hopper (sm_90a) kernels for the sketch hot paths.
 //
-// Both kernels hash every k-byte window of uppercased DNA rows with the
+// K1 and K2 hash every k-byte window of uppercased DNA rows with the
 // canonical-strand MurmurHash3 x64_128 (first 64-bit word, seed given) that
 // sourmash uses for DNA: the window and its reverse complement are compared
 // lexicographically and the lesser is hashed. A window is valid when all of
 // its k bytes are A, C, G or T; a zero pad byte is never valid.
+//
+// K3 hashes every k-byte window of amino-acid rows (protein, or dayhoff/hp
+// class bytes) as it is, with the same murmur; a window is valid when none
+// of its bytes is 0, the record separator and row padding.
 //
 // The complement is the branchless ASCII map of the TPU kernel
 // (`sourmash_tpu/ops/pallas_sketch.py:_complement_bytes`): c ^ 4 when bit 1
@@ -60,20 +64,59 @@ __device__ __forceinline__ uint32_t canon_byte(const uint8_t* s, int k, bool rev
   return rev ? complement(c) : c;
 }
 
-// Little-endian word of `len` (1..8) canonical bytes from position `start`;
-// clears `ok` if one of them is not ACGT.
-__device__ __forceinline__ uint64_t canon_word(const uint8_t* s, int k, bool rev,
-                                               int start, int len, bool& ok) {
+// Little-endian word of `len` (1..8) window bytes from position `start`;
+// clears `ok` if one of them is not valid. DNA (kAA false): canonical bytes,
+// valid when ACGT. Amino acids (kAA true): the bytes as they are, valid when
+// not 0.
+template <bool kAA>
+__device__ __forceinline__ uint64_t window_word(const uint8_t* s, int k, bool rev,
+                                                int start, int len, bool& ok) {
   uint64_t w = 0;
   for (int i = 0; i < len; ++i) {
-    uint32_t c = canon_byte(s, k, rev, start + i);
-    ok = ok && is_acgt(c);
+    uint32_t c = kAA ? s[start + i] : canon_byte(s, k, rev, start + i);
+    ok = ok && (kAA ? c != 0u : is_acgt(c));
     w |= static_cast<uint64_t>(c) << (8 * i);
   }
   return w;
 }
 
-// Canonical hash of the k-byte window at s (shared memory) and its validity.
+// MurmurHash3 x64_128, first 64-bit word, of the k-byte window at s
+// (shared memory) read through window_word<kAA>, and its validity.
+template <bool kAA>
+__device__ __forceinline__ uint64_t murmur_window(const uint8_t* s, int k, bool rev,
+                                                  uint64_t seed, bool& ok) {
+  ok = true;
+  uint64_t h1 = seed, h2 = seed;
+  const int nblocks = k / 16;
+  for (int b = 0; b < nblocks; ++b) {
+    uint64_t k1 = window_word<kAA>(s, k, rev, 16 * b, 8, ok);
+    uint64_t k2 = window_word<kAA>(s, k, rev, 16 * b + 8, 8, ok);
+    k1 *= kC1; k1 = rotl64(k1, 31); k1 *= kC2; h1 ^= k1;
+    h1 = rotl64(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52dce729;
+    k2 *= kC2; k2 = rotl64(k2, 33); k2 *= kC1; h2 ^= k2;
+    h2 = rotl64(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495ab5;
+  }
+  const int tail = k & 15;
+  const int base = 16 * nblocks;
+  if (tail > 8) {
+    uint64_t k2 = window_word<kAA>(s, k, rev, base + 8, tail - 8, ok);
+    k2 *= kC2; k2 = rotl64(k2, 33); k2 *= kC1; h2 ^= k2;
+  }
+  if (tail > 0) {
+    uint64_t k1 = window_word<kAA>(s, k, rev, base, tail < 8 ? tail : 8, ok);
+    k1 *= kC1; k1 = rotl64(k1, 31); k1 *= kC2; h1 ^= k1;
+  }
+  h1 ^= static_cast<uint64_t>(k);
+  h2 ^= static_cast<uint64_t>(k);
+  h1 += h2;
+  h2 += h1;
+  h1 = fmix64(h1);
+  h2 = fmix64(h2);
+  return h1 + h2;
+}
+
+// Canonical hash of the k-byte DNA window at s (shared memory) and its
+// validity (every byte ACGT).
 __device__ uint64_t window_hash(const uint8_t* s, int k, uint64_t seed, bool& ok) {
   // strand: the first byte where the window and its reverse complement
   // differ decides; a palindrome hashes the forward strand
@@ -86,35 +129,13 @@ __device__ uint64_t window_hash(const uint8_t* s, int k, uint64_t seed, bool& ok
       break;
     }
   }
+  return murmur_window<false>(s, k, rev, seed, ok);
+}
 
-  ok = true;
-  uint64_t h1 = seed, h2 = seed;
-  const int nblocks = k / 16;
-  for (int b = 0; b < nblocks; ++b) {
-    uint64_t k1 = canon_word(s, k, rev, 16 * b, 8, ok);
-    uint64_t k2 = canon_word(s, k, rev, 16 * b + 8, 8, ok);
-    k1 *= kC1; k1 = rotl64(k1, 31); k1 *= kC2; h1 ^= k1;
-    h1 = rotl64(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52dce729;
-    k2 *= kC2; k2 = rotl64(k2, 33); k2 *= kC1; h2 ^= k2;
-    h2 = rotl64(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495ab5;
-  }
-  const int tail = k & 15;
-  const int base = 16 * nblocks;
-  if (tail > 8) {
-    uint64_t k2 = canon_word(s, k, rev, base + 8, tail - 8, ok);
-    k2 *= kC2; k2 = rotl64(k2, 33); k2 *= kC1; h2 ^= k2;
-  }
-  if (tail > 0) {
-    uint64_t k1 = canon_word(s, k, rev, base, tail < 8 ? tail : 8, ok);
-    k1 *= kC1; k1 = rotl64(k1, 31); k1 *= kC2; h1 ^= k1;
-  }
-  h1 ^= static_cast<uint64_t>(k);
-  h2 ^= static_cast<uint64_t>(k);
-  h1 += h2;
-  h2 += h1;
-  h1 = fmix64(h1);
-  h2 = fmix64(h2);
-  return h1 + h2;
+// Hash of the k-byte amino-acid window at s (shared memory), as it is, and
+// its validity (no zero byte: zero separates records and pads rows).
+__device__ uint64_t aa_window_hash(const uint8_t* s, int k, uint64_t seed, bool& ok) {
+  return murmur_window<true>(s, k, false, seed, ok);
 }
 
 // Stage bytes [w0, w0 + kTile + k - 1) of one row into shared memory with
@@ -152,6 +173,33 @@ window_hashes_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k,
   if (w >= n_pad) return;
   bool ok;
   uint64_t h = window_hash(smem + threadIdx.x, k, seed, ok);
+  const int64_t out = static_cast<int64_t>(b) * n_pad + w;
+  hashes[out] = h;
+  valid[out] = ok ? 1 : 0;
+}
+
+// K3. Replaces sourmash_tpu/ops/pallas_sketch.py:aa_window_hash_pairs_pallas
+// (kernel _sketch_block_kernel over _aa_hash_streams).
+//
+// Bound: about half K2's integer work per window (no strand compare, one
+// byte stream), so at sourmash's protein k=10 the 9 bytes written per
+// window bound it, and integer ALU from k ~ 16 up. Design: K2's, one thread
+// per window over the block's bytes plus the k-1 halo in shared memory; the
+// murmur runs on native uint64_t.
+__global__ void __launch_bounds__(kTile)
+aa_window_hashes_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k,
+                        uint64_t seed, uint64_t* __restrict__ hashes,
+                        uint8_t* __restrict__ valid) {
+  extern __shared__ uint8_t smem[];
+  const int b = blockIdx.y;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  stage_row(seq + static_cast<int64_t>(b) * S, S, w0, kTile + k - 1, smem);
+  __syncthreads();
+
+  const int64_t w = w0 + threadIdx.x;
+  if (w >= n_pad) return;
+  bool ok;
+  uint64_t h = aa_window_hash(smem + threadIdx.x, k, seed, ok);
   const int64_t out = static_cast<int64_t>(b) * n_pad + w;
   hashes[out] = h;
   valid[out] = ok ? 1 : 0;
@@ -248,6 +296,19 @@ int sm_window_hashes(const void* seq, int B, int S, int n_pad, int ksize,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((n_pad + kTile - 1) / kTile, B);
   window_hashes_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(seq), S, n_pad, ksize, seed,
+      static_cast<uint64_t*>(hashes), static_cast<uint8_t*>(valid));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hashes [B, n_pad] u64, valid [B, n_pad] u8 for amino-acid rows seq [B, S] u8.
+int sm_aa_window_hashes(const void* seq, int B, int S, int n_pad, int ksize,
+                        uint64_t seed, void* hashes, void* valid, void* stream) {
+  size_t smem = 0;
+  cudaError_t err = prepare_smem(aa_window_hashes_kernel, ksize, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((n_pad + kTile - 1) / kTile, B);
+  aa_window_hashes_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seq), S, n_pad, ksize, seed,
       static_cast<uint64_t*>(hashes), static_cast<uint8_t*>(valid));
   return static_cast<int>(cudaGetLastError());

@@ -6,12 +6,13 @@ FrozenMinHash at :1152) and semantics parity with the Rust core
 host-side as sorted numpy uint64 arrays (not opaque Rust handles); per-k-mer
 hot loops are replaced by whole-sequence hashing (the native C++ loop or
 `ops/encodings.py` on the host, `ops/sketch.py` on the CUDA device for long
-DNA sequences), and set operations are sorted-array merges instead of
-element-wise inserts.
+DNA sequences and amino-acid streams), and set operations are sorted-array
+merges instead of element-wise inserts.
 
 The PyTorch port of `sourmash_tpu/minhash.py`: the object model is the same
-code; the device hook in `add_sequence` goes to the port's CUDA sketch path,
-and `minhash_from_arrays` builds a sketch from plain arrays.
+code; the device hooks in `add_sequence` and `add_protein` go to the port's
+CUDA sketch paths, and `minhash_from_arrays` builds a sketch from plain
+arrays.
 """
 
 from __future__ import annotations
@@ -585,19 +586,15 @@ class MinHash:
             seq = enc.upper(np.frombuffer(sequence, dtype=np.uint8))
             if seq.shape[0] < self.ksize * 3:
                 return
-            h = enc.translate_hashes(seq, self.ksize, self._moltype, self._seed)
+            h = enc.translate_hashes(
+                seq, self.ksize, self._moltype, self._seed, device=device
+            )
             self._insert_hashes(h)
             return
         seq = enc.upper(np.frombuffer(sequence, dtype=np.uint8))
         if seq.shape[0] < self._ksize:
             return
-        import os as _os
-
-        mode = _os.environ.get("SOURMASH_TORCH_HOST_SKETCH", "auto")
-        if mode not in ("auto", "native", "numpy"):
-            raise ValueError(
-                f"SOURMASH_TORCH_HOST_SKETCH must be auto, native or numpy, not {mode!r}"
-            )
+        mode = enc.host_sketch_mode()
         if seq.shape[0] >= _DEVICE_MIN_LEN and mode == "auto":
             all_valid = bool(enc.VALID_DNA[seq].all())
             if not all_valid and not force:
@@ -655,14 +652,15 @@ class MinHash:
                 )
         self.add_sequence(kmer)
 
-    def add_protein(self, sequence):
-        "Add a protein sequence (already amino acids)."
+    def add_protein(self, sequence, *, device=None):
+        """Add a protein sequence (already amino acids). Records of at least
+        2^16 windows are hashed on `device` (see `ops/encodings.protein_hashes`)."""
         if self.is_dna:
             raise ValueError('Invalid hash function: "DNA"')
         if isinstance(sequence, str):
             sequence = sequence.encode("ascii")
         seq = enc.upper(np.frombuffer(sequence, dtype=np.uint8))
-        h = enc.protein_hashes(seq, self.ksize, self._moltype, self._seed)
+        h = enc.protein_hashes(seq, self.ksize, self._moltype, self._seed, device=device)
         self._insert_hashes(h)
 
     def seq_to_hashes(

@@ -165,6 +165,10 @@ int64_t hash_windows(const uint8_t* seq, int64_t n, int32_t k, uint32_t seed,
   }
   if (nwin < (1 << 18)) nt = 1;
   if ((int64_t)nt > nwin) nt = (int32_t)nwin;
+  if (nt == 1) {  // a short record: no thread to start and join
+    hash_range(seq, 0, nwin, k, seed, out);
+    return nwin;
+  }
   std::vector<std::thread> threads;
   int64_t per = (nwin + nt - 1) / nt;
   for (int32_t t = 0; t < nt; t++) {
@@ -205,6 +209,10 @@ int64_t sketch_hashes(const uint8_t* seq, int64_t n, int32_t k, uint32_t seed,
     int64_t w0 = (int64_t)t * per;
     int64_t w1 = w0 + per < nwin ? w0 + per : nwin;
     if (w0 >= w1) break;
+    if (nt == 1) {  // a short record: no thread to start and join
+      sketch_range(seq, w0, w1, k, seed, max_hash, &outs[t], &bads[t]);
+      break;
+    }
     threads.emplace_back(sketch_range, seq, w0, w1, k, seed, max_hash,
                          &outs[t], &bads[t]);
   }

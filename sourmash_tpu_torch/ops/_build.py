@@ -32,6 +32,8 @@ _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 _SIGNATURES = {
     # seq, B, S, n_pad, ksize, seed, hashes, valid, stream
     "sm_window_hashes": [_P, _I, _I, _I, _I, _U64, _P, _P, _P],
+    # seq, B, S, n_pad, ksize, seed, hashes, valid, stream
+    "sm_aa_window_hashes": [_P, _I, _I, _I, _I, _U64, _P, _P, _P],
     # seq, B, S, n, R, ksize, seed, max_hash, slots, hi, lo, counts, stream
     "sm_survivor_slots": [_P, _I, _I, _I, _I, _I, _U64, _U64, _I, _P, _P, _P, _P],
 }

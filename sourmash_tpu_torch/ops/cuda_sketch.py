@@ -1,20 +1,22 @@
-"""The DNA sketch kernels: CUDA wrappers, launch counters and plain PyTorch
+"""The sketch kernels: CUDA wrappers, launch counters and plain PyTorch
 versions. Counterpart of `sourmash_tpu/ops/pallas_sketch.py`.
 
-K1 `survivor_slots` (replaces `sketch_survivor_slots_pallas`) and K2
-`window_hashes` (replaces `window_hash_pairs_pallas`) are hand-written CUDA
-C++ in `csrc/sketch.cu`. Each wrapper checks its input, allocates the
-outputs with `torch.empty`, launches on the current CUDA stream and counts
-the launch in `LAUNCHES`. A CPU tensor goes to the plain version beside
-the wrapper, which computes the same function with torch ops on any
-device; a CUDA tensor launches the kernel or raises.
+K1 `survivor_slots` (replaces `sketch_survivor_slots_pallas`), K2
+`window_hashes` (replaces `window_hash_pairs_pallas`) and K3
+`aa_window_hashes` (replaces `aa_window_hash_pairs_pallas`) are
+hand-written CUDA C++ in `csrc/sketch.cu`. Each wrapper checks its input,
+allocates the outputs with `torch.empty`, launches on the current CUDA
+stream and counts the launch in `LAUNCHES`. A CPU tensor goes to the plain
+version beside the wrapper, which computes the same function with torch ops
+on any device; a CUDA tensor launches the kernel or raises.
 
-Geometry: rows are `[B, S]` uint8, uppercased, with n = S - ksize + 1
-windows. Windows are grouped into R = ceil(n / 128) segments of 128
-(K1's compaction unit); K2 writes n_pad = 128 * R windows, and the ones
-past n read zero bytes and are invalid. Hashes are int64 bit patterns of
-the unsigned values (`ops/u64.py`); K1's slots are int32 bit patterns of
-the u32 halves, the JAX function's layout.
+Geometry: rows are `[B, S]` uint8, uppercased (for K3, amino-acid rows with
+dayhoff/hp already remapped), with n = S - ksize + 1 windows. Windows are
+grouped into R = ceil(n / 128) segments of 128 (K1's compaction unit); K2
+and K3 write n_pad = 128 * R windows, and the ones past n read zero bytes
+and are invalid. Hashes are int64 bit patterns of the unsigned values
+(`ops/u64.py`); K1's slots are int32 bit patterns of the u32 halves, the
+JAX function's layout.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ _N1, _N2 = 0x52DCE729, 0x38495AB5
 
 # kernel launches since the last reset_launch_counts(); only the CUDA
 # wrappers add to them, the plain versions never do
-LAUNCHES = {"survivor_slots": 0, "window_hashes": 0}
+LAUNCHES = {"survivor_slots": 0, "window_hashes": 0, "aa_window_hashes": 0}
 
 
 def reset_launch_counts():
@@ -170,6 +172,42 @@ def window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
 
     acgt = (x == 65) | (x == 67) | (x == 71) | (x == 84)
     cs = torch.nn.functional.pad(torch.cumsum(acgt.to(torch.int32), dim=1), (1, 0))
+    valid = (cs[:, ksize : ksize + n_pad] - cs[:, :n_pad]) == ksize
+    return hashes, valid.to(torch.uint8)
+
+
+# -- K3: every amino-acid window's hash and validity ------------------------
+
+
+def aa_window_hashes(squ: torch.Tensor, *, ksize: int, seed: int = 42):
+    """Murmur hash of every amino-acid window of `squ`, bytes as they are,
+    and its validity (no zero byte in the window).
+
+    Returns (hashes [B, n_pad] int64, valid [B, n_pad] uint8)."""
+    _check_rows(squ, ksize)
+    if squ.device.type == "cpu":
+        return aa_window_hashes_plain(squ, ksize=ksize, seed=seed)
+    B, S = squ.shape
+    _, _, n_pad = geometry(S, ksize)
+    hashes = torch.empty((B, n_pad), dtype=torch.int64, device=squ.device)
+    valid = torch.empty((B, n_pad), dtype=torch.uint8, device=squ.device)
+    _launch(
+        "sm_aa_window_hashes", squ, squ.data_ptr(), B, S, n_pad, ksize,
+        int(seed) & u64.MASK64, hashes.data_ptr(), valid.data_ptr(),
+    )
+    LAUNCHES["aa_window_hashes"] += 1
+    return hashes, valid
+
+
+def aa_window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
+    "Plain PyTorch version of `aa_window_hashes`, on squ's device."
+    _check_rows(squ, ksize)
+    B, S = squ.shape
+    _, _, n_pad = geometry(S, ksize)
+    x = torch.zeros((B, n_pad + ksize - 1), dtype=torch.int64, device=squ.device)
+    x[:, :S] = squ
+    hashes = _murmur_cols(lambda j: x[:, j : j + n_pad], ksize, seed, x[:, :n_pad])
+    cs = torch.nn.functional.pad(torch.cumsum((x != 0).to(torch.int32), dim=1), (1, 0))
     valid = (cs[:, ksize : ksize + n_pad] - cs[:, :n_pad]) == ksize
     return hashes, valid.to(torch.uint8)
 

@@ -7,8 +7,9 @@ Behavioral reference: sourmash's `src/core/src/encodings.rs` (tables at
 original: table-driven numpy vectorization over all k-mer windows at once
 instead of a per-window iterator.
 
-The port's copy of `sourmash_tpu/ops/encodings.py`. Protein-family hashing
-stays on the host (native loop or numpy) until its device kernel is ported.
+The port's copy of `sourmash_tpu/ops/encodings.py`. Long protein-family
+streams hash on the device (K3 through `ops/sketch.py:aa_chunks_to_hashes`),
+short ones on the host (native loop or numpy).
 """
 
 from __future__ import annotations
@@ -141,26 +142,46 @@ def dna_hashes(seq: np.ndarray, ksize: int, seed: int = 42):
     return h, valid
 
 
-def protein_hashes(aa_seq: np.ndarray, aa_ksize: int, moltype: str, seed: int = 42):
+def host_sketch_mode() -> str:
+    """SOURMASH_TORCH_HOST_SKETCH: 'auto' (long inputs hash on the device),
+    'native' (every length on the native C++ loop) or 'numpy'."""
+    mode = os.environ.get("SOURMASH_TORCH_HOST_SKETCH", "auto")
+    if mode not in ("auto", "native", "numpy"):
+        raise ValueError(
+            f"SOURMASH_TORCH_HOST_SKETCH must be auto, native or numpy, not {mode!r}"
+        )
+    return mode
+
+
+def protein_hashes(
+    aa_seq: np.ndarray, aa_ksize: int, moltype: str, seed: int = 42, *, device=None
+):
     """In-order hashes of an amino-acid byte array (already uppercased).
 
     moltype: 'protein' hashes raw aa windows; 'dayhoff'/'hp' remap each
     residue first (reference `signature.rs:362-393`). No validity filtering —
     the reference hashes every window, including ones with 'X'/'*'.
-    """
-    if moltype == "dayhoff":
-        aa_seq = DAYHOFF[aa_seq]
-    elif moltype == "hp":
-        aa_seq = HP[aa_seq]
-    elif moltype != "protein":
-        raise ValueError(f"invalid protein moltype {moltype!r}")
+
+    Streams of at least 2^16 windows hash on `device` (default:
+    `ops.resolve_device()`); shorter ones on the native loop.
+    SOURMASH_TORCH_HOST_SKETCH=native (or =numpy) keeps every length on the
+    native loop (or numpy)."""
+    aa_seq = remap_aa(aa_seq, moltype)
     n = aa_seq.shape[0] - aa_ksize + 1
     if n <= 0:
         return np.zeros(0, dtype=np.uint64)
 
+    mode = host_sketch_mode()
+    if n >= (1 << 16) and mode == "auto":
+        from .sketch import aa_chunks_to_hashes
+
+        return aa_chunks_to_hashes(
+            np.ascontiguousarray(aa_seq), aa_ksize, seed, device=device
+        )
+
     from .. import native
 
-    if os.environ.get("SOURMASH_TORCH_HOST_SKETCH", "auto") != "numpy":
+    if mode != "numpy":
         return native.hash_windows(aa_seq, aa_ksize, seed)
     w = _windows_np(np.ascontiguousarray(aa_seq), aa_ksize)
     with np.errstate(over="ignore"):
@@ -178,7 +199,9 @@ def remap_aa(aa_seq: np.ndarray, moltype: str) -> np.ndarray:
     return aa_seq
 
 
-def translate_hashes(seq: np.ndarray, aa_ksize: int, moltype: str, seed: int = 42):
+def translate_hashes(
+    seq: np.ndarray, aa_ksize: int, moltype: str, seed: int = 42, *, device=None
+):
     """Six-frame translation hashes for uppercased DNA bytes, in the exact
     frame order of the reference (`signature.rs:307-351`): for each frame
     0,1,2 — forward frame then revcomp frame."""
@@ -187,7 +210,7 @@ def translate_hashes(seq: np.ndarray, aa_ksize: int, moltype: str, seed: int = 4
     for frame in range(3):
         for s in (seq[frame:], rc[frame:]):
             aa = translate_frame(s)
-            out.append(protein_hashes(aa, aa_ksize, moltype, seed))
+            out.append(protein_hashes(aa, aa_ksize, moltype, seed, device=device))
     if not out:
         return np.zeros(0, dtype=np.uint64)
     return np.concatenate(out)

@@ -1,4 +1,4 @@
-"""Batched DNA k-mer sketching on the device: raw bytes -> surviving hashes.
+"""Batched k-mer sketching on the device: raw bytes -> window hashes.
 
 Counterpart of `sourmash_tpu/ops/sketch.py:seq_chunks_to_hashes` with the
 same chunking, batching, survivor caps and reroutes, so the two return the
@@ -17,6 +17,11 @@ same hashes in the same order with the same multiplicity:
 Multi-record buffers come pre-joined with k-1 'N' bytes (see
 `sequence_io.iter_record_batches`): windows that cross a record boundary
 hold an invalid byte and are dropped, which gives per-record semantics.
+
+`aa_chunks_to_hashes` is the amino-acid counterpart
+(`sourmash_tpu/ops/sketch.py:aa_chunks_to_hashes`): the same chunks and
+batches through K3 (`cuda_sketch.aa_window_hashes`), returning every window
+hash in order; thresholding is the caller's.
 """
 
 from __future__ import annotations
@@ -185,6 +190,53 @@ def seq_chunks_to_hashes(
                 out.append(vals[i, :nv].view(np.uint64))
     if not out:
         return np.zeros(0, dtype=np.uint64)
+    return np.concatenate(out)
+
+
+def aa_chunks_to_hashes(
+    aa_arr: np.ndarray,
+    ksize: int,
+    seed: int = 42,
+    chunk: int = 1 << 21,
+    mask_invalid: bool = False,
+    *,
+    device=None,
+):
+    """Uppercased (and, for dayhoff/hp, remapped) amino-acid bytes ->
+    np.uint64 hashes of ALL windows in window order: protein hashing
+    applies no residue validity (reference `signature.rs:362-393`). With
+    mask_invalid, windows holding a zero byte are dropped: the record
+    separator of the batched CLI path (amino-acid bytes are never 0).
+
+    Chunks of `chunk` windows overlap by k-1 bytes and are zero-padded to
+    one row shape; up to MAX_BATCH rows go through K3 on `device` (see
+    `ops.resolve_device`) and come back in one readback per batch, trimmed
+    to each row's real windows on the device."""
+    S = aa_arr.shape[0]
+    n_total = S - ksize + 1
+    if n_total <= 0:
+        return np.zeros(0, dtype=np.uint64)
+    dev = resolve_device(device)
+
+    pieces, counts = [], []
+    for s in range(0, n_total, chunk):
+        piece = aa_arr[s : min(s + chunk + ksize - 1, S)]
+        counts.append(piece.shape[0] - ksize + 1)
+        pad = (chunk + ksize - 1) - piece.shape[0]
+        if pad > 0:
+            piece = np.concatenate([piece, np.zeros(pad, dtype=np.uint8)])
+        pieces.append(piece)
+
+    out = []
+    for b0 in range(0, len(pieces), MAX_BATCH):
+        rows = torch.from_numpy(np.stack(pieces[b0 : b0 + MAX_BATCH])).to(dev)
+        hashes, valid = cuda_sketch.aa_window_hashes(rows, ksize=ksize, seed=seed)
+        cnt = torch.tensor(counts[b0 : b0 + MAX_BATCH], device=dev)
+        keep = torch.arange(hashes.shape[1], device=dev) < cnt[:, None]
+        if mask_invalid:
+            keep &= valid != 0
+        (h,) = _readback(hashes[keep])
+        out.append(h.view(np.uint64))
     return np.concatenate(out)
 
 

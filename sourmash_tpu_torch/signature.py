@@ -180,8 +180,8 @@ class SourmashSignature:
     def add_sequence(self, sequence, force=False, *, device=None):
         self._minhash.add_sequence(sequence, force, device=device)
 
-    def add_protein(self, sequence):
-        self._minhash.add_protein(sequence)
+    def add_protein(self, sequence, *, device=None):
+        self._minhash.add_protein(sequence, device=device)
 
     def __len__(self):
         # number of sketches in the record, NOT hash count — matches
@@ -350,9 +350,9 @@ class MultiSketchSignature(SourmashSignature):
             mh.add_sequence(sequence, force, device=device)
         self._minhash = self._minhashes[0]
 
-    def add_protein(self, sequence):
+    def add_protein(self, sequence, *, device=None):
         for mh in self._minhashes:
-            mh.add_protein(sequence)
+            mh.add_protein(sequence, device=device)
         self._minhash = self._minhashes[0]
 
 

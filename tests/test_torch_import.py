@@ -100,6 +100,8 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         cuda_sketch.window_hashes(rows, ksize=21)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_sketch.survivor_slots(rows, 1 << 50, ksize=21)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_sketch.aa_window_hashes(rows, ksize=10)
 
 
 def test_cli_without_cuda_raises(monkeypatch, tmp_path):
@@ -113,3 +115,17 @@ def test_cli_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["sketch", "dna", str(fa), "-o", str(tmp_path / "x.sig")])
     assert not (tmp_path / "x.sig").exists()
+
+
+@pytest.mark.parametrize("cmd", ["protein", "translate"])
+def test_protein_cli_without_cuda_raises(monkeypatch, tmp_path, cmd):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from sourmash_tpu_torch.__main__ import main
+
+    fa = tmp_path / "x.fa"
+    fa.write_text(">a\nACGTACGTACGTACGTACGTACGTACGTACGTACGT\n")
+    monkeypatch.delenv("SOURMASH_TORCH_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["sketch", cmd, str(fa), "-o", str(tmp_path / "x.zip")])
+    assert not (tmp_path / "x.zip").exists()

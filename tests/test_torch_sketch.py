@@ -111,4 +111,5 @@ def test_small_input_and_hashes_to_mins():
         b = jax_sketch.hashes_to_mins(want, track)
         assert np.array_equal(a[0], b[0])
         assert (a[1] is None and b[1] is None) or np.array_equal(a[1], b[1])
-    assert cuda_sketch.LAUNCHES == {"survivor_slots": 0, "window_hashes": 0}
+    assert cuda_sketch.LAUNCHES == {"survivor_slots": 0, "window_hashes": 0,
+                                    "aa_window_hashes": 0}
