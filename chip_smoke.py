@@ -31,19 +31,40 @@ Phases, each raising on failure:
 5. Sketch >= 64 Mbp of phase 3's kind of DNA through `sketch translate`
    (protein and dayhoff) and hold it to the native host loop the same way;
    then one `MinHash.add_protein` on a record above the device threshold.
+6. `gather` end to end: a seeded collection of 10,000 k=31, scaled=1000
+   sketches of 2,000-6,000 hashes in clades of 1-20 genomes (50-95 % of a
+   clade core each), written with the port's zip saver, and a metagenome
+   query of ~600 k hashes (about 200 genomes at 40-100 % coverage plus 30 %
+   fresh hashes, abundances 1-50). `python -m sourmash_tpu_torch gather
+   q.sig db.zip -o dev.csv --save-matches m.zip` with the launch counters
+   set to 0 just before and read just after (counts_rows, membership_bits
+   and round_dec must have run, on the device-membership route), then the
+   same with SOURMASH_TORCH_NO_SCHEDULE=1 (host rounds), whose CSV must be
+   byte-identical; every row must equal an independent numpy greedy gather
+   (match order, intersect_bp, unique_intersect_bp, f_unique_weighted).
+   Then, for queries of ~20 k and ~150 k hashes (k * W * 4 below 24 MB),
+   time the schedule with host bitsets against `membership_bits`, and a
+   host-round consume by host sorted joins against `round_dec` (same
+   results held).
 
 Phase 2 also holds K3 against its plain version, bit for bit, at
 [4, 2^21 + k - 1] and [32, ...] for k in {3, 7, 10, 16, 42, 64, 129}, on
 residue rows, rows remapped through DAYHOFF and HP, zero separators and a
-zero-padded tail, and times it and its plain version at [4, ...].
+zero-padded tail, and times it and its plain version at [4, ...]. It then
+holds the gather kernels against their plain versions, bit for bit, at
+phase 6's shapes: `counts_rows` on one chunk of [8192, 8, 4096] planes
+(PAD slots, the hash 2^64-1, forced spills) against a ~600 k-hash query,
+with and without per-row cutoffs; `membership_bits` at [2048, W =
+ceil(600 k / 32)]; `round_dec` at [4096, W].
 
 The last two lines are a JSON object with every kernel's numbers and then
 `{"ok": true, "device": {...}}`. --quick stops after checking each kernel
-once at the main path's shape, before the main path, and prints neither
-line; --profile runs `sketch dna`, `sketch protein` and `sketch translate`
-once more under cProfile and torch.profiler and prints where their time
-goes. Without a CUDA device, or outside a checkout of the repository, the
-script exits non-zero before any result.
+once at the main path's shape (the gather kernels on a 512-row chunk),
+before the main path, and prints neither line; --profile runs `sketch
+dna`, `sketch protein`, `sketch translate` and `gather` once more under
+cProfile and torch.profiler and prints where their time goes. Without a
+CUDA device, or outside a checkout of the repository, the script exits
+non-zero before any result.
 """
 
 from __future__ import annotations
@@ -87,6 +108,21 @@ PROTEIN_PARAMS = ["k=10,scaled=200", "dayhoff,k=16,scaled=200", "hp,k=42,scaled=
 HOST_MERGE_EVERY = 2000  # records per part sketch in the host loop (see host_sketches)
 TRANSLATE_MBP = 64
 TRANSLATE_PARAMS = ["k=10,scaled=200", "dayhoff,k=16,scaled=200"]
+
+# phase 6: `sourmash gather metagenome.sig gtdb-rs214-reps.k31.zip` (85,205
+# genomes at k=31, scaled=1000), the collection cut to 10,000 genomes for
+# the run's time limit; the counts kernel is checked on one full chunk
+GATHER_SCALED = 1000
+GATHER_GENOMES = 10_000
+GATHER_QUERY_HASHES = 600_000
+GATHER_THRESHOLD_BP = 50_000  # gather's default --threshold-bp
+GATHER_KERNEL_ROWS = 8192  # rows of one bank chunk (ops/index_ops._CHUNK_ROWS)
+GATHER_DEVICE = "cuda"  # the gather phases' tensors (a CPU rehearsal sets "cpu")
+# phase 6's route comparison: queries of a few genomes and of a small
+# metagenome, below the 24 MB (k * W * 4 bytes) threshold at which the
+# schedule builds membership on the device, and one of phase 6's size above it
+GATHER_ROUTE_QUERIES = (20_000, 150_000, 600_000)
+ROUTE_REPS = 4
 
 
 def log(*args):
@@ -687,6 +723,497 @@ def sketch_translate_end_to_end(mbp: int, rng, tmp: str, profile_cli: bool = Fal
                 profile=profile)
 
 
+# -- phase 2 (gather kernels) and phase 6: gather end to end -----------------
+
+
+def random_sketch(rng, n: int, max_hash: int) -> np.ndarray:
+    "n distinct uniform hashes below max_hash (a FracMinHash sketch's values)."
+    out = np.unique(rng.integers(0, max_hash, size=n + n // 100 + 16, dtype=np.uint64))
+    return rng.permutation(out)[:n]
+
+
+def gather_kernel_inputs(rng, rows: int):
+    """A bank chunk as phase 6 packs it ([rows, 8, 4096] planes: sketches of
+    4,200-6,000 hashes, the 8192 length class) on the card, with the hash
+    2^64-1 in row 0 and nine hashes of one bucket (forced spills) in rows
+    1-8, and a metagenome query of ~600 k hashes that takes 30-100 % of 150
+    rows, the 2^64-1 tail and fresh hashes. Returns (mins_list, bank, q)."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+
+    mh = max_hash_for(GATHER_SCALED)
+    mins_list = [np.sort(random_sketch(rng, int(n), mh)) for n in rng.integers(4200, 6001, size=rows)]
+    mins_list[0] = np.unique(np.r_[mins_list[0], np.uint64(2**64 - 1)])
+    crowd = (np.arange(9, dtype=np.uint64) << np.uint64(40)) | np.uint64(7)
+    for i in range(1, min(9, rows)):
+        mins_list[i] = np.unique(np.r_[mins_list[i], crowd])
+    parts = [m[rng.random(len(m)) < rng.uniform(0.3, 1.0)] for m in
+             (mins_list[i] for i in rng.choice(rows, size=min(150, rows), replace=False))]
+    parts += [crowd, np.array([2**64 - 1], dtype=np.uint64)]
+    q = np.unique(np.concatenate(parts))
+    q = np.unique(np.r_[q, random_sketch(rng, max(600_000 - len(q), 1000), mh)])
+    bank = bk.pack_rows_device(mins_list, 4096, device=torch.device(GATHER_DEVICE))
+    if bank.n_spilled < 8:
+        raise AssertionError(f"expected forced spills, got {bank.n_spilled}")
+    return mins_list, bank, q
+
+
+def u64_planes(vals: np.ndarray):
+    "int32 (hi, lo) limb tensors of u64 values, on the card."
+    from sourmash_tpu_torch.ops.bucketed import to_torch
+
+    return (to_torch((vals >> np.uint64(32)).astype(np.uint32), GATHER_DEVICE),
+            to_torch((vals & np.uint64(0xFFFFFFFF)).astype(np.uint32), GATHER_DEVICE))
+
+
+def plain_in_chunks(fn, n: int, step: int):
+    "torch.cat of fn(slice) over row slices of `step` (bounds the plain transients)."
+    import torch
+
+    return torch.cat([fn(slice(a, min(a + step, n))) for a in range(0, n, step)])
+
+
+def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
+    """counts_rows (with and without cutoffs), membership_bits and round_dec
+    against their plain versions on the card, bit for bit, at phase 6's
+    shapes; each timed with CUDA events (median per launch) beside its plain
+    version (run over row slices, summed) and its bound."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops.bucketed import pack_query_bucketed, query_slot_map
+    from sourmash_tpu_torch.ops.index_ops import _cached_query_pack
+
+    rows = 512 if quick else GATHER_KERNEL_ROWS
+    t0 = time.time()
+    mins_list, bank, q = gather_kernel_inputs(rng, rows)
+    B = bank.B
+    log(f"  bank [{rows}, 8, {B}] ({bank.n_spilled} spills), query {len(q)} hashes "
+        f"({time.time() - t0:.1f} s to make)")
+    qhi, qlo, _qcnt, dq, _tail = _cached_query_pack(q, B, torch.device(GATHER_DEVICE))
+    Shi, Slo = bank.hi, bank.lo
+    reps = 3 if quick else 10
+    step = 512
+    results = {}
+
+    # cutoffs: none (2^64-1), below and above 2^63, and sourmash's usual max_hash values
+    pool = np.array([2**64 - 1, 2**63 - 1, 2**63, 2**63 + 2**40, 2**62,
+                     max_hash_for(1000), max_hash_for(10_000), 0], dtype=np.uint64)
+    cuts = rng.choice(pool, size=rows)
+    chi, clo = u64_planes(cuts)
+    for name, cut in (("counts_rows", ()), ("counts_rows cutoff", (chi, clo))):
+        got = cg.counts_rows(qhi, qlo, Shi, Slo, *cut)
+        want = plain_in_chunks(
+            lambda s: cg.counts_rows_plain(qhi, qlo, Shi[s].contiguous(), Slo[s].contiguous(),
+                                           *(c[s].contiguous() for c in cut)), rows, step)
+        err = exact(name, got, want)
+        ms = time_ms(lambda: cg.counts_rows(qhi, qlo, Shi, Slo, *cut), reps)
+        plain = time_ms(lambda: plain_in_chunks(
+            lambda s: cg.counts_rows_plain(qhi, qlo, Shi[s].contiguous(), Slo[s].contiguous(),
+                                           *(c[s].contiguous() for c in cut)), rows, step),
+            1, warmup=0)
+        # the least work of the function, not of the kernel's all-pairs
+        # compare: both sides hold each bucket sorted ascending (PAD last),
+        # so each of a row's 8 slots needs a binary search of its bucket's
+        # dq query slots, ceil(log2 dq) probes of three ops (hi compare, lo
+        # compare, select); with cuts, one unsigned <= test (three ops) per
+        # slot. Reading the planes once usually outweighs that.
+        compares = rows * B * 8 * dq  # what the kernel does, for the rate below
+        probes = rows * B * 8 * max(1, (dq - 1).bit_length())
+        other = 3 * probes + (3 * rows * B * 8 if cut else 0)
+        nbytes = 2 * Shi.numel() * 4 + 2 * qhi.numel() * 4 + rows * 4 + (8 * rows if cut else 0)
+        bms, by = bound_ms(nbytes, 0, other, clock_hz)
+        results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                             rows=rows, dq=dq, B=B, nonzero=int((got > 0).sum()))
+        log(f"  {name}: equals its plain version on all {rows} rows (dq={dq}); "
+            f"{ms:.4f} ms/launch, plain {plain:.2f} ms, bound {bms:.4f} ms ({by}), "
+            f"{compares / ms / 1e9:.1f} G limb-pair compares/ms")
+
+    # membership: phase 6's slot map (pow2 dq) over 2048 selected rows (4096 for round_dec)
+    q_core = q[:-1] if q[-1] == np.uint64(2**64 - 1) else q
+    W = -(-len(q) // 32)
+    mq = pack_query_bucketed(q_core, B, GATHER_DEVICE)
+    slotmap = torch.from_numpy(query_slot_map(q_core, B, mq[3], W * 32)).to(GATHER_DEVICE)
+    nm = min(2048, rows)
+    sel = torch.from_numpy(np.sort(rng.choice(rows, size=nm, replace=False)).astype(np.int64)).to(GATHER_DEVICE)
+    Scnt = bank.cnt
+    got = cg.membership_bits(mq[0], mq[1], Shi, Slo, Scnt, sel, slotmap)
+    want = plain_in_chunks(lambda s: cg.membership_bits_plain(
+        mq[0], mq[1], Shi, Slo, Scnt, sel[s].contiguous(), slotmap), nm, step)
+    err = exact("membership_bits", got, want)
+    if not bool(got.any()):
+        raise AssertionError("membership_bits: no bit set")
+    ms = time_ms(lambda: cg.membership_bits(mq[0], mq[1], Shi, Slo, Scnt, sel, slotmap), reps)
+    plain = time_ms(lambda: plain_in_chunks(lambda s: cg.membership_bits_plain(
+        mq[0], mq[1], Shi, Slo, Scnt, sel[s].contiguous(), slotmap), nm, step), 1, warmup=0)
+    # least work: each valid slot of a selected row searched in its bucket's
+    # sorted query slots (ceil(log2 dq) probes of three ops), one slot-map
+    # read and one bit set per hit, and every output word written once
+    valid = int(Scnt[sel].to(torch.int64).sum())
+    other = 3 * valid * max(1, (mq[3] - 1).bit_length()) + 2 * valid + nm * W
+    nbytes = nm * (8 * B * 8 + B + 8) + mq[0].numel() * 8 + W * 32 * 4 + nm * W * 4
+    bms, by = bound_ms(nbytes, 0, other, clock_hz)
+    results["membership_bits"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                      max_abs_err=err, nm=nm, W=W, dq=mq[3])
+    log(f"  membership_bits [{nm}, {W}] (dq={mq[3]}): equals its plain version; "
+        f"{ms:.4f} ms/launch, plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
+
+    k = min(4096, rows)
+    sel_k = torch.from_numpy(rng.choice(rows, size=k, replace=False).astype(np.int64)).to(GATHER_DEVICE)
+    M = cg.membership_bits(mq[0], mq[1], Shi, Slo, Scnt, sel_k, slotmap)
+    alive = torch.from_numpy(rng.integers(-2**31, 2**31, size=W, dtype=np.int64).astype(np.int32)).to(GATHER_DEVICE)
+    rm = M[0] & alive
+    got = cg.round_dec(M, rm)
+    err = exact("round_dec", got, cg.round_dec_plain(M, rm))
+    ms = time_ms(lambda: cg.round_dec(M, rm), reps)
+    plain = time_ms(lambda: cg.round_dec_plain(M, rm), 3, warmup=1)
+    bms, by = bound_ms(k * W * 4 + W * 4 + k * 4, 0, 3 * k * W, clock_hz)
+    results["round_dec"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                max_abs_err=err, k=k, W=W)
+    log(f"  round_dec [{k}, {W}]: equals its plain version; {ms:.4f} ms/launch, "
+        f"plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
+    del bank, Shi, Slo, M
+    torch.cuda.empty_cache()
+    return results
+
+
+def make_collection(rng, n: int):
+    """n sketches at k=31, scaled=1000 in clades of 1-20 genomes: each member
+    holds 2,000-6,000 hashes, 50-95 % of them from the clade's core."""
+    from sourmash_tpu_torch import signature_from_arrays
+
+    mh = max_hash_for(GATHER_SCALED)
+    params = dict(ksize=31, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
+                  track_abundance=False)
+    sigs, mins_list, clade = [], [], 0
+    while len(sigs) < n:
+        core = random_sketch(rng, 6000, mh)
+        for _ in range(int(rng.integers(1, 21))):
+            size = int(rng.integers(2000, 6001))
+            kept = core[: int(size * rng.uniform(0.5, 0.95))]
+            kept = rng.permutation(kept)
+            m = np.unique(np.r_[kept, random_sketch(rng, size - len(kept), mh)])
+            mins_list.append(m)
+            sigs.append(signature_from_arrays(params, m, name=f"genome_{len(sigs)} clade_{clade}",
+                                              filename=f"genome_{len(sigs)}.fa.gz"))
+            if len(sigs) == n:
+                break
+        clade += 1
+        core = None
+    return sigs, mins_list, clade
+
+
+def make_gather_query(rng, mins_list, target: int):
+    """A metagenome sketch of ~target hashes: 40-100 % of randomly chosen
+    collection genomes until they make 70 % of it, then 30 % fresh hashes;
+    abundances 1-50. Returns (mins, abunds, genomes used)."""
+    mh = max_hash_for(GATHER_SCALED)
+    found = np.zeros(0, dtype=np.uint64)
+    used = 0
+    for i in rng.permutation(len(mins_list)):
+        m = mins_list[i]
+        found = np.union1d(found, m[rng.random(len(m)) < rng.uniform(0.4, 1.0)])
+        used += 1
+        if len(found) >= 0.7 * target:
+            break
+    q = np.unique(np.r_[found, random_sketch(rng, int(0.3 * target), mh)])
+    return q, rng.integers(1, 51, size=len(q)).astype(np.int64), used
+
+
+def oracle_gather(q, abunds, mins_list, threshold_hashes: int):
+    """An independent greedy gather in numpy: initial counts from one
+    np.isin over the concatenated collection, a CSR from query hash to the
+    candidates holding it, then per round the argmax (lowest id on ties),
+    the removal of its hashes and a bincount decrement. Returns rows of
+    (index, intersect_bp, unique_intersect_bp, f_unique_weighted)."""
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64)
+    offs = np.r_[0, np.cumsum(lens)]
+    allv = np.concatenate(mins_list)
+    hit = np.isin(allv, q, assume_unique=False)
+    counts0 = np.add.reduceat(hit.astype(np.int64), offs[:-1])
+    counts0[lens == 0] = 0
+    cand = np.flatnonzero(counts0 >= max(threshold_hashes, 1))
+    # CSR: query position -> candidates holding that hash
+    pos_parts, cand_parts = [], []
+    for c in cand:
+        m = mins_list[c]
+        p = np.searchsorted(q, m[hit[offs[c] : offs[c + 1]]])
+        pos_parts.append(p)
+        cand_parts.append(np.full(len(p), c, dtype=np.int64))
+    pos = np.concatenate(pos_parts)
+    cands = np.concatenate(cand_parts)
+    order = np.argsort(pos, kind="stable")
+    pos, cands = pos[order], cands[order]
+    starts = np.searchsorted(pos, np.arange(len(q) + 1))
+    counts = np.zeros(len(mins_list), dtype=np.int64)
+    counts[cand] = counts0[cand]
+    alive = np.ones(len(q), dtype=bool)
+    total = int(abunds.sum())
+    rows = []
+    while True:
+        best = int(np.argmax(counts))
+        if counts[best] < max(threshold_hashes, 1):
+            break
+        m = mins_list[best]
+        p = np.searchsorted(q, m)
+        inside = p < len(q)
+        p = p[inside][q[p[inside]] == m[inside]]
+        p = p[alive[p]]
+        rows.append((best, int(counts0[best]) * GATHER_SCALED, len(p) * GATHER_SCALED,
+                     int(abunds[p].sum()) / total))
+        alive[p] = False
+        held = np.concatenate([cands[starts[i] : starts[i + 1]] for i in p]) if len(p) else []
+        counts -= np.bincount(np.asarray(held, dtype=np.int64), minlength=len(counts))
+    return rows
+
+
+def run_gather_cli(argv: list, env: dict) -> tuple:
+    """One `gather` run with every launch counter set to 0 just before and
+    read just after, under `env`: (wall, launches, schedule facts)."""
+    import torch
+
+    from sourmash_tpu_torch.__main__ import main as cli_main
+    from sourmash_tpu_torch.index import flat
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops import cuda_sketch as cs
+
+    seen = {}
+    schedule = flat.schedule_device_gather
+
+    def spy(counters):  # records what the command scheduled
+        coord = schedule(counters)
+        seen.update(coord=coord, k=sum(
+            int(np.count_nonzero(c.counts)) if hasattr(c, "counts") else len(c.counter)
+            for c in counters))
+        return coord
+
+    before = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    flat.schedule_device_gather = spy
+    try:
+        torch.cuda.synchronize()
+        cs.reset_launch_counts()
+        cg.reset_launch_counts()
+        t0 = time.time()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cg.LAUNCHES)
+        launches.update(cs.LAUNCHES)
+    finally:
+        flat.schedule_device_gather = schedule
+        for key, val in before.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    if rc not in (None, 0):
+        raise AssertionError(f"gather returned {rc}")
+    coord = seen.get("coord")
+    facts = dict(k=seen.get("k"), scheduled=coord is not None,
+                 route=getattr(coord, "route", None) or "host rounds",
+                 reschedules=getattr(coord, "reschedules", 0))
+    return wall, launches, facts
+
+
+def compare_membership_routes(rng, db: str, mins_list) -> list:
+    """On one loaded collection and each query size of GATHER_ROUTE_QUERIES
+    (either side of the device-membership threshold): time the schedule's
+    build and scan with host bitsets from the native sorted join
+    (SOURMASH_TORCH_DEV_MEMBERSHIP=0) against `membership_bits` on the
+    resident planes (=1), alternating, ROUTE_REPS each; both must give the
+    same rounds. Split each route's membership build into its parts. Then,
+    in host rounds, time one consume by host sorted joins (taken at <= 256
+    live candidates) against the membership groups and `round_dec`; both
+    must leave the same counts."""
+    from sourmash_tpu_torch.save_load import load_file_as_index
+
+    t0 = time.time()
+    view = load_file_as_index(db)._as_flat_view()
+    log(f"  collection loaded again for the route comparison in {time.time() - t0:.1f} s")
+    return [compare_routes_at(rng, view, mins_list, n) for n in GATHER_ROUTE_QUERIES]
+
+
+def compare_routes_at(rng, view, mins_list, target: int) -> dict:
+    "compare_membership_routes for one query of ~target hashes."
+    import torch
+
+    from sourmash_tpu_torch import minhash_from_arrays, SourmashSignature
+    from sourmash_tpu_torch.index import flat
+    from sourmash_tpu_torch.ops.bucketed import to_torch
+
+    q, _ab, used = make_gather_query(rng, mins_list, target)
+    params = dict(ksize=31, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
+                  track_abundance=False)
+    qsig = SourmashSignature(minhash_from_arrays(params, q), name="small")
+    th = GATHER_THRESHOLD_BP
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    key = flat.DEV_MEMBERSHIP_ENV
+    before = os.environ.pop(key, None)
+    try:
+        probe = view.counter_gather(qsig, th)
+        k = int(np.count_nonzero(probe.counts))
+        W = -(-len(probe._q_mins) // 32)
+        picks_device = probe._device_membership_worthwhile(th)
+        ms = {"0": [], "1": []}
+        routes, scheds = {}, {}
+        for _ in range(ROUTE_REPS):
+            for force in ("0", "1"):
+                os.environ[key] = force
+                coord = flat.schedule_device_gather([view.counter_gather(qsig, th)])
+                t, _ = timed(lambda: coord.compute(th))
+                ms[force].append(t)
+                routes[force] = coord.route
+                if scheds.setdefault(force, coord._sched) != coord._sched:
+                    raise AssertionError(f"route {coord.route}: schedules differ between runs")
+        os.environ.pop(key)
+        # the membership build alone, in parts, each on a fresh counter
+        ids = np.nonzero(probe.counts)[0]
+        lut_b = view._row_lookup()[0]
+        Bs = sorted({view._banks[b].B for b in set(lut_b[ids].tolist())})
+        parts = {"host join + upload": [], "device query packs": [], "device patches": [],
+                 "device membership_bits": []}
+        for _ in range(ROUTE_REPS):
+            c = view.counter_gather(qsig, th)
+            parts["host join + upload"].append(
+                timed(lambda: to_torch(c._bitsets_compute(W, ids), c.device))[0])
+            c = view.counter_gather(qsig, th)
+            parts["device query packs"].append(timed(lambda: [c._qpack_for_B(B, W) for B in Bs])[0])
+            parts["device patches"].append(timed(lambda: c._membership_patches(W))[0])
+            parts["device membership_bits"].append(timed(lambda: c._membership_rows_device(ids, W))[0])
+        if routes != {"0": "host membership", "1": "device membership"}:
+            raise AssertionError(f"membership routes: {routes}")
+        if scheds["0"] != scheds["1"] or not scheds["0"]:
+            raise AssertionError("host and device membership scheduled different rounds")
+        joins, groups, build = [], [], []
+        for _ in range(ROUTE_REPS):
+            a = view.counter_gather(qsig, th)
+            b = view.counter_gather(qsig, th)
+            inter = a.peek(qsig.minhash, threshold_bp=th)[1]
+            joins.append(timed(lambda: a.consume(inter))[0])
+            build.append(timed(b._get_groups)[0])
+            groups.append(timed(lambda: b.consume(inter))[0])
+            if not np.array_equal(a.counts, b.counts):
+                raise AssertionError("host-join and round_dec consumes left different counts")
+    finally:
+        os.environ.pop(key, None)
+        if before is not None:
+            os.environ[key] = before
+    med = statistics.median
+    out = dict(query_hashes=len(q), genomes=used, k=k, W=W, kW_bytes=k * W * 4,
+               threshold_picks="device membership" if picks_device else "host membership",
+               rounds=len(scheds["0"]),
+               schedule_host_ms=med(ms["0"]), schedule_device_ms=med(ms["1"]),
+               schedule_ms=ms, build_ms={n: med(v) for n, v in parts.items()},
+               consume_branch="host joins" if k <= 256 else "groups",
+               consume_first_ms=med(joins), consume_groups_ms=med(groups),
+               groups_build_ms=med(build))
+    log(f"  query {len(q)} hashes from {used} genomes: k={k}, W={W}, k*W*4 = {k * W * 4} "
+        f"bytes (threshold picks {out['threshold_picks']}), {out['rounds']} rounds")
+    log(f"    schedule build + scan, median of {ROUTE_REPS}: host membership "
+        f"{out['schedule_host_ms']:.2f} ms, device membership {out['schedule_device_ms']:.2f} ms; "
+        f"same rounds")
+    log("    membership build alone: " + ", ".join(
+        f"{n} {v:.2f} ms" for n, v in out["build_ms"].items()))
+    log(f"    host-round consume, median of {ROUTE_REPS}: as taken ({out['consume_branch']}) "
+        f"{out['consume_first_ms']:.2f} ms, membership groups + round_dec "
+        f"{out['consume_groups_ms']:.2f} ms after a {out['groups_build_ms']:.2f} ms group build; "
+        f"same counts")
+    return out
+
+
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
+    from sourmash_tpu_torch import minhash_from_arrays, SourmashSignature
+    from sourmash_tpu_torch.__main__ import main as cli_main
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    t0 = time.time()
+    sigs, mins_list, clades = make_collection(rng, GATHER_GENOMES)
+    n_hashes = sum(len(m) for m in mins_list)
+    log(f"  made {len(sigs)} sketches in {clades} clades, {n_hashes} hashes, "
+        f"in {time.time() - t0:.1f} s")
+    db = os.path.join(tmp, "gtdb-like.zip")
+    t0 = time.time()
+    with SaveSignaturesToLocation(db) as save:
+        for ss in sigs:
+            save.add(ss)
+    save_s = time.time() - t0
+    log(f"  wrote {db} with the port's zip saver in {save_s:.1f} s "
+        f"({os.path.getsize(db) / 2**20:.1f} MiB)")
+
+    q, abunds, used = make_gather_query(rng, mins_list, GATHER_QUERY_HASHES)
+    params = dict(ksize=31, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
+                  track_abundance=True)
+    qsig = SourmashSignature(minhash_from_arrays(params, q, abunds), name="metagenome")
+    qpath = os.path.join(tmp, "metagenome.sig")
+    with SaveSignaturesToLocation(qpath) as save:
+        save.add(qsig)
+    log(f"  query: {len(q)} hashes from {used} genomes + 30 % fresh, abundances 1-50")
+
+    t0 = time.time()
+    want = oracle_gather(q, abunds, mins_list, int(GATHER_THRESHOLD_BP // GATHER_SCALED))
+    log(f"  numpy oracle: {len(want)} rounds in {time.time() - t0:.1f} s")
+
+    runs = {}
+    for tag, env in (("scheduled", {}), ("host rounds", {"SOURMASH_TORCH_NO_SCHEDULE": "1"})):
+        out = os.path.join(tmp, f"{tag.replace(' ', '_')}.csv")
+        argv = ["gather", qpath, db, "-o", out, "-q",
+                "--save-matches", os.path.join(tmp, f"{tag.replace(' ', '_')}.zip")]
+        wall, launches, facts = run_gather_cli(argv, env)
+        runs[tag] = dict(wall_s=wall, launches=launches, csv=out, **facts)
+        log(f"  gather ({tag}): {wall:.2f} s wall, {len(read_csv(out))} rounds, k={facts['k']}, "
+            f"route {facts['route']}, reschedules {facts['reschedules']}, launches "
+            f"{ {n: launches[n] for n in ('counts_rows', 'membership_bits', 'round_dec')} }")
+    first = runs["scheduled"]
+    if first["route"] != "device membership" or not first["scheduled"]:
+        raise AssertionError(f"the scheduled run took {first['route']}, not device membership")
+    for name in ("counts_rows", "membership_bits", "round_dec"):
+        if first["launches"][name] < 1:
+            raise AssertionError(f"gather: {name} was not launched: {first['launches']}")
+    with open(first["csv"], "rb") as a, open(runs["host rounds"]["csv"], "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("scheduled and host-round gathers wrote different CSVs")
+
+    got = read_csv(first["csv"])
+    names = [ss.name for ss in sigs]
+    if len(got) != len(want):
+        raise AssertionError(f"gather found {len(got)} matches, the oracle {len(want)}")
+    for row, (i, ibp, uibp, fuw) in zip(got, want):
+        seen = (row["name"], int(float(row["intersect_bp"])), int(float(row["unique_intersect_bp"])),
+                float(row["f_unique_weighted"]))
+        if seen != (names[i], ibp, uibp, fuw):
+            raise AssertionError(f"gather row {row['gather_result_rank']}: {seen} vs oracle "
+                                 f"{(names[i], ibp, uibp, fuw)}")
+    log(f"  all {len(got)} rows equal the numpy oracle (order, intersect_bp, "
+        f"unique_intersect_bp, f_unique_weighted) and the host-round run")
+
+    routes = compare_membership_routes(rng, db, mins_list)
+
+    profile = None
+    if profile_cli:
+        argv = ["gather", qpath, db, "-o", os.path.join(tmp, "profiled.csv"), "-q"]
+        profile = profiled(lambda: cli_main(argv), "gather")
+    return dict(genomes=len(sigs), hashes=n_hashes, query_hashes=len(q), zip_save_s=save_s,
+                rounds=len(got), runs={t: {k: v for k, v in r.items() if k != "csv"}
+                                       for t, r in runs.items()},
+                routes=routes, profile=profile)
+
+
 KERNELS = {
     "survivor_slots": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/sketch.cu",
@@ -699,6 +1226,18 @@ KERNELS = {
     "aa_window_hashes": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/sketch.cu",
         replaces="sourmash_tpu/ops/pallas_sketch.py:517",
+    ),
+    "counts_rows": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="tools/exp_pallas_counts.py:71",
+    ),
+    "membership_bits": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:965",
+    ),
+    "round_dec": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/index/flat.py:354",
     ),
 }
 
@@ -734,17 +1273,19 @@ def main(argv=None) -> int:
         f"max SM clock {clock_hz / 1e6:.0f} MHz")
 
     t0 = time.time()
-    build_log = _build.build()
+    build_logs = _build.build()
     native.build()
     log(f"phase 1: built kernels and native host library in {time.time() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  sketch.cu: {line.strip()}")
+    for name, build_log in build_logs.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  {name}.cu: {line.strip()}")
 
     rng = np.random.default_rng(20261016)
     t0 = time.time()
     log("phase 2: kernels against their plain versions on the card (exact)")
     timings = check_kernels(args.quick, rng, clock_hz)
+    timings.update(check_gather_kernels(args.quick, rng, clock_hz))
     log(f"phase 2 done in {time.time() - t0:.1f} s")
     if args.quick:
         log("--quick: stopped before the main path; no kernels line and no result")
@@ -763,15 +1304,28 @@ def main(argv=None) -> int:
         log(f"phase 5: sketch translate end to end on {TRANSLATE_MBP} Mbp")
         trans = sketch_translate_end_to_end(TRANSLATE_MBP, rng, tmp, args.profile)
         log(f"phase 5 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log(f"phase 6: gather end to end on {GATHER_GENOMES} genomes")
+        gath = gather_end_to_end(rng, tmp, args.profile)
+        log(f"phase 6 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
+    gather_launches = gath["runs"]["scheduled"]["launches"]
     launches = dict(survivor_slots=e2e["launches"]["survivor_slots"],
                     window_hashes=e2e["launches"]["window_hashes"],
-                    aa_window_hashes=prot["launches"]["aa_window_hashes"])
-    timed_k = dict(survivor_slots=TIMED_K, window_hashes=TIMED_K, aa_window_hashes=TIMED_AA_K)
+                    aa_window_hashes=prot["launches"]["aa_window_hashes"],
+                    counts_rows=gather_launches["counts_rows"],
+                    membership_bits=gather_launches["membership_bits"],
+                    round_dec=gather_launches["round_dec"])
+    timed = dict(survivor_slots=timings["survivor_slots"][TIMED_K],
+                 window_hashes=timings["window_hashes"][TIMED_K],
+                 aa_window_hashes=timings["aa_window_hashes"][TIMED_AA_K],
+                 counts_rows=timings["counts_rows"],
+                 membership_bits=timings["membership_bits"],
+                 round_dec=timings["round_dec"])
     line = []
     for name, meta in KERNELS.items():
-        t = timings[name][timed_k[name]]
+        t = timed[name]
         line.append(dict(
             name=name, **meta,
             launches=launches[name],
@@ -781,7 +1335,7 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
-                           protein=prot, translate=trans), f, indent=1)
+                           protein=prot, translate=trans, gather=gath), f, indent=1)
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

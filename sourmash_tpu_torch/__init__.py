@@ -1,9 +1,9 @@
 """sourmash_tpu_torch: the PyTorch + CUDA port of `sourmash_tpu`.
 
-FracMinHash sketching with API and output parity to sourmash
-(https://github.com/sourmash-bio/sourmash). The DNA sketch hot path runs
-hand-written CUDA kernels (`csrc/`) on an NVIDIA Hopper card; the host layer
-holds sketches as sorted numpy uint64 arrays, as `sourmash_tpu` does.
+FracMinHash sketching and gather with API and output parity to sourmash
+(https://github.com/sourmash-bio/sourmash). The sketch and gather hot paths
+run hand-written CUDA kernels (`csrc/`) on an NVIDIA Hopper card; the host
+layer holds sketches as sorted numpy uint64 arrays, as `sourmash_tpu` does.
 
 The port imports neither jax nor `sourmash_tpu`. Entry points run on CUDA
 unless the caller asks for the CPU (`device=` on library calls,

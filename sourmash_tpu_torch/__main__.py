@@ -1,5 +1,6 @@
-"""Entry point: `python -m sourmash_tpu_torch sketch dna ...`
-(counterpart of `sourmash_tpu/__main__.py`; only `sketch` is ported)."""
+"""Entry point: `python -m sourmash_tpu_torch sketch dna ...` or
+`... gather query.sig db.zip` (counterpart of `sourmash_tpu/__main__.py`;
+`sketch` and `gather` are ported)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,10 @@ def main(arglist=None):
     from . import cli, command_sketch
 
     args = cli.parse_args(arglist)
+    if getattr(args, "cmd", None) == "gather":
+        from . import commands
+
+        return commands.gather(args)
     if getattr(args, "cmd", None) != "sketch":
         cli.get_parser().print_help()
         return 1

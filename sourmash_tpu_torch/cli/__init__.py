@@ -1,8 +1,9 @@
-"""Command-line interface of the port: the `sketch` subtree.
+"""Command-line interface of the port: the `sketch` subtree and `gather`.
 
 Parity: `sourmash_tpu/cli/__init__.py` (itself reference
-`src/sourmash/cli/__init__.py`) — same command names, flags and defaults
-for `sketch`; the other commands are not ported yet.
+`src/sourmash/cli/__init__.py`) and `sourmash_tpu/cli/utils.py` — same
+command names, flags and defaults for `sketch` and `gather`; the other
+commands are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import sys
 from argparse import ArgumentParser, RawDescriptionHelpFormatter, SUPPRESS
 
 from .. import VERSION
+from ..sourmash_args import check_scaled_bounds
 
 
 class SourmashParser(ArgumentParser):
@@ -94,6 +96,95 @@ def add_moltype_args(parser):
     "--protein/--dayhoff/--hp/--dna and their --no- pairs (`sourmash_tpu/cli/utils.py:46`)."
     for names, dest, on_h, off_h, default in _MOLTYPE_FLAGS:
         _bool_pair(parser, names, dest, on_h, off_h, default)
+
+
+def add_ksize_arg(parser, *, default=None):
+    "-k/--ksize with the given default (`sourmash_tpu/cli/utils.py:56`)."
+    tail = f"default={default}" if default else "no default."
+    parser.add_argument(
+        "-k", "--ksize", metavar="K", default=default, type=int,
+        help=f"k-mer size to select; {tail}",
+    )
+
+
+def add_picklist_args(parser):
+    parser.add_argument(
+        "--picklist", default=None,
+        help="select signatures based on a picklist, i.e. 'file.csv:colname:coltype'",
+    )
+    parser.add_argument(
+        "--picklist-require-all", default=False, action="store_true",
+        help="require that all picklist values be found or else fail",
+    )
+
+
+def add_pattern_args(parser):
+    for flag, what in (
+        ("--include-db-pattern", "search only signatures that match"),
+        ("--exclude-db-pattern", "search only signatures that do not match"),
+    ):
+        parser.add_argument(
+            flag, default=None,
+            help=f"{what} this pattern in name, filename, or md5",
+        )
+
+
+def add_scaled_arg(parser, default=None):
+    parser.add_argument(
+        "--scaled", metavar="FLOAT", type=check_scaled_bounds,
+        help="downsample to this scaled; value should be between 100 and 1e6",
+    )
+
+
+def _add_gather(sub):
+    "`gather` (`sourmash_tpu/cli/__init__.py:190`)."
+    p = sub.add_parser("gather", description="greedy min-set-cov decomposition")
+    p.add_argument("query", help="query signature")
+    p.add_argument("databases", nargs="+", help="signatures/SBTs to search")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-d", "--debug", action="store_true")
+    p.add_argument("-n", "--num-results", default=None, type=int, metavar="N",
+                   help="number of results to report")
+    p.add_argument("-o", "--output", metavar="FILE",
+                   help="output CSV containing matches to this file")
+    p.add_argument("--save-matches", metavar="FILE",
+                   help="save gather matched signatures to this file")
+    p.add_argument("--save-prefetch", metavar="FILE",
+                   help="save all prefetch-matched signatures to this file")
+    p.add_argument("--save-prefetch-csv", metavar="FILE",
+                   help="save prefetch-matched info CSV to this file")
+    p.add_argument("--threshold-bp", metavar="REAL", type=float, default=5e4,
+                   help="reporting threshold (in bp); default=50kb")
+    p.add_argument("--output-unassigned", metavar="FILE",
+                   help="output unassigned portions of the query")
+    p.add_argument("--ignore-abundance", action="store_true",
+                   help="do NOT use k-mer abundances if present")
+    p.add_argument("--md5", default=None,
+                   help="select the signature with this md5 as query")
+    p.add_argument("--cache-size", default=0, type=int, metavar="N",
+                   help="number of internal SBT nodes to cache (default: 0 = all)")
+    p.add_argument("--linear", dest="linear", action="store_true",
+                   help="force a low-memory but maybe slower database search")
+    p.add_argument("--no-linear", dest="linear", action="store_false")
+    p.add_argument("--no-prefetch", dest="prefetch", action="store_false",
+                   help="do not use prefetch before gather")
+    p.add_argument("--prefetch", dest="prefetch", action="store_true",
+                   help="use prefetch before gather")
+    p.set_defaults(linear=False, prefetch=True)
+    p.add_argument("--estimate-ani-ci", action="store_true",
+                   help="output confidence intervals for ANI estimates")
+    p.add_argument("--fail-on-empty-database", action="store_true")
+    p.add_argument("--no-fail-on-empty-database", action="store_false",
+                   dest="fail_on_empty_database")
+    p.set_defaults(fail_on_empty_database=True)
+    p.add_argument("--create-empty-results", action="store_true",
+                   help="create an empty results file even if no matches")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    add_picklist_args(p)
+    add_pattern_args(p)
+    add_scaled_arg(p, 0)
+    p.set_defaults(func="gather")
 
 
 def _add_sketch(sub):
@@ -188,6 +279,7 @@ def get_parser():
     sub = parser.add_subparsers(title="Instructions", dest="cmd", metavar="cmd",
                                 help=SUPPRESS)
     _add_sketch(sub)
+    _add_gather(sub)
     parser._action_groups.reverse()
     return parser
 

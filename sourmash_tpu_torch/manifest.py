@@ -5,10 +5,11 @@ signatures.
 The port's copy of `sourmash_tpu/manifest.py` (reference
 `src/sourmash/manifest.py`): the eleven required columns, the
 `# SOURMASH-MANIFEST-VERSION: 1.0` header line and the in-memory
-`CollectionManifest`, as far as writing and appending to zip collections
-needs it. One column-spec table (`_COLUMNS`) drives CSV decode, encode and
-row construction. Manifests kept in sqlite, and the index layer's selection
-entry points, come with the index slices.
+`CollectionManifest` with the index layer's selection entry points
+(`select_to_manifest`, `filter_on_columns`, `locations`, `create_manifest`).
+One column-spec table (`_COLUMNS`) drives CSV decode, encode and row
+construction. Manifests kept in sqlite come with the persistent-index
+slice.
 """
 
 from __future__ import annotations
@@ -182,6 +183,18 @@ class CollectionManifest:
             row["signature"] = ss
         return row
 
+    @classmethod
+    def create_manifest(cls, locations_iter, *, include_signature=True):
+        """Build a manifest from an iterator of (signature, location) pairs;
+        load exceptions from the iterator propagate to the caller."""
+        return cls(
+            cls.make_manifest_row(ss, loc, include_signature=include_signature)
+            for ss, loc in locations_iter
+        )
+
+    def __bool__(self):
+        return bool(self.rows)
+
     def __len__(self):
         return len(self.rows)
 
@@ -192,6 +205,23 @@ class CollectionManifest:
         "Yield rows passing every selector predicate (ksize, moltype, ...)."
         tests = _selector_predicates(**kwargs)
         return (row for row in self.rows if all(t(row) for t in tests))
+
+    def select_to_manifest(self, **kwargs):
+        return CollectionManifest(self._select(**kwargs))
+
+    def filter_rows(self, row_filter_fn):
+        return CollectionManifest(filter(row_filter_fn, self.rows))
+
+    def filter_on_columns(self, col_filter_fn, col_names):
+        def over_columns(row):
+            cells = [row[c] for c in col_names if row[c] is not None]
+            return col_filter_fn(cells)
+
+        return self.filter_rows(over_columns)
+
+    def locations(self):
+        "Distinct internal locations, first-seen order."
+        return iter(dict.fromkeys(row["internal_location"] for row in self.rows))
 
     def to_picklist(self):
         pl = picklist_mod.SignaturePicklist("manifest")

@@ -1,7 +1,9 @@
 """ctypes binding for the native C++ host code: the FASTA/FASTQ batch
 parser (fastx.cpp), the threaded canonical-k-mer sketch loop (sketch.cpp),
-the sketch md5 digester (sigmd5.cpp) and the .sig array scanner
-(sigjson.cpp). The sources are copies of `sourmash_tpu/native/`.
+the sketch md5 digester (sigmd5.cpp), the .sig array scanner
+(sigjson.cpp), the bucketed-plane packer (pack.cpp) and the membership
+bitset builder (membership.cpp). The sources are copies of
+`sourmash_tpu/native/`.
 
 The shared library is compiled with g++ on first use into the port's own
 build directory (`buildpaths.build_dir("native")`), keyed by a hash of the
@@ -22,7 +24,10 @@ from ..buildpaths import build_dir, sources_tag
 _HERE = os.path.dirname(__file__)
 _SOURCES = [
     os.path.join(_HERE, name)
-    for name in ("fastx.cpp", "sketch.cpp", "sigmd5.cpp", "sigjson.cpp")
+    for name in (
+        "fastx.cpp", "sketch.cpp", "sigmd5.cpp", "sigjson.cpp", "pack.cpp",
+        "membership.cpp",
+    )
 ]
 _FLAGS = ["-O3", "-shared", "-fPIC", "-pthread"]
 _lib = None
@@ -107,6 +112,17 @@ def build():
         ctypes.c_void_p,  # kind u8*
     ]
     lib.sig_extract_arrays.restype = ctypes.c_int64
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    # vals, offs, n, rows, B, d, hi, lo, cnt, spill_rows, spill_vals,
+    # spill_cap, n_threads
+    lib.pack_rows_native.argtypes = [P, P, I64, I64, I64, I32, P, P, P, P, P, I64, I32]
+    lib.pack_rows_native.restype = ctypes.c_int64
+    # vals, offs, n, rows, L, hi, lo, n_threads
+    lib.split_limbs_native.argtypes = [P, P, I64, I64, I64, P, P, I32]
+    lib.split_limbs_native.restype = None
+    # q, nq, vals, offs, k, M, W, n_threads
+    lib.membership_bits_native.argtypes = [P, I64, P, P, I64, P, I64, I32]
+    lib.membership_bits_native.restype = ctypes.c_int64
     _lib = lib
     return lib
 
@@ -268,3 +284,74 @@ def hash_windows(seq: "np.ndarray", ksize: int, seed: int, n_threads: int = 0):
         ctypes.c_int32(n_threads),
     )
     return out[: int(got)]
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _pack(vals, offs, n, rows, B, d, planes, n_threads):
+    """pack_rows_native into `planes` (hi, lo or (None, None)) and a fresh
+    cnt; returns (cnt, spill_rows, spill_vals), growing the spill buffers
+    until they hold every spill."""
+    lib = build()
+    vals = np.ascontiguousarray(vals, dtype=np.uint64)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    cnt = np.empty((rows, B), dtype=np.uint8)
+    cap = 4096
+    while True:
+        spill_rows = np.empty(cap, dtype=np.int64)
+        spill_vals = np.empty(cap, dtype=np.uint64)
+        ret = int(lib.pack_rows_native(
+            _ptr(vals), _ptr(offs), n, rows, B, d, _ptr(planes[0]),
+            _ptr(planes[1]), _ptr(cnt), _ptr(spill_rows), _ptr(spill_vals),
+            cap, n_threads,
+        ))
+        if ret >= 0:
+            return cnt, spill_rows[:ret], spill_vals[:ret]
+        cap = -ret
+
+
+def pack_rows(vals, offs, n, rows, B, d, n_threads=0):
+    """Thread-parallel bucketed-plane pack (see pack.cpp).
+
+    vals: concatenated per-row-sorted u64 hashes; offs: int64[n+1] row
+    boundaries. Returns (hi [rows,d,B] u32, lo, cnt [rows,B] u8,
+    spill_rows i64[k], spill_vals u64[k]), value-identical to the numpy
+    pack in ops/bucketed.pack_rows_bucketed."""
+    hi = np.empty((rows, d, B), dtype=np.uint32)
+    lo = np.empty((rows, d, B), dtype=np.uint32)
+    cnt, spill_rows, spill_vals = _pack(vals, offs, n, rows, B, d, (hi, lo), n_threads)
+    return hi, lo, cnt, spill_rows, spill_vals
+
+
+def pack_spills(vals, offs, n, rows, B, d, n_threads=0):
+    """cnt and the spill lists only, for callers that pack the hi/lo
+    planes on the device (ops/bucketed.pack_rows_device). Returns
+    (cnt, spill_rows, spill_vals)."""
+    return _pack(vals, offs, n, rows, B, d, (None, None), n_threads)
+
+
+def split_limbs(vals, offs, n, rows, L, n_threads=0):
+    """Concatenated u64 rows -> PAD-padded [rows, L] (hi, lo) u32 limb
+    planes (thread-chunked, PAD fill fused with the copy)."""
+    lib = build()
+    vals = np.ascontiguousarray(vals, dtype=np.uint64)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    hi = np.empty((rows, L), dtype=np.uint32)
+    lo = np.empty((rows, L), dtype=np.uint32)
+    lib.split_limbs_native(_ptr(vals), _ptr(offs), n, rows, L, _ptr(hi), _ptr(lo), n_threads)
+    return hi, lo
+
+
+def membership_bits(q, vals, offs, k, W, n_threads=0):
+    """Thread-parallel membership bitsets (see membership.cpp): bit p of
+    M[r] set iff q[p] (sorted distinct u64 query) is present in dataset r
+    (vals/offs concatenated sorted rows). Returns M [k, W] u32."""
+    lib = build()
+    q = np.ascontiguousarray(q, dtype=np.uint64)
+    vals = np.ascontiguousarray(vals, dtype=np.uint64)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    M = np.empty((k, W), dtype=np.uint32)
+    lib.membership_bits_native(_ptr(q), len(q), _ptr(vals), _ptr(offs), k, _ptr(M), W, n_threads)
+    return M

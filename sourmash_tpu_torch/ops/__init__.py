@@ -1,5 +1,8 @@
-"""Device compute ops: the DNA sketch path on a CUDA device (hand-written
-kernels in `csrc/`, PyTorch around them) and the numpy host twins.
+"""Device compute ops: the sketch paths (`ops/sketch.py`, K1-K3) and the
+bucketed counts, membership and gather-round engine (`ops/bucketed.py`,
+`ops/index_ops.py`, `ops/intersect.py`: counts_rows, membership_bits,
+round_dec) on a CUDA device, with hand-written kernels in `csrc/` and
+PyTorch around them, plus the numpy host twins.
 
 Device rule: every entry point runs on CUDA unless the caller asks for the
 CPU, through a `device=` argument or, for the CLI, SOURMASH_TORCH_DEVICE.

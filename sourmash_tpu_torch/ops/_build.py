@@ -1,12 +1,14 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and launch the port's hand-written CUDA kernels.
 
-`csrc/sketch.cu` has a plain C interface (with an `sm_error_string(code)`
-entry for messages) and is compiled by `nvcc` for Hopper (`sm_90a`) into
-`build/kernels/sketch_<hash>.so` at first use, then loaded with ctypes. The
-hash covers the source and the flags, so an edited source builds anew.
-`nvcc` is taken from CUDA_HOME, then PATH, then /usr/local/cuda. A missing
-`nvcc` or a failed build raises: there is no fallback to another
-implementation.
+Each source in `csrc/` (`sketch.cu`: K1, K2, K3; `gather.cu`: counts_rows,
+membership_bits, round_dec) has a plain C interface with an error-string
+entry, and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
+`build/kernels/<name>_<hash>.so` at first use, then loaded with ctypes.
+The hash covers the source and the flags, so an edited source builds anew
+and the other sources keep their builds. `build()` starts one `nvcc` per
+missing library, all at once. `nvcc` is taken from CUDA_HOME, then PATH,
+then /usr/local/cuda. A missing `nvcc` or a failed build raises: there is
+no fallback to another implementation.
 """
 
 from __future__ import annotations
@@ -16,11 +18,12 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 from ..buildpaths import build_dir, sources_tag
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "sketch.cu"
-)
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCES = {name: os.path.join(_CSRC, f"{name}.cu") for name in ("sketch", "gather")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -28,16 +31,27 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
-# C entry -> argtypes (pointers and the stream as void*, sizes as int)
-_SIGNATURES = {
-    # seq, B, S, n_pad, ksize, seed, hashes, valid, stream
-    "sm_window_hashes": [_P, _I, _I, _I, _I, _U64, _P, _P, _P],
-    # seq, B, S, n_pad, ksize, seed, hashes, valid, stream
-    "sm_aa_window_hashes": [_P, _I, _I, _I, _I, _U64, _P, _P, _P],
-    # seq, B, S, n, R, ksize, seed, max_hash, slots, hi, lo, counts, stream
-    "sm_survivor_slots": [_P, _I, _I, _I, _I, _I, _U64, _U64, _I, _P, _P, _P, _P],
+# library -> (error-string entry, {C entry -> argtypes}); pointers and the
+# stream as void*, sizes as int
+_LIBRARIES = {
+    "sketch": ("sm_error_string", {
+        # seq, B, S, n_pad, ksize, seed, hashes, valid, stream
+        "sm_window_hashes": [_P, _I, _I, _I, _I, _U64, _P, _P, _P],
+        # seq, B, S, n_pad, ksize, seed, hashes, valid, stream
+        "sm_aa_window_hashes": [_P, _I, _I, _I, _I, _U64, _P, _P, _P],
+        # seq, B, S, n, R, ksize, seed, max_hash, slots, hi, lo, counts, stream
+        "sm_survivor_slots": [_P, _I, _I, _I, _I, _I, _U64, _U64, _I, _P, _P, _P, _P],
+    }),
+    "gather": ("gm_error_string", {
+        # qhi, qlo, dq, B, shi, slo, rows, cut_hi, cut_lo, out, stream
+        "gm_counts_rows": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+        # qhi, qlo, dq, B, shi, slo, scnt, sel, nm, slotmap, W, out, stream
+        "gm_membership_bits": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+        # M, rm, k, W, out, stream
+        "gm_round_dec": [_P, _P, _I, _I, _P, _P],
+    }),
 }
-_lib = None
+_libs: dict = {}
 
 
 def nvcc_path() -> str:
@@ -58,40 +72,63 @@ def nvcc_path() -> str:
     )
 
 
-def _so_path() -> str:
-    tag = sources_tag([SOURCE], *NVCC_FLAGS)
-    return os.path.join(build_dir("kernels"), f"sketch_{tag}.so")
+def _so_path(name: str) -> str:
+    tag = sources_tag([SOURCES[name]], *NVCC_FLAGS)
+    return os.path.join(build_dir("kernels"), f"{name}_{tag}.so")
 
 
-def build() -> str:
-    """Compile csrc/sketch.cu unless it is built already. Returns nvcc's log
-    (ptxas' register and spill report), or "" when nothing was built."""
-    so = _so_path()
-    if os.path.exists(so):
-        return ""
-    tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    try:
-        done = subprocess.run(cmd, check=True, capture_output=True, text=True)
-    except subprocess.CalledProcessError as exc:
-        raise RuntimeError(
-            f"CUDA kernel build failed: {' '.join(cmd)}\n{exc.stdout}{exc.stderr}"
-        ) from exc
-    os.replace(tmp, so)
-    return done.stdout + done.stderr
+def build(names=None) -> dict:
+    """Compile every library of `names` (default: all) that is not built
+    yet, one nvcc each, all started together. Returns {name: nvcc's log}
+    (ptxas' register and spill report) for the libraries it built."""
+    names = list(SOURCES) if names is None else list(names)
+    todo = [n for n in names if not os.path.exists(_so_path(n))]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    procs = {}
+    for name in todo:
+        tmp = f"{_so_path(name)}.tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (cmd, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"CUDA kernel build failed: {' '.join(cmd)}\n{out}")
+            continue
+        os.replace(tmp, _so_path(name))
+        logs[name] = out
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
-def load():
-    "The loaded kernel library, built first if needed."
-    global _lib
-    if _lib is not None:
-        return _lib
-    build()
-    lib = ctypes.CDLL(_so_path())
-    for fn, argtypes in _SIGNATURES.items():
+def load(name: str):
+    "The loaded kernel library `name`, built first if needed."
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(_so_path(name))
+    err_fn, signatures = _LIBRARIES[name]
+    for fn, argtypes in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
-    lib.sm_error_string.argtypes = [ctypes.c_int]
-    lib.sm_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    getattr(lib, err_fn).argtypes = [ctypes.c_int]
+    getattr(lib, err_fn).restype = ctypes.c_char_p
+    _libs[name] = lib
     return lib
+
+
+def launch(name: str, fn_name: str, device, *args) -> None:
+    """Call the C entry `fn_name` of library `name` with `args` and the
+    current stream of `device`; raise if the launch was refused."""
+    lib = load(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, _LIBRARIES[name][0])(rc).decode()
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc} ({msg})")

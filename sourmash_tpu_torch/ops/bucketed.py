@@ -1,0 +1,626 @@
+"""Bucketed dense-compare engine for set intersection: the port of
+`sourmash_tpu/ops/bucketed.py`, as far as gather and find need it.
+
+MurmurHash values are uniform, so bucketing by the low log2(B) bits spreads
+a sketch of l hashes over B = next_pow2(l_max * 0.4) buckets with
+Poisson(<= 2.5) occupancy. A sketch becomes two u32 limb planes hi, lo
+[d = 8, B] (bucket dimension last), and intersection counting becomes a
+dense equality compare between planes: the hand-written `counts_rows`
+kernel (`ops/cuda_gather.py`, T1).
+
+Exactness is kept by construction, as in the JAX package:
+
+- slots past a bucket's occupancy hold PAD = 2**64-1 in both limbs. PAD==PAD
+  hits are counted by the kernel and subtracted exactly by the pad-count
+  correction `corr[s] = sum_b npad_s[b] * npad_q[b]`, a float32
+  `torch.matmul` as in the JAX package. It is exact while d times the
+  query's PAD slots (dq * B minus its hashes) stays below 2^24; past that
+  f32 rounds, a reference fault kept for parity (bf16 is already wrong
+  once dq > 256);
+- a real hash equal to PAD (only at scaled=1) and any element past the
+  d-th slot of a full bucket go to host spill lists at pack time and are
+  joined exactly on the host;
+- queries pack with dq at least their largest bucket load, so the query
+  side never spills.
+
+Torch form of a plane: `hi`, `lo` are int32 bit patterns of the u32 limbs
+(PAD is -1), `cnt` is uint8 for subject banks and int32 for query planes;
+host mins stay numpy uint64. Every ordered comparison of limbs flips the
+sign bit first. Host-streamed chunks keep numpy uint32/uint8 planes and the
+raw limb rows, which are uploaded and packed on the device per pass.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from . import cuda_gather
+
+MAX_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+_D = 8  # subject slots per bucket
+_PAD32 = -1  # 0xFFFFFFFF as an int32 bit pattern
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x - 1).bit_length())
+
+
+def choose_buckets(max_len: int) -> int:
+    """Bucket count (power of two) for rows up to max_len hashes: max mean
+    load <= 2.5, putting Poisson spill past d=8 at ~1e-3 per bucket."""
+    return _next_pow2(max(128, -(-max_len * 2 // 5)))
+
+
+def _pad_rows(n: int) -> int:
+    "Row padding: powers of two up to 2048, then multiples of 2048."
+    if n <= 2048:
+        return _next_pow2(max(8, n))
+    return -(-n // 2048) * 2048
+
+
+def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
+    "A numpy uint32 (or uint8/int32) plane as a torch tensor of int32 bit patterns."
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch.from_numpy wants writable memory
+        a = a.copy()
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    t = torch.from_numpy(a)
+    return t if device is None else t.to(device)
+
+
+def to_numpy_u32(t) -> np.ndarray:
+    "A torch int32 plane (or numpy uint32 plane) as numpy uint32."
+    if torch.is_tensor(t):
+        t = t.cpu().numpy()
+    return t.view(np.uint32) if t.dtype == np.int32 else t
+
+
+class BucketedRows:
+    """A packed bank: hi/lo [n, d, B] planes (bucket dim last), per-row
+    per-bucket occupancy counts [n, B] u8, and host-side exact spill lists
+    (sorted u64 per row; almost always empty). Device chunks hold torch
+    tensors; host-streamed chunks numpy planes plus `raw` limb rows."""
+
+    __slots__ = ("hi", "lo", "cnt", "spills", "n", "d", "B", "n_spilled", "raw")
+
+    def __init__(self, hi, lo, cnt, spills, n, d, B, n_spilled, raw=None):
+        self.hi = hi
+        self.lo = lo
+        self.cnt = cnt
+        self.spills = spills
+        self.n = n
+        self.d = d
+        self.B = B
+        self.n_spilled = n_spilled
+        # host-streamed chunks keep the raw padded limb rows (Hi, Lo
+        # [rows, L] u32): a counting pass uploads them (~6x fewer bytes
+        # than the planes) and packs on the device before counting
+        self.raw = raw
+
+    @property
+    def resident(self) -> bool:
+        return torch.is_tensor(self.hi)
+
+
+def _bucketize(m: np.ndarray, B: int):
+    """Split one sorted distinct u64 array into (bucket ids, sorted bucket
+    ids, within-bucket slots, stable order). Within a bucket, slots are in
+    ascending hash order."""
+    b = (m & np.uint64(B - 1)).astype(np.int64)
+    order = np.argsort(b, kind="stable")
+    bs = b[order]
+    if len(bs):
+        change = np.flatnonzero(np.diff(bs)) + 1
+        starts = np.concatenate([[0], change])
+        sizes = np.diff(np.concatenate([starts, [len(bs)]]))
+        slot = np.arange(len(bs)) - np.repeat(starts, sizes)
+    else:
+        slot = np.zeros(0, dtype=np.int64)
+    return b, bs, slot, order
+
+
+def _concat_rows(mins_list):
+    "(vals u64, offs i64[n+1]) of a list of sorted u64 arrays."
+    n = len(mins_list)
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64, count=n)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    vals = (
+        np.concatenate([np.asarray(m, dtype=np.uint64) for m in mins_list])
+        if n > 1
+        else np.asarray(mins_list[0], dtype=np.uint64)
+    )
+    return vals, offs
+
+
+def _spill_list(rows, sp_rows, sp_vals):
+    "Per-row spill arrays from the (row, value) pairs, ascending by row."
+    empty = np.zeros(0, dtype=np.uint64)
+    spill_list = [empty] * rows
+    if len(sp_vals):
+        starts = np.concatenate([[0], np.flatnonzero(np.diff(sp_rows)) + 1, [len(sp_vals)]])
+        for a, b in zip(starts[:-1], starts[1:]):
+            spill_list[int(sp_rows[a])] = sp_vals[a:b].copy()
+    return spill_list
+
+
+def _to_device(hi, lo, cnt, device):
+    if device is None:
+        return hi, lo, cnt
+    return to_torch(hi, device), to_torch(lo, device), to_torch(cnt, device)
+
+
+def _pack_rows_native(mins_list, n, rows, B, d, device):
+    """Thread-parallel C++ pack (native/pack.cpp): one O(N) pass per row
+    across a thread pool. Value-identical to the numpy path; None for rows
+    that hold no hash at all (the numpy path packs those)."""
+    from .. import native
+
+    vals, offs = _concat_rows(mins_list)
+    if offs[-1] == 0:
+        return None
+    hi, lo, cnt, spill_rows, spill_vals = native.pack_rows(vals, offs, n, rows, B, d)
+    hi, lo, cnt = _to_device(hi, lo, cnt, device)
+    return BucketedRows(
+        hi, lo, cnt, _spill_list(rows, spill_rows, spill_vals), n, d, B, int(len(spill_vals))
+    )
+
+
+def pack_rows_bucketed(mins_list, B: int, d: int = _D, device=None) -> BucketedRows:
+    """Pack sorted distinct u64 hash arrays into bucketed u32 planes: the
+    native pack, or the numpy pack for rows without any hash. Rows are
+    padded to `_pad_rows(n)`; padding rows are all PAD (occupancy 0). With
+    `device`, the planes are uploaded as torch tensors; else numpy."""
+    n = len(mins_list)
+    if n:
+        packed = _pack_rows_native(mins_list, n, _pad_rows(n), B, d, device)
+        if packed is not None:
+            return packed
+    return _pack_rows_numpy(mins_list, B, d, device)
+
+
+def _pack_rows_numpy(mins_list, B: int, d: int = _D, device=None) -> BucketedRows:
+    """The numpy pack, value-identical to the native one: one stable argsort
+    of (row, bucket) keys over the concatenated hashes, then three
+    fancy-index stores."""
+    n = len(mins_list)
+    rows = _pad_rows(n)
+    hi = np.full((rows, d, B), 0xFFFFFFFF, dtype=np.uint32)
+    lo = np.full((rows, d, B), 0xFFFFFFFF, dtype=np.uint32)
+    cnt = np.zeros((rows, B), dtype=np.uint8)
+    spills = {}
+    n_spilled = 0
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64, count=n)
+    if int(lens.sum()):
+        vals, _ = _concat_rows(mins_list)
+        row = np.repeat(np.arange(n, dtype=np.int64), lens)
+        # PAD collision guard: 2**64-1 can be a real hash only at scaled=1
+        ismax = vals == MAX_U64
+        if ismax.any():
+            for i in np.unique(row[ismax]):
+                spills[int(i)] = np.array([MAX_U64], dtype=np.uint64)
+                n_spilled += 1
+            vals, row = vals[~ismax], row[~ismax]
+        b = (vals & np.uint64(B - 1)).astype(np.int64)
+        key = row * B + b
+        order = np.argsort(key, kind="stable")  # within (row, bucket): asc hash
+        ks, vs, ro, bo = key[order], vals[order], row[order], b[order]
+        N2 = len(ks)
+        if N2:
+            pos = np.arange(N2, dtype=np.int64)
+            is_start = np.empty(N2, dtype=bool)
+            is_start[0] = True
+            np.not_equal(ks[1:], ks[:-1], out=is_start[1:])
+            starts = np.flatnonzero(is_start)
+            slot = pos - np.maximum.accumulate(np.where(is_start, pos, 0))
+            keep = slot < d
+            hi[ro[keep], slot[keep], bo[keep]] = (vs[keep] >> np.uint64(32)).astype(np.uint32)
+            lo[ro[keep], slot[keep], bo[keep]] = (vs[keep] & np.uint64(0xFFFFFFFF)).astype(
+                np.uint32
+            )
+            sizes = np.diff(np.concatenate([starts, [N2]]))
+            cnt.reshape(-1)[ks[starts]] = np.minimum(sizes, d).astype(np.uint8)
+            if not keep.all():
+                sp_vals, sp_rows = vs[~keep], ro[~keep]
+                n_spilled += len(sp_vals)
+                for i in np.unique(sp_rows):
+                    both = sp_vals[sp_rows == i]
+                    prev = spills.get(int(i))
+                    if prev is not None:
+                        both = np.concatenate([both, prev])
+                    spills[int(i)] = np.sort(both)
+    empty = np.zeros(0, dtype=np.uint64)
+    spill_list = [spills.get(i, empty) for i in range(rows)]
+    hi, lo, cnt = _to_device(hi, lo, cnt, device)
+    return BucketedRows(hi, lo, cnt, spill_list, n, d, B, n_spilled)
+
+
+def _device_pack(Hi, Lo, B: int, d: int, cnt_dtype):
+    """Pack [rows, L] int32 limb rows (each row sorted ascending, PAD past
+    its true length) into planes [rows, d, B] and occupancy [rows, B] on
+    their device: a stable sort by bucket id keeps ascending-hash slot
+    order, slot = position - bucket start, and overflow (slot >= d) lands
+    in a dump slot that is cut off (those elements live in the host spill
+    lists). Value-identical to the host pack."""
+    rows, L = Hi.shape
+    valid = ~((Hi == _PAD32) & (Lo == _PAD32))
+    b = torch.where(valid, Lo & (B - 1), B)
+    b_s, order = torch.sort(b, dim=1, stable=True)
+    hi_s = Hi.gather(1, order)
+    lo_s = Lo.gather(1, order)
+    edges = torch.arange(B + 1, dtype=b_s.dtype, device=b_s.device).expand(rows, B + 1)
+    starts = torch.searchsorted(b_s, edges.contiguous())  # [rows, B+1] int64
+    pos = torch.arange(L, device=Hi.device)[None, :]
+    slot = pos - starts.gather(1, b_s.long().clamp(0, B))
+    cnt = torch.clamp(starts[:, 1:] - starts[:, :-1], max=d).to(cnt_dtype)
+    ok = (b_s < B) & (slot < d)
+    # flat position in the [rows, d, B] planes; overflow goes to one dump
+    # element past the end, cut off after the scatter
+    row_base = torch.arange(rows, device=Hi.device)[:, None] * (d * B)
+    flat = torch.where(ok, row_base + slot * B + b_s, rows * d * B).reshape(-1)
+    Phi = torch.full((rows * d * B + 1,), _PAD32, dtype=torch.int32, device=Hi.device)
+    Plo = torch.full((rows * d * B + 1,), _PAD32, dtype=torch.int32, device=Hi.device)
+    Phi.scatter_(0, flat, hi_s.reshape(-1))
+    Plo.scatter_(0, flat, lo_s.reshape(-1))
+    return Phi[:-1].view(rows, d, B), Plo[:-1].view(rows, d, B), cnt
+
+
+def _device_pack_kernel(Hi, Lo, B: int, d: int):
+    "Bank form of `_device_pack`: uint8 occupancy."
+    return _device_pack(Hi, Lo, B, d, torch.uint8)
+
+
+def query_raw_limbs(qs, device):
+    """PAD-padded [bq, L] (hi, lo) int32 limb rows for a query block on
+    `device`: the one upload shared by every per-bank device pack. A
+    2^64-1 tail becomes PAD (excluded from planes, as in the host pack)."""
+    L = _next_pow2(max(128, max((len(q) for q in qs), default=1)))
+    Hi = np.full((len(qs), L), 0xFFFFFFFF, dtype=np.uint32)
+    Lo = np.full((len(qs), L), 0xFFFFFFFF, dtype=np.uint32)
+    for i, q in enumerate(qs):
+        q = np.asarray(q, dtype=np.uint64)
+        if len(q) and q[-1] == MAX_U64:
+            q = q[:-1]
+        Hi[i, : len(q)] = (q >> np.uint64(32)).astype(np.uint32)
+        Lo[i, : len(q)] = (q & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return to_torch(Hi, device), to_torch(Lo, device)
+
+
+def pack_query_block_device(qs, B: int, raw=None, device=None):
+    """Pack a query block into [bq, dq, B] planes on the device from shared
+    raw limb rows (uploaded once, reused across every bank's B). dq is the
+    largest bucket load rounded up to a multiple of 8. Returns (Qhi, Qlo,
+    Qcnt [bq, B] int32, dq, raw)."""
+    if raw is None:
+        raw = query_raw_limbs(qs, device)
+    Hi, Lo = raw
+    max_load = 8
+    for q in qs:
+        q = np.asarray(q, dtype=np.uint64)
+        if len(q) and q[-1] == MAX_U64:
+            q = q[:-1]
+        if len(q):
+            loads = np.bincount((q & np.uint64(B - 1)).astype(np.int64), minlength=B)
+            max_load = max(max_load, int(loads.max()))
+    dq = max(8, -(-max_load // 8) * 8)
+    Qhi, Qlo, Qcnt = _device_pack(Hi, Lo, B, dq, torch.int32)
+    return Qhi, Qlo, Qcnt, dq, raw
+
+
+def pack_rows_device(mins_list, B: int, d: int = _D, device=None) -> BucketedRows | None:
+    """BucketedRows with planes packed on `device` from uploaded raw limb
+    rows (see `_device_pack`); spill state comes from the native
+    spills-only pass. None when the rows hold no hash at all."""
+    from .. import native
+
+    n = len(mins_list)
+    if not n:
+        return None
+    rows = _pad_rows(n)
+    vals, offs = _concat_rows(mins_list)
+    if not int(offs[-1]):
+        return None
+    L = max(128, -(-int(np.diff(offs).max()) // 128) * 128)
+    _cnt_host, sp_rows, sp_vals = native.pack_spills(vals, offs, n, rows, B, d)
+    Hi, Lo = native.split_limbs(vals, offs, n, rows, L)
+    phi, plo, pcnt = _device_pack_kernel(to_torch(Hi, device), to_torch(Lo, device), B, d)
+    return BucketedRows(
+        phi, plo, pcnt, _spill_list(rows, sp_rows, sp_vals), n, d, B, int(len(sp_vals))
+    )
+
+
+def pack_query_bucketed(q: np.ndarray, B: int, device=None):
+    """Pack one sorted distinct u64 query into [dq, B] planes with
+    dq = next_pow2(max bucket load), so the query never spills. Returns
+    (hi, lo, cnt [B] int32, dq, tail), tail being the (rare) hash equal to
+    PAD, which stays out of the planes. Numpy uint32 planes without
+    `device`, torch int32 bit patterns on it."""
+    q = np.asarray(q, dtype=np.uint64)
+    tail = None
+    if len(q) and q[-1] == MAX_U64:
+        tail = MAX_U64
+        q = q[:-1]
+    if len(q):
+        _b, bs, slot, order = _bucketize(q, B)
+        dq = _next_pow2(max(8, int(slot.max()) + 1))
+    else:
+        dq = 8
+    hi = np.full((dq, B), 0xFFFFFFFF, dtype=np.uint32)
+    lo = np.full((dq, B), 0xFFFFFFFF, dtype=np.uint32)
+    # int32: a metagenome query against a small-B bank loads hundreds of
+    # hashes per bucket
+    cnt = np.zeros(B, dtype=np.int32)
+    if len(q):
+        qs = q[order]
+        hi[slot, bs] = (qs >> np.uint64(32)).astype(np.uint32)
+        lo[slot, bs] = (qs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        np.add.at(cnt, bs.astype(np.int64), 1)
+    if device is not None:
+        hi, lo, cnt = to_torch(hi, device), to_torch(lo, device), to_torch(cnt, device)
+    return hi, lo, cnt, dq, tail
+
+
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    "SWAR population count of int32 bit patterns, in int64 (torch has no popcount)."
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def pack_bits_u32(bits: torch.Tensor) -> torch.Tensor:
+    "[..., B] bool -> [..., B/32] int32 bit patterns (bit j = lane 32*w + j)."
+    shape = bits.shape
+    w = bits.reshape(shape[:-1] + (shape[-1] // 32, 32)).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    v = (w << shifts).sum(dim=-1)
+    return (v - ((v >> 31) << 32)).to(torch.int32)  # as an int32 bit pattern
+
+
+def unpack_bits_u32(words: torch.Tensor) -> torch.Tensor:
+    "[..., W] int32 bit patterns -> [..., 32*W] bool (bit j of word w = lane 32*w + j)."
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[:-1] + (words.shape[-1] * 32,)).bool()
+
+
+# -- counts ------------------------------------------------------------------
+
+
+def _pad_correction(qcnt, Scnt, dq: int, d: int):
+    """[ns] int32 PAD==PAD hits: sum_b (d - Scnt) * (dq - qcnt) as a f32
+    matmul, exact while d * sum_b (dq - qcnt) stays below 2^24 (the JAX
+    package's own limit, kept for parity)."""
+    npad_q = (dq - qcnt).to(torch.float32)  # [B]
+    npad_s = (d - Scnt.to(torch.int32)).to(torch.float32)  # [ns, B]
+    return torch.matmul(npad_s, npad_q).to(torch.int32)
+
+
+def _counts_qvm_impl(qhi, qlo, qcnt, Shi, Slo, Scnt):
+    """[dq, B] query planes vs [ns, d, B] subject planes -> [ns] int32 exact
+    stored-element intersection counts: the raw counts of `counts_rows`
+    (T1) minus the PAD==PAD correction."""
+    acc = cuda_gather.counts_rows(qhi, qlo, Shi, Slo)
+    return acc - _pad_correction(qcnt, Scnt, qhi.shape[0], Shi.shape[1])
+
+
+def _counts_qvm_cutoff_impl(qhi, qlo, qcnt, Shi, Slo, Scnt, cut_hi, cut_lo):
+    """Query vs many with a per-subject u64 cutoff on the matched value: a
+    hit counts iff equal and value <= cut[s]. PAD==PAD hits pass the cutoff
+    only when cut == 2**64-1; the correction is masked accordingly."""
+    acc = cuda_gather.counts_rows(qhi, qlo, Shi, Slo, cut_hi, cut_lo)
+    corr = _pad_correction(qcnt, Scnt, qhi.shape[0], Shi.shape[1])
+    pad_passes = (cut_hi == _PAD32) & (cut_lo == _PAD32)
+    return acc - torch.where(pad_passes, corr, 0)
+
+
+def _counts_bank_fused(qhi, qlo, qcnt, *planes):
+    """All of one bank's chunks vs one query: one `counts_rows` launch per
+    chunk, concatenated. planes = (hi, lo, cnt) per chunk."""
+    outs = [
+        _counts_qvm_impl(qhi, qlo, qcnt, planes[i], planes[i + 1], planes[i + 2])
+        for i in range(0, len(planes), 3)
+    ]
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _cutoff_counts_bank_fused(qhi, qlo, qcnt, *planes):
+    "Per-chunk cutoff counts of one bank, concatenated (5-tuple planes)."
+    outs = [
+        _counts_qvm_cutoff_impl(qhi, qlo, qcnt, *planes[i : i + 5])
+        for i in range(0, len(planes), 5)
+    ]
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _spill_counts_qvm(q_full: np.ndarray, bank: BucketedRows, counts, cutoffs=None):
+    """Add the exact contribution of subject-side spilled hashes:
+    counts[i] += |spill_i ∩ q| (optionally filtered by cutoff[i]). The
+    query's own 2**64-1 tail (never in the planes) is covered here too,
+    since it can only match a subject spill."""
+    if not bank.n_spilled or not len(q_full):
+        return
+    rows = [i for i in range(bank.n) if len(bank.spills[i])]
+    sp_vals = np.concatenate([bank.spills[i] for i in rows])
+    sp_rows = np.repeat(np.asarray(rows, dtype=np.int64), [len(bank.spills[i]) for i in rows])
+    idx = np.searchsorted(q_full, sp_vals)
+    idx_c = np.minimum(idx, len(q_full) - 1)
+    hit = q_full[idx_c] == sp_vals
+    if cutoffs is not None:
+        hit &= sp_vals <= np.asarray(cutoffs, dtype=np.uint64)[sp_rows]
+    np.add.at(counts, sp_rows[hit], 1)
+
+
+def _counts_from_raw(qhi, qlo, qcnt, Hi, Lo, B: int, d: int):
+    """Counts against a host-streamed chunk: pack its uploaded raw limb
+    rows into planes on the device, count, and drop the planes."""
+    Shi, Slo, Scnt = _device_pack_kernel(Hi, Lo, B, d)
+    return _counts_qvm_impl(qhi, qlo, qcnt, Shi, Slo, Scnt)
+
+
+def query_counts_device(bank: BucketedRows, q_packed):
+    """[padded rows] device counts of one chunk (no spill correction, no
+    readback), so callers can fan out many chunks and read back once.
+    Host-streamed chunks upload their raw limb rows and pack on the device."""
+    qhi, qlo, qcnt, _dq, _tail = q_packed
+    if not bank.resident:
+        if bank.raw is not None:
+            Hi, Lo = (to_torch(x, qhi.device) for x in bank.raw)
+            return _counts_from_raw(qhi, qlo, qcnt, Hi, Lo, bank.B, bank.d)
+        planes = _to_device(bank.hi, bank.lo, bank.cnt, qhi.device)
+        return _counts_qvm_impl(qhi, qlo, qcnt, *planes)
+    return _counts_qvm_impl(qhi, qlo, qcnt, bank.hi, bank.lo, bank.cnt)
+
+
+_CUT_PLANES_CACHE: dict = {}
+
+
+def _cut_planes(bank: BucketedRows, cutoffs, device=None):
+    """Device (hi, lo) int32 planes of per-row u64 cutoffs (padding rows
+    get 0), cached per (chunk, cutoff set): repeated finds at the same
+    query scaled would upload identical vectors otherwise."""
+    cut = np.zeros(bank.cnt.shape[0], dtype=np.uint64)
+    cut[: bank.n] = cutoffs
+    device = bank.hi.device if bank.resident else device
+    key = (id(bank), str(device), hashlib.md5(cut.tobytes()).digest())
+    hit = _CUT_PLANES_CACHE.get(key)
+    if hit is not None:
+        return hit
+    planes = (
+        to_torch((cut >> np.uint64(32)).astype(np.uint32), device),
+        to_torch((cut & np.uint64(0xFFFFFFFF)).astype(np.uint32), device),
+    )
+    if len(_CUT_PLANES_CACHE) >= 64:
+        _CUT_PLANES_CACHE.pop(next(iter(_CUT_PLANES_CACHE)))
+    _CUT_PLANES_CACHE[key] = planes
+    return planes
+
+
+def query_cutoff_counts_device(bank: BucketedRows, cutoffs, q_packed):
+    "Device form of query_cutoff_counts_bucketed (stored-element counts only)."
+    qhi, qlo, qcnt, _dq, _tail = q_packed
+    cut_hi, cut_lo = _cut_planes(bank, cutoffs, qhi.device)
+    if bank.resident:
+        planes = (bank.hi, bank.lo, bank.cnt)
+    elif bank.raw is not None:
+        Hi, Lo = (to_torch(x, qhi.device) for x in bank.raw)
+        planes = _device_pack_kernel(Hi, Lo, bank.B, bank.d)
+    else:
+        planes = _to_device(bank.hi, bank.lo, bank.cnt, qhi.device)
+    return _counts_qvm_cutoff_impl(qhi, qlo, qcnt, *planes, cut_hi, cut_lo)
+
+
+def _bank_device(bank: BucketedRows, device=None):
+    if bank.resident:
+        return bank.hi.device
+    from . import resolve_device
+
+    return resolve_device(device)
+
+
+def query_counts_bucketed(q_full: np.ndarray, bank: BucketedRows, q_packed=None, device=None):
+    """Sorted query u64 array vs a packed bank -> [n] exact int64 counts.
+
+    q_packed: optional reuse of pack_query_bucketed(q_full, bank.B, device)."""
+    if q_packed is None:
+        q_packed = pack_query_bucketed(q_full, bank.B, _bank_device(bank, device))
+    out = query_counts_device(bank, q_packed).cpu().numpy()
+    counts = out[: bank.n].astype(np.int64)
+    _spill_counts_qvm(q_full, bank, counts)
+    return counts
+
+
+def query_cutoff_counts_bucketed(
+    q_full: np.ndarray, bank: BucketedRows, cutoffs, q_packed=None, device=None
+):
+    """Query vs bank with per-subject u64 value cutoffs (pairwise
+    downsample). Returns [n] exact shared counts of {h : h <= cut[i]}."""
+    if q_packed is None:
+        q_packed = pack_query_bucketed(q_full, bank.B, _bank_device(bank, device))
+    out = query_cutoff_counts_device(bank, cutoffs, q_packed).cpu().numpy()
+    counts = out[: bank.n].astype(np.int64)
+    _spill_counts_qvm(q_full, bank, counts, cutoffs=cutoffs)
+    return counts
+
+
+# -- membership --------------------------------------------------------------
+
+
+def _membership_rows(qhi, qlo, Shi, Slo, Scnt):
+    """Which query slots are present in each subject row? [dq, B] query
+    planes vs [nm, d, B] subjects -> [nm, dq, B] bool. Subject slots past
+    the occupancy are masked (a query PAD slot equals a subject PAD slot,
+    and here the answer is bits, not counts)."""
+    qh = qhi[None]  # [1, dq, B]
+    ql = qlo[None]
+    m = torch.zeros((Shi.shape[0],) + tuple(qhi.shape), dtype=torch.bool, device=qhi.device)
+    for k2 in range(Shi.shape[1]):
+        valid = (Scnt > k2)[:, None, :]  # [nm, 1, B]
+        m |= (Shi[:, k2, None, :] == qh) & (Slo[:, k2, None, :] == ql) & valid
+    return m
+
+
+def _membership_bits_packed(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+    """Rows `sel` of one chunk's planes -> packed membership words [nm, W]
+    int32 in sorted-query index space (the `membership_bits` kernel):
+    bit j of word w == (query hash 32w+j) in the row. slotmap [W*32] int32
+    maps query index j -> flat slot position slot*B + bucket, dq*B for
+    none (padding past len(q), and the 2^64-1 tail)."""
+    return cuda_gather.membership_bits(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+
+
+def query_slot_map(q_core: np.ndarray, B: int, dq: int, n_positions: int):
+    """Flat slot position (slot*B + bucket) of each sorted query hash,
+    padded with the dummy position dq*B out to n_positions (covers the
+    word-padding tail and an excluded 2^64-1 hash)."""
+    slotmap = np.full(n_positions, dq * B, dtype=np.int32)
+    if len(q_core):
+        _b, bs, slot, order = _bucketize(q_core, B)
+        slotmap[order] = (slot * B + bs).astype(np.int32)
+    return slotmap
+
+
+def membership_matrix(q_full: np.ndarray, bank: BucketedRows, row_ids, q_packed=None):
+    """Membership of the query's bucketed slots in selected (resident) bank
+    rows: returns (M [len(row_ids), dq*B/32] int32 words, q_packed), where
+    bit j of word w of row r is set iff flat query slot 32w+j (slot*B +
+    bucket) holds a hash present in bank row row_ids[r]. The words are
+    `pack_bits_u32` of `_membership_rows`' [dq, B] bools, computed by the
+    `membership_bits` kernel over every slot position; spilled subject
+    hashes are OR-ed in on the host via the query slot map. q_packed is the
+    host pack_query_bucketed(q_full, bank.B)."""
+    if q_packed is None:
+        q_packed = pack_query_bucketed(q_full, bank.B)
+    qhi, qlo, _qcnt, dq, _tail = q_packed
+    device = bank.hi.device
+    ids = np.asarray(row_ids, dtype=np.int64)
+    identity = torch.arange(dq * bank.B, dtype=torch.int32, device=device)
+    M = _membership_bits_packed(
+        to_torch(qhi, device), to_torch(qlo, device), bank.hi, bank.lo, bank.cnt,
+        torch.from_numpy(ids).to(device), identity,
+    )
+    spill_bits = {r: bank.spills[i] for r, i in enumerate(ids) if len(bank.spills[i])}
+    if spill_bits:
+        # slot map over the plane-representable query (2**64-1 excluded at
+        # pack time; the caller handles that single hash exactly)
+        q_core = q_full[q_full != MAX_U64]
+        flat = query_slot_map(q_core, bank.B, dq, len(q_core))
+        rows, words, masks = [], [], []
+        for r, sp in spill_bits.items():
+            idx = np.searchsorted(q_core, sp)
+            idx_c = np.minimum(idx, max(len(q_core) - 1, 0))
+            for pos in flat[idx_c[q_core[idx_c] == sp]] if len(q_core) else ():
+                rows.append(r)
+                words.append(int(pos) >> 5)
+                masks.append(1 << (int(pos) & 31))
+        if rows:
+            M = M.cpu().numpy().view(np.uint32).copy()
+            np.bitwise_or.at(M, (np.asarray(rows), np.asarray(words)),
+                             np.asarray(masks, dtype=np.uint32))
+            M = to_torch(M, device)
+    return M, q_packed

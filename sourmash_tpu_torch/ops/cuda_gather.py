@@ -1,0 +1,204 @@
+"""The gather kernels: CUDA wrappers, launch counters and plain PyTorch
+versions. Counterpart of the bucketed counts, membership and round-step
+code of `sourmash_tpu` (see `csrc/gather.cu` for what each replaces).
+
+- `counts_rows` (replaces T1, `tools/exp_pallas_counts.py:
+  _counts_rows_pallas`): raw limb-pair matches of query planes
+  `qhi/qlo [dq, B]` against subject planes `Shi/Slo [rows, 8, B]`, PAD==PAD
+  hits included, optionally only where the query pair is <= a per-row cut
+  `cut_hi/cut_lo [rows]` (unsigned). `[rows]` int32.
+- `membership_bits` (X4, `ops/bucketed.py:_membership_bits_packed`):
+  `[nm, W]` int32 membership words of rows `sel [nm]` of one chunk's planes
+  over the query hashes of `slotmap [W * 32]`.
+- `round_dec` (X5, `index/flat.py:_dec_counts`): `[k]` int32
+  `sum_w popc(M[r, w] & rm[w])`.
+
+Limbs and words are int32 bit patterns of u32 values (PAD = -1). Each
+wrapper checks its inputs (a wrong dtype, shape or layout raises
+TypeError, so no caller's ValueError handling can swallow it), allocates
+its output, launches on the current CUDA stream and counts the launch in
+`LAUNCHES`. A CPU tensor goes to the plain version beside the wrapper; a
+CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# kernel launches since the last reset_launch_counts(); only the CUDA
+# wrappers add to them, the plain versions never do
+LAUNCHES = {"counts_rows": 0, "membership_bits": 0, "round_dec": 0}
+_D = 8  # subject slots per bucket, as the CUDA kernels are built
+_INT32_MIN = -(1 << 31)
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(name: str, t, dtype, ndim: int, device=None):
+    if not torch.is_tensor(t) or t.dtype != dtype or t.dim() != ndim:
+        raise TypeError(f"{name}: expected a {ndim}-d {dtype} tensor")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    if device is not None and t.device != device:
+        raise TypeError(f"{name} is on {t.device}, not {device}")
+    if not t.is_contiguous():
+        raise TypeError(f"{name} must be contiguous")
+
+
+def _flip(x: torch.Tensor) -> torch.Tensor:
+    "Unsigned order of int32 bit patterns as signed order."
+    return x ^ _INT32_MIN
+
+
+def _launch(fn_name: str, device, *args):
+    from . import _build
+
+    _build.launch("gather", fn_name, device, *args)
+
+
+# -- counts_rows: T1 ---------------------------------------------------------
+
+
+def _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo):
+    dev = qhi.device if torch.is_tensor(qhi) else None
+    _check("qhi", qhi, torch.int32, 2)
+    _check("qlo", qlo, torch.int32, 2, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    if qhi.shape != qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != qhi.shape[1]:
+        raise TypeError(f"planes {tuple(qhi.shape)} vs {tuple(Shi.shape)} do not match")
+    if (cut_hi is None) != (cut_lo is None):
+        raise TypeError("give both cut_hi and cut_lo, or neither")
+    if cut_hi is not None:
+        _check("cut_hi", cut_hi, torch.int32, 1, dev)
+        _check("cut_lo", cut_lo, torch.int32, 1, dev)
+        if cut_hi.shape[0] != Shi.shape[0] or cut_lo.shape[0] != Shi.shape[0]:
+            raise TypeError("one cut per subject row")
+
+
+def counts_rows(qhi, qlo, Shi, Slo, cut_hi=None, cut_lo=None):
+    """Raw per-row count of query limb pairs equal to a subject slot's,
+    PAD==PAD included; with cuts, only query pairs <= the row's cut.
+    Returns [rows] int32."""
+    _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo)
+    if qhi.device.type == "cpu":
+        return counts_rows_plain(qhi, qlo, Shi, Slo, cut_hi, cut_lo)
+    rows, d, B = Shi.shape
+    if d != _D:
+        raise TypeError(f"the counts kernel takes {_D} subject slots, not {d}")
+    out = torch.zeros(rows, dtype=torch.int32, device=qhi.device)
+    cut = (cut_hi.data_ptr(), cut_lo.data_ptr()) if cut_hi is not None else (None, None)
+    _launch(
+        "gm_counts_rows", qhi.device, qhi.data_ptr(), qlo.data_ptr(), qhi.shape[0], B,
+        Shi.data_ptr(), Slo.data_ptr(), rows, *cut, out.data_ptr(),
+    )
+    LAUNCHES["counts_rows"] += 1
+    return out
+
+
+def counts_rows_plain(qhi, qlo, Shi, Slo, cut_hi=None, cut_lo=None):
+    """Plain PyTorch version of `counts_rows`: the d-loop broadcast compare
+    of `_counts_qvm_impl` (`_counts_qvm_cutoff_impl` with cuts)."""
+    _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo)
+    qh = qhi[None]  # [1, dq, B]
+    ql = qlo[None]
+    le = None
+    if cut_hi is not None:
+        chi = cut_hi[:, None, None]
+        clo = cut_lo[:, None, None]
+        le = (_flip(qh) < _flip(chi)) | ((qh == chi) & (_flip(ql) <= _flip(clo)))
+    acc = torch.zeros(Shi.shape[0], dtype=torch.int32, device=Shi.device)
+    for k2 in range(Shi.shape[1]):
+        eq = (Shi[:, k2, None, :] == qh) & (Slo[:, k2, None, :] == ql)
+        if le is not None:
+            eq &= le
+        acc += eq.sum(dim=(1, 2), dtype=torch.int32)
+    return acc
+
+
+# -- membership_bits: X4 -----------------------------------------------------
+
+
+def _check_membership(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+    dev = qhi.device if torch.is_tensor(qhi) else None
+    _check("qhi", qhi, torch.int32, 2)
+    _check("qlo", qlo, torch.int32, 2, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    _check("Scnt", Scnt, torch.uint8, 2, dev)
+    _check("sel", sel, torch.int64, 1, dev)
+    _check("slotmap", slotmap, torch.int32, 1, dev)
+    B = qhi.shape[1]
+    if qhi.shape != qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != B:
+        raise TypeError(f"planes {tuple(qhi.shape)} vs {tuple(Shi.shape)} do not match")
+    if tuple(Scnt.shape) != (Shi.shape[0], B) or slotmap.shape[0] % 32:
+        raise TypeError("Scnt must be [rows, B] and slotmap a multiple of 32 long")
+
+
+def membership_bits(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+    """Membership words [nm, W] int32 of rows `sel` of one chunk's planes:
+    bit j of word w is set when query hash 32w + j sits in a valid slot of
+    the row's bucket (slotmap gives its flat slot position, or dq*B)."""
+    _check_membership(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+    if qhi.device.type == "cpu":
+        return membership_bits_plain(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+    rows, d, B = Shi.shape
+    if d != _D:
+        raise TypeError(f"the membership kernel takes {_D} subject slots, not {d}")
+    nm, W = sel.shape[0], slotmap.shape[0] // 32
+    if nm and not (0 <= int(sel.min()) and int(sel.max()) < rows):
+        raise IndexError(f"sel holds rows outside [0, {rows})")
+    out = torch.empty((nm, W), dtype=torch.int32, device=qhi.device)
+    _launch(
+        "gm_membership_bits", qhi.device, qhi.data_ptr(), qlo.data_ptr(), qhi.shape[0], B,
+        Shi.data_ptr(), Slo.data_ptr(), Scnt.data_ptr(), sel.data_ptr(), nm,
+        slotmap.data_ptr(), W, out.data_ptr(),
+    )
+    LAUNCHES["membership_bits"] += 1
+    return out
+
+
+def membership_bits_plain(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+    """Plain PyTorch version of `membership_bits`: `_membership_rows` over
+    the selected rows, a take by slotmap (dq*B reads a zero column) and the
+    bit pack."""
+    from .bucketed import _membership_rows, pack_bits_u32
+
+    _check_membership(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+    m = _membership_rows(qhi, qlo, Shi[sel], Slo[sel], Scnt[sel])  # [nm, dq, B]
+    flat = m.reshape(m.shape[0], -1)
+    flat = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=1)
+    return pack_bits_u32(flat[:, slotmap.long()])
+
+
+# -- round_dec: X5 -----------------------------------------------------------
+
+
+def _check_round(M, rm):
+    _check("M", M, torch.int32, 2)
+    _check("rm", rm, torch.int32, 1, M.device)
+    if rm.shape[0] != M.shape[1]:
+        raise TypeError(f"rm has {rm.shape[0]} words, M rows {M.shape[1]}")
+
+
+def round_dec(M, rm):
+    "Per-row popcount of M [k, W] & rm [W]: [k] int32."
+    _check_round(M, rm)
+    if M.device.type == "cpu":
+        return round_dec_plain(M, rm)
+    k, W = M.shape
+    out = torch.empty(k, dtype=torch.int32, device=M.device)
+    _launch("gm_round_dec", M.device, M.data_ptr(), rm.data_ptr(), k, W, out.data_ptr())
+    LAUNCHES["round_dec"] += 1
+    return out
+
+
+def round_dec_plain(M, rm):
+    "Plain PyTorch version of `round_dec` (SWAR popcount in int64)."
+    from .bucketed import popcount_u32
+
+    _check_round(M, rm)
+    return popcount_u32(M & rm[None]).sum(dim=1, dtype=torch.int32)

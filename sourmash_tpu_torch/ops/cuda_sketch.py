@@ -63,13 +63,7 @@ def _check_rows(squ, ksize: int):
 def _launch(fn_name: str, squ, *args):
     from . import _build
 
-    lib = _build.load()
-    with torch.cuda.device(squ.device):
-        stream = torch.cuda.current_stream(squ.device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
-        msg = lib.sm_error_string(rc).decode()
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc} ({msg})")
+    _build.launch("sketch", fn_name, squ.device, *args)
 
 
 # -- K2: every window's canonical hash and validity -------------------------

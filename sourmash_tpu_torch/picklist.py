@@ -2,19 +2,17 @@
 CSV column values (API parity: reference `src/sourmash/picklist.py`,
 SignaturePicklist:54).
 
-The port's copy of `sourmash_tpu/picklist.py`, as far as manifests use it
-(`manifest.CollectionManifest.to_picklist` and row selection); loading a
-pickfile from disk (`SignaturePicklist.load`) comes with the commands that
-take --picklist.
-
 A picklist is a set of preprocessed values plus a column type that says
 how to derive the comparison value from a signature, a manifest row, or a
 CSV row.  Meta-coltypes (manifest/gather/prefetch/search) compare on
 (ident, md5short) tuples pulled from sourmash's own output CSVs.
+
+The port's copy of `sourmash_tpu/picklist.py`.
 """
 
 from __future__ import annotations
 
+import os
 from enum import Enum
 
 
@@ -164,6 +162,44 @@ class SignaturePicklist:
 
     def add(self, value):
         self.pickset.add(value)
+
+    def load(self, *, allow_empty=False):
+        "Load the pickfile; return (num empty values, set of dup values)."
+        from . import sourmash_args
+
+        pickset = self.init()
+        pickfile = self.pickfile
+        if not (os.path.exists(pickfile) and os.path.isfile(pickfile)):
+            raise ValueError(f"pickfile '{pickfile}' must exist and be a regular file")
+
+        n_empty_val, dup_vals = 0, set()
+        with sourmash_args.FileInputCSV(pickfile) as reader:
+            self.pickfile = pickfile
+            if not reader.fieldnames:
+                if not allow_empty:
+                    msg = f"empty or improperly formatted pickfile '{pickfile}'"
+                    raise ValueError(msg)
+                return 0, 0
+
+            column_known = (
+                self.column_name in reader.fieldnames
+                or self.coltype in _META_COLTYPES
+            )
+            if not column_known:
+                raise ValueError(
+                    f"column '{self.column_name}' not in pickfile '{pickfile}'"
+                )
+
+            for row in reader:
+                value = self._get_value_for_csv_row(row)
+                if not value:
+                    n_empty_val += 1
+                elif value in pickset:
+                    dup_vals.add(value)
+                else:
+                    self.add(value)
+
+        return n_empty_val, dup_vals
 
     # -- membership ----------------------------------------------------
 

@@ -1,25 +1,175 @@
-"""Signature output locations for `sketch`: `.sig`, `.sig.gz`, `-` (stdout),
-`.zip` collections, `dir/` directories and no output. Counterpart of the
-saver classes of `sourmash_tpu/save_load.py` (SaveSignaturesToLocation :423,
-SaveSignatures_ZipFile :342, SaveSignatures_SigFile :314,
-SaveSignatures_Directory :256, SaveSignatures_NoOutput :247), without the
-index layer that module loads.
+"""Index loading chain + bulk signature saving: the port of
+`sourmash_tpu/save_load.py` (loader chain :45-187, savers :247-440).
 
-Sqlite databases (`.sqldb`) are not ported yet: asking for one raises
-NotImplementedError.
+Loading: a priority-ordered chain of loader functions, each probing one
+on-disk shape: stdin, path (a `.sig`/`.sig.gz` file or a directory),
+pathlist, zip collection, and the trailing FASTA/FASTQ error. Sqlite
+databases, standalone manifests, SBTs, revindex directories and LCA
+databases are recognised and raise NotImplementedError naming the format:
+they are not ported yet.
+
+Saving: `SaveSignaturesToLocation(location)` picks a saver by location
+shape: None, 'dir/', '.zip', '-' or a `.sig[.gz]` file. Sqlite databases
+(`.sqldb`) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import gzip
 import itertools
 import os
 import sys
+import traceback
 import zipfile
 from io import StringIO
 
 from . import signature as sigmod
-from .logging import notify
+from .exceptions import SourmashError
+from .index import LinearIndex, MultiIndex, ZipFileLinearIndex
+from .logging import debug_literal, notify
 from .manifest import CollectionManifest
+
+
+class IndexNotLoaded(SourmashError):
+    pass
+
+
+# -- loader chain ---------------------------------------------------------
+
+_loader_functions = []
+
+
+def add_loader(name, priority):
+    "Decorator registering a loader function at a given priority."
+
+    def register(func):
+        _loader_functions.append((priority, name, func))
+        return func
+
+    return register
+
+
+def _load_database(filename, traverse_yield_all, *, cache_size=None):
+    "Try loader functions in priority order; return the first Index."
+    for priority, desc, load_fn in sorted(_loader_functions):
+        debug_literal(f"_load_databases: trying loader fn - priority {priority} - '{desc}'")
+        try:
+            db = load_fn(filename, traverse_yield_all=traverse_yield_all, cache_size=cache_size)
+        except (ValueError, IndexNotLoaded):
+            debug_literal(f"_load_databases: FAIL with ValueError: on fn {desc}.")
+            debug_literal(traceback.format_exc())
+            continue
+        if db is not None:
+            debug_literal("_load_databases: success!")
+            return db
+    raise ValueError(f"Error while reading signatures from '{filename}'.")
+
+
+def load_file_as_index(filename, *, yield_all_files=False):
+    "Load 'filename' as a database via the generic loader chain."
+    return _load_database(filename, yield_all_files)
+
+
+def _not_ported(what, filename):
+    return NotImplementedError(
+        f"'{filename}' is {what}, which sourmash_tpu_torch cannot load yet"
+    )
+
+
+@add_loader("load from stdin", 10)
+def _load_stdin(filename, **kwargs):
+    "Load collection from .sig file streamed in via stdin."
+    if filename != "-":
+        return None
+    lidx = LinearIndex.load(sys.stdin, filename="-")
+    return MultiIndex.load((lidx,), (None,), parent="-")
+
+
+@add_loader("load collection from sqlitedb", 20)
+def _load_sqlite_db(filename, **kwargs):
+    if os.path.isfile(filename):
+        with open(filename, "rb") as fp:
+            if fp.read(16) == b"SQLite format 3\x00":
+                raise _not_ported("a sqlite database", filename)
+    return None
+
+
+@add_loader("load from standalone manifest", 30)
+def _load_standalone_manifest(filename, **kwargs):
+    if os.path.isfile(filename):
+        opener = gzip.open if filename.endswith(".gz") else open
+        try:
+            with opener(filename, "rb") as fp:
+                head = fp.read(29)
+        except OSError:
+            return None
+        if head.startswith(b"# SOURMASH-MANIFEST-VERSION: "):
+            raise _not_ported("a standalone manifest", filename)
+    return None
+
+
+@add_loader("load from path (file or directory)", 40)
+def _multiindex_load_from_path(filename, **kwargs):
+    "Load collection from a directory or .sig file."
+    return MultiIndex.load_from_path(filename, kwargs["traverse_yield_all"])
+
+
+@add_loader("load from list of paths", 50)
+def _multiindex_load_from_pathlist(filename, **kwargs):
+    "Load collection from a text file listing signature/database files."
+    return MultiIndex.load_from_pathlist(filename)
+
+
+@add_loader("load SBT", 60)
+def _load_sbt(filename, **kwargs):
+    "An SBT (.sbt.json, .sbt.zip, or a zip holding an .sbt.json)."
+    if filename.endswith((".sbt.json", ".sbt.zip")) and os.path.exists(filename):
+        raise _not_ported("an SBT", filename)
+    if filename.endswith(".zip") and zipfile.is_zipfile(filename):
+        with zipfile.ZipFile(filename) as zf:
+            if any(name.endswith(".sbt.json") for name in zf.namelist()):
+                raise _not_ported("an SBT", filename)
+    return None
+
+
+@add_loader("load revindex", 70)
+def _load_revindex(filename, **kwargs):
+    "A disk revindex directory or an LCA database."
+    if os.path.isdir(filename) and os.path.exists(os.path.join(filename, "revindex.json")):
+        raise _not_ported("a revindex directory", filename)
+    if filename.endswith((".lca.json", ".lca.json.gz")) and os.path.isfile(filename):
+        raise _not_ported("an LCA database", filename)
+    return None
+
+
+@add_loader("load collection from zipfile", 80)
+def _load_zipfile(filename, **kwargs):
+    "Load collection from a .zip file."
+    if not filename.endswith(".zip"):
+        return None
+    try:
+        return ZipFileLinearIndex.load(filename, traverse_yield_all=kwargs["traverse_yield_all"])
+    except FileNotFoundError as exc:
+        raise IndexNotLoaded(str(exc))
+
+
+@add_loader("catch FASTA/FASTQ files and error", 1000)
+def _error_on_fastaq(filename, **kwargs):
+    "Tail-end loader: FASTA/FASTQ input to a signature loader is an error."
+    try:
+        from .sequence_io import iter_records_bytes
+
+        next(iter(iter_records_bytes(filename)))
+    except Exception:  # not a sequence file either: the chain reports it
+        return None
+
+    raise Exception(
+        f"Error while reading signatures from '{filename}' - got sequences instead! "
+        "Is this a FASTA/FASTQ file?"
+    )
+
+
+# -- savers ---------------------------------------------------------------
 
 
 def _expand_to_single_sketches(siglist):
@@ -56,6 +206,9 @@ class Base_SaveSignaturesToLocation:
 
     def add(self, ss):
         self.count += 1
+
+    def add_many(self, sslist):
+        any(self.add(ss) for ss in sslist)
 
 
 class SaveSignatures_NoOutput(Base_SaveSignaturesToLocation):

@@ -42,6 +42,9 @@ def test_import_every_module_leaves_jax_and_sourmash_tpu_out():
     assert out.strip() == "[]"
     assert "sourmash_tpu_torch.ops.cuda_sketch" in modules
     assert "sourmash_tpu_torch.command_sketch" in modules
+    assert "sourmash_tpu_torch.ops.cuda_gather" in modules
+    assert "sourmash_tpu_torch.index.flat" in modules
+    assert "sourmash_tpu_torch.commands" in modules
 
 
 @pytest.mark.parametrize(
@@ -103,6 +106,20 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_sketch.aa_window_hashes(rows, ksize=10)
 
+    from sourmash_tpu_torch.ops import cuda_gather
+
+    q = torch.zeros((8, 128), dtype=torch.int32, device="meta")
+    S = torch.zeros((8, 8, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gather.counts_rows(q, q, S, S)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gather.membership_bits(
+            q, q, S, S, torch.zeros((8, 128), dtype=torch.uint8, device="meta"),
+            torch.zeros(4, dtype=torch.int64, device="meta"),
+            torch.zeros(64, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_gather.round_dec(q, q[0])
+
 
 def test_cli_without_cuda_raises(monkeypatch, tmp_path):
     if torch.cuda.is_available():
@@ -129,3 +146,27 @@ def test_protein_cli_without_cuda_raises(monkeypatch, tmp_path, cmd):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["sketch", cmd, str(fa), "-o", str(tmp_path / "x.zip")])
     assert not (tmp_path / "x.zip").exists()
+
+
+@pytest.mark.parametrize("flat_view", ["0", "1"])
+def test_gather_without_cuda_raises(monkeypatch, tmp_path, flat_view):
+    """`gather` asks for CUDA by default, on the host route (batched find)
+    and the device route (FlatIndex view) alike."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import numpy as np
+
+    from sourmash_tpu_torch.__main__ import main
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    mh = sourmash_tpu_torch.MinHash(0, 31, scaled=1000)
+    mh.add_many(np.arange(1, 300, dtype=np.uint64))
+    with SaveSignaturesToLocation(str(tmp_path / "db.zip")) as save:
+        for i in range(3):
+            save.add(sourmash_tpu_torch.SourmashSignature(mh, name=f"s{i}"))
+    with SaveSignaturesToLocation(str(tmp_path / "q.sig")) as save:
+        save.add(sourmash_tpu_torch.SourmashSignature(mh, name="q"))
+    monkeypatch.delenv("SOURMASH_TORCH_DEVICE", raising=False)
+    monkeypatch.setenv("SOURMASH_TORCH_FLAT_VIEW", flat_view)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["gather", str(tmp_path / "q.sig"), str(tmp_path / "db.zip"), "--threshold-bp", "0"])
