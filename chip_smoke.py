@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive sourmash_tpu_torch on one CUDA card and hold it to its references.
 
-    python3 chip_smoke.py [--quick] [--json PATH] [--profile]
+    python3 chip_smoke.py [--quick] [--json PATH] [--profile] [--sass-against DIR]
 
 Phases, each raising on failure:
 
@@ -46,6 +46,11 @@ Phases, each raising on failure:
    time the schedule with host bitsets against `membership_bits`, and a
    host-round consume by host sorted joins against `round_dec` (same
    results held).
+7. The instruments' own path: each tool under `sourmash_tpu_torch/tools/`
+   run through its main() as `python -m` runs it (T2 and T3 `check` and
+   `time` at [8, 2^21 + 30], T4 `murmur assembly mul16`, T5 `full kernel
+   gatheronly`), the launch counters set to 0 just before and read just
+   after; every instrument kernel must have run.
 
 Phase 2 also holds K3 against its plain version, bit for bit, at
 [4, 2^21 + k - 1] and [32, ...] for k in {3, 7, 10, 16, 42, 64, 129}, on
@@ -57,14 +62,29 @@ phase 6's shapes: `counts_rows` on one chunk of [8192, 8, 4096] planes
 with and without per-row cutoffs; `membership_bits` at [2048, W =
 ceil(600 k / 32)]; `round_dec` at [4096, W].
 
+Phase 2 then holds the sketch-kernel instruments (`csrc/sketch_parts.cu`)
+against their plain versions on the card, bit for bit: T2's passes
+`split_words` / `split_slots` and T3 `survivor_slots_v2` also against K1
+for every k above at max_hash for scaled=1000 and 2^64-1 on the rows with
+the overflowing tandem repeat, timed at [4, 2^21 + 30], and T2/T3 against
+their plain versions on the tools' own batch [8, 2^21 + 30]; T4's
+`murmur_only`, `assembly_only` and `mulchain` (0, 1, 16 and 64 rounds) at
+the tool's blocks of random bytes, timed. The mul-chain's 16 rounds must
+take at least half again the 0-round kernel's time, and 64 rounds >= 3x
+the time of 16, both net of 0 rounds (else its work was optimised away);
+where `cuobjdump` is at hand its SASS must hold an IMAD.WIDE.U32 for each
+of the 8 unrolled rounds, and its opcode counts are printed.
+
 The last two lines are a JSON object with every kernel's numbers and then
 `{"ok": true, "device": {...}}`. --quick stops after checking each kernel
-once at the main path's shape (the gather kernels on a 512-row chunk),
-before the main path, and prints neither line; --profile runs `sketch
-dna`, `sketch protein`, `sketch translate` and `gather` once more under
-cProfile and torch.profiler and prints where their time goes. Without a
-CUDA device, or outside a checkout of the repository, the script exits
-non-zero before any result.
+once at the main path's shape (the gather kernels on a 512-row chunk, the
+instruments at k=31), before the main path, and prints neither line;
+--profile runs `sketch dna`, `sketch protein`, `sketch translate` and
+`gather` once more under cProfile and torch.profiler and prints where their
+time goes. --sass-against DIR (a checkout of another commit) builds DIR's
+`csrc/sketch.cu` with this tree's flags after phase 1 and fails unless the
+SASS of K1, K2 and K3 equals this tree's, kernel by kernel. Without a CUDA device, or outside a checkout of the repository,
+the script exits non-zero before any result.
 """
 
 from __future__ import annotations
@@ -878,6 +898,303 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     return results
 
 
+# -- phase 2 (instruments) and phase 7: the sketch-kernel instruments --------
+
+T4_ROWS = 512  # the tools' T4 block rows (sourmash_tpu_torch/tools/_common.py)
+# the mul-chain's work is real only if, net of the 0-round kernel, 16 rounds
+# take >= half its time and 64 rounds >= 3x the time of 16; its SASS must
+# hold an IMAD.WIDE.U32 (the multiply's low product) per unrolled round
+MULCHAIN_OWN = 0.5
+MULCHAIN_GROWTH = 3.0
+MULCHAIN_UNROLL = 8  # `#pragma unroll 8` in mulchain_kernel
+
+
+def sass_functions(path: str):
+    """{mangled function name: [SASS instruction lines]} of the built
+    library or cubin at `path`, by cuobjdump; None where there is none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], check=True, capture_output=True,
+                          text=True).stdout
+    functions = {}
+    for section in sass.split("Function : ")[1:]:
+        header, body = section.split("\n", 1)
+        functions[header.strip()] = [line.strip() for line in body.splitlines()
+                                     if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
+    return functions
+
+
+def sass_of(functions, kernel: str):
+    "The SASS lines of the kernel named `kernel` in the source; None if absent."
+    for name, lines in (functions or {}).items():
+        if f"{len(kernel)}{kernel}" in name:  # the mangled, length-prefixed name
+            return lines
+    return None
+
+
+def sass_opcodes(lib: str, kernel: str):
+    """{opcode: count} of `kernel` in the built library `lib`'s SASS, by
+    cuobjdump; None where there is no cuobjdump."""
+    import collections
+    import re
+
+    from sourmash_tpu_torch.ops import _build
+
+    lines = sass_of(sass_functions(_build._so_path(lib)), kernel)
+    if lines is None:
+        return None
+    ops = [re.match(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
+           for line in lines]
+    return dict(collections.Counter(m.group(1) for m in ops if m).most_common())
+
+
+def sass_against(other_root: str):
+    """Build `other_root`'s csrc/sketch.cu as this tree builds its own and
+    require the SASS of K1, K2 and K3 to equal this tree's, instruction for
+    instruction; prints each kernel's instruction count."""
+    from sourmash_tpu_torch.ops import _build
+
+    src = os.path.join(other_root, "sourmash_tpu_torch", "csrc", "sketch.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "other_sketch.so")
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src], check=True,
+                       capture_output=True, text=True)
+        other = sass_functions(so)
+    ours = sass_functions(_build._so_path("sketch"))
+    if ours is None or other is None:
+        raise AssertionError("--sass-against needs cuobjdump")
+    for kernel in ("survivor_slots_kernel", "window_hashes_kernel", "aa_window_hashes_kernel"):
+        a, b = sass_of(ours, kernel), sass_of(other, kernel)
+        if not a or a != b:
+            raise AssertionError(f"{kernel}: SASS differs from {other_root}'s "
+                                 f"({len(a or [])} vs {len(b or [])} instructions)")
+        log(f"  {kernel}: SASS identical to {other_root}'s ({len(a)} instructions)")
+
+
+def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
+    """The six instrument kernels of csrc/sketch_parts.cu against their
+    plain versions on the card, bit for bit. T2's two passes and T3 are also
+    held to K1 (`survivor_slots`) for every k of KS at max_hash for
+    scaled=1000 and 2^64-1 on phase 2's rows, whose tandem repeat overflows
+    the slots; they are timed at K1's timed shape [4, 2^21 + 30] and held
+    to their plain versions there and on the tools' own batch; T4 at the
+    tool's blocks [8 * 32 * 520, 128] of random bytes. The mul-chain must
+    show its rounds' work (MULCHAIN_*), or the phase fails."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_sketch as cs
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+    from sourmash_tpu_torch.ops.sketch import _pick_slots
+
+    results = {}
+    reps = 3 if quick else 20
+    thresholds = (max_hash_for(1000), (1 << 64) - 1)
+    for k in ((TIMED_K,) if quick else KS):
+        rows = torch.from_numpy(dna_rows(4, k, rng, tandem_unit(k, thresholds[0], rng))).cuda()
+        words, valid = csp.split_words(rows, ksize=k)
+        for mh in thresholds:
+            slots = _pick_slots(mh)
+            want = cs.survivor_slots(rows, mh, ksize=k, slots=slots)
+            if int(want[2][0].max()) <= slots:
+                raise AssertionError(f"k={k} max_hash={mh}: the tandem repeat did not overflow")
+            for what, got in (("split", csp.split_slots(words, valid, mh, ksize=k, slots=slots)),
+                              ("v2", csp.survivor_slots_v2(rows, mh, ksize=k, slots=slots))):
+                for name, a, b in zip(("hi", "lo", "counts"), got, want):
+                    exact(f"{what} {name} k={k} max_hash={mh}", a, b)
+        log(f"  k={k:3d}: split_slots(split_words) and survivor_slots_v2 equal K1 at "
+            f"{len(thresholds)} thresholds, with overflowing segments")
+        if k == TIMED_K:
+            results.update(time_split_and_v2(rows, words, valid, k, reps, clock_hz))
+        del rows, words, valid
+        torch.cuda.empty_cache()
+    check_tools_batch()
+    results.update(check_t4(rng, reps, clock_hz))
+    return results
+
+
+def check_tools_batch():
+    """T2's passes and T3 against their plain versions on the batch the
+    tools' `check` and `time` run ([8, 2^21 + 30] ACGT rows from seed 0, 4
+    slots) at the tools' max_hash and at 2^64-1, where every segment
+    overflows."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+    from sourmash_tpu_torch.tools import _common as c
+
+    rows = c.acgt_rows(np.random.default_rng(0), c.BATCH, c.LENGTH, torch.device("cuda"))
+    k, slots = c.KSIZE, c.SLOTS
+    words, valid = csp.split_words(rows, ksize=k)
+    pw, pv = csp.split_words_plain(rows, ksize=k)
+    exact("tools' batch: split_words words", words, pw)
+    exact("tools' batch: split_words valid", valid, pv)
+    for m in (c.MAX_HASH, (1 << 64) - 1):
+        for what, got, want in (
+                ("split_slots", csp.split_slots(words, valid, m, ksize=k, slots=slots),
+                 csp.split_slots_plain(pw, pv, m, ksize=k, slots=slots)),
+                ("survivor_slots_v2", csp.survivor_slots_v2(rows, m, ksize=k, slots=slots),
+                 csp.survivor_slots_v2_plain(rows, m, ksize=k, slots=slots))):
+            for name, a, b in zip(("hi", "lo", "counts"), got, want):
+                exact(f"tools' batch: {what} {name} max_hash={m}", a, b)
+    log(f"  tools' batch {list(rows.shape)}: split_words, split_slots and survivor_slots_v2 "
+        "equal their plain versions at 2 thresholds")
+    del rows, words, valid, pw, pv
+    torch.cuda.empty_cache()
+
+
+def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) -> dict:
+    "T2's passes and T3 against their plain versions at [4, 2^21 + k - 1], timed."
+    from sourmash_tpu_torch.ops import cuda_sketch as cs
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+
+    B, S = rows.shape
+    n, R, n_pad = cs.geometry(S, k)
+    mh = max_hash_for(1000)
+    slots = 4
+    nw = csp.n_words(k)
+    pw, pv = csp.split_words_plain(rows, ksize=k)
+    err = max(exact("split_words words", words, pw), exact("split_words valid", valid, pv))
+    for m in (mh, (1 << 64) - 1):
+        for name, a, b in zip(("hi", "lo", "counts"),
+                              csp.split_slots(words, valid, m, ksize=k, slots=slots),
+                              csp.split_slots_plain(pw, pv, m, ksize=k, slots=slots)):
+            err = max(err, exact(f"split_slots {name} max_hash={m}", a, b))
+        for name, a, b in zip(("hi", "lo", "counts"),
+                              csp.survivor_slots_v2(rows, m, ksize=k, slots=slots),
+                              csp.survivor_slots_v2_plain(rows, m, ksize=k, slots=slots)):
+            err = max(err, exact(f"survivor_slots_v2 {name} max_hash={m}", a, b))
+    del pw, pv
+    imad, other = (B * n_pad * x for x in int_ops_murmur(k))
+    gather_ops = B * n_pad * (3 * -(-k // 4) + 2)  # canonical bytes, validity, strand
+    word_bytes = B * n_pad * (8 * nw + 1)
+    slot_bytes = B * R * (8 * slots + 4)
+    timed = {
+        "split_words": (lambda: csp.split_words(rows, ksize=k),
+                        lambda: csp.split_words_plain(rows, ksize=k),
+                        bound_ms(B * S + word_bytes, 0, gather_ops, clock_hz)),
+        "split_slots": (lambda: csp.split_slots(words, valid, mh, ksize=k, slots=slots),
+                        lambda: csp.split_slots_plain(words, valid, mh, ksize=k, slots=slots),
+                        bound_ms(word_bytes + slot_bytes, imad, other + B * n_pad * 4, clock_hz)),
+        "survivor_slots_v2": (
+            lambda: csp.survivor_slots_v2(rows, mh, ksize=k, slots=slots),
+            lambda: csp.survivor_slots_v2_plain(rows, mh, ksize=k, slots=slots),
+            bound_ms(B * S + slot_bytes, imad, other + gather_ops + B * n_pad * 4, clock_hz)),
+    }
+    results = {}
+    for name, (fn, plain_fn, (bms, by)) in timed.items():
+        ms = time_ms(fn, reps)
+        plain = time_ms(plain_fn, 3, warmup=1)
+        results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                             windows=B * n)
+        log(f"    {name}: equals its plain version; {ms:.4f} ms/launch, plain {plain:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}), {B * n / ms / 1e6:.2f} Gwindows/s")
+    return results
+
+
+def check_t4(rng, reps: int, clock_hz: float) -> dict:
+    """murmur_only, assembly_only and mulchain against their plain versions at
+    the tool's blocks, timed; the mul-chain's time must grow with its rounds."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+
+    nblk = 8 * (CHUNK // (T4_ROWS * csp.LANES))
+    blocks = torch.from_numpy(rng.integers(0, 256, size=(nblk * (T4_ROWS + csp.EXTRA_ROWS),
+                                                         csp.LANES), dtype=np.int32)).cuda()
+    n_out = nblk * T4_ROWS * csp.LANES
+    k = csp.T4_KSIZE
+    imad, other = int_ops_murmur(k)
+    cases = {
+        "murmur_only": (lambda: csp.murmur_only(blocks, rows=T4_ROWS),
+                        lambda: csp.murmur_only_plain(blocks, rows=T4_ROWS),
+                        bound_ms(8 * n_out, n_out * imad, n_out * (other + 2 * -(-k // 8)),
+                                 clock_hz)),
+        "assembly_only": (lambda: csp.assembly_only(blocks, rows=T4_ROWS),
+                          lambda: csp.assembly_only_plain(blocks, rows=T4_ROWS),
+                          bound_ms(8 * n_out + 4 * nblk * (k - 1), 0,
+                                   n_out * (3 * -(-k // 4) + 2 + -(-k // 8)), clock_hz)),
+    }
+    for n in (0, 1, 16, 64):
+        # a round: v * C1 as 3 IMADs, rotl64 and the half-swap xor as 4 other ops
+        cases[f"mulchain-{n}"] = (
+            lambda n=n: csp.mulchain(blocks, n, rows=T4_ROWS),
+            lambda n=n: csp.mulchain_plain(blocks, n, rows=T4_ROWS),
+            bound_ms(8 * n_out, 3 * n * n_out, 4 * n * n_out, clock_hz))
+    results = {}
+    for name, (fn, plain_fn, (bms, by)) in cases.items():
+        got = fn()
+        err = exact(name, got, plain_fn())
+        if name.startswith("mulchain") and not bool((got == (1 if name.endswith("-0") else 0)).all()):
+            raise AssertionError(f"{name}: the output is not the JAX function's constant")
+        if name == "mulchain-1":
+            continue
+        ms = time_ms(fn, reps)
+        plain = time_ms(plain_fn, 3, warmup=1)
+        results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                             windows=n_out)
+        log(f"    {name}: equals its plain version; {ms:.4f} ms/launch, plain {plain:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}), {n_out / ms / 1e6:.2f} Gwindows/s")
+    t0, t16, t64 = (results[f"mulchain-{n}"]["ms"] for n in (0, 16, 64))
+    # the rounds' own time grows with their number: net of the same kernel
+    # with no rounds (its reads, writes and launch: ~a third of 16 rounds).
+    # A folded chain leaves t0, t16 and t64 equal, so the growth alone
+    # would divide noise by noise: 16 rounds must first take real time.
+    own16 = (t16 - t0) / t0
+    growth = (t64 - t0) / (t16 - t0) if t16 > t0 else 0.0
+    rounds_per_s = 48 * n_out / ((t64 - t16) / 1e3)  # the slope between 16 and 64
+    per_sm_clock = rounds_per_s / (SMS * clock_hz)
+    sass = sass_opcodes("sketch_parts", "mulchain_kernel")
+    results["mulchain"] = dict(results["mulchain-16"], growth_64_over_16=growth,
+                               own_16_over_0=own16, rounds_per_s=rounds_per_s,
+                               sass_opcodes=sass)
+    log(f"    mulchain: 16 rounds add {own16:.2f}x the 0-round kernel's {t0:.4f} ms; 64 "
+        f"rounds take {t64 / t16:.2f}x 16 rounds, {growth:.2f}x net of 0 rounds; {rounds_per_s / 1e9:.1f} G rounds/s between 16 and 64, "
+        f"{per_sm_clock:.2f} rounds/SM/clock ({3 * per_sm_clock:.1f} IMAD + "
+        f"{4 * per_sm_clock:.1f} other/SM/clock at 3 + 4 a round); SASS opcodes of "
+        f"mulchain_kernel: {sass}")
+    if own16 < MULCHAIN_OWN:
+        raise AssertionError(f"mulchain: 16 rounds add only {own16:.2f}x the 0-round "
+                             "kernel's time; the chain is not being computed")
+    if growth < MULCHAIN_GROWTH:
+        raise AssertionError(f"mulchain: 64 rounds take only {growth:.2f}x the time of 16 "
+                             "net of 0 rounds; the chain is not being computed")
+    if sass is not None and sass.get("IMAD.WIDE.U32", 0) < MULCHAIN_UNROLL:
+        raise AssertionError(f"mulchain: {sass.get('IMAD.WIDE.U32', 0)} IMAD.WIDE.U32 in its "
+                             f"SASS, fewer than its {MULCHAIN_UNROLL} unrolled rounds")
+    del blocks
+    torch.cuda.empty_cache()
+    return results
+
+
+def instruments_path() -> dict:
+    """The instruments as a user runs them (each tool's main(), the modes of
+    its `python -m` line), the launch counters set to 0 just before and read
+    just after; every instrument kernel must have been launched."""
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+    from sourmash_tpu_torch.tools import (
+        exp_split_kernel, exp_v2_kernel, profile_sketch_chain, profile_sketch_parts)
+
+    runs = ((exp_split_kernel, ["check"]), (exp_split_kernel, ["time"]),
+            (exp_v2_kernel, ["check"]), (exp_v2_kernel, ["time"]),
+            (profile_sketch_parts, ["murmur", "assembly", "mul16"]),
+            (profile_sketch_chain, ["full", "kernel", "gatheronly"]))
+    csp.reset_launch_counts()
+    for tool, argv in runs:
+        log(f"  python -m {tool.__name__} {' '.join(argv)}")
+        if tool.main(argv) != 0:
+            raise AssertionError(f"{tool.__name__} {argv} failed")
+    launches = dict(csp.LAUNCHES)
+    missing = [name for name, count in launches.items() if count < 1]
+    if missing:
+        raise AssertionError(f"instruments: {missing} not launched: {launches}")
+    log(f"  launches {launches}")
+    return launches
+
+
 def make_collection(rng, n: int):
     """n sketches at k=31, scaled=1000 in clades of 1-20 genomes: each member
     holds 2,000-6,000 hashes, 50-95 % of them from the clade's core."""
@@ -1239,7 +1556,33 @@ KERNELS = {
         route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
         replaces="sourmash_tpu/index/flat.py:354",
     ),
+    "split_words": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/exp_split_kernel.py:130",
+    ),
+    "split_slots": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/exp_split_kernel.py:146",
+    ),
+    "survivor_slots_v2": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/exp_v2_kernel.py:237",
+    ),
+    "murmur_only": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/profile_sketch_parts.py:44",
+    ),
+    "assembly_only": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/profile_sketch_parts.py:56",
+    ),
+    "mulchain": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/profile_sketch_parts.py:77",
+    ),
 }
+INSTRUMENTS = ("split_words", "split_slots", "survivor_slots_v2", "murmur_only",
+               "assembly_only", "mulchain")
 
 
 def main(argv=None) -> int:
@@ -1247,6 +1590,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and check each kernel once, then stop")
     ap.add_argument("--json", help="also write every measurement to this file")
+    ap.add_argument("--sass-against", metavar="DIR",
+                    help="fail unless K1-K3's SASS equals that of the checkout in DIR")
     ap.add_argument("--profile", action="store_true",
                     help="run each sketch command once more under cProfile and "
                          "torch.profiler")
@@ -1278,15 +1623,20 @@ def main(argv=None) -> int:
     log(f"phase 1: built kernels and native host library in {time.time() - t0:.1f} s")
     for name, build_log in build_logs.items():
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "rror")):
                 log(f"  {name}.cu: {line.strip()}")
+    if args.sass_against:
+        sass_against(args.sass_against)
 
     rng = np.random.default_rng(20261016)
     t0 = time.time()
     log("phase 2: kernels against their plain versions on the card (exact)")
     timings = check_kernels(args.quick, rng, clock_hz)
     timings.update(check_gather_kernels(args.quick, rng, clock_hz))
-    log(f"phase 2 done in {time.time() - t0:.1f} s")
+    t1 = time.time()
+    log("phase 2: the sketch-kernel instruments against their plain versions and K1 (exact)")
+    timings.update(check_instruments(args.quick, rng, clock_hz))
+    log(f"phase 2 done in {time.time() - t0:.1f} s (instruments {time.time() - t1:.1f} s)")
     if args.quick:
         log("--quick: stopped before the main path; no kernels line and no result")
         return 0
@@ -1308,6 +1658,10 @@ def main(argv=None) -> int:
         log(f"phase 6: gather end to end on {GATHER_GENOMES} genomes")
         gath = gather_end_to_end(rng, tmp, args.profile)
         log(f"phase 6 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    log("phase 7: the sketch-kernel instruments, as `python -m sourmash_tpu_torch.tools...`")
+    instr = instruments_path()
+    log(f"phase 7 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -1316,13 +1670,15 @@ def main(argv=None) -> int:
                     aa_window_hashes=prot["launches"]["aa_window_hashes"],
                     counts_rows=gather_launches["counts_rows"],
                     membership_bits=gather_launches["membership_bits"],
-                    round_dec=gather_launches["round_dec"])
+                    round_dec=gather_launches["round_dec"],
+                    **{name: instr[name] for name in INSTRUMENTS})
     timed = dict(survivor_slots=timings["survivor_slots"][TIMED_K],
                  window_hashes=timings["window_hashes"][TIMED_K],
                  aa_window_hashes=timings["aa_window_hashes"][TIMED_AA_K],
                  counts_rows=timings["counts_rows"],
                  membership_bits=timings["membership_bits"],
-                 round_dec=timings["round_dec"])
+                 round_dec=timings["round_dec"],
+                 **{name: timings[name] for name in INSTRUMENTS})
     line = []
     for name, meta in KERNELS.items():
         t = timed[name]
@@ -1335,7 +1691,8 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
-                           protein=prot, translate=trans, gather=gath), f, indent=1)
+                           protein=prot, translate=trans, gather=gath,
+                           instrument_launches=instr), f, indent=1)
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

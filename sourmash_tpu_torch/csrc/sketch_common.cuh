@@ -1,0 +1,215 @@
+// Device functions shared by the sketch kernels (sketch.cu: K1, K2, K3) and
+// the sketch-kernel instruments (sketch_parts.cu: T2, T3, T4).
+//
+// The hash is the canonical-strand MurmurHash3 x64_128 (first 64-bit word,
+// seed given) that sourmash uses for DNA: a k-byte window and its reverse
+// complement are compared lexicographically and the lesser is hashed. A
+// window is valid when all of its k bytes are A, C, G or T; a zero pad byte
+// is never valid.
+//
+// The complement is the branchless ASCII map of the TPU kernel
+// (`sourmash_tpu/ops/pallas_sketch.py:_complement_bytes`): c ^ 4 when bit 1
+// of c is set, else c ^ 21. It swaps A<->T and C<->G and maps every other
+// byte to a non-ACGT byte, so invalid windows hash the same garbage as the
+// reference kernels and the outputs compare bit for bit everywhere.
+//
+// The build key of every library that includes this header covers it
+// (ops/_build.py), so an edit here rebuilds both.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSeg = 128;   // windows per segment: K1's compaction unit
+constexpr int kTile = 256;  // windows (threads) per block: two segments
+constexpr int kWarpsPerSeg = kSeg / 32;
+constexpr int kStaticSmemLimit = 48 * 1024;
+
+constexpr uint64_t kC1 = 0x87c37b91114253d5ULL;
+constexpr uint64_t kC2 = 0x4cf5ad432745937fULL;
+
+__device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
+  return (x << r) | (x >> (64 - r));
+}
+
+__device__ __forceinline__ uint64_t fmix64(uint64_t k) {
+  k ^= k >> 33;
+  k *= 0xff51afd7ed558ccdULL;
+  k ^= k >> 33;
+  k *= 0xc4ceb9fe1a85ec53ULL;
+  k ^= k >> 33;
+  return k;
+}
+
+// A, C, G, T are 65, 67, 71, 84: bits 1, 3, 7, 20 above 64.
+__device__ __forceinline__ bool is_acgt(uint32_t c) {
+  constexpr uint64_t kMask = (1ULL << 1) | (1ULL << 3) | (1ULL << 7) | (1ULL << 20);
+  return (c >> 6) == 1u && ((kMask >> (c & 63u)) & 1ULL);
+}
+
+__device__ __forceinline__ uint32_t complement(uint32_t c) {
+  return c ^ ((c & 2u) ? 4u : 21u);
+}
+
+// Byte i of the canonical window starting at s: s[i] on the forward
+// strand, complement(s[k-1-i]) on the reverse. Branch-free in `rev`, so a
+// warp whose windows pick different strands does not diverge.
+__device__ __forceinline__ uint32_t canon_byte(const uint8_t* s, int k, bool rev, int i) {
+  uint32_t c = s[rev ? k - 1 - i : i];
+  return rev ? complement(c) : c;
+}
+
+// Little-endian word of `len` (1..8) window bytes from position `start`;
+// clears `ok` if one of them is not valid. DNA (kAA false): canonical bytes,
+// valid when ACGT. Amino acids (kAA true): the bytes as they are, valid when
+// not 0.
+template <bool kAA>
+__device__ __forceinline__ uint64_t window_word(const uint8_t* s, int k, bool rev,
+                                                int start, int len, bool& ok) {
+  uint64_t w = 0;
+  for (int i = 0; i < len; ++i) {
+    uint32_t c = kAA ? s[start + i] : canon_byte(s, k, rev, start + i);
+    ok = ok && (kAA ? c != 0u : is_acgt(c));
+    w |= static_cast<uint64_t>(c) << (8 * i);
+  }
+  return w;
+}
+
+// MurmurHash3 x64_128, first 64-bit word, of k input bytes handed over as
+// little-endian words: word(start, len) is the word of bytes [start,
+// start + len) (start a multiple of 8, len 1..8). Each word is asked for
+// once, just before the round that uses it.
+template <typename Word>
+__device__ __forceinline__ uint64_t murmur_words(int k, uint64_t seed, Word word) {
+  uint64_t h1 = seed, h2 = seed;
+  const int nblocks = k / 16;
+  for (int b = 0; b < nblocks; ++b) {
+    uint64_t k1 = word(16 * b, 8);
+    uint64_t k2 = word(16 * b + 8, 8);
+    k1 *= kC1; k1 = rotl64(k1, 31); k1 *= kC2; h1 ^= k1;
+    h1 = rotl64(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52dce729;
+    k2 *= kC2; k2 = rotl64(k2, 33); k2 *= kC1; h2 ^= k2;
+    h2 = rotl64(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495ab5;
+  }
+  const int tail = k & 15;
+  const int base = 16 * nblocks;
+  if (tail > 8) {
+    uint64_t k2 = word(base + 8, tail - 8);
+    k2 *= kC2; k2 = rotl64(k2, 33); k2 *= kC1; h2 ^= k2;
+  }
+  if (tail > 0) {
+    uint64_t k1 = word(base, tail < 8 ? tail : 8);
+    k1 *= kC1; k1 = rotl64(k1, 31); k1 *= kC2; h1 ^= k1;
+  }
+  h1 ^= static_cast<uint64_t>(k);
+  h2 ^= static_cast<uint64_t>(k);
+  h1 += h2;
+  h2 += h1;
+  h1 = fmix64(h1);
+  h2 = fmix64(h2);
+  return h1 + h2;
+}
+
+// Murmur of the k-byte window at s (shared memory) read through
+// window_word<kAA>, and its validity.
+template <bool kAA>
+__device__ __forceinline__ uint64_t murmur_window(const uint8_t* s, int k, bool rev,
+                                                  uint64_t seed, bool& ok) {
+  ok = true;
+  return murmur_words(k, seed, [&](int start, int len) {
+    return window_word<kAA>(s, k, rev, start, len, ok);
+  });
+}
+
+// The strand of the k-byte DNA window at s: true when its reverse
+// complement is the lesser. The first byte where the two differ decides; a
+// palindrome takes the forward strand.
+__device__ __forceinline__ bool reverse_is_less(const uint8_t* s, int k) {
+  for (int j = 0; j < k; ++j) {
+    uint32_t f = s[j];
+    uint32_t r = complement(s[k - 1 - j]);
+    if (f != r) return r < f;
+  }
+  return false;
+}
+
+// Canonical hash of the k-byte DNA window at s (shared memory) and its
+// validity (every byte ACGT).
+__device__ uint64_t window_hash(const uint8_t* s, int k, uint64_t seed, bool& ok) {
+  return murmur_window<false>(s, k, reverse_is_less(s, k), seed, ok);
+}
+
+// Stage bytes [w0, w0 + span) of one row into shared memory with coalesced
+// loads; bytes past the row's end read as 0 (never valid).
+__device__ __forceinline__ void stage_row(const uint8_t* row, int S, int64_t w0,
+                                          int span, uint8_t* smem) {
+  for (int i = threadIdx.x; i < span; i += blockDim.x) {
+    int64_t p = w0 + i;
+    smem[i] = p < S ? row[p] : 0;
+  }
+}
+
+// K1's per-segment compaction, run by every thread of a kTile block once
+// it holds its window's survivor flag and hash: a rank within the
+// 128-window segment from four warps (__ballot_sync of the survivors,
+// __popc below the lane, a shared prefix of the four warp counts). A
+// survivor of rank r < slots writes slot r; unused slots are written 0 and
+// the segment's TRUE count is written even when it exceeds `slots`.
+__device__ __forceinline__ void write_segment_slots(
+    bool keep, uint64_t h, int* warp_count, int b, int R, int slots,
+    uint32_t* __restrict__ slots_hi, uint32_t* __restrict__ slots_lo,
+    int32_t* __restrict__ counts) {
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) warp_count[warp] = __popc(ballot);
+  __syncthreads();
+
+  const int seg_in_block = t / kSeg;
+  const int first_warp = seg_in_block * kWarpsPerSeg;
+  int before = 0, total = 0;
+  for (int i = 0; i < kWarpsPerSeg; ++i) {
+    const int c = warp_count[first_warp + i];
+    total += c;
+    if (first_warp + i < warp) before += c;
+  }
+  const int64_t seg = static_cast<int64_t>(blockIdx.x) * (kTile / kSeg) + seg_in_block;
+  if (seg >= R) return;
+
+  const int64_t base = (static_cast<int64_t>(b) * R + seg) * slots;
+  const int rank = before + __popc(ballot & ((1u << lane) - 1u));
+  if (keep && rank < slots) {
+    slots_hi[base + rank] = static_cast<uint32_t>(h >> 32);
+    slots_lo[base + rank] = static_cast<uint32_t>(h);
+  }
+  const int r = t % kSeg;
+  if (r < slots && r >= total) {
+    slots_hi[base + r] = 0;
+    slots_lo[base + r] = 0;
+  }
+  if (r == 0) counts[static_cast<int64_t>(b) * R + seg] = total;
+}
+
+// Opt a kernel in to `bytes` of dynamic shared memory where that exceeds
+// the 48 KB default (less the kernels' small static arrays); beyond the
+// card's per-block maximum the launch is refused and the error returned.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
+  if (bytes + 1024 <= kStaticSmemLimit) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Dynamic shared memory for one block of K1-K3: the tile's bytes plus the
+// k-1 halo.
+template <typename Kernel>
+cudaError_t prepare_smem(Kernel kernel, int k, size_t* bytes) {
+  *bytes = static_cast<size_t>(kTile) + static_cast<size_t>(k) - 1;
+  return opt_in_smem(kernel, *bytes);
+}
+
+}  // namespace

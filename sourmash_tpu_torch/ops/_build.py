@@ -1,12 +1,14 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each source in `csrc/` (`sketch.cu`: K1, K2, K3; `gather.cu`: counts_rows,
-membership_bits, round_dec) has a plain C interface with an error-string
+membership_bits, round_dec; `sketch_parts.cu`: the sketch-kernel
+instruments T2, T3, T4) has a plain C interface with an error-string
 entry, and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
 `build/kernels/<name>_<hash>.so` at first use, then loaded with ctypes.
-The hash covers the source and the flags, so an edited source builds anew
-and the other sources keep their builds. `build()` starts one `nvcc` per
-missing library, all at once. `nvcc` is taken from CUDA_HOME, then PATH,
+The hash covers the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source builds anew and the other sources keep their
+builds; an edited header builds every library anew. `build()` starts one
+`nvcc` per missing library, all at once. `nvcc` is taken from CUDA_HOME, then PATH,
 then /usr/local/cuda. A missing `nvcc` or a failed build raises: there is
 no fallback to another implementation.
 """
@@ -23,7 +25,10 @@ import torch
 from ..buildpaths import build_dir, sources_tag
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = {name: os.path.join(_CSRC, f"{name}.cu") for name in ("sketch", "gather")}
+SOURCES = {
+    name: os.path.join(_CSRC, f"{name}.cu") for name in ("sketch", "gather", "sketch_parts")
+}
+HEADERS = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +55,19 @@ _LIBRARIES = {
         # M, rm, k, W, out, stream
         "gm_round_dec": [_P, _P, _I, _I, _P, _P],
     }),
+    "sketch_parts": ("sp_error_string", {
+        # seq, B, S, n_pad, ksize, nw, words, valid, stream
+        "sp_split_words": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        # words, valid, B, n_pad, R, ksize, nw, seed, max_hash, slots, hi, lo, counts, stream
+        "sp_split_slots": [_P, _P, _I, _I, _I, _I, _I, _U64, _U64, _I, _P, _P, _P, _P],
+        # seq, B, S, n, R, ksize, seed, max_hash, slots, hi, lo, counts, stream
+        "sp_survivor_slots_v2": [_P, _I, _I, _I, _I, _I, _U64, _U64, _I, _P, _P, _P, _P],
+        # blocks, nblk, rows, out, stream
+        "sp_murmur_only": [_P, _I, _I, _P, _P],
+        "sp_assembly_only": [_P, _I, _I, _P, _P],
+        # blocks, nblk, rows, n_rounds, out, stream
+        "sp_mulchain": [_P, _I, _I, _I, _P, _P],
+    }),
 }
 _libs: dict = {}
 
@@ -73,7 +91,7 @@ def nvcc_path() -> str:
 
 
 def _so_path(name: str) -> str:
-    tag = sources_tag([SOURCES[name]], *NVCC_FLAGS)
+    tag = sources_tag([SOURCES[name], *HEADERS], *NVCC_FLAGS)
     return os.path.join(build_dir("kernels"), f"{name}_{tag}.so")
 
 

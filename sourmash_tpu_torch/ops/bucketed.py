@@ -12,11 +12,11 @@ Exactness is kept by construction, as in the JAX package:
 
 - slots past a bucket's occupancy hold PAD = 2**64-1 in both limbs. PAD==PAD
   hits are counted by the kernel and subtracted exactly by the pad-count
-  correction `corr[s] = sum_b npad_s[b] * npad_q[b]`, a float32
-  `torch.matmul` as in the JAX package. It is exact while d times the
-  query's PAD slots (dq * B minus its hashes) stays below 2^24; past that
-  f32 rounds, a reference fault kept for parity (bf16 is already wrong
-  once dq > 256);
+  correction `corr[s] = sum_b npad_s[b] * npad_q[b]`, summed in int64, so
+  counts are exact while the kernel's int32 accumulator is (d * dq * B <
+  2^31). The JAX package sums it as a float32 matmul, which rounds once d
+  times the query's PAD slots (dq * B minus its hashes) reaches 2^24: the
+  port is right there and the reference is not;
 - a real hash equal to PAD (only at scaled=1) and any element past the
   d-th slot of a full bucket go to host spill lists at pack time and are
   joined exactly on the host;
@@ -393,12 +393,16 @@ def unpack_bits_u32(words: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_correction(qcnt, Scnt, dq: int, d: int):
-    """[ns] int32 PAD==PAD hits: sum_b (d - Scnt) * (dq - qcnt) as a f32
-    matmul, exact while d * sum_b (dq - qcnt) stays below 2^24 (the JAX
-    package's own limit, kept for parity)."""
-    npad_q = (dq - qcnt).to(torch.float32)  # [B]
-    npad_s = (d - Scnt.to(torch.int32)).to(torch.float32)  # [ns, B]
-    return torch.matmul(npad_s, npad_q).to(torch.int32)
+    """[ns] int32 PAD==PAD hits: sum_b (d - Scnt) * (dq - qcnt), an
+    elementwise int32 [ns, B] product summed in int64 (torch has no integer
+    matmul on CUDA). Exact while d * dq * B < 2^31, the limit under which
+    the raw int32 accumulator of `counts_rows` is exact: every product and
+    row sum then fits in int32. (The JAX package sums in f32, exact only
+    while d times the query's PAD slots stays below 2^24: the one place the
+    two packages may differ.)"""
+    npad_q = (dq - qcnt).to(torch.int32)  # [B]
+    npad_s = d - Scnt.to(torch.int32)  # [ns, B]
+    return (npad_s * npad_q).sum(dim=1, dtype=torch.int64).to(torch.int32)
 
 
 def _counts_qvm_impl(qhi, qlo, qcnt, Shi, Slo, Scnt):

@@ -60,6 +60,11 @@ def _check_rows(squ, ksize: int):
         raise ValueError(f"unsupported device {squ.device}")
 
 
+def check_slots(slots: int):
+    if not 1 <= slots <= SEG:
+        raise ValueError(f"slots must be in [1, {SEG}], not {slots}")
+
+
 def _launch(fn_name: str, squ, *args):
     from . import _build
 
@@ -88,22 +93,17 @@ def window_hashes(squ: torch.Tensor, *, ksize: int, seed: int = 42):
     return hashes, valid
 
 
-def _murmur_cols(col, L: int, seed: int, like: torch.Tensor):
-    """MurmurHash3 x64_128 first word over parallel byte streams; col(i) is
-    the int64 tensor holding byte i of every window."""
+def murmur_words(word, L: int, seed: int, like: torch.Tensor):
+    """MurmurHash3 x64_128 first word of L bytes given as little-endian
+    64-bit words; word(i) is the int64 tensor of bytes [8i, 8i + 8) of
+    every input (callers zero the bytes past L where murmur needs it)."""
     h1 = torch.full_like(like, u64.signed(seed), dtype=torch.int64)
     h2 = h1.clone()
 
-    def le64(base, count=8):
-        acc = col(base)
-        for i in range(1, count):
-            acc = acc | (col(base + i) << (8 * i))
-        return acc
-
     nblocks = L // 16
     for blk in range(nblocks):
-        k1 = le64(16 * blk)
-        k2 = le64(16 * blk + 8)
+        k1 = word(2 * blk)
+        k2 = word(2 * blk + 1)
         k1 = u64.mul(u64.rotl(u64.mul(k1, C1), 31), C2)
         h1 = u64.rotl(h1 ^ k1, 27) + h2
         h1 = h1 * 5 + _N1
@@ -112,13 +112,10 @@ def _murmur_cols(col, L: int, seed: int, like: torch.Tensor):
         h2 = h2 * 5 + _N2
 
     t = L & 15
-    base = 16 * nblocks
     if t > 8:
-        k2 = le64(base + 8, t - 8)
-        h2 = h2 ^ u64.mul(u64.rotl(u64.mul(k2, C2), 33), C1)
+        h2 = h2 ^ u64.mul(u64.rotl(u64.mul(word(2 * nblocks + 1), C2), 33), C1)
     if t > 0:
-        k1 = le64(base, min(t, 8))
-        h1 = h1 ^ u64.mul(u64.rotl(u64.mul(k1, C1), 31), C2)
+        h1 = h1 ^ u64.mul(u64.rotl(u64.mul(word(2 * nblocks), C1), 31), C2)
 
     h1 = h1 ^ L
     h2 = h2 ^ L
@@ -129,6 +126,19 @@ def _murmur_cols(col, L: int, seed: int, like: torch.Tensor):
     return h1 + h2
 
 
+def le64_words(col, L: int):
+    """word(i) of `murmur_words` from byte columns: col(j) is the int64
+    tensor holding byte j of every input; bytes past L are zero."""
+
+    def word(i):
+        acc = col(8 * i)
+        for j in range(1, min(8, L - 8 * i)):
+            acc = acc | (col(8 * i + j) << (8 * j))
+        return acc
+
+    return word
+
+
 def _fmix64(k):
     k = k ^ u64.srl(k, 33)
     k = u64.mul(k, F1)
@@ -137,9 +147,13 @@ def _fmix64(k):
     return k ^ u64.srl(k, 33)
 
 
-def window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
-    "Plain PyTorch version of `window_hashes`, on squ's device."
-    _check_rows(squ, ksize)
+def canonical_columns(squ: torch.Tensor, ksize: int):
+    """The canonical strand of every window of `squ`, as K1 and K2 pick it.
+
+    Returns (ccol, valid): ccol(j) is the int64 [B, n_pad] tensor of byte
+    j of every window's canonical strand, valid [B, n_pad] uint8 its
+    validity. Invalid windows pick a strand from their raw bytes and the
+    kernels' complement, as the kernels do."""
     B, S = squ.shape
     _, _, n_pad = geometry(S, ksize)
     x = torch.zeros((B, n_pad + ksize - 1), dtype=torch.int32, device=squ.device)
@@ -162,12 +176,17 @@ def window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
     def ccol(j):
         return torch.where(use_fwd, fcol(j), rcol(j)).to(torch.int64)
 
-    hashes = _murmur_cols(ccol, ksize, seed, use_fwd)
-
     acgt = (x == 65) | (x == 67) | (x == 71) | (x == 84)
     cs = torch.nn.functional.pad(torch.cumsum(acgt.to(torch.int32), dim=1), (1, 0))
     valid = (cs[:, ksize : ksize + n_pad] - cs[:, :n_pad]) == ksize
-    return hashes, valid.to(torch.uint8)
+    return ccol, valid.to(torch.uint8)
+
+
+def window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
+    "Plain PyTorch version of `window_hashes`, on squ's device."
+    _check_rows(squ, ksize)
+    ccol, valid = canonical_columns(squ, ksize)
+    return murmur_words(le64_words(ccol, ksize), ksize, seed, valid), valid
 
 
 # -- K3: every amino-acid window's hash and validity ------------------------
@@ -200,7 +219,8 @@ def aa_window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
     _, _, n_pad = geometry(S, ksize)
     x = torch.zeros((B, n_pad + ksize - 1), dtype=torch.int64, device=squ.device)
     x[:, :S] = squ
-    hashes = _murmur_cols(lambda j: x[:, j : j + n_pad], ksize, seed, x[:, :n_pad])
+    word = le64_words(lambda j: x[:, j : j + n_pad], ksize)
+    hashes = murmur_words(word, ksize, seed, x[:, :n_pad])
     cs = torch.nn.functional.pad(torch.cumsum((x != 0).to(torch.int32), dim=1), (1, 0))
     valid = (cs[:, ksize : ksize + n_pad] - cs[:, :n_pad]) == ksize
     return hashes, valid.to(torch.uint8)
@@ -210,24 +230,31 @@ def aa_window_hashes_plain(squ: torch.Tensor, *, ksize: int, seed: int = 42):
 
 
 def survivor_slots(
-    squ: torch.Tensor, max_hash: int, *, ksize: int, seed: int = 42, slots: int = 8
+    squ: torch.Tensor, max_hash: int, *, ksize: int, seed: int = 42, slots: int = 8,
+    out=None,
 ):
     """Per 128-window segment, the first `slots` windows that are valid with
     hash <= max_hash (unsigned), in window order, and the TRUE count.
 
     Returns (slots_hi, slots_lo [B, R, slots] int32 bit patterns of the
     u32 halves, counts [B, R] int32); unused slots hold 0. A count above
-    `slots` marks a truncated segment."""
+    `slots` marks a truncated segment. `out`, three contiguous int32
+    tensors of those shapes on squ's device, takes the outputs in place of
+    new ones (the bare launch that `tools.profile_sketch_chain` times)."""
     _check_rows(squ, ksize)
-    if not 1 <= slots <= SEG:
-        raise ValueError(f"slots must be in [1, {SEG}], not {slots}")
-    if squ.device.type == "cpu":
-        return survivor_slots_plain(squ, max_hash, ksize=ksize, seed=seed, slots=slots)
+    check_slots(slots)
     B, S = squ.shape
     n, R, _ = geometry(S, ksize)
-    hi = torch.empty((B, R, slots), dtype=torch.int32, device=squ.device)
-    lo = torch.empty((B, R, slots), dtype=torch.int32, device=squ.device)
-    counts = torch.empty((B, R), dtype=torch.int32, device=squ.device)
+    if out is not None:
+        _check_slots_outputs(out, B, R, slots, squ.device)
+    if squ.device.type == "cpu":
+        res = survivor_slots_plain(squ, max_hash, ksize=ksize, seed=seed, slots=slots)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return out
+    hi, lo, counts = slots_outputs(B, R, slots, squ.device) if out is None else out
     _launch(
         "sm_survivor_slots", squ, squ.data_ptr(), B, S, n, R, ksize,
         int(seed) & u64.MASK64, int(max_hash) & u64.MASK64, slots,
@@ -235,6 +262,25 @@ def survivor_slots(
     )
     LAUNCHES["survivor_slots"] += 1
     return hi, lo, counts
+
+
+def slots_outputs(B: int, R: int, slots: int, device):
+    "Empty (slots_hi, slots_lo, counts) for K1's outputs."
+    return (
+        torch.empty((B, R, slots), dtype=torch.int32, device=device),
+        torch.empty((B, R, slots), dtype=torch.int32, device=device),
+        torch.empty((B, R), dtype=torch.int32, device=device),
+    )
+
+
+def _check_slots_outputs(out, B: int, R: int, slots: int, device):
+    shapes = ((B, R, slots), (B, R, slots), (B, R))
+    if len(out) != 3 or any(
+        not torch.is_tensor(t) or t.dtype != torch.int32 or tuple(t.shape) != shape
+        or t.device != device or not t.is_contiguous()
+        for t, shape in zip(out, shapes)
+    ):
+        raise TypeError(f"out must be contiguous int32 tensors of shapes {shapes} on {device}")
 
 
 def survivor_slots_plain(
