@@ -12,9 +12,14 @@ Phases, each raising on failure:
    bit, at the main path's row shape [4, 2^21 + k - 1] and at [32, ...],
    for k in {7, 21, 31, 33, 51, 63, 129} and max_hash for scaled 100, 512,
    768, 1000, 2000 and 2^64-1, on ACGT rows with N runs, a zero-padded
-   tail and a tandem repeat that overflows K1's slots. Time each kernel
-   (CUDA events, median per launch after warm-up) and its plain version,
-   and work out the least time the card could take (`bound_ms`).
+   tail and a tandem repeat that overflows K1's slots; K1 also at every
+   max_hash on [4, 2^20] edge rows: uniformly random bytes (k = 21, 31,
+   51), even-k palindromes (k = 20, 32) and N runs across its tile and
+   segment boundaries (k = 21, 31, 51, 63). Time each kernel (CUDA
+   events, median per launch after warm-up) and its plain version, and
+   work out the least time the card could take (`bound_ms`); beside K1's
+   bound print its measured floor, T4's murmur_only time per window at
+   K1's windows.
 3. Sketch a generated multi-record FASTA.gz of >= 256 Mbp through
    `python -m sourmash_tpu_torch sketch dna` with sourmash's usual
    parameters, with the launch counters set to 0 just before and read just
@@ -60,7 +65,9 @@ holds the gather kernels against their plain versions, bit for bit, at
 phase 6's shapes: `counts_rows` on one chunk of [8192, 8, 4096] planes
 (PAD slots, the hash 2^64-1, forced spills) against a ~600 k-hash query,
 with and without per-row cutoffs; `membership_bits` at [2048, W =
-ceil(600 k / 32)]; `round_dec` at [4096, W].
+ceil(600 k / 32)], and on edge inputs: the identity slot map of
+`membership_matrix`, buckets with cnt = 8, emptied and repeated rows, and
+a W above the block's shared memory; `round_dec` at [4096, W].
 
 Phase 2 then holds the sketch-kernel instruments (`csrc/sketch_parts.cu`)
 against their plain versions on the card, bit for bit: T2's passes
@@ -83,7 +90,8 @@ instruments at k=31), before the main path, and prints neither line;
 `gather` once more under cProfile and torch.profiler and prints where their
 time goes. --sass-against DIR (a checkout of another commit) builds DIR's
 `csrc/sketch.cu` with this tree's flags after phase 1 and fails unless the
-SASS of K1, K2 and K3 equals this tree's, kernel by kernel. Without a CUDA device, or outside a checkout of the repository,
+SASS of K2 and K3 equals this tree's, kernel by kernel; it prints K1's
+instruction count on both sides. Without a CUDA device, or outside a checkout of the repository,
 the script exits non-zero before any result.
 """
 
@@ -353,8 +361,88 @@ def check_kernels(quick: bool, rng, clock_hz: float) -> dict:
                         f"bound {bms:.4f} ms ({by}), {B * n / ms / 1e6:.2f} Gwindows/s")
             del rows
             torch.cuda.empty_cache()
+    check_k1_edges(rng, thresholds)
     results["aa_window_hashes"] = check_aa_kernel(quick, rng, clock_hz)
     return results
+
+
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+EDGE_S = 1 << 20  # K1 edge rows: 1,024 of K1's 1,024-window tiles a row
+K1_TILE = 1024  # csrc/sketch.cu kK1Tile
+SEGMENT = 128
+
+
+def reverse_complement(codes: np.ndarray) -> np.ndarray:
+    return np.frombuffer(b"TGCA", dtype=np.uint8)[np.searchsorted(ACGT, codes)][::-1]
+
+
+def k1_edge_rows(kind: str, k: int, rng) -> np.ndarray:
+    """[4, EDGE_S] rows of one kind of K1 edge input:
+    - "random bytes": rows 0-1 uniformly random bytes (all 256 values),
+      rows 2-3 ACGT with 2 % of the bytes uniformly random;
+    - "palindromes": rows 0-1 ACGT repeats from A and from C (at even k
+      every other window is its own reverse complement), rows 2-3 random
+      ACGT holding 4,000 k-long reverse-complement palindromes (even k);
+    - "N at boundaries": random ACGT with N runs of 1 to k + 2 bases that
+      start, end or sit across the tile (1,024-window) and segment
+      (128-window) boundaries of K1's layout, plus one zero-padded tail."""
+    if kind == "random bytes":
+        rows = rng.choice(ACGT, size=(4, EDGE_S))
+        rows[:2] = rng.integers(0, 256, size=(2, EDGE_S), dtype=np.uint8)
+        hit = rng.random((2, EDGE_S)) < 0.02
+        rows[2:][hit] = rng.integers(0, 256, size=int(hit.sum()), dtype=np.uint8)
+        return rows
+    if kind == "palindromes":
+        rows = np.empty((4, EDGE_S), dtype=np.uint8)
+        rep = np.tile(ACGT, EDGE_S // 4 + 2)
+        rows[0], rows[1] = rep[:EDGE_S], rep[1 : EDGE_S + 1]
+        rows[2:] = rng.choice(ACGT, size=(2, EDGE_S))
+        for b in (2, 3):
+            for start in rng.integers(0, EDGE_S - k, size=4000):
+                half = rng.choice(ACGT, size=k // 2)
+                rows[b, start : start + k // 2] = half
+                rows[b, start + k // 2 : start + 2 * (k // 2)] = reverse_complement(half)
+        return rows
+    rows = rng.choice(ACGT, size=(4, EDGE_S))
+    for b in range(4):
+        bounds = np.r_[np.arange(K1_TILE, EDGE_S, K1_TILE),
+                       rng.choice(np.arange(SEGMENT, EDGE_S, SEGMENT), size=2000)]
+        for at in bounds:
+            length = int(rng.integers(1, k + 3))
+            start = int(at) - int(rng.integers(0, length + k))
+            rows[b, max(start, 0) : start + length] = ord("N")
+    rows[3, EDGE_S - 5000 :] = 0
+    return rows
+
+
+K1_EDGES = (("random bytes", (21, 31, 51)), ("palindromes", (20, 32)),
+            ("N at boundaries", (21, 31, 51, 63)))
+
+
+def check_k1_edges(rng, thresholds):
+    """K1 against its plain version, bit for bit, on the edge inputs of
+    k1_edge_rows at every threshold; fails otherwise."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_sketch as cs
+    from sourmash_tpu_torch.ops.sketch import _pick_slots
+
+    for kind, ks in K1_EDGES:
+        for k in ks:
+            rows = torch.from_numpy(k1_edge_rows(kind, k, rng)).cuda()
+            hp, vp = cs.window_hashes_plain(rows, ksize=k)
+            survivors = 0
+            for mh in thresholds:
+                slots = _pick_slots(mh)
+                got = cs.survivor_slots(rows, mh, ksize=k, slots=slots)
+                want = cs.slots_from_hashes(hp, vp, mh, slots=slots)
+                for name, a, b in zip(("hi", "lo", "counts"), got, want):
+                    exact(f"K1 {kind} {name} k={k} max_hash={mh}", a, b)
+                survivors = max(survivors, int(want[2].sum()))
+            log(f"  K1 on {kind} at k={k:3d}: equals its plain version at {len(thresholds)} "
+                f"thresholds ({int(vp.sum())} valid windows, up to {survivors} survivors)")
+            del rows, hp, vp
+    torch.cuda.empty_cache()
 
 
 def check_aa_kernel(quick: bool, rng, clock_hz: float) -> dict:
@@ -802,7 +890,8 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     import torch
 
     from sourmash_tpu_torch.ops import cuda_gather as cg
-    from sourmash_tpu_torch.ops.bucketed import pack_query_bucketed, query_slot_map
+    from sourmash_tpu_torch.ops.bucketed import (
+        inverse_slot_map, pack_query_bucketed, query_slot_map)
     from sourmash_tpu_torch.ops.index_ops import _cached_query_pack
 
     rows = 512 if quick else GATHER_KERNEL_ROWS
@@ -854,34 +943,47 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     q_core = q[:-1] if q[-1] == np.uint64(2**64 - 1) else q
     W = -(-len(q) // 32)
     mq = pack_query_bucketed(q_core, B, GATHER_DEVICE)
-    slotmap = torch.from_numpy(query_slot_map(q_core, B, mq[3], W * 32)).to(GATHER_DEVICE)
+    mdq = mq[3]
+    slotmap = torch.from_numpy(query_slot_map(q_core, B, mdq, W * 32)).to(GATHER_DEVICE)
+    inv = inverse_slot_map(slotmap, mdq * B)
     nm = min(2048, rows)
     sel = torch.from_numpy(np.sort(rng.choice(rows, size=nm, replace=False)).astype(np.int64)).to(GATHER_DEVICE)
     Scnt = bank.cnt
-    got = cg.membership_bits(mq[0], mq[1], Shi, Slo, Scnt, sel, slotmap)
-    want = plain_in_chunks(lambda s: cg.membership_bits_plain(
-        mq[0], mq[1], Shi, Slo, Scnt, sel[s].contiguous(), slotmap), nm, step)
-    err = exact("membership_bits", got, want)
+
+    def member(sel_, smap, inv_, cnt=Scnt):
+        return cg.membership_bits(mq[0], mq[1], mq[2], Shi, Slo, cnt, sel_, smap, inv_)
+
+    def member_plain(sel_, smap, inv_, cnt=Scnt, step_=step):
+        return plain_in_chunks(lambda s: cg.membership_bits_plain(
+            mq[0], mq[1], mq[2], Shi, Slo, cnt, sel_[s].contiguous(), smap, inv_),
+            sel_.shape[0], step_)
+
+    got = member(sel, slotmap, inv)
+    err = exact("membership_bits", got, member_plain(sel, slotmap, inv))
     if not bool(got.any()):
         raise AssertionError("membership_bits: no bit set")
-    ms = time_ms(lambda: cg.membership_bits(mq[0], mq[1], Shi, Slo, Scnt, sel, slotmap), reps)
-    plain = time_ms(lambda: plain_in_chunks(lambda s: cg.membership_bits_plain(
-        mq[0], mq[1], Shi, Slo, Scnt, sel[s].contiguous(), slotmap), nm, step), 1, warmup=0)
-    # least work: each valid slot of a selected row searched in its bucket's
-    # sorted query slots (ceil(log2 dq) probes of three ops), one slot-map
-    # read and one bit set per hit, and every output word written once
+    check_membership_edges(rng, member, member_plain, slotmap, inv, q_core, B, mdq, Scnt, rows)
+    ms = time_ms(lambda: member(sel, slotmap, inv), reps)
+    plain = time_ms(lambda: member_plain(sel, slotmap, inv), 1, warmup=0)
+    # least work of the function: each selected row's cnt bytes and its
+    # valid slots' two limbs read once, each valid slot searched in its
+    # bucket's sorted query slots (ceil(log2 dq) probes of three ops) with
+    # one map read and one bit set per hit, the query planes, occupancy and
+    # inverse map read once, every output word written once
     valid = int(Scnt[sel].to(torch.int64).sum())
-    other = 3 * valid * max(1, (mq[3] - 1).bit_length()) + 2 * valid + nm * W
-    nbytes = nm * (8 * B * 8 + B + 8) + mq[0].numel() * 8 + W * 32 * 4 + nm * W * 4
+    other = 3 * valid * max(1, (mdq - 1).bit_length()) + 2 * valid + nm * W
+    nbytes = (nm * (B + 8) + valid * 8 + mq[0].numel() * 8 + B * 4 + inv.numel() * 4
+              + nm * W * 4)
     bms, by = bound_ms(nbytes, 0, other, clock_hz)
     results["membership_bits"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                                      max_abs_err=err, nm=nm, W=W, dq=mq[3])
-    log(f"  membership_bits [{nm}, {W}] (dq={mq[3]}): equals its plain version; "
-        f"{ms:.4f} ms/launch, plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
+                                      max_abs_err=err, nm=nm, W=W, dq=mdq, valid_slots=valid)
+    log(f"  membership_bits [{nm}, {W}] (dq={mdq}, {valid} valid slots): equals its plain "
+        f"version; {ms:.4f} ms/launch, plain {plain:.2f} ms, bound {bms:.4f} ms ({by}), "
+        f"{100 * bms / ms:.1f} % of it")
 
     k = min(4096, rows)
     sel_k = torch.from_numpy(rng.choice(rows, size=k, replace=False).astype(np.int64)).to(GATHER_DEVICE)
-    M = cg.membership_bits(mq[0], mq[1], Shi, Slo, Scnt, sel_k, slotmap)
+    M = member(sel_k, slotmap, inv)
     alive = torch.from_numpy(rng.integers(-2**31, 2**31, size=W, dtype=np.int64).astype(np.int32)).to(GATHER_DEVICE)
     rm = M[0] & alive
     got = cg.round_dec(M, rm)
@@ -896,6 +998,51 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     del bank, Shi, Slo, M
     torch.cuda.empty_cache()
     return results
+
+
+def check_membership_edges(rng, member, member_plain, slotmap, inv, q_core, B: int,
+                           dq: int, Scnt, rows: int):
+    """membership_bits against its plain version, bit for bit, on phase 2's
+    chunk and query: the identity slot map of `membership_matrix` (every
+    slot position, PAD slots included) on 512 rows; rows whose crowded
+    bucket holds cnt = 8, the row with 2^64-1, rows emptied (cnt 0) and a
+    `sel` that repeats rows; and one W above the block's shared memory,
+    where the kernel builds the words in global memory."""
+    import torch
+
+    from sourmash_tpu_torch.ops.bucketed import query_slot_map
+
+    dev = Scnt.device
+    identity = torch.arange(dq * B, dtype=torch.int32, device=dev)
+    sel = torch.from_numpy(np.r_[np.arange(min(9, rows)),
+                                 rng.choice(rows, size=min(503, rows), replace=False)]
+                           .astype(np.int64)).to(dev)
+    got = member(sel, identity, identity)
+    exact("membership_bits identity map", got, member_plain(sel, identity, identity, step_=128))
+    if not bool(got.any()):
+        raise AssertionError("membership_bits identity map: no bit set")
+    if not bool((Scnt[1 : min(9, rows)] == 8).any()):
+        raise AssertionError("membership_bits: no bucket with cnt = 8 among rows 1-8")
+
+    emptied = rng.choice(np.arange(9, rows), size=min(8, rows - 9), replace=False)
+    cnt = Scnt.clone()
+    cnt[torch.from_numpy(emptied).to(dev)] = 0
+    picks = np.r_[np.arange(min(9, rows)), emptied, emptied[:3], [1, 1, 0, 5, 5],
+                  rng.choice(rows, size=32)]
+    edge_sel = torch.from_numpy(rng.permutation(picks).astype(np.int64)).to(dev)
+    exact("membership_bits cnt=8, 2^64-1, empty and repeated rows",
+          member(edge_sel, slotmap, inv, cnt), member_plain(edge_sel, slotmap, inv, cnt))
+
+    props = torch.cuda.get_device_properties(dev)
+    smem_words = getattr(props, "shared_memory_per_block_optin", 232448) // 4
+    W_big = smem_words + 1024
+    big = torch.from_numpy(query_slot_map(q_core, B, dq, W_big * 32)).to(dev)
+    got = member(edge_sel, big, inv, cnt)
+    exact(f"membership_bits W={W_big} (global words)", got,
+          member_plain(edge_sel, big, inv, cnt, step_=16))
+    log(f"  membership_bits edges: identity map [{len(sel)}, {dq * B // 32}], cnt = 8, "
+        f"2^64-1, {len(emptied)} emptied and repeated rows [{len(picks)}], and W = {W_big} "
+        f"past the {smem_words}-word shared bitmap equal their plain version")
 
 
 # -- phase 2 (instruments) and phase 7: the sketch-kernel instruments --------
@@ -923,7 +1070,9 @@ def sass_functions(path: str):
     functions = {}
     for section in sass.split("Function : ")[1:]:
         header, body = section.split("\n", 1)
-        functions[header.strip()] = [line.strip() for line in body.splitlines()
+        # runs of spaces collapsed: cuobjdump pads its columns to the
+        # widest line of the listing, which another kernel may set
+        functions[header.strip()] = [" ".join(line.split()) for line in body.splitlines()
                                      if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
     return functions
 
@@ -954,8 +1103,11 @@ def sass_opcodes(lib: str, kernel: str):
 
 def sass_against(other_root: str):
     """Build `other_root`'s csrc/sketch.cu as this tree builds its own and
-    require the SASS of K1, K2 and K3 to equal this tree's, instruction for
-    instruction; prints each kernel's instruction count."""
+    require the SASS of K2 and K3 to equal this tree's, instruction for
+    instruction; print K1's instruction count on both sides (K1 may
+    differ: each k it is built for is a kernel of its own)."""
+    import re
+
     from sourmash_tpu_torch.ops import _build
 
     src = os.path.join(other_root, "sourmash_tpu_torch", "csrc", "sketch.cu")
@@ -967,12 +1119,27 @@ def sass_against(other_root: str):
     ours = sass_functions(_build._so_path("sketch"))
     if ours is None or other is None:
         raise AssertionError("--sass-against needs cuobjdump")
-    for kernel in ("survivor_slots_kernel", "window_hashes_kernel", "aa_window_hashes_kernel"):
+    differ = []
+    for kernel in ("window_hashes_kernel", "aa_window_hashes_kernel"):
         a, b = sass_of(ours, kernel), sass_of(other, kernel)
         if not a or a != b:
-            raise AssertionError(f"{kernel}: SASS differs from {other_root}'s "
-                                 f"({len(a or [])} vs {len(b or [])} instructions)")
-        log(f"  {kernel}: SASS identical to {other_root}'s ({len(a)} instructions)")
+            differ.append(f"{kernel}: SASS differs from {other_root}'s "
+                          f"({len(a or [])} vs {len(b or [])} instructions)")
+            log(f"  {differ[-1]}; first differences:")
+            for x, y in [(x, y) for x, y in zip(a or [], b or []) if x != y][:8]:
+                log(f"    {x}\n    {y}")
+        else:
+            log(f"  {kernel}: SASS identical to {other_root}'s ({len(a)} instructions)")
+    kernel = "survivor_slots_kernel"
+    for side, functions in (("this tree", ours), (other_root, other)):
+        counts = {}
+        for name, lines in functions.items():
+            if f"{len(kernel)}{kernel}" in name:
+                m = re.search(r"ILi(\d+)E", name)  # the template's k; 0 reads k at run time
+                counts[f"k={m.group(1) if m and m.group(1) != '0' else 'any'}"] = len(lines)
+        log(f"  {kernel} ({side}): {counts} instructions")
+    if differ:
+        raise AssertionError("; ".join(differ))
 
 
 def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
@@ -1591,7 +1758,7 @@ def main(argv=None) -> int:
                     help="build and check each kernel once, then stop")
     ap.add_argument("--json", help="also write every measurement to this file")
     ap.add_argument("--sass-against", metavar="DIR",
-                    help="fail unless K1-K3's SASS equals that of the checkout in DIR")
+                    help="fail unless K2's and K3's SASS equals that of the checkout in DIR")
     ap.add_argument("--profile", action="store_true",
                     help="run each sketch command once more under cProfile and "
                          "torch.profiler")
@@ -1637,6 +1804,14 @@ def main(argv=None) -> int:
     log("phase 2: the sketch-kernel instruments against their plain versions and K1 (exact)")
     timings.update(check_instruments(args.quick, rng, clock_hz))
     log(f"phase 2 done in {time.time() - t0:.1f} s (instruments {time.time() - t1:.1f} s)")
+    # K1's measured floor: T4's murmur alone, per window, at K1's windows
+    k1, t4 = timings["survivor_slots"][TIMED_K], timings["murmur_only"]
+    k1["murmur_floor_ms"] = t4["ms"] * k1["windows"] / t4["windows"]
+    v2 = timings["survivor_slots_v2"]["ms"]
+    log(f"  K1 at k={TIMED_K}: {k1['ms']:.4f} ms/launch, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}), measured floor {k1['murmur_floor_ms']:.4f} ms (murmur_only "
+        f"per window x {k1['windows']} windows); T3 survivor_slots_v2 {v2:.4f} ms, "
+        f"K1 {k1['ms'] / v2:.2f}x of it")
     if args.quick:
         log("--quick: stopped before the main path; no kernels line and no result")
         return 0

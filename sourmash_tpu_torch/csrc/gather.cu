@@ -26,11 +26,25 @@
 // membership_bits is the hand-written form of
 // `sourmash_tpu/ops/bucketed.py:_membership_bits_packed` (X4): for
 // selected rows of one chunk, bit j of word w is set when query hash
-// 32w + j (slotmap: its flat slot position slot * B + bucket, or dq * B
-// for none) sits in a valid slot (k2 < cnt) of the row's bucket. One
-// thread per (query hash, group of kMemRows rows); the 32 lanes of a warp
-// are the 32 bits of one word (__ballot_sync). No [nm, dq, B] transient.
-// Bound by the gathered reads of the rows' slots.
+// 32w + j (slotmap: its flat slot position slot * B + bucket) sits in a
+// valid slot (k2 < cnt) of the row's bucket. The loop is driven by the
+// rows' valid slots, not by the query: one block per selected row walks
+// its buckets (adjacent threads on adjacent buckets, so the cnt bytes and
+// each slot's limbs are read coalesced, and only the ~1 valid slot per
+// bucket is read), binary-searches each valid (hi, lo) pair in the first
+// qcnt[b] slots of its bucket's sorted query column (the query planes stay
+// in L2; the search reads hi limbs, a lo limb only where the hi limbs are
+// equal, as each probe is a 32-byte L2 sector of its own), and maps a hit
+// through the inverse slot map inv (flat position -> query index, -1 for
+// none) to its bit. The row's words are built in
+// shared memory and written once, coalesced; past the block's shared
+// memory the bits go to the zeroed output by atomicOr. Exact for any slot
+// map whose inverse is given: query hashes are distinct, and so are a
+// row's slots, and a PAD query slot (k2 >= qcnt[b]) is never searched, so
+// a slot position that holds no query hash gets no bit, as in the
+// query-driven definition (2^64-1, the PAD value, never sits in a valid
+// bank slot: the pack spills it). Bound by reading the rows' cnt bytes and
+// valid slots and writing the words.
 //
 // round_dec is the AND + popcount step of `sourmash_tpu/index/flat.py`
 // (`_dec_counts`, and the decrement inside `_schedule_scan`): out[r] =
@@ -48,7 +62,7 @@ namespace {
 constexpr int kD = 8;          // subject slots per bucket
 constexpr int kThreads = 256;  // threads per block
 constexpr int kRows = 4;       // counts_rows: rows per thread
-constexpr int kMemRows = 8;    // membership_bits: rows per thread
+constexpr int kMemThreads = 1024;  // membership_bits: threads per row
 
 __device__ __forceinline__ int warp_sum(int v) {
   return __reduce_add_sync(0xffffffffu, v);
@@ -111,41 +125,59 @@ counts_rows_kernel(const uint32_t* __restrict__ qhi,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kShared>
+__global__ void __launch_bounds__(kMemThreads)
 membership_bits_kernel(const uint32_t* __restrict__ qhi,
-                       const uint32_t* __restrict__ qlo, int dq, int B,
+                       const uint32_t* __restrict__ qlo,
+                       const int32_t* __restrict__ qcnt, int B,
                        const uint32_t* __restrict__ shi,
                        const uint32_t* __restrict__ slo,
                        const uint8_t* __restrict__ scnt,
-                       const int64_t* __restrict__ sel, int nm,
-                       const int32_t* __restrict__ slotmap, int W,
+                       const int64_t* __restrict__ sel,
+                       const int32_t* __restrict__ inv, int W,
                        uint32_t* __restrict__ out) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;  // query hash index
-  const int word = p >> 5;
-  const int row0 = blockIdx.y * kMemRows;
-  const int n_pos = dq * B;
-  const int pos = word < W ? slotmap[p] : n_pos;
-  const bool has = pos >= 0 && pos < n_pos;
-  uint32_t qh = 0u, ql = 0u;
-  int b = 0;
-  if (has) {
-    qh = qhi[pos];
-    ql = qlo[pos];
-    b = pos % B;
+  extern __shared__ uint32_t row_bits[];  // kShared: the row's W words
+  const int t = threadIdx.x;
+  uint32_t* dst = out + (size_t)blockIdx.x * W;
+  uint32_t* bits = kShared ? row_bits : dst;
+  if (kShared) {
+    for (int w = t; w < W; w += kMemThreads) row_bits[w] = 0u;
+    __syncthreads();
   }
-  for (int i = 0; i < kMemRows; i++) {
-    const int r = row0 + i;
-    if (r >= nm) break;  // uniform across the block
-    bool hit = false;
-    if (has) {
-      const size_t s = (size_t)sel[r];
-      const int c = scnt[s * B + b];
-      const size_t base = s * kD * (size_t)B + (size_t)b;
-      for (int k = 0; k < c; k++)
-        hit |= (shi[base + (size_t)k * B] == qh) & (slo[base + (size_t)k * B] == ql);
+  const size_t s = (size_t)sel[blockIdx.x];
+  const uint8_t* cnt = scnt + s * B;
+  const uint32_t* rh = shi + s * kD * B;
+  const uint32_t* rl = slo + s * kD * B;
+  const long long nbits = 32LL * W;
+  for (int b = t; b < B; b += kMemThreads) {
+    const int c = cnt[b];
+    for (int k2 = 0; k2 < c; k2++) {
+      const uint32_t h = rh[k2 * B + b];
+      const uint32_t l = rl[k2 * B + b];
+      // the first of the bucket's qcnt[b] sorted query slots whose hi limb
+      // is >= h, by the hi limbs alone; lo limbs are read only along the
+      // (rarely longer than one) run of slots whose hi limb equals h
+      const int qn = __ldg(qcnt + b);
+      int lo = 0, len = qn;
+      while (len > 0) {
+        const int half = len >> 1;
+        const int mid = lo + half;
+        const bool less = __ldg(qhi + mid * B + b) < h;
+        lo = less ? mid + 1 : lo;
+        len = less ? len - half - 1 : half;
+      }
+      for (int p = lo; p < qn && __ldg(qhi + p * B + b) == h; p++) {
+        if (__ldg(qlo + p * B + b) == l) {
+          const int j = __ldg(inv + p * B + b);
+          if (j >= 0 && j < nbits) atomicOr(bits + (j >> 5), 1u << (j & 31));
+          break;
+        }
+      }
     }
-    const uint32_t bits = __ballot_sync(0xffffffffu, hit);
-    if ((threadIdx.x & 31) == 0 && word < W) out[(size_t)r * W + word] = bits;
+  }
+  if (kShared) {
+    __syncthreads();
+    for (int w = t; w < W; w += kMemThreads) dst[w] = row_bits[w];
   }
 }
 
@@ -203,19 +235,35 @@ int gm_counts_rows(const void* qhi, const void* qlo, int dq, int B,
 }
 
 // out [nm, W] u32 membership words of rows sel [nm] (i64) of one chunk's
-// planes [rows, 8, B] / cnt [rows, B] u8, over query hashes slotmap [W*32].
-int gm_membership_bits(const void* qhi, const void* qlo, int dq, int B,
+// planes [rows, 8, B] / cnt [rows, B] u8, against query planes [dq, B]
+// with occupancy qcnt [B] i32 and inverse slot map inv [dq * B] i32.
+int gm_membership_bits(const void* qhi, const void* qlo, const void* qcnt, int B,
                        const void* shi, const void* slo, const void* scnt,
-                       const void* sel, int nm, const void* slotmap, int W,
+                       const void* sel, int nm, const void* inv, int W,
                        void* out, void* stream) {
   if (nm <= 0 || W <= 0) return 0;
-  dim3 grid((unsigned)(((long long)W * 32 + kThreads - 1) / kThreads),
-            (unsigned)((nm + kMemRows - 1) / kMemRows));
-  membership_bits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), dq, B,
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(uint32_t) * (size_t)W;
+  const bool shared = smem <= (size_t)smem_max;
+  if (shared) {
+    err = cudaFuncSetAttribute(membership_bits_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  } else {
+    err = cudaMemsetAsync(out, 0, smem * (size_t)nm, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = shared ? membership_bits_kernel<true> : membership_bits_kernel<false>;
+  kernel<<<(unsigned)nm, kMemThreads, shared ? smem : 0, st>>>(
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
+      static_cast<const int32_t*>(qcnt), B,
       static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo),
-      static_cast<const uint8_t*>(scnt), static_cast<const int64_t*>(sel), nm,
-      static_cast<const int32_t*>(slotmap), W, static_cast<uint32_t*>(out));
+      static_cast<const uint8_t*>(scnt), static_cast<const int64_t*>(sel),
+      static_cast<const int32_t*>(inv), W, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -153,45 +153,74 @@ __device__ __forceinline__ void stage_row(const uint8_t* row, int S, int64_t w0,
 }
 
 // K1's per-segment compaction, run by every thread of a kTile block once
-// it holds its window's survivor flag and hash: a rank within the
-// 128-window segment from four warps (__ballot_sync of the survivors,
-// __popc below the lane, a shared prefix of the four warp counts). A
-// survivor of rank r < slots writes slot r; unused slots are written 0 and
-// the segment's TRUE count is written even when it exceeds `slots`.
+// it holds the survivor flags and hashes of its kWin windows, window j at
+// position j * kTile + threadIdx.x of a tile of 2 * kWin segments: a rank
+// within the 128-window segment from four warps (__ballot_sync of the
+// survivors, __popc below the lane, a shared prefix of the four warp
+// counts), one barrier for all kWin. A survivor of rank r < slots writes
+// slot r; unused slots are written 0 and the segment's TRUE count is
+// written even when it exceeds `slots`.
+template <int kWin>
 __device__ __forceinline__ void write_segment_slots(
-    bool keep, uint64_t h, int* warp_count, int b, int R, int slots,
-    uint32_t* __restrict__ slots_hi, uint32_t* __restrict__ slots_lo,
-    int32_t* __restrict__ counts) {
+    const bool (&keep)[kWin], const uint64_t (&h)[kWin], int (*warp_count)[kTile / 32],
+    int b, int R, int slots, uint32_t* __restrict__ slots_hi,
+    uint32_t* __restrict__ slots_lo, int32_t* __restrict__ counts) {
   const int t = threadIdx.x;
   const int warp = t >> 5;
   const int lane = t & 31;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) warp_count[warp] = __popc(ballot);
+  unsigned ballot[kWin];
+#pragma unroll
+  for (int j = 0; j < kWin; ++j) {
+    ballot[j] = __ballot_sync(0xffffffffu, keep[j]);
+    if (lane == 0) warp_count[j][warp] = __popc(ballot[j]);
+  }
   __syncthreads();
 
-  const int seg_in_block = t / kSeg;
-  const int first_warp = seg_in_block * kWarpsPerSeg;
-  int before = 0, total = 0;
-  for (int i = 0; i < kWarpsPerSeg; ++i) {
-    const int c = warp_count[first_warp + i];
-    total += c;
-    if (first_warp + i < warp) before += c;
-  }
-  const int64_t seg = static_cast<int64_t>(blockIdx.x) * (kTile / kSeg) + seg_in_block;
-  if (seg >= R) return;
-
-  const int64_t base = (static_cast<int64_t>(b) * R + seg) * slots;
-  const int rank = before + __popc(ballot & ((1u << lane) - 1u));
-  if (keep && rank < slots) {
-    slots_hi[base + rank] = static_cast<uint32_t>(h >> 32);
-    slots_lo[base + rank] = static_cast<uint32_t>(h);
-  }
+  const int seg_in_tile = t / kSeg;
+  const int first_warp = seg_in_tile * kWarpsPerSeg;
   const int r = t % kSeg;
-  if (r < slots && r >= total) {
-    slots_hi[base + r] = 0;
-    slots_lo[base + r] = 0;
+#pragma unroll
+  for (int j = 0; j < kWin; ++j) {
+    int before = 0, total = 0;
+    for (int i = 0; i < kWarpsPerSeg; ++i) {
+      const int c = warp_count[j][first_warp + i];
+      total += c;
+      if (first_warp + i < warp) before += c;
+    }
+    const int64_t seg = (static_cast<int64_t>(blockIdx.x) * kWin + j) * (kTile / kSeg) +
+                        seg_in_tile;
+    if (seg >= R) return;  // the later windows' segments lie further on
+
+    const int64_t base = (static_cast<int64_t>(b) * R + seg) * slots;
+    const int rank = before + __popc(ballot[j] & ((1u << lane) - 1u));
+    if (keep[j] && rank < slots) {
+      slots_hi[base + rank] = static_cast<uint32_t>(h[j] >> 32);
+      slots_lo[base + rank] = static_cast<uint32_t>(h[j]);
+    }
+    if (r < slots && r >= total) {
+      slots_hi[base + r] = 0;
+      slots_lo[base + r] = 0;
+    }
+    if (r == 0) counts[static_cast<int64_t>(b) * R + seg] = total;
   }
-  if (r == 0) counts[static_cast<int64_t>(b) * R + seg] = total;
+}
+
+// -- bit planes: the DNA strand and validity 32 bases at a time --------------
+
+// 32 bits of a bit plane (bit i = position i of the staged tile) from
+// position q on.
+__device__ __forceinline__ uint32_t plane_bits(const uint32_t* plane, int q) {
+  return __funnelshift_r(plane[q >> 5], plane[(q >> 5) + 1], q & 31);
+}
+
+__device__ __forceinline__ uint32_t low_mask(int len) {
+  return len >= 32 ? ~0u : (1u << len) - 1u;
+}
+
+// 2-bit base code in the bytes' order: A 0 < C 1 < G 2 < T 3 (anything for
+// other bytes). The complement's code is 3 - code.
+__device__ __forceinline__ uint32_t base_code(uint32_t c) {
+  return ((c >> 1) & 3u) ^ ((c >> 2) & 1u);
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory where that exceeds

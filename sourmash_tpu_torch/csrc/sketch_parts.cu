@@ -80,7 +80,7 @@ split_slots_kernel(const ulonglong2* __restrict__ words, const uint8_t* __restri
                    int n_pad, int R, int k, int nw, uint64_t seed, uint64_t max_hash,
                    int slots, uint32_t* __restrict__ slots_hi,
                    uint32_t* __restrict__ slots_lo, int32_t* __restrict__ counts) {
-  __shared__ int warp_count[kTile / 32];
+  __shared__ int warp_count[1][kTile / 32];
   const int b = blockIdx.y;
   const int64_t w = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
   bool keep = false;
@@ -96,26 +96,12 @@ split_slots_kernel(const ulonglong2* __restrict__ words, const uint8_t* __restri
       keep = h <= max_hash;
     }
   }
-  write_segment_slots(keep, h, warp_count, b, R, slots, slots_hi, slots_lo, counts);
+  const bool keeps[1] = {keep};
+  const uint64_t hs[1] = {h};
+  write_segment_slots<1>(keeps, hs, warp_count, b, R, slots, slots_hi, slots_lo, counts);
 }
 
-// -- T3 helpers ---------------------------------------------------------------
-
-// 32 bits of a bit plane (bit i = position i of the staged tile) from
-// position q on.
-__device__ __forceinline__ uint32_t plane_bits(const uint32_t* plane, int q) {
-  return __funnelshift_r(plane[q >> 5], plane[(q >> 5) + 1], q & 31);
-}
-
-__device__ __forceinline__ uint32_t low_mask(int len) {
-  return len >= 32 ? ~0u : (1u << len) - 1u;
-}
-
-// 2-bit base code in the bytes' order: A 0 < C 1 < G 2 < T 3 (anything for
-// other bytes). The complement's code is 3 - code.
-__device__ __forceinline__ uint32_t base_code(uint32_t c) {
-  return ((c >> 1) & 3u) ^ ((c >> 2) & 1u);
-}
+// -- T3 helpers (its bit-plane helpers are in sketch_common.cuh) ---------------
 
 // Eight bytes of shared memory from any byte offset, little-endian, from
 // three aligned 32-bit loads.
@@ -157,7 +143,7 @@ survivor_slots_v2_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, i
                          uint32_t* __restrict__ slots_hi, uint32_t* __restrict__ slots_lo,
                          int32_t* __restrict__ counts) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int warp_count[kTile / 32];
+  __shared__ int warp_count[1][kTile / 32];
   const int plane_words = staged / 32 + 1;
   uint32_t* bad = reinterpret_cast<uint32_t*>(smem + staged);
   uint32_t* code1 = bad + plane_words;
@@ -221,7 +207,9 @@ survivor_slots_v2_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, i
       keep = h <= max_hash;
     }
   }
-  write_segment_slots(keep, h, warp_count, b, R, slots, slots_hi, slots_lo, counts);
+  const bool keeps[1] = {keep};
+  const uint64_t hs[1] = {h};
+  write_segment_slots<1>(keeps, hs, warp_count, b, R, slots, slots_hi, slots_lo, counts);
 }
 
 // -- T4: microkernels over the tool's block layout -----------------------------

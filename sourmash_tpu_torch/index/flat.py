@@ -501,17 +501,18 @@ class FlatCounterGather:
         return bool(banks) and all(b.resident for b in banks)
 
     def _qpack_for_B(self, B, W):
-        "Cached (query planes, slotmap) on the device for one bank bucket count."
+        """Cached (query planes, occupancy, dq, slotmap, inverse slotmap) on
+        the device for one bank bucket count."""
         hit = self._dev_qpacks.get((B, W))
         if hit is not None:
             return hit
-        from ..ops.bucketed import pack_query_bucketed, query_slot_map
+        from ..ops.bucketed import inverse_slot_map, pack_query_bucketed, query_slot_map
 
         q = self._q_mins
         core = q[:-1] if self._q_has_max else q
         qhi, qlo, qcnt, dq, _tail = pack_query_bucketed(core, B, self.device)
         slotmap = torch.from_numpy(query_slot_map(core, B, dq, W * 32)).to(self.device)
-        pack = (qhi, qlo, qcnt, dq, slotmap)
+        pack = (qhi, qlo, qcnt, dq, slotmap, inverse_slot_map(slotmap, dq * B))
         self._dev_qpacks[(B, W)] = pack
         return pack
 
@@ -586,10 +587,10 @@ class FlatCounterGather:
         for a, e in zip(np.concatenate([[0], bounds]), np.concatenate([bounds, [len(ids)]])):
             bank = banks[int(gb[a])]
             chunk = bank.chunks[int(gc[a])]
-            qhi, qlo, _qcnt, _dq, slotmap = self._qpack_for_B(bank.B, W)
+            qhi, qlo, qcnt, _dq, slotmap, inv = self._qpack_for_B(bank.B, W)
             sel = torch.from_numpy(lut_r[ids[order[a:e]]].astype(np.int64)).to(self.device)
             pieces.append(cuda_gather.membership_bits(
-                qhi, qlo, chunk.hi, chunk.lo, chunk.cnt, sel, slotmap))
+                qhi, qlo, qcnt, chunk.hi, chunk.lo, chunk.cnt, sel, slotmap, inv))
         M = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
         row_src = order.astype(np.int64)
         patches = self._membership_patches(W)

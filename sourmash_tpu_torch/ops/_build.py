@@ -50,8 +50,8 @@ _LIBRARIES = {
     "gather": ("gm_error_string", {
         # qhi, qlo, dq, B, shi, slo, rows, cut_hi, cut_lo, out, stream
         "gm_counts_rows": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P],
-        # qhi, qlo, dq, B, shi, slo, scnt, sel, nm, slotmap, W, out, stream
-        "gm_membership_bits": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+        # qhi, qlo, qcnt, B, shi, slo, scnt, sel, nm, inv, W, out, stream
+        "gm_membership_bits": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
         # M, rm, k, W, out, stream
         "gm_round_dec": [_P, _P, _I, _I, _P, _P],
     }),

@@ -569,13 +569,14 @@ def _membership_rows(qhi, qlo, Shi, Slo, Scnt):
     return m
 
 
-def _membership_bits_packed(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+def _membership_bits_packed(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv):
     """Rows `sel` of one chunk's planes -> packed membership words [nm, W]
     int32 in sorted-query index space (the `membership_bits` kernel):
     bit j of word w == (query hash 32w+j) in the row. slotmap [W*32] int32
     maps query index j -> flat slot position slot*B + bucket, dq*B for
-    none (padding past len(q), and the 2^64-1 tail)."""
-    return cuda_gather.membership_bits(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+    none (padding past len(q), and the 2^64-1 tail); inv is its inverse
+    (`inverse_slot_map`) and qcnt [B] the query's bucket occupancy."""
+    return cuda_gather.membership_bits(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv)
 
 
 def query_slot_map(q_core: np.ndarray, B: int, dq: int, n_positions: int):
@@ -589,6 +590,16 @@ def query_slot_map(q_core: np.ndarray, B: int, dq: int, n_positions: int):
     return slotmap
 
 
+def inverse_slot_map(slotmap: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """[n_slots] int32 on slotmap's device: the query index j whose flat
+    slot position slotmap[j] is each position, -1 where none is. Positions
+    >= n_slots (the dummy dq*B) go to a dump element that is cut off."""
+    inv = torch.full((n_slots + 1,), -1, dtype=torch.int32, device=slotmap.device)
+    index = torch.arange(slotmap.shape[0], dtype=torch.int32, device=slotmap.device)
+    inv.scatter_(0, slotmap.long().clamp(max=n_slots), index)
+    return inv[:-1]
+
+
 def membership_matrix(q_full: np.ndarray, bank: BucketedRows, row_ids, q_packed=None):
     """Membership of the query's bucketed slots in selected (resident) bank
     rows: returns (M [len(row_ids), dq*B/32] int32 words, q_packed), where
@@ -600,13 +611,14 @@ def membership_matrix(q_full: np.ndarray, bank: BucketedRows, row_ids, q_packed=
     host pack_query_bucketed(q_full, bank.B)."""
     if q_packed is None:
         q_packed = pack_query_bucketed(q_full, bank.B)
-    qhi, qlo, _qcnt, dq, _tail = q_packed
+    qhi, qlo, qcnt, dq, _tail = q_packed
     device = bank.hi.device
     ids = np.asarray(row_ids, dtype=np.int64)
+    # the identity map is its own inverse; its PAD positions get no bit
     identity = torch.arange(dq * bank.B, dtype=torch.int32, device=device)
     M = _membership_bits_packed(
-        to_torch(qhi, device), to_torch(qlo, device), bank.hi, bank.lo, bank.cnt,
-        torch.from_numpy(ids).to(device), identity,
+        to_torch(qhi, device), to_torch(qlo, device), to_torch(qcnt, device), bank.hi,
+        bank.lo, bank.cnt, torch.from_numpy(ids).to(device), identity, identity,
     )
     spill_bits = {r: bank.spills[i] for r, i in enumerate(ids) if len(bank.spills[i])}
     if spill_bits:

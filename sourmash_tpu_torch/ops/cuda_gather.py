@@ -9,7 +9,9 @@ code of `sourmash_tpu` (see `csrc/gather.cu` for what each replaces).
   `cut_hi/cut_lo [rows]` (unsigned). `[rows]` int32.
 - `membership_bits` (X4, `ops/bucketed.py:_membership_bits_packed`):
   `[nm, W]` int32 membership words of rows `sel [nm]` of one chunk's planes
-  over the query hashes of `slotmap [W * 32]`.
+  over the query hashes of `slotmap [W * 32]`; the kernel walks the rows'
+  valid slots and needs the query's occupancy `qcnt [B]` and the inverse
+  slot map `inv [dq * B]` (`bucketed.inverse_slot_map`).
 - `round_dec` (X5, `index/flat.py:_dec_counts`): `[k]` int32
   `sum_w popc(M[r, w] & rm[w])`.
 
@@ -122,52 +124,61 @@ def counts_rows_plain(qhi, qlo, Shi, Slo, cut_hi=None, cut_lo=None):
 # -- membership_bits: X4 -----------------------------------------------------
 
 
-def _check_membership(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+def _check_membership(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv):
     dev = qhi.device if torch.is_tensor(qhi) else None
     _check("qhi", qhi, torch.int32, 2)
     _check("qlo", qlo, torch.int32, 2, dev)
+    _check("qcnt", qcnt, torch.int32, 1, dev)
     _check("Shi", Shi, torch.int32, 3, dev)
     _check("Slo", Slo, torch.int32, 3, dev)
     _check("Scnt", Scnt, torch.uint8, 2, dev)
     _check("sel", sel, torch.int64, 1, dev)
     _check("slotmap", slotmap, torch.int32, 1, dev)
-    B = qhi.shape[1]
+    _check("inv", inv, torch.int32, 1, dev)
+    dq, B = qhi.shape
     if qhi.shape != qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != B:
         raise TypeError(f"planes {tuple(qhi.shape)} vs {tuple(Shi.shape)} do not match")
     if tuple(Scnt.shape) != (Shi.shape[0], B) or slotmap.shape[0] % 32:
         raise TypeError("Scnt must be [rows, B] and slotmap a multiple of 32 long")
+    if qcnt.shape[0] != B or inv.shape[0] != dq * B:
+        raise TypeError("qcnt must be [B] and inv [dq * B]")
 
 
-def membership_bits(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
+def membership_bits(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv):
     """Membership words [nm, W] int32 of rows `sel` of one chunk's planes:
     bit j of word w is set when query hash 32w + j sits in a valid slot of
-    the row's bucket (slotmap gives its flat slot position, or dq*B)."""
-    _check_membership(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+    the row's bucket (slotmap gives its flat slot position, or dq*B). qcnt
+    is the query's per-bucket occupancy and inv the inverse of slotmap
+    (`bucketed.inverse_slot_map`), which the kernel reads in its place."""
+    _check_membership(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv)
     if qhi.device.type == "cpu":
-        return membership_bits_plain(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+        return membership_bits_plain(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv)
     rows, d, B = Shi.shape
     if d != _D:
         raise TypeError(f"the membership kernel takes {_D} subject slots, not {d}")
+    if inv.shape[0] >= 2**31:
+        raise TypeError(f"query planes of {inv.shape[0]} slots are out of the kernel's range")
     nm, W = sel.shape[0], slotmap.shape[0] // 32
     if nm and not (0 <= int(sel.min()) and int(sel.max()) < rows):
         raise IndexError(f"sel holds rows outside [0, {rows})")
     out = torch.empty((nm, W), dtype=torch.int32, device=qhi.device)
     _launch(
-        "gm_membership_bits", qhi.device, qhi.data_ptr(), qlo.data_ptr(), qhi.shape[0], B,
+        "gm_membership_bits", qhi.device, qhi.data_ptr(), qlo.data_ptr(), qcnt.data_ptr(), B,
         Shi.data_ptr(), Slo.data_ptr(), Scnt.data_ptr(), sel.data_ptr(), nm,
-        slotmap.data_ptr(), W, out.data_ptr(),
+        inv.data_ptr(), W, out.data_ptr(),
     )
     LAUNCHES["membership_bits"] += 1
     return out
 
 
-def membership_bits_plain(qhi, qlo, Shi, Slo, Scnt, sel, slotmap):
-    """Plain PyTorch version of `membership_bits`: `_membership_rows` over
-    the selected rows, a take by slotmap (dq*B reads a zero column) and the
-    bit pack."""
+def membership_bits_plain(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv):
+    """Plain PyTorch version of `membership_bits`, driven by the query as
+    the JAX function is: `_membership_rows` over the selected rows, a take
+    by slotmap (dq*B reads a zero column) and the bit pack. qcnt and inv
+    are checked and not needed."""
     from .bucketed import _membership_rows, pack_bits_u32
 
-    _check_membership(qhi, qlo, Shi, Slo, Scnt, sel, slotmap)
+    _check_membership(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv)
     m = _membership_rows(qhi, qlo, Shi[sel], Slo[sel], Scnt[sel])  # [nm, dq, B]
     flat = m.reshape(m.shape[0], -1)
     flat = torch.cat([flat, flat.new_zeros((flat.shape[0], 1))], dim=1)

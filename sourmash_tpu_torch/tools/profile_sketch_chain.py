@@ -13,8 +13,8 @@ Variants (default: all three):
   gatheronly - the step between byte rows and K1's launch: the port has
                none to time (the tool says so)
 The JAX tool's rowsN (a sweep of the kernel's rows per grid step) has no
-counterpart: K1's tile is the compile-time kTile of
-`csrc/sketch_common.cuh`.
+counterpart: K1's tile is the compile-time kK1Tile of
+`csrc/sketch.cu`.
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ USAGE = ("usage: python -m sourmash_tpu_torch.tools.profile_sketch_chain "
          "[full] [kernel] [gatheronly]")
 N_WINDOWS = c.BATCH * (c.LENGTH - c.KSIZE + 1)
 NO_GATHER = ("gather only: the port has no layout step between byte rows and K1's "
-             "launch (K1 stages each 256-window tile and its k-1 halo in shared memory "
-             "itself: csrc/sketch_common.cuh:stage_row); nothing to time")
+             "launch (K1 stages each 1024-window tile and its k-1 halo in shared memory "
+             "itself: csrc/sketch.cu:survivor_slots_kernel); nothing to time")
 
 
 def step_full(x, max_hash: int = c.MAX_HASH):
@@ -68,7 +68,7 @@ def measure(step, x0, dev) -> float:
 def _refuse_rows(mode: str) -> bool:
     if mode.startswith("rows"):
         raise SystemExit(f"{mode}: no counterpart in the port. K1's tile is the "
-                         "compile-time kTile (csrc/sketch_common.cuh), not a rows "
+                         "compile-time kK1Tile (csrc/sketch.cu), not a rows "
                          f"argument, so there is no rows sweep.\n{USAGE}")
     return mode in ("full", "kernel", "gatheronly")
 

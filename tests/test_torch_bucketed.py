@@ -193,26 +193,74 @@ def _membership_inputs(case):
     rows, q, B = make_case(case)
     bank = jbk.pack_rows_bucketed(rows, B, device=False)
     core = q[:-1] if q[-1] == MAX else q
-    qhi, qlo, _qcnt, dq, _ = jbk.pack_query_bucketed(core, B, device=False)
+    qhi, qlo, qcnt, dq, _ = jbk.pack_query_bucketed(core, B, device=False)
     W = -(-len(q) // 32)
-    return rows, q, bank, (qhi, qlo, dq), W, core
+    return rows, q, bank, (qhi, qlo, qcnt, dq), W, core
 
 
+def _row_driven_bits(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, inv, W):
+    """The membership kernel's algorithm in numpy: each valid slot of a
+    selected row searched in the first qcnt[b] sorted slots of its bucket's
+    query column, a hit mapped through inv to its bit."""
+    q64 = (qhi.astype(np.uint64) << np.uint64(32)) | qlo.astype(np.uint64)  # [dq, B]
+    out = np.zeros((len(sel), W), dtype=np.uint32)
+    for r, s in enumerate(sel):
+        for b in np.flatnonzero(Scnt[s]):
+            col = q64[: qcnt[b], b]
+            for k2 in range(Scnt[s, b]):
+                h = (np.uint64(Shi[s, k2, b]) << np.uint64(32)) | np.uint64(Slo[s, k2, b])
+                at = int(np.searchsorted(col, h))
+                if at < len(col) and col[at] == h and inv[at * len(qcnt) + b] >= 0:
+                    j = int(inv[at * len(qcnt) + b])
+                    out[r, j >> 5] |= np.uint32(1 << (j & 31))
+    return out
+
+
+@pytest.mark.parametrize("slot_map", ["sorted", "identity"])
 @pytest.mark.parametrize("case", ["exact", "spills", "max_u64"])
-def test_membership_bits_plain_and_slot_map_match_jax(case):
-    rows, q, bank, (qhi, qlo, dq), W, core = _membership_inputs(case)
+def test_membership_bits_plain_and_slot_map_match_jax(case, slot_map):
+    """membership_bits with its query occupancy and inverse slot map, on the
+    sorted-query index map of the device route and the identity map of
+    membership_matrix (PAD positions included), against the JAX function;
+    the row-driven search of the kernel gives the same words. The cases
+    hold a query with 2^64-1 and a bank with spills."""
+    rows, q, bank, (qhi, qlo, qcnt, dq), W, core = _membership_inputs(case)
     B = bank.B
-    jmap = jbk.query_slot_map(core, B, dq, W * 32)
-    tmap = tbk.query_slot_map(core, B, dq, W * 32)
-    assert np.array_equal(jmap, tmap)
+    if slot_map == "sorted":
+        jmap = jbk.query_slot_map(core, B, dq, W * 32)
+        tmap = tbk.query_slot_map(core, B, dq, W * 32)
+        assert np.array_equal(jmap, tmap)
+    else:
+        jmap = tmap = np.arange(dq * B, dtype=np.int32)
+        W = dq * B // 32
+    inv = tbk.inverse_slot_map(torch.from_numpy(tmap), dq * B)
     sel = np.array([i for i in (2, 0, 1, 1) if i < len(rows)], dtype=np.int64)
     want = jbk._membership_bits_packed(
         jnp.asarray(qhi), jnp.asarray(qlo), jnp.asarray(bank.hi[sel]),
         jnp.asarray(bank.lo[sel]), jnp.asarray(bank.cnt[sel]), jnp.asarray(jmap))
-    got = cg.membership_bits(*planes(qhi, qlo, bank.hi, bank.lo, bank.cnt), torch.from_numpy(sel),
-                             torch.from_numpy(tmap))
+    got = cg.membership_bits(*planes(qhi, qlo, qcnt, bank.hi, bank.lo, bank.cnt),
+                             torch.from_numpy(sel), torch.from_numpy(tmap), inv)
     assert np.array_equal(np.asarray(want), tbk.to_numpy_u32(got))
     assert got.any()
+    row_driven = _row_driven_bits(qhi, qlo, qcnt, bank.hi, bank.lo, bank.cnt, sel,
+                                  inv.numpy(), W)
+    assert np.array_equal(row_driven, tbk.to_numpy_u32(got))
+
+
+@pytest.mark.parametrize("case", ["exact", "spills", "max_u64", "huge_query"])
+def test_inverse_slot_map_matches_jax_slot_map(case):
+    """inverse_slot_map inverts the JAX query_slot_map: each query hash's
+    position maps back to its index, every other position (PAD slots, and
+    none for the word padding and the 2^64-1 tail) to -1."""
+    _rows, q, bank, (_qhi, _qlo, qcnt, dq), W, core = _membership_inputs(case)
+    B = bank.B
+    jmap = jbk.query_slot_map(core, B, dq, W * 32)
+    inv = tbk.inverse_slot_map(torch.from_numpy(jmap), dq * B).numpy()
+    assert inv.shape == (dq * B,) and inv.dtype == np.int32
+    assert np.array_equal(inv[jmap[: len(core)]], np.arange(len(core)))
+    assert int((inv >= 0).sum()) == len(core) == int(qcnt.sum())
+    slot = np.arange(dq * B) // B
+    assert np.array_equal(inv >= 0, slot < qcnt[np.arange(dq * B) % B])
 
 
 @pytest.mark.parametrize("case", ["exact", "spills"])

@@ -114,9 +114,10 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         cuda_gather.counts_rows(q, q, S, S)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_gather.membership_bits(
-            q, q, S, S, torch.zeros((8, 128), dtype=torch.uint8, device="meta"),
+            q, q, q[0], S, S, torch.zeros((8, 128), dtype=torch.uint8, device="meta"),
             torch.zeros(4, dtype=torch.int64, device="meta"),
-            torch.zeros(64, dtype=torch.int32, device="meta"))
+            torch.zeros(64, dtype=torch.int32, device="meta"),
+            torch.zeros(8 * 128, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_gather.round_dec(q, q[0])
 
