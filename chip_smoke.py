@@ -12,12 +12,16 @@ Phases, each raising on failure:
    bit, at the main path's row shape [4, 2^21 + k - 1] and at [32, ...],
    for k in {7, 21, 31, 33, 51, 63, 129} and max_hash for scaled 100, 512,
    768, 1000, 2000 and 2^64-1, on ACGT rows with N runs, a zero-padded
-   tail and a tandem repeat that overflows K1's slots; K1 also at every
-   max_hash on [4, 2^20] edge rows: uniformly random bytes (k = 21, 31,
-   51), even-k palindromes (k = 20, 32) and N runs across its tile and
-   segment boundaries (k = 21, 31, 51, 63). Time each kernel (CUDA
-   events, median per launch after warm-up) and its plain version, and
-   work out the least time the card could take (`bound_ms`); beside K1's
+   tail and a tandem repeat that overflows K1's slots; K1 at every
+   max_hash and K2 on every window (invalid windows' garbage hashes and
+   the pad windows past n included) on [4, 2^20] edge rows: uniformly
+   random bytes (k = 21, 31, 51), even-k palindromes (k = 20, 32) and N
+   runs across the 1,024-window tile and 128-window segment boundaries
+   (k = 21, 31, 51, 63). Time each kernel (CUDA events: the median of
+   single launches after warm-up, and the time per launch of a run of
+   launches back to back) and its plain version, and work out the least
+   time the card could take (`bound_ms`; "operations" bounds at 4 IMAD
+   slots a 64-bit multiply, and at the 3 counted before); beside K1's
    bound print its measured floor, T4's murmur_only time per window at
    K1's windows.
 3. Sketch a generated multi-record FASTA.gz of >= 256 Mbp through
@@ -64,7 +68,11 @@ zero-padded tail, and times it and its plain version at [4, ...]. It then
 holds the gather kernels against their plain versions, bit for bit, at
 phase 6's shapes: `counts_rows` on one chunk of [8192, 8, 4096] planes
 (PAD slots, the hash 2^64-1, forced spills) against a ~600 k-hash query,
-with and without per-row cutoffs; `membership_bits` at [2048, W =
+with and without per-row cutoffs (query columns in shared memory), and on
+a bank of small sketches (B = 128) against the same query, whose columns
+of thousands of slots are searched in global memory, with and without
+cutoffs; the cost of the wrapper's query-order check; `membership_bits`
+at [2048, W =
 ceil(600 k / 32)], and on edge inputs: the identity slot map of
 `membership_matrix`, buckets with cnt = 8, emptied and repeated rows, and
 a W above the block's shared memory; `round_dec` at [4096, W].
@@ -90,8 +98,8 @@ instruments at k=31), before the main path, and prints neither line;
 `gather` once more under cProfile and torch.profiler and prints where their
 time goes. --sass-against DIR (a checkout of another commit) builds DIR's
 `csrc/sketch.cu` with this tree's flags after phase 1 and fails unless the
-SASS of K2 and K3 equals this tree's, kernel by kernel; it prints K1's
-instruction count on both sides. Without a CUDA device, or outside a checkout of the repository,
+SASS of K3 equals this tree's; it prints K2's and K1's instruction counts
+on both sides. Without a CUDA device, or outside a checkout of the repository,
 the script exits non-zero before any result.
 """
 
@@ -118,6 +126,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
 LANES_PER_PIPE = 64
+# IMAD-pipe slots of one 64-bit multiply (by a constant) as nvcc emits it,
+# ~4 in the mul-chain's SASS (PERF.md). The "operations" bounds counted 3
+# before; each kernel's bound at 3 is kept beside the new one
+# (`bound_ms_3imad`) while the yardstick changes.
+IMAD_PER_MUL = 4
+IMAD_PER_MUL_BEFORE = 3
 
 KS = (7, 21, 31, 33, 51, 63, 129)
 SCALEDS = (100, 512, 768, 1000, 2000)
@@ -183,36 +197,36 @@ def max_hash_for(scaled: int) -> int:
 # -- the least time the card could take -------------------------------------
 
 
-def int_ops_murmur(k: int) -> tuple:
+def int_ops_murmur(k: int, mul: int = IMAD_PER_MUL) -> tuple:
     """(IMAD, other) 32-bit integer operations of murmur over k bytes at
-    least: a 64-bit multiply as 3 IMADs, a multiply by 5 as 2; a 64-bit
-    add, xor, rotate or shift-xor as 2 other ops."""
+    least: a 64-bit multiply as `mul` IMAD slots, a multiply by 5 as 2; a
+    64-bit add, xor, rotate or shift-xor as 2 other ops."""
     tail = k & 15
     halves = 2 * (k // 16) + (tail > 0) + (tail > 8)
     # per 8-byte half: k *= c, rotl, k *= c, h ^= k (and per full block,
     # per half: rotl h, h += h', h = h * 5 + c)
-    imad = 6 * halves + 2 * 2 * (k // 16)
+    imad = 2 * mul * halves + 2 * 2 * (k // 16)
     other = 4 * halves + 6 * 2 * (k // 16)
     # finish: two xors with len and two adds; two fmix64 (two multiplies
     # and three shift-xors each); the final add
-    imad += 2 * 2 * 3
+    imad += 2 * 2 * mul
     other += 4 * 2 + 2 * 3 * 2 + 2
     return imad, other
 
 
-def int_ops_per_window(k: int) -> tuple:
+def int_ops_per_window(k: int, mul: int = IMAD_PER_MUL) -> tuple:
     """(IMAD, other) integer operations one canonical DNA window hash needs
     at least: murmur, the canonical bytes assembled four to an op for each
     strand, validity tested four bytes to an op, and the strand choice."""
-    imad, other = int_ops_murmur(k)
+    imad, other = int_ops_murmur(k, mul)
     return imad, other + 3 * -(-k // 4) + 2
 
 
-def int_ops_per_aa_window(k: int) -> tuple:
+def int_ops_per_aa_window(k: int, mul: int = IMAD_PER_MUL) -> tuple:
     """(IMAD, other) integer operations one amino-acid window hash (K3)
     needs at least: murmur, the bytes of one strand assembled four to an
     op, and the zero-byte validity test four bytes to an op."""
-    imad, other = int_ops_murmur(k)
+    imad, other = int_ops_murmur(k, mul)
     return imad, other + 2 * -(-k // 4)
 
 
@@ -223,6 +237,15 @@ def bound_ms(nbytes: int, imad: int, other: int, clock_hz: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(imad / pipe, other / pipe, (imad + other) / (2 * pipe))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mul_bounds(nbytes: int, ops, clock_hz: float) -> tuple:
+    """(bound_ms, bound_by, bound_ms_3imad) of work whose (IMAD, other)
+    operations are ops(IMAD slots per 64-bit multiply): the bound at
+    IMAD_PER_MUL and, beside it, at the IMAD_PER_MUL_BEFORE counted
+    before."""
+    bms, by = bound_ms(nbytes, *ops(IMAD_PER_MUL), clock_hz)
+    return bms, by, bound_ms(nbytes, *ops(IMAD_PER_MUL_BEFORE), clock_hz)[0]
 
 
 # -- inputs ------------------------------------------------------------------
@@ -311,6 +334,28 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, n: int) -> float:
+    """Time per call of n calls issued back to back between two CUDA
+    events, after one warm-up call: the kernel's own time where the
+    wrapper's host gap between launches is shorter than the kernel."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def kernel_times(fn, reps: int) -> tuple:
+    "(median per call, per call back to back) of a kernel's wrapper, reps calls each."
+    return time_ms(fn, reps), back_to_back_ms(fn, reps)
+
+
 def check_kernels(quick: bool, rng, clock_hz: float) -> dict:
     import torch
 
@@ -344,21 +389,27 @@ def check_kernels(quick: bool, rng, clock_hz: float) -> dict:
                 mh = max_hash_for(1000)
                 slots = _pick_slots(mh)
                 reps = 3 if quick else 20
-                t2 = time_ms(lambda: cs.window_hashes(rows, ksize=k), reps)
-                t1 = time_ms(lambda: cs.survivor_slots(rows, mh, ksize=k, slots=slots), reps)
+                t2 = kernel_times(lambda: cs.window_hashes(rows, ksize=k), reps)
+                t1 = kernel_times(lambda: cs.survivor_slots(rows, mh, ksize=k, slots=slots), reps)
                 p2 = time_ms(lambda: cs.window_hashes_plain(rows, ksize=k), 3, warmup=1)
                 p1 = time_ms(lambda: cs.survivor_slots_plain(rows, mh, ksize=k, slots=slots), 3, warmup=1)
-                imad, other = (B * n_pad * x for x in int_ops_per_window(k))
-                b2 = bound_ms(B * S + B * n_pad * 9, imad, other, clock_hz)
+
+                def ops(mul, extra=0):
+                    imad, other = int_ops_per_window(k, mul)
+                    return B * n_pad * imad, B * n_pad * (other + extra)
+
+                b2 = mul_bounds(B * S + B * n_pad * 9, ops, clock_hz)
                 # K1 adds the threshold, the ballot and the rank per window
-                b1 = bound_ms(B * S + B * R * (8 * slots + 4), imad, other + B * n_pad * 4, clock_hz)
-                for name, ms, plain, (bms, by) in (
+                b1 = mul_bounds(B * S + B * R * (8 * slots + 4), lambda m: ops(m, 4), clock_hz)
+                for name, (ms, b2b), plain, (bms, by, b3) in (
                     ("window_hashes", t2, p2, b2), ("survivor_slots", t1, p1, b1)
                 ):
-                    results[name][k] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                                            max_abs_err=err, windows=B * n)
-                    log(f"    {name}: {ms:.4f} ms/launch, plain {plain:.3f} ms, "
-                        f"bound {bms:.4f} ms ({by}), {B * n / ms / 1e6:.2f} Gwindows/s")
+                    results[name][k] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms,
+                                            bound_by=by, bound_ms_3imad=b3, max_abs_err=err,
+                                            windows=B * n)
+                    log(f"    {name}: {ms:.4f} ms/launch ({b2b:.4f} back to back), plain "
+                        f"{plain:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a "
+                        f"multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
             del rows
             torch.cuda.empty_cache()
     check_k1_edges(rng, thresholds)
@@ -420,8 +471,11 @@ K1_EDGES = (("random bytes", (21, 31, 51)), ("palindromes", (20, 32)),
 
 
 def check_k1_edges(rng, thresholds):
-    """K1 against its plain version, bit for bit, on the edge inputs of
-    k1_edge_rows at every threshold; fails otherwise."""
+    """K1 and K2 against their plain versions, bit for bit, on the edge
+    inputs of k1_edge_rows: K1 at every threshold, K2 on every window's
+    hash and validity, invalid windows' garbage hashes and the pad windows
+    past n (rows of 2^20 bytes end in a partial segment) included; fails
+    otherwise."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_sketch as cs
@@ -431,6 +485,13 @@ def check_k1_edges(rng, thresholds):
         for k in ks:
             rows = torch.from_numpy(k1_edge_rows(kind, k, rng)).cuda()
             hp, vp = cs.window_hashes_plain(rows, ksize=k)
+            h, v = cs.window_hashes(rows, ksize=k)
+            exact(f"K2 {kind} hashes k={k}", h, hp)
+            exact(f"K2 {kind} valid k={k}", v, vp)
+            n, _R, n_pad = cs.geometry(rows.shape[1], k)
+            if n_pad == n or bool(vp[:, n:].any()):
+                raise AssertionError(f"K2 {kind} k={k}: no invalid pad windows past n")
+            del h, v
             survivors = 0
             for mh in thresholds:
                 slots = _pick_slots(mh)
@@ -439,8 +500,9 @@ def check_k1_edges(rng, thresholds):
                 for name, a, b in zip(("hi", "lo", "counts"), got, want):
                     exact(f"K1 {kind} {name} k={k} max_hash={mh}", a, b)
                 survivors = max(survivors, int(want[2].sum()))
-            log(f"  K1 on {kind} at k={k:3d}: equals its plain version at {len(thresholds)} "
-                f"thresholds ({int(vp.sum())} valid windows, up to {survivors} survivors)")
+            log(f"  K1 and K2 on {kind} at k={k:3d}: equal their plain versions (K1 at "
+                f"{len(thresholds)} thresholds; {int(vp.sum())} valid windows of {vp.numel()}, "
+                f"{n_pad - n} pad windows a row; up to {survivors} survivors)")
             del rows, hp, vp
     torch.cuda.empty_cache()
 
@@ -468,14 +530,16 @@ def check_aa_kernel(quick: bool, rng, clock_hz: float) -> dict:
             if B == 4:
                 S = rows.shape[1]
                 _, _, n_pad = cs.geometry(S, k)
-                t3 = time_ms(lambda: cs.aa_window_hashes(rows, ksize=k), 3 if quick else 20)
+                t3, b2b = kernel_times(lambda: cs.aa_window_hashes(rows, ksize=k), 3 if quick else 20)
                 p3 = time_ms(lambda: cs.aa_window_hashes_plain(rows, ksize=k), 3, warmup=1)
-                imad, other = (B * n_pad * x for x in int_ops_per_aa_window(k))
-                bms, by = bound_ms(B * S + B * n_pad * 9, imad, other, clock_hz)
-                results[k] = dict(ms=t3, plain_ms=p3, bound_ms=bms, bound_by=by,
-                                  max_abs_err=err, windows=B * n)
-                log(f"    aa_window_hashes: {t3:.4f} ms/launch, plain {p3:.3f} ms, "
-                    f"bound {bms:.4f} ms ({by}), {B * n / t3 / 1e6:.2f} Gwindows/s")
+                bms, by, b3 = mul_bounds(
+                    B * S + B * n_pad * 9,
+                    lambda m: tuple(B * n_pad * x for x in int_ops_per_aa_window(k, m)), clock_hz)
+                results[k] = dict(ms=t3, b2b_ms=b2b, plain_ms=p3, bound_ms=bms, bound_by=by,
+                                  bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
+                log(f"    aa_window_hashes: {t3:.4f} ms/launch ({b2b:.4f} back to back), plain "
+                    f"{p3:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a multiply), "
+                    f"{B * n / t3 / 1e6:.2f} Gwindows/s")
             del rows
             torch.cuda.empty_cache()
     return results
@@ -917,7 +981,7 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
             lambda s: cg.counts_rows_plain(qhi, qlo, Shi[s].contiguous(), Slo[s].contiguous(),
                                            *(c[s].contiguous() for c in cut)), rows, step)
         err = exact(name, got, want)
-        ms = time_ms(lambda: cg.counts_rows(qhi, qlo, Shi, Slo, *cut), reps)
+        ms, b2b = kernel_times(lambda: cg.counts_rows(qhi, qlo, Shi, Slo, *cut), reps)
         plain = time_ms(lambda: plain_in_chunks(
             lambda s: cg.counts_rows_plain(qhi, qlo, Shi[s].contiguous(), Slo[s].contiguous(),
                                            *(c[s].contiguous() for c in cut)), rows, step),
@@ -933,11 +997,20 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
         other = 3 * probes + (3 * rows * B * 8 if cut else 0)
         nbytes = 2 * Shi.numel() * 4 + 2 * qhi.numel() * 4 + rows * 4 + (8 * rows if cut else 0)
         bms, by = bound_ms(nbytes, 0, other, clock_hz)
-        results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                             rows=rows, dq=dq, B=B, nonzero=int((got > 0).sum()))
-        log(f"  {name}: equals its plain version on all {rows} rows (dq={dq}); "
-            f"{ms:.4f} ms/launch, plain {plain:.2f} ms, bound {bms:.4f} ms ({by}), "
-            f"{compares / ms / 1e9:.1f} G limb-pair compares/ms")
+        results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
+                             max_abs_err=err, rows=rows, dq=dq, B=B,
+                             nonzero=int((got > 0).sum()))
+        log(f"  {name}: equals its plain version on all {rows} rows (dq={dq}, shared-memory "
+            f"columns); {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.2f} ms, "
+            f"bound {bms:.4f} ms ({by}), {100 * bms / b2b:.1f} % of it back to back, "
+            f"{compares / ms / 1e9:.1f} G all-pairs compares/ms equivalent")
+    # the wrapper's check of the query columns' order, on its first call
+    # with these planes (later calls with the same unmodified planes skip it)
+    check_ms = time_ms(lambda: cg._columns_ascending(qhi, qlo), reps)
+    results["counts_rows"]["order_check_ms"] = check_ms
+    log(f"  counts_rows query order check (first call with new planes): {check_ms:.4f} ms")
+    results["counts_rows global columns"] = check_counts_global_branch(
+        rng, mins_list, q, reps, clock_hz)
 
     # membership: phase 6's slot map (pow2 dq) over 2048 selected rows (4096 for round_dec)
     q_core = q[:-1] if q[-1] == np.uint64(2**64 - 1) else q
@@ -963,7 +1036,7 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     if not bool(got.any()):
         raise AssertionError("membership_bits: no bit set")
     check_membership_edges(rng, member, member_plain, slotmap, inv, q_core, B, mdq, Scnt, rows)
-    ms = time_ms(lambda: member(sel, slotmap, inv), reps)
+    ms, b2b = kernel_times(lambda: member(sel, slotmap, inv), reps)
     plain = time_ms(lambda: member_plain(sel, slotmap, inv), 1, warmup=0)
     # least work of the function: each selected row's cnt bytes and its
     # valid slots' two limbs read once, each valid slot searched in its
@@ -975,11 +1048,12 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     nbytes = (nm * (B + 8) + valid * 8 + mq[0].numel() * 8 + B * 4 + inv.numel() * 4
               + nm * W * 4)
     bms, by = bound_ms(nbytes, 0, other, clock_hz)
-    results["membership_bits"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                                      max_abs_err=err, nm=nm, W=W, dq=mdq, valid_slots=valid)
+    results["membership_bits"] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms,
+                                      bound_by=by, max_abs_err=err, nm=nm, W=W, dq=mdq,
+                                      valid_slots=valid)
     log(f"  membership_bits [{nm}, {W}] (dq={mdq}, {valid} valid slots): equals its plain "
-        f"version; {ms:.4f} ms/launch, plain {plain:.2f} ms, bound {bms:.4f} ms ({by}), "
-        f"{100 * bms / ms:.1f} % of it")
+        f"version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.2f} ms, bound "
+        f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f} % of it")
 
     k = min(4096, rows)
     sel_k = torch.from_numpy(rng.choice(rows, size=k, replace=False).astype(np.int64)).to(GATHER_DEVICE)
@@ -988,16 +1062,66 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     rm = M[0] & alive
     got = cg.round_dec(M, rm)
     err = exact("round_dec", got, cg.round_dec_plain(M, rm))
-    ms = time_ms(lambda: cg.round_dec(M, rm), reps)
+    ms, b2b = kernel_times(lambda: cg.round_dec(M, rm), reps)
     plain = time_ms(lambda: cg.round_dec_plain(M, rm), 3, warmup=1)
     bms, by = bound_ms(k * W * 4 + W * 4 + k * 4, 0, 3 * k * W, clock_hz)
-    results["round_dec"] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+    results["round_dec"] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
                                 max_abs_err=err, k=k, W=W)
-    log(f"  round_dec [{k}, {W}]: equals its plain version; {ms:.4f} ms/launch, "
-        f"plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
+    log(f"  round_dec [{k}, {W}]: equals its plain version; {ms:.4f} ms/launch "
+        f"({b2b:.4f} back to back), plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
     del bank, Shi, Slo, M
     torch.cuda.empty_cache()
     return results
+
+
+GLOBAL_B = 128  # a bank of small genomes (choose_buckets of <= 320 hashes)
+GLOBAL_ROWS = 1024
+
+
+def check_counts_global_branch(rng, mins_list, q, reps: int, clock_hz: float) -> dict:
+    """counts_rows against its plain version, bit for bit, with and without
+    cuts, where the query columns exceed the block's shared memory and are
+    searched in global memory (L2): a bank of GLOBAL_ROWS sketches of 150-
+    320 hashes (B = 128) cut from phase 2's rows against phase 2's ~600 k
+    hash query, so dq is in the thousands. Timed, not in the kernels line."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops.index_ops import _cached_query_pack
+
+    dev = torch.device(GATHER_DEVICE)
+    small = [m[: int(n)] for m, n in zip(mins_list[:GLOBAL_ROWS],
+                                         rng.integers(150, 321, size=GLOBAL_ROWS))]
+    if bk.choose_buckets(max(len(m) for m in small)) != GLOBAL_B:
+        raise AssertionError("the small-genome bank does not take B = 128")
+    bank = bk.pack_rows_device(small, GLOBAL_B, device=dev)
+    qhi, qlo, _qcnt, dq, _tail = _cached_query_pack(q, GLOBAL_B, dev)
+    smem = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232448)
+    if dq * 32 * 8 <= smem:
+        raise AssertionError(f"dq={dq} fits the block's shared memory: not the global branch")
+    rows = bank.hi.shape[0]
+    cuts = rng.choice(np.array([2**64 - 1, 2**63, max_hash_for(1000), 2**62], dtype=np.uint64),
+                      size=rows)
+    chi, clo = u64_planes(cuts)
+    out = {}
+    for name, cut in (("plain form", ()), ("cutoff form", (chi, clo))):
+        got = cg.counts_rows(qhi, qlo, bank.hi, bank.lo, *cut)
+        want = plain_in_chunks(lambda s: cg.counts_rows_plain(
+            qhi, qlo, bank.hi[s].contiguous(), bank.lo[s].contiguous(),
+            *(c[s].contiguous() for c in cut)), rows, 16)
+        exact(f"counts_rows global columns, {name}", got, want)
+        if not bool((got > 0).any()):
+            raise AssertionError(f"counts_rows global columns, {name}: no row counted a hit")
+        ms, b2b = kernel_times(lambda: cg.counts_rows(qhi, qlo, bank.hi, bank.lo, *cut), reps)
+        nbytes = 2 * bank.hi.numel() * 4 + 2 * qhi.numel() * 4 + rows * 4
+        bms, by = bound_ms(nbytes, 0, 0, clock_hz)
+        out[name] = dict(ms=ms, b2b_ms=b2b, bound_ms=bms, bound_by=by)
+        log(f"  counts_rows [{rows}, 8, {GLOBAL_B}] vs dq={dq} (global-memory columns, "
+            f"{name}): equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to back), "
+            f"bytes bound {bms:.4f} ms")
+    out.update(rows=rows, B=GLOBAL_B, dq=dq)
+    return out
 
 
 def check_membership_edges(rng, member, member_plain, slotmap, inv, q_core, B: int,
@@ -1103,9 +1227,9 @@ def sass_opcodes(lib: str, kernel: str):
 
 def sass_against(other_root: str):
     """Build `other_root`'s csrc/sketch.cu as this tree builds its own and
-    require the SASS of K2 and K3 to equal this tree's, instruction for
-    instruction; print K1's instruction count on both sides (K1 may
-    differ: each k it is built for is a kernel of its own)."""
+    require the SASS of K3 to equal this tree's, instruction for
+    instruction; print K2's and K1's instruction counts on both sides (they
+    may differ: each k they are built for is a kernel of its own)."""
     import re
 
     from sourmash_tpu_torch.ops import _build
@@ -1119,27 +1243,28 @@ def sass_against(other_root: str):
     ours = sass_functions(_build._so_path("sketch"))
     if ours is None or other is None:
         raise AssertionError("--sass-against needs cuobjdump")
-    differ = []
-    for kernel in ("window_hashes_kernel", "aa_window_hashes_kernel"):
-        a, b = sass_of(ours, kernel), sass_of(other, kernel)
-        if not a or a != b:
-            differ.append(f"{kernel}: SASS differs from {other_root}'s "
-                          f"({len(a or [])} vs {len(b or [])} instructions)")
-            log(f"  {differ[-1]}; first differences:")
-            for x, y in [(x, y) for x, y in zip(a or [], b or []) if x != y][:8]:
-                log(f"    {x}\n    {y}")
-        else:
-            log(f"  {kernel}: SASS identical to {other_root}'s ({len(a)} instructions)")
-    kernel = "survivor_slots_kernel"
-    for side, functions in (("this tree", ours), (other_root, other)):
-        counts = {}
-        for name, lines in functions.items():
-            if f"{len(kernel)}{kernel}" in name:
-                m = re.search(r"ILi(\d+)E", name)  # the template's k; 0 reads k at run time
-                counts[f"k={m.group(1) if m and m.group(1) != '0' else 'any'}"] = len(lines)
-        log(f"  {kernel} ({side}): {counts} instructions")
+    differ = None
+    kernel = "aa_window_hashes_kernel"
+    a, b = sass_of(ours, kernel), sass_of(other, kernel)
+    if not a or a != b:
+        differ = (f"{kernel}: SASS differs from {other_root}'s "
+                  f"({len(a or [])} vs {len(b or [])} instructions)")
+        log(f"  {differ}; first differences:")
+        for x, y in [(x, y) for x, y in zip(a or [], b or []) if x != y][:8]:
+            log(f"    {x}\n    {y}")
+    else:
+        log(f"  {kernel}: SASS identical to {other_root}'s ({len(a)} instructions)")
+    for kernel in ("window_hashes_kernel", "survivor_slots_kernel"):
+        for side, functions in (("this tree", ours), (other_root, other)):
+            counts = {}
+            for name, lines in functions.items():
+                if f"{len(kernel)}{kernel}" in name:
+                    # the template's k; 0 reads k at run time, no template takes every k
+                    m = re.search(r"ILi(\d+)E", name)
+                    counts[f"k={m.group(1) if m and m.group(1) != '0' else 'any'}"] = len(lines)
+            log(f"  {kernel} ({side}): {counts} instructions")
     if differ:
-        raise AssertionError("; ".join(differ))
+        raise AssertionError(differ)
 
 
 def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
@@ -1235,30 +1360,37 @@ def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) ->
                               csp.survivor_slots_v2_plain(rows, m, ksize=k, slots=slots)):
             err = max(err, exact(f"survivor_slots_v2 {name} max_hash={m}", a, b))
     del pw, pv
-    imad, other = (B * n_pad * x for x in int_ops_murmur(k))
     gather_ops = B * n_pad * (3 * -(-k // 4) + 2)  # canonical bytes, validity, strand
     word_bytes = B * n_pad * (8 * nw + 1)
     slot_bytes = B * R * (8 * slots + 4)
+
+    def ops(extra):
+        def at(mul):
+            imad, other = int_ops_murmur(k, mul)
+            return B * n_pad * imad, B * n_pad * (other + 4) + extra
+        return at
+
     timed = {
         "split_words": (lambda: csp.split_words(rows, ksize=k),
                         lambda: csp.split_words_plain(rows, ksize=k),
-                        bound_ms(B * S + word_bytes, 0, gather_ops, clock_hz)),
+                        mul_bounds(B * S + word_bytes, lambda m: (0, gather_ops), clock_hz)),
         "split_slots": (lambda: csp.split_slots(words, valid, mh, ksize=k, slots=slots),
                         lambda: csp.split_slots_plain(words, valid, mh, ksize=k, slots=slots),
-                        bound_ms(word_bytes + slot_bytes, imad, other + B * n_pad * 4, clock_hz)),
+                        mul_bounds(word_bytes + slot_bytes, ops(0), clock_hz)),
         "survivor_slots_v2": (
             lambda: csp.survivor_slots_v2(rows, mh, ksize=k, slots=slots),
             lambda: csp.survivor_slots_v2_plain(rows, mh, ksize=k, slots=slots),
-            bound_ms(B * S + slot_bytes, imad, other + gather_ops + B * n_pad * 4, clock_hz)),
+            mul_bounds(B * S + slot_bytes, ops(gather_ops), clock_hz)),
     }
     results = {}
-    for name, (fn, plain_fn, (bms, by)) in timed.items():
-        ms = time_ms(fn, reps)
+    for name, (fn, plain_fn, (bms, by, b3)) in timed.items():
+        ms, b2b = kernel_times(fn, reps)
         plain = time_ms(plain_fn, 3, warmup=1)
-        results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                             windows=B * n)
-        log(f"    {name}: equals its plain version; {ms:.4f} ms/launch, plain {plain:.3f} ms, "
-            f"bound {bms:.4f} ms ({by}), {B * n / ms / 1e6:.2f} Gwindows/s")
+        results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
+                             bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
+        log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
+            f"back), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a "
+            f"multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
     return results
 
 
@@ -1274,37 +1406,43 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
                                                          csp.LANES), dtype=np.int32)).cuda()
     n_out = nblk * T4_ROWS * csp.LANES
     k = csp.T4_KSIZE
-    imad, other = int_ops_murmur(k)
+
+    def murmur_ops(mul):
+        imad, other = int_ops_murmur(k, mul)
+        return n_out * imad, n_out * (other + 2 * -(-k // 8))
+
     cases = {
         "murmur_only": (lambda: csp.murmur_only(blocks, rows=T4_ROWS),
                         lambda: csp.murmur_only_plain(blocks, rows=T4_ROWS),
-                        bound_ms(8 * n_out, n_out * imad, n_out * (other + 2 * -(-k // 8)),
-                                 clock_hz)),
+                        mul_bounds(8 * n_out, murmur_ops, clock_hz)),
         "assembly_only": (lambda: csp.assembly_only(blocks, rows=T4_ROWS),
                           lambda: csp.assembly_only_plain(blocks, rows=T4_ROWS),
-                          bound_ms(8 * n_out + 4 * nblk * (k - 1), 0,
-                                   n_out * (3 * -(-k // 4) + 2 + -(-k // 8)), clock_hz)),
+                          mul_bounds(8 * n_out + 4 * nblk * (k - 1),
+                                     lambda m: (0, n_out * (3 * -(-k // 4) + 2 + -(-k // 8))),
+                                     clock_hz)),
     }
     for n in (0, 1, 16, 64):
-        # a round: v * C1 as 3 IMADs, rotl64 and the half-swap xor as 4 other ops
+        # a round: v * C1 as IMAD_PER_MUL IMAD slots, rotl64 and the
+        # half-swap xor as 4 other ops
         cases[f"mulchain-{n}"] = (
             lambda n=n: csp.mulchain(blocks, n, rows=T4_ROWS),
             lambda n=n: csp.mulchain_plain(blocks, n, rows=T4_ROWS),
-            bound_ms(8 * n_out, 3 * n * n_out, 4 * n * n_out, clock_hz))
+            mul_bounds(8 * n_out, lambda m, n=n: (m * n * n_out, 4 * n * n_out), clock_hz))
     results = {}
-    for name, (fn, plain_fn, (bms, by)) in cases.items():
+    for name, (fn, plain_fn, (bms, by, b3)) in cases.items():
         got = fn()
         err = exact(name, got, plain_fn())
         if name.startswith("mulchain") and not bool((got == (1 if name.endswith("-0") else 0)).all()):
             raise AssertionError(f"{name}: the output is not the JAX function's constant")
         if name == "mulchain-1":
             continue
-        ms = time_ms(fn, reps)
+        ms, b2b = kernel_times(fn, reps)
         plain = time_ms(plain_fn, 3, warmup=1)
-        results[name] = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                             windows=n_out)
-        log(f"    {name}: equals its plain version; {ms:.4f} ms/launch, plain {plain:.3f} ms, "
-            f"bound {bms:.4f} ms ({by}), {n_out / ms / 1e6:.2f} Gwindows/s")
+        results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
+                             bound_ms_3imad=b3, max_abs_err=err, windows=n_out)
+        log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
+            f"back), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a "
+            f"multiply), {n_out / ms / 1e6:.2f} Gwindows/s")
     t0, t16, t64 = (results[f"mulchain-{n}"]["ms"] for n in (0, 16, 64))
     # the rounds' own time grows with their number: net of the same kernel
     # with no rounds (its reads, writes and launch: ~a third of 16 rounds).
@@ -1320,8 +1458,8 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
                                sass_opcodes=sass)
     log(f"    mulchain: 16 rounds add {own16:.2f}x the 0-round kernel's {t0:.4f} ms; 64 "
         f"rounds take {t64 / t16:.2f}x 16 rounds, {growth:.2f}x net of 0 rounds; {rounds_per_s / 1e9:.1f} G rounds/s between 16 and 64, "
-        f"{per_sm_clock:.2f} rounds/SM/clock ({3 * per_sm_clock:.1f} IMAD + "
-        f"{4 * per_sm_clock:.1f} other/SM/clock at 3 + 4 a round); SASS opcodes of "
+        f"{per_sm_clock:.2f} rounds/SM/clock ({IMAD_PER_MUL * per_sm_clock:.1f} IMAD + "
+        f"{4 * per_sm_clock:.1f} other/SM/clock at {IMAD_PER_MUL} + 4 a round); SASS opcodes of "
         f"mulchain_kernel: {sass}")
     if own16 < MULCHAIN_OWN:
         raise AssertionError(f"mulchain: 16 rounds add only {own16:.2f}x the 0-round "
@@ -1758,7 +1896,7 @@ def main(argv=None) -> int:
                     help="build and check each kernel once, then stop")
     ap.add_argument("--json", help="also write every measurement to this file")
     ap.add_argument("--sass-against", metavar="DIR",
-                    help="fail unless K2's and K3's SASS equals that of the checkout in DIR")
+                    help="fail unless K3's SASS equals that of the checkout in DIR")
     ap.add_argument("--profile", action="store_true",
                     help="run each sketch command once more under cProfile and "
                          "torch.profiler")

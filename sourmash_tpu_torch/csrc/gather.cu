@@ -12,16 +12,27 @@
 // counts_rows replaces `tools/exp_pallas_counts.py:_counts_rows_pallas`
 // (T1, body `_counts_kernel`): the raw count of equal limb pairs between
 // the query planes and every row, PAD==PAD hits included (the pad
-// correction happens outside, in f32). With per-row cutoffs it is the
-// accumulator of `sourmash_tpu/ops/bucketed.py:_counts_qvm_cutoff_impl`: a
-// hit counts only where the query limb pair is <= the row's cut, unsigned.
-// Work is rows * B * d * dq limb-pair compares, so it is bound by integer
-// issue, not bytes (the planes are read once, the query planes stay in
-// L2). One thread holds the d slots of kRows rows of one bucket in
-// registers and walks the bucket's dq query slots, so each query load
-// feeds kRows * d compares; adjacent threads take adjacent buckets, so
-// every load coalesces. Counts reduce within the warp, then one atomicAdd
-// per warp and row.
+// correction happens outside). With per-row cutoffs it is the accumulator
+// of `sourmash_tpu/ops/bucketed.py:_counts_qvm_cutoff_impl`: a hit counts
+// only where the query limb pair is <= the row's cut, unsigned.
+// Precondition: each bucket's query column qhi/qlo[:, b] is ascending in
+// unsigned (hi, lo) order, PAD (the largest pair) last; both query packs
+// give this, and the wrapper checks it. The bank side needs no order.
+// Then a row slot's count is the length of its value's run in the column:
+// lower_bound(v) and a walk along the (0, 1 or, for repeated query
+// values, more) equal pairs, and for a PAD slot the bucket's PAD run,
+// found once per bucket. Bound by reading the bank planes once (the
+// search is ~log2(dq) probes a slot, not dq compares). Design: one block
+// per 32 buckets and a range of rows; lane j takes bucket 32 * blockIdx.x
+// + j and each warp one row at a time, so a row's slot limbs are read
+// coalesced and exactly once (streaming loads). The block's query columns
+// are staged in shared memory as [dq][32] pairs, so the probes of a warp,
+// one column a lane, hit distinct banks. Past the card's shared memory
+// (dq above ~900: a large query against a bank of few buckets) the
+// columns are searched where they are, in L2. The binary search is
+// branch-free with steps that depend on dq alone, so a warp's lanes stay
+// together. Counts reduce within the warp, then one atomicAdd per warp
+// and row.
 //
 // membership_bits is the hand-written form of
 // `sourmash_tpu/ops/bucketed.py:_membership_bits_packed` (X4): for
@@ -61,67 +72,86 @@ namespace {
 
 constexpr int kD = 8;          // subject slots per bucket
 constexpr int kThreads = 256;  // threads per block
-constexpr int kRows = 4;       // counts_rows: rows per thread
 constexpr int kMemThreads = 1024;  // membership_bits: threads per row
 
 __device__ __forceinline__ int warp_sum(int v) {
   return __reduce_add_sync(0xffffffffu, v);
 }
 
-template <bool kCut>
+constexpr int kCountBuckets = 32;  // counts_rows: buckets per block, one a lane
+constexpr int kCountWarps = kThreads / 32;
+constexpr uint64_t kPadPair = ~0ULL;  // (PAD, PAD)
+
+__device__ __forceinline__ uint64_t limb_pair(uint32_t hi, uint32_t lo) {
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
+
+// The first position of an ascending column of n pairs, col(i), whose pair
+// is >= v (n if none), by a branch-free binary search whose steps depend
+// on n alone.
+template <typename Col>
+__device__ __forceinline__ int lower_bound(const Col& col, int n, uint64_t v) {
+  if (n == 0) return 0;
+  int base = 0;
+  while (n > 1) {
+    const int half = n >> 1;
+    base = col(base + half) < v ? base + half : base;
+    n -= half;
+  }
+  return base + (col(base) < v ? 1 : 0);
+}
+
+template <bool kCut, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 counts_rows_kernel(const uint32_t* __restrict__ qhi,
                    const uint32_t* __restrict__ qlo, int dq, int B,
                    const uint32_t* __restrict__ shi,
-                   const uint32_t* __restrict__ slo, int rows,
+                   const uint32_t* __restrict__ slo, int rows, int rows_per_block,
                    const uint32_t* __restrict__ cut_hi,
                    const uint32_t* __restrict__ cut_lo,
                    int32_t* __restrict__ out) {
-  const int blocks_per_row = (B + kThreads - 1) / kThreads;
-  const int row0 = (blockIdx.x / blocks_per_row) * kRows;
-  const int b = (blockIdx.x % blocks_per_row) * kThreads + threadIdx.x;
+  extern __shared__ uint64_t qcol[];  // kShared: [dq][kCountBuckets] query pairs
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kCountBuckets + lane;
   const bool in_b = b < B;
-
-  uint32_t sh[kRows][kD], sl[kRows][kD];
-  uint32_t ch[kRows], cl[kRows];
-  bool live[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; r++) {
-    live[r] = in_b && row0 + r < rows;
-    const size_t base = ((size_t)(row0 + r) * kD) * (size_t)B + (size_t)b;
-#pragma unroll
-    for (int k = 0; k < kD; k++) {
-      sh[r][k] = live[r] ? shi[base + (size_t)k * B] : 0u;
-      sl[r][k] = live[r] ? slo[base + (size_t)k * B] : 0u;
+  if (kShared) {
+    for (int i = threadIdx.x; i < dq * kCountBuckets; i += kThreads) {
+      const int bb = blockIdx.x * kCountBuckets + i % kCountBuckets;
+      const size_t at = (size_t)(i / kCountBuckets) * B + bb;
+      qcol[i] = bb < B ? limb_pair(qhi[at], qlo[at]) : kPadPair;
     }
-    ch[r] = (kCut && live[r]) ? cut_hi[row0 + r] : 0u;
-    cl[r] = (kCut && live[r]) ? cut_lo[row0 + r] : 0u;
+    __syncthreads();
   }
+  const auto col = [&](int i) -> uint64_t {
+    if (kShared) return qcol[i * kCountBuckets + lane];
+    const size_t at = (size_t)i * B + b;
+    return limb_pair(__ldg(qhi + at), __ldg(qlo + at));
+  };
+  const int n = in_b ? dq : 0;
+  const int pad_run = n - lower_bound(col, n, kPadPair);
 
-  int count[kRows];
+  const int row0 = static_cast<int>(blockIdx.y) * rows_per_block;
+  const int row_end = min(rows, row0 + rows_per_block);
+  for (int r = row0 + static_cast<int>(threadIdx.x >> 5); r < row_end; r += kCountWarps) {
+    int count = 0;
+    if (in_b) {
+      const size_t base = (size_t)r * kD * B + b;
+      uint64_t v[kD];
 #pragma unroll
-  for (int r = 0; r < kRows; r++) count[r] = 0;
-  if (in_b) {
-    for (int q = 0; q < dq; q++) {
-      const uint32_t qh = __ldg(qhi + (size_t)q * B + b);
-      const uint32_t ql = __ldg(qlo + (size_t)q * B + b);
+      for (int k = 0; k < kD; k++)
+        v[k] = limb_pair(__ldcs(shi + base + (size_t)k * B), __ldcs(slo + base + (size_t)k * B));
+      const uint64_t cut = kCut ? limb_pair(cut_hi[r], cut_lo[r]) : kPadPair;
 #pragma unroll
-      for (int r = 0; r < kRows; r++) {
-        int hits = 0;
-#pragma unroll
-        for (int k = 0; k < kD; k++) hits += (sh[r][k] == qh) & (sl[r][k] == ql);
-        if (kCut) {
-          const bool le = qh < ch[r] || (qh == ch[r] && ql <= cl[r]);
-          hits = le ? hits : 0;
+      for (int k = 0; k < kD; k++) {
+        if (v[k] == kPadPair) {
+          count += cut == kPadPair ? pad_run : 0;
+        } else if (v[k] <= cut) {
+          for (int p = lower_bound(col, n, v[k]); p < n && col(p) == v[k]; p++) count++;
         }
-        count[r] += hits;
       }
     }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; r++) {
-    const int c = warp_sum(live[r] ? count[r] : 0);
-    if ((threadIdx.x & 31) == 0 && c != 0) atomicAdd(out + row0 + r, c);
+    const int c = warp_sum(count);
+    if (lane == 0 && c != 0) atomicAdd(out + r, c);
   }
 }
 
@@ -208,29 +238,45 @@ const char* gm_error_string(int code) {
 }
 
 // out [rows] i32 (zeroed by the caller) += raw limb-pair matches of the
-// query planes [dq, B] against subject planes [rows, 8, B]; with cut_hi and
-// cut_lo [rows] (both or neither), only query pairs <= the row's cut.
+// query planes [dq, B] (each column ascending) against subject planes
+// [rows, 8, B]; with cut_hi and cut_lo [rows] (both or neither), only
+// query pairs <= the row's cut.
 int gm_counts_rows(const void* qhi, const void* qlo, int dq, int B,
                    const void* shi, const void* slo, int rows,
                    const void* cut_hi, const void* cut_lo, void* out,
                    void* stream) {
-  const int blocks_per_row = (B + kThreads - 1) / kThreads;
-  const long long grid = (long long)((rows + kRows - 1) / kRows) * blocks_per_row;
-  if (grid <= 0) return 0;
+  if (rows <= 0 || B <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qh = static_cast<const uint32_t*>(qhi);
-  const auto* ql = static_cast<const uint32_t*>(qlo);
-  const auto* sh = static_cast<const uint32_t*>(shi);
-  const auto* sl = static_cast<const uint32_t*>(slo);
-  auto* o = static_cast<int32_t*>(out);
-  if (cut_hi != nullptr) {
-    counts_rows_kernel<true><<<(unsigned)grid, kThreads, 0, s>>>(
-        qh, ql, dq, B, sh, sl, rows, static_cast<const uint32_t*>(cut_hi),
-        static_cast<const uint32_t*>(cut_lo), o);
-  } else {
-    counts_rows_kernel<false><<<(unsigned)grid, kThreads, 0, s>>>(
-        qh, ql, dq, B, sh, sl, rows, nullptr, nullptr, o);
+  int dev = 0, smem_max = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(uint64_t) * kCountBuckets * (size_t)dq;
+  const bool shared = smem <= (size_t)smem_max;
+  const bool cut = cut_hi != nullptr;
+  auto kernel = cut ? (shared ? counts_rows_kernel<true, true> : counts_rows_kernel<true, false>)
+                    : (shared ? counts_rows_kernel<false, true> : counts_rows_kernel<false, false>);
+  if (shared) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  // rows per block: up to 256 (the staged columns then cost ~10 % of the
+  // block's row reads), fewer where that leaves under ~16 blocks an SM
+  const int tiles = (B + kCountBuckets - 1) / kCountBuckets;
+  int rows_per_block = 256;
+  while (rows_per_block > kCountWarps &&
+         (long long)tiles * ((rows + rows_per_block - 1) / rows_per_block) < 16LL * sms)
+    rows_per_block /= 2;
+  while ((rows + rows_per_block - 1) / rows_per_block > 65535) rows_per_block *= 2;
+  dim3 grid(tiles, (rows + rows_per_block - 1) / rows_per_block);
+  kernel<<<grid, kThreads, shared ? smem : 0, s>>>(
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), dq, B,
+      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo), rows,
+      rows_per_block, static_cast<const uint32_t*>(cut_hi),
+      static_cast<const uint32_t*>(cut_lo), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

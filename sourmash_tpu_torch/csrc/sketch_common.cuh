@@ -223,6 +223,125 @@ __device__ __forceinline__ uint32_t base_code(uint32_t c) {
   return ((c >> 1) & 3u) ^ ((c >> 2) & 1u);
 }
 
+// -- the DNA tile of K1 and K2 ------------------------------------------------
+//
+// A block of kTile threads stages kDnaTile windows of one row once: the
+// tile's L bytes (its windows and the k-1 halo, in whole 32-position plane
+// words), their reverse complement (rc[L-1-i] = complement(fwd[i])) and,
+// per 32 positions, five ballot planes: not-ACGT, the two bits of the base
+// code (A<C<G<T as 0<1<2<3, the bytes' order) and those two bits of the
+// reverse complement (~brev of the forward words). Each thread takes
+// kDnaWin windows, kTile apart: window j of thread t is tile position
+// j * kTile + t, so each set of kTile windows is laid out as one window a
+// thread, and each of the thread's stores coalesces across its warp.
+
+constexpr int kDnaWin = 4;
+constexpr int kDnaTile = kDnaWin * kTile;
+
+// Staged positions of a tile: its windows and the k-1 halo, in whole
+// 32-position plane words.
+__host__ __device__ constexpr int dna_staged(int k) {
+  return (kDnaTile + k - 1 + 31) / 32 * 32;
+}
+
+// A tile's dynamic shared memory: the staged bytes L, their reverse
+// complement (L more, then 16 bytes of reach for the last word's aligned
+// loads) and five planes of L / 32 + 1 words (one spare each).
+__host__ __device__ constexpr int dna_smem_bytes(int k) {
+  return 2 * dna_staged(k) + 16 + 5 * 4 * (dna_staged(k) / 32 + 1);
+}
+
+struct DnaTile {
+  const uint8_t* bytes;  // L forward bytes, then the L reverse-complement bytes
+  const uint32_t* bad;   // not ACGT
+  const uint32_t* f1;    // base code bits, forward
+  const uint32_t* f0;
+  const uint32_t* r1;    // base code bits, reverse complement
+  const uint32_t* r0;
+  int L;
+};
+
+// Stage the tile of positions [w0, w0 + L) of one row into `smem`
+// (dna_smem_bytes(k), 16-byte aligned); bytes past the row read 0, never
+// valid. Every thread of the kTile block calls it; the caller synchronises.
+__device__ __forceinline__ DnaTile stage_dna_tile(const uint8_t* row, int S, int64_t w0,
+                                                 int k, uint8_t* smem) {
+  const int L = dna_staged(k);
+  const int words = L / 32;
+  uint8_t* rc = smem + L;
+  uint32_t* bad = reinterpret_cast<uint32_t*>(smem + 2 * L + 16);
+  uint32_t* f1 = bad + words + 1;
+  uint32_t* f0 = f1 + words + 1;
+  uint32_t* r1 = f0 + words + 1;
+  uint32_t* r0 = r1 + words + 1;
+  const int t = threadIdx.x;
+  // L and kTile are multiples of 32, so every lane of a warp takes part in
+  // each ballot; the warp's 32 positions are one word of every plane
+  for (int i = t; i < L; i += kTile) {
+    const int64_t p = w0 + i;
+    const uint32_t c = p < S ? row[p] : 0u;
+    smem[i] = static_cast<uint8_t>(c);
+    rc[L - 1 - i] = static_cast<uint8_t>(complement(c));
+    const uint32_t code = base_code(c);
+    const unsigned nb = __ballot_sync(0xffffffffu, !is_acgt(c));
+    const unsigned c1 = __ballot_sync(0xffffffffu, (code & 2u) != 0);
+    const unsigned c0 = __ballot_sync(0xffffffffu, (code & 1u) != 0);
+    if ((t & 31) == 0) {
+      const int m = i >> 5;
+      bad[m] = nb;
+      f1[m] = c1;
+      f0[m] = c0;
+      r1[words - 1 - m] = ~__brev(c1);
+      r0[words - 1 - m] = ~__brev(c0);
+    }
+  }
+  if (t == 0) bad[words] = f1[words] = f0[words] = r1[words] = r0[words] = 0;
+  return DnaTile{smem, bad, f1, f0, r1, r0, L};
+}
+
+// Validity of the k-window at tile position s (a funnel shift of the
+// not-ACGT plane) and, for a valid window, its strand from the code
+// planes: the lowest base where its forward codes and its reverse
+// complement's codes (read forward from the rc planes, at L - s - k)
+// differ, 32 bases a step; the forward strand for a palindrome. `rev` is
+// meaningless for an invalid window: codes cannot order other bytes.
+__device__ __forceinline__ void plane_strand(const DnaTile& tile, int s, int k, bool& ok,
+                                             bool& rev) {
+  ok = true;
+  rev = false;
+  bool decided = false;
+#pragma unroll
+  for (int c = 0; c < k; c += 32) {
+    const uint32_t m = low_mask(k - c);
+    ok = ok && (plane_bits(tile.bad, s + c) & m) == 0;
+    const uint32_t a1 = plane_bits(tile.f1, s + c) & m, a0 = plane_bits(tile.f0, s + c) & m;
+    const int q = tile.L - s - k + c;
+    const uint32_t b1 = plane_bits(tile.r1, q) & m, b0 = plane_bits(tile.r0, q) & m;
+    const uint32_t diff = (a1 ^ b1) | (a0 ^ b0);
+    const uint32_t greater = (a1 & ~b1) | (~(a1 ^ b1) & a0 & ~b0);
+    rev = decided ? rev : (greater & diff & (0u - diff)) != 0;
+    decided = decided || diff != 0;
+  }
+}
+
+// Murmur of the canonical k-window at tile position s: bytes s.. of the
+// tile, or rc bytes L - s - k.. when `rev`. rc holds complement() of every
+// byte, 0 and other bytes included, so this is the reference's garbage
+// hash for an invalid window too. Each word is two funnel shifts of
+// aligned 32-bit shared loads.
+__device__ __forceinline__ uint64_t tile_murmur(const DnaTile& tile, int s, int k, bool rev,
+                                                uint64_t seed) {
+  const int off = rev ? 2 * tile.L - s - k : s;
+  const uint32_t* at = reinterpret_cast<const uint32_t*>(tile.bytes) + (off >> 2);
+  const int sh = 8 * (off & 3);
+  return murmur_words(k, seed, [&](int start, int len) {
+    const uint32_t* p = at + (start >> 2);
+    const uint64_t x = static_cast<uint64_t>(__funnelshift_r(p[1], p[2], sh)) << 32 |
+                       __funnelshift_r(p[0], p[1], sh);
+    return len >= 8 ? x : x & ((1ULL << (8 * len)) - 1);
+  });
+}
+
 // Opt a kernel in to `bytes` of dynamic shared memory where that exceeds
 // the 48 KB default (less the kernels' small static arrays); beyond the
 // card's per-block maximum the launch is refused and the error returned.

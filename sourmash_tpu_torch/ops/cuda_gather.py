@@ -6,7 +6,9 @@ code of `sourmash_tpu` (see `csrc/gather.cu` for what each replaces).
   _counts_rows_pallas`): raw limb-pair matches of query planes
   `qhi/qlo [dq, B]` against subject planes `Shi/Slo [rows, 8, B]`, PAD==PAD
   hits included, optionally only where the query pair is <= a per-row cut
-  `cut_hi/cut_lo [rows]` (unsigned). `[rows]` int32.
+  `cut_hi/cut_lo [rows]` (unsigned). `[rows]` int32. Each bucket's query
+  column must be ascending in unsigned (hi, lo) order (the kernel
+  binary-searches it), as both query packs give it.
 - `membership_bits` (X4, `ops/bucketed.py:_membership_bits_packed`):
   `[nm, W]` int32 membership words of rows `sel [nm]` of one chunk's planes
   over the query hashes of `slotmap [W * 32]`; the kernel walks the rows'
@@ -81,11 +83,40 @@ def _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo):
             raise TypeError("one cut per subject row")
 
 
+def _columns_ascending(qhi, qlo) -> bool:
+    "Is every column of the [dq, B] query planes ascending in unsigned (hi, lo) order?"
+    h0, h1 = _flip(qhi[:-1]), _flip(qhi[1:])
+    ok = (h0 < h1) | ((h0 == h1) & (_flip(qlo[:-1]) <= _flip(qlo[1:])))
+    return bool(ok.all())
+
+
+def _check_query_order(qhi, qlo):
+    """Raise TypeError unless every query column is ascending. The check
+    reads the planes back once; a pass is recorded on `qhi` with both
+    planes' addresses and version counters, so the same unmodified planes
+    (a cached query pack, launched against every chunk) are not read
+    again."""
+    stamp = (qhi.data_ptr(), qlo.data_ptr(), qhi._version, qlo._version)
+    if getattr(qhi, "_ascending_at", None) == stamp:
+        return
+    if not _columns_ascending(qhi, qlo):
+        raise TypeError("counts_rows: a query column is not ascending in unsigned "
+                        "(hi, lo) order, PAD last")
+    qhi._ascending_at = stamp
+
+
 def counts_rows(qhi, qlo, Shi, Slo, cut_hi=None, cut_lo=None):
     """Raw per-row count of query limb pairs equal to a subject slot's,
     PAD==PAD included; with cuts, only query pairs <= the row's cut.
-    Returns [rows] int32."""
+    Returns [rows] int32.
+
+    Precondition: each bucket's query column `qhi/qlo[:, b]` is ascending
+    in unsigned (hi, lo) order, so PAD (0xFFFFFFFF, 0xFFFFFFFF) comes last;
+    `pack_query_bucketed` and `pack_query_block_device` give this (the
+    2^64-1 tail stays out of the planes). A column out of order raises
+    TypeError, on CPU tensors too. The subject planes need no order."""
     _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo)
+    _check_query_order(qhi, qlo)
     if qhi.device.type == "cpu":
         return counts_rows_plain(qhi, qlo, Shi, Slo, cut_hi, cut_lo)
     rows, d, B = Shi.shape

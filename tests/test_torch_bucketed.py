@@ -7,7 +7,11 @@ versions on CPU tensors. Everything here is integer work and is compared
 exactly: packed planes, spills, raw and final counts, cutoff counts,
 membership words, round decrements and round scans, and the bank-level
 counts on the resident and the streamed route. A torture test holds the
-counts against np.intersect1d.
+counts against np.intersect1d. Numpy emulations of the CUDA kernels'
+algorithms (the counts kernel's binary search of each slot in its bucket's
+ascending query column; the membership kernel's row-driven search) are held
+to the JAX functions; hypothesis checks that the query packs give the
+ascending columns the counts kernel needs.
 """
 
 import importlib.util
@@ -187,6 +191,198 @@ def test_counts_rows_cutoff_is_unsigned():
     bank = tbk.pack_rows_bucketed([q] * 4, 128, device=CPU)
     cuts = np.array([2**63 - 1, 2**63, 2**64 - 3, 4], dtype=np.uint64)
     assert tbk.query_cutoff_counts_bucketed(q, bank, cuts).tolist() == [2, 3, 4, 0]
+
+
+def _pairs(hi, lo):
+    "u64 values of u32 (hi, lo) limb planes."
+    return (np.asarray(hi, dtype=np.uint64) << np.uint64(32)) | np.asarray(lo, dtype=np.uint64)
+
+
+def _lower_bound(col, v):
+    """The counts kernel's branch-free lower bound: the first position of
+    the ascending column whose pair is >= each value of v, with steps that
+    depend on len(col) alone."""
+    n = len(col)
+    base = np.zeros(np.shape(v), dtype=np.int64)
+    if n == 0:
+        return base
+    while n > 1:
+        half = n >> 1
+        base = np.where(col[base + half] < v, base + half, base)
+        n -= half
+    return base + (col[base] < v)
+
+
+def _search_counts(qhi, qlo, Shi, Slo, cuts=None):
+    """The counts kernel's algorithm in numpy, per bucket: a PAD slot takes
+    the bucket's PAD run (the column's length past the lower bound of PAD),
+    counted only under the cut 2^64-1; any other slot value v <= the row's
+    cut takes the walk along the equal pairs from its lower bound."""
+    q64 = _pairs(qhi, qlo)  # [dq, B]
+    s64 = _pairs(Shi, Slo)  # [rows, d, B]
+    dq, B = q64.shape
+    cut = np.full((s64.shape[0], 1), MAX) if cuts is None else np.asarray(cuts, np.uint64)[:, None]
+    out = np.zeros(s64.shape[0], dtype=np.int64)
+    for b in range(B):
+        col = q64[:, b]
+        pad_run = dq - int(_lower_bound(col, np.array([MAX]))[0])
+        v = s64[:, :, b]
+        p = _lower_bound(col, v)
+        run = np.zeros(v.shape, dtype=np.int64)
+        alive = p < dq
+        while alive.any():
+            alive &= col[np.minimum(p, max(dq - 1, 0))] == v
+            run += alive
+            p += 1
+            alive &= p < dq
+        out += np.where(v == MAX, pad_run * (cut == MAX), run * (v <= cut)).sum(axis=1)
+    return out
+
+
+def _hi_limb_ones(rng, n):
+    "n distinct hashes whose hi limb is 0xFFFFFFFF (2^64-1, the PAD pair, excluded)."
+    lo = np.unique(rng.integers(0, 2**32 - 1, size=n, dtype=np.uint64))
+    return (np.uint64(0xFFFFFFFF) << np.uint64(32)) | lo
+
+
+@pytest.mark.parametrize("case,B,dq_extra", [
+    ("spills", 128, 0), ("exact", 256, 8), ("max_u64", 128, 3), ("huge_query", 128, 0)])
+def test_counts_search_equals_t1_interpret_and_plain(case, B, dq_extra):
+    """The counts kernel's search (lower bound, equal run, PAD run, unsigned
+    cut) against T1 in interpret mode and the plain version, raw counts,
+    PAD==PAD hits included; with cuts against the plain version and, less
+    the pad correction, the JAX cutoff accumulator. The packs hold spills,
+    the 2^64-1 tail, hashes whose hi limb is 0xFFFFFFFF and `dq_extra`
+    more PAD rows; the huge query's columns run to hundreds of slots."""
+    rows, q, _ = make_case(case)
+    rng = np.random.default_rng(17)
+    ones = _hi_limb_ones(rng, 40)
+    rows = [np.unique(np.concatenate([r, ones[i % 3 :: 3]])) for i, r in enumerate(rows)]
+    q = np.unique(np.concatenate([q, ones[::2], [MAX]]))
+    bank = jbk.pack_rows_bucketed(rows, B, device=False)
+    qhi, qlo, qcnt, dq, tail = jbk.pack_query_bucketed(q, B, device=False)
+    assert tail == MAX
+    pad = np.full((dq_extra, B), 0xFFFFFFFF, dtype=np.uint32)
+    qhi, qlo = np.concatenate([qhi, pad]), np.concatenate([qlo, pad])
+    dq += dq_extra
+    n, d = bank.hi.shape[0], bank.hi.shape[1]
+    gb = B // 128
+    want = np.asarray(_t1()(
+        jnp.asarray(qhi.reshape(dq * gb, 128)), jnp.asarray(qlo.reshape(dq * gb, 128)),
+        jnp.asarray(bank.hi.reshape(n, d * gb, 128)), jnp.asarray(bank.lo.reshape(n, d * gb, 128)),
+        d=d, dq=dq, gb=gb, interpret=True))
+    search = _search_counts(qhi, qlo, bank.hi, bank.lo)
+    assert np.array_equal(search, want)
+    tq = planes(qhi, qlo)
+    ts = planes(bank.hi, bank.lo)
+    assert np.array_equal(cg.counts_rows_plain(*tq, *ts).numpy(), want)
+    assert np.array_equal(cg.counts_rows(*tq, *ts).numpy(), want)
+    assert int(want.sum()) > 0
+
+    pool = np.array([2**63 - 1, 2**63, 2**64 - 2, int(MAX), int(ones[5]), 0, 2**62],
+                    dtype=np.uint64)
+    cuts = rng.choice(pool, size=n)
+    cut_planes = planes((cuts >> np.uint64(32)).astype(np.uint32),
+                        (cuts & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    got = cg.counts_rows_plain(*tq, *ts, *cut_planes).numpy()
+    assert np.array_equal(_search_counts(qhi, qlo, bank.hi, bank.lo, cuts), got)
+    npad_q = (dq - qcnt.astype(np.int64))[None, :]
+    corr = ((d - bank.cnt.astype(np.int64)) * npad_q).sum(axis=1)
+    jcut = np.asarray(jbk._counts_qvm_cutoff_impl(
+        jnp.asarray(qhi), jnp.asarray(qlo), jnp.asarray(qcnt), jnp.asarray(bank.hi),
+        jnp.asarray(bank.lo), jnp.asarray(bank.cnt), *(jnp.asarray(np.asarray(c)) for c in (
+            (cuts >> np.uint64(32)).astype(np.uint32), (cuts & np.uint64(0xFFFFFFFF)).astype(np.uint32)))))
+    assert np.array_equal(got - np.where(cuts == MAX, corr, 0), jcut)
+
+
+def test_counts_search_counts_repeated_query_pairs():
+    """A column may repeat a pair (the plain version counts each copy): the
+    walk along the equal run gives the plain version's count."""
+    rng = np.random.default_rng(8)
+    B, dq = 128, 12
+    col = np.sort(rng.integers(0, 2**64 - 1, size=(dq, B), dtype=np.uint64), axis=0)
+    col[3:6] = col[3]  # three copies of slot 3's pair in every column
+    col[-2:] = MAX
+    S = np.full((8, 8, B), MAX, dtype=np.uint64)
+    S[:, 0] = col[3]
+    S[:, 1] = col[7]
+    S[2:, 2] = col[0] + np.uint64(1)  # a miss
+    hi, lo = (col >> np.uint64(32)).astype(np.uint32), (col & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    Shi, Slo = (S >> np.uint64(32)).astype(np.uint32), (S & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    want = cg.counts_rows(*planes(hi, lo, Shi, Slo)).numpy()
+    assert np.array_equal(_search_counts(hi, lo, Shi, Slo), want)
+    assert want[0] == B * (3 + 1 + 6 * 2)
+
+
+def _columns_ascending_np(hi, lo):
+    v = _pairs(hi, lo)
+    return bool((v[1:] >= v[:-1]).all())
+
+
+def test_query_packs_give_ascending_columns():
+    "pack_query_bucketed and pack_query_block_device (CPU): every column ascending, PAD last."
+    from hypothesis import given, settings, strategies as st
+
+    u64 = st.integers(min_value=0, max_value=2**64 - 1)
+    hi_ones = st.integers(min_value=0, max_value=2**32 - 1).map(lambda x: (0xFFFFFFFF << 32) | x)
+
+    @settings(max_examples=60, deadline=None)
+    @given(st.lists(st.one_of(u64, hi_ones, st.just(2**64 - 1)), max_size=600),
+           st.sampled_from([128, 256]))
+    def check(values, B):
+        q = np.unique(np.array(values, dtype=np.uint64))
+        for hi, lo, cnt, dq in (tbk.pack_query_bucketed(q, B)[:4],
+                                _block_pack(q, B)):
+            assert _columns_ascending_np(hi, lo)
+            v = _pairs(hi, lo)
+            pad = v == MAX
+            # PAD only after a column's qcnt valid slots, and every slot past them PAD
+            assert np.array_equal(pad, np.arange(dq)[:, None] >= np.asarray(cnt)[None, :])
+            cg._check_query_order(*planes(hi, lo))
+
+    check()
+
+
+def _block_pack(q, B):
+    Qhi, Qlo, Qcnt, dq, _raw = tbk.pack_query_block_device([q], B, device=CPU)
+    return tbk.to_numpy_u32(Qhi[0]), tbk.to_numpy_u32(Qlo[0]), Qcnt[0].numpy(), dq
+
+
+@pytest.mark.parametrize("swap", ["hi", "lo", "pad"])
+def test_counts_rows_refuses_a_column_out_of_order(swap):
+    """counts_rows raises TypeError (not ValueError, which gather's prefetch
+    would take for "no matches") on a query column that is not ascending:
+    two slots swapped by their hi limbs, by their lo limbs alone, or a PAD
+    before a valid slot. The plain version stays general."""
+    rows, q, B = make_case("exact")
+    bank = tbk.pack_rows_bucketed(rows, B, device=CPU)
+    qhi, qlo, qcnt, _dq, _tail = tbk.pack_query_bucketed(q, B)
+    b = int(np.argmax(qcnt))
+    assert qcnt[b] >= 2
+    qhi, qlo = qhi.copy(), qlo.copy()
+    if swap == "hi":
+        qhi[[0, 1], b] = qhi[[1, 0], b]
+        qlo[[0, 1], b] = qlo[[1, 0], b]
+    elif swap == "lo":
+        qhi[1, b] = qhi[0, b]
+        qlo[[0, 1], b] = np.sort(qlo[[0, 1], b])[::-1]
+    else:
+        qhi[0, b] = qlo[0, b] = 0xFFFFFFFF
+    tq = planes(qhi, qlo)
+    assert not _columns_ascending_np(qhi, qlo)
+    with pytest.raises(TypeError, match="not ascending"):
+        cg.counts_rows(*tq, bank.hi, bank.lo)
+    with pytest.raises(TypeError, match="not ascending"):
+        cg.counts_rows(*tq, bank.hi, bank.lo, *planes(np.zeros(bank.hi.shape[0], np.uint32),
+                                                      np.zeros(bank.hi.shape[0], np.uint32)))
+    assert cg.counts_rows_plain(*tq, bank.hi, bank.lo).shape == (bank.hi.shape[0],)
+    if swap == "hi":
+        # planes that pass are recorded on qhi; an in-place edit is checked anew
+        ok = planes(*tbk.pack_query_bucketed(q, B)[:2])
+        cg.counts_rows(*ok, bank.hi, bank.lo)
+        ok[0][[0, 1], b] = ok[0][[1, 0], b].clone()
+        with pytest.raises(TypeError, match="not ascending"):
+            cg.counts_rows(*ok, bank.hi, bank.lo)
 
 
 def _membership_inputs(case):

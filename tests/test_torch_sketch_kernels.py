@@ -11,6 +11,12 @@ runs, effective lengths at and around 128-window segment boundaries (zero
 padding past the end, as seq_chunks_to_hashes pads chunks) and a tandem repeat
 whose surviving k-mer overflows the slots. The JAX kernels pad to their
 own block size; past the port's segments their outputs must be empty.
+
+A numpy emulation of K2's CUDA design (the staged tile, its ballot planes,
+the plane strand with the byte compare for windows holding a byte that is
+not ACGT, murmur words by funnel shifts) is held to the Pallas kernel on
+edge rows: random bytes, palindromes, N runs at tile and segment
+boundaries, zero tails.
 """
 
 import numpy as np
@@ -116,3 +122,163 @@ def test_survivor_slots_are_the_threshold_of_window_hashes(rng):
             got = vals[b, r, : min(slots, int(cnt[b, r]))]
             assert np.array_equal(got, want)
             assert not vals[b, r, want.size :].any()
+
+
+# -- K2's tile design, emulated ---------------------------------------------
+
+TILE = 1024  # windows a block stages (csrc/sketch_common.cuh kDnaTile)
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+_BREV8 = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], dtype=np.uint32)
+
+
+def _brev32(x):
+    x = x.astype(np.uint32)
+    return ((_BREV8[x & 0xFF] << 24) | (_BREV8[(x >> 8) & 0xFF] << 16)
+            | (_BREV8[(x >> 16) & 0xFF] << 8) | _BREV8[x >> 24]).astype(np.uint32)
+
+
+def _funnel_r(lo, hi, sh):
+    "__funnelshift_r: the low 32 bits of (hi:lo) >> sh (sh < 32)."
+    both = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return (both >> np.asarray(sh, dtype=np.uint64)) & np.uint64(0xFFFFFFFF)
+
+
+def _plane_bits(plane, q):
+    return _funnel_r(plane[q >> 5], plane[(q >> 5) + 1], q & 31)
+
+
+def _pack_plane(bits, words):
+    "bool [32 * words] -> uint32 [words + 1]: bit i of word m is position 32m + i; a spare 0."
+    w = np.packbits(bits.reshape(words, 32), axis=1, bitorder="little").view("<u4").ravel()
+    return np.r_[w, np.uint32(0)].astype(np.uint32)
+
+
+def _tile_window_hashes(rows, k, seed=42):
+    """K2's algorithm in numpy, tile by tile: the staged bytes, their reverse
+    complement and the five planes; validity from the not-ACGT plane; the
+    strand from the code planes, or, for a window holding a byte that is
+    not ACGT, from the reference's byte compare; the murmur words from
+    funnel shifts of aligned 32-bit loads of the forward or the rc run.
+    An index past the staged bytes' reach raises."""
+    B, S = rows.shape
+    _n, _R, n_pad = cuda_sketch.geometry(S, k)
+    L = (TILE + k - 1 + 31) // 32 * 32
+    words = L // 32
+    hashes = np.zeros((B, n_pad), dtype=np.uint64)
+    valid = np.zeros((B, n_pad), dtype=np.uint8)
+    for b in range(B):
+        for w0 in range(0, n_pad, TILE):
+            p = w0 + np.arange(L)
+            fwd = np.zeros(L, dtype=np.uint32)
+            fwd[p < S] = rows[b, p[p < S]]
+            comp = fwd ^ np.where(fwd & 2, 4, 21).astype(np.uint32)
+            staged = np.r_[fwd, comp[::-1], np.zeros(16, np.uint32)].astype(np.uint8)
+            code = ((fwd >> 1) & 3) ^ ((fwd >> 2) & 1)
+            bad = _pack_plane(~np.isin(fwd, ACGT), words)
+            f1 = _pack_plane((code & 2) != 0, words)
+            f0 = _pack_plane((code & 1) != 0, words)
+            r1 = np.r_[(~_brev32(f1[:words]))[::-1], np.uint32(0)]
+            r0 = np.r_[(~_brev32(f0[:words]))[::-1], np.uint32(0)]
+
+            s = np.arange(min(TILE, n_pad - w0))
+            ok = np.ones(s.size, dtype=bool)
+            rev = np.zeros(s.size, dtype=bool)
+            decided = np.zeros(s.size, dtype=bool)
+            for c in range(0, k, 32):
+                m = np.uint64((1 << min(32, k - c)) - 1)
+                ok &= (_plane_bits(bad, s + c) & m) == 0
+                a1, a0 = _plane_bits(f1, s + c) & m, _plane_bits(f0, s + c) & m
+                q = L - s - k + c
+                b1, b0 = _plane_bits(r1, q) & m, _plane_bits(r0, q) & m
+                diff = (a1 ^ b1) | (a0 ^ b0)
+                greater = (a1 & ~b1) | (~(a1 ^ b1) & a0 & ~b0)
+                lowest = diff & ((np.uint64(2**32) - diff) & np.uint64(0xFFFFFFFF))
+                rev = np.where(decided, rev, (greater & lowest) != 0)
+                decided |= diff != 0
+            bytewise = np.flatnonzero(~ok)
+            if bytewise.size:
+                j = np.arange(k)
+                f = fwd[s[bytewise, None] + j]
+                r = comp[s[bytewise, None] + k - 1 - j]
+                first = np.argmax(f != r, axis=1)
+                at = np.arange(bytewise.size)
+                rev[bytewise] = (f != r).any(axis=1) & (r[at, first] < f[at, first])
+
+            off = np.where(rev, 2 * L - s - k, s)
+            w32 = staged.view("<u4")
+            sh = 8 * (off & 3)
+
+            def word(i):
+                p0 = (off >> 2) + 2 * i
+                x = (_funnel_r(w32[p0 + 1], w32[p0 + 2], sh) << np.uint64(32)) | _funnel_r(
+                    w32[p0], w32[p0 + 1], sh)
+                n_bytes = min(8, k - 8 * i)
+                if n_bytes < 8:
+                    x &= np.uint64((1 << (8 * n_bytes)) - 1)
+                return torch.from_numpy(x.view(np.int64))
+
+            h = cuda_sketch.murmur_words(word, k, seed, torch.zeros(s.size, dtype=torch.int64))
+            hashes[b, w0 + s] = u64.to_numpy(h)
+            valid[b, w0 + s] = ok
+    return hashes, valid
+
+
+def _edge_rows(kind, k, rng, S):
+    """[4, S] rows of one kind of K2 edge input:
+    - "edges": row 0 uniformly random bytes (all 256 values), row 1 ACGT
+      with 2 % random bytes, row 2 ACGT with N runs of 1 to k + 2 bases
+      across the 128- and 1,024-window boundaries, row 3 the same ending
+      in a zero-padded tail;
+    - "palindromes": rows 0-1 ACGT repeats from A and from C (at even k
+      every other window is its own reverse complement), rows 2-3 random
+      ACGT holding k-long reverse-complement palindromes, row 3 with a
+      zero tail."""
+    rows = rng.choice(ACGT, size=(4, S))
+    if kind == "edges":
+        rows[0] = rng.integers(0, 256, size=S, dtype=np.uint8)
+        hit = rng.random(S) < 0.02
+        rows[1, hit] = rng.integers(0, 256, size=int(hit.sum()), dtype=np.uint8)
+        for b in (2, 3):
+            for at in (*range(SEG, S, SEG), *range(TILE, S, TILE), TILE, TILE):
+                length = int(rng.integers(1, k + 3))
+                start = at - int(rng.integers(0, length + k))
+                rows[b, max(start, 0) : start + length] = ord("N")
+        rows[3, S - 200 :] = 0
+        return rows
+    rep = np.tile(ACGT, S // 4 + 2)
+    rows[0], rows[1] = rep[:S], rep[1 : S + 1]
+    for b in (2, 3):
+        for start in rng.integers(0, S - k, size=40):
+            half = rng.choice(ACGT, size=k // 2)
+            rows[b, start : start + k // 2] = half
+            comp = np.frombuffer(b"TGCA", dtype=np.uint8)[np.searchsorted(ACGT, half)][::-1]
+            rows[b, start + k // 2 : start + 2 * (k // 2)] = comp
+    rows[3, S - 150 :] = 0
+    return rows
+
+
+@pytest.mark.parametrize("kind,k", [("edges", 7), ("edges", 21), ("edges", 31), ("edges", 51),
+                                    ("edges", 63), ("palindromes", 20), ("palindromes", 32)])
+def test_k2_tile_design_matches_pallas_interpret(kind, k):
+    """K2's tile design (plane strand and validity; the byte compare for a
+    window holding a byte that is not ACGT; words from funnel shifts of the
+    forward or the rc run) equals window_hash_pairs_pallas in interpret
+    mode and the plain version on every window, invalid and pad windows
+    included: random bytes, palindromes at even k, N runs across the 128-
+    and 1,024-window boundaries and zero tails, over three tiles."""
+    rng = np.random.default_rng(1000 + k)
+    S = 2 * TILE + 300 + k
+    rows = _edge_rows(kind, k, rng, S)
+    _n, _R, n_pad = cuda_sketch.geometry(S, k)
+    hashes, valid = _tile_window_hashes(rows, k)
+    jhi, jlo, jvalid = (np.asarray(a) for a in window_hash_pairs_pallas(
+        jnp.asarray(rows), ksize=k, interpret=True))
+    jh = (jhi.astype(np.uint64) << np.uint64(32)) | jlo.astype(np.uint64)
+    assert np.array_equal(hashes, jh[:, :n_pad])
+    assert np.array_equal(valid, jvalid[:, :n_pad].astype(np.uint8))
+    ph, pv = cuda_sketch.window_hashes(torch.from_numpy(rows), ksize=k)
+    assert np.array_equal(hashes, u64.to_numpy(ph)) and np.array_equal(valid, pv.numpy())
+    assert valid.any() and not valid.all()
+    if kind == "palindromes":  # row 0's first window is its own reverse complement
+        first = rows[0, :k]
+        assert np.array_equal(np.frombuffer(b"TGCA", np.uint8)[np.searchsorted(ACGT, first)][::-1], first)
