@@ -61,10 +61,15 @@ Phases, each raising on failure:
    gatheronly`), the launch counters set to 0 just before and read just
    after; every instrument kernel must have run.
 
-Phase 2 also holds K3 against its plain version, bit for bit, at
-[4, 2^21 + k - 1] and [32, ...] for k in {3, 7, 10, 16, 42, 64, 129}, on
+Phase 2 also holds K3 against its plain version, bit for bit, for k in
+{3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
+protein`'s path (one 32 MiB flush: 16 rows): at [B, 2^21 + k - 1] on
 residue rows, rows remapped through DAYHOFF and HP, zero separators and a
-zero-padded tail, and times it and its plain version at [4, ...]. It then
+zero-padded tail, and at [B, 2^20 + 301] on edge rows (zero runs across
+the 1,024-window tile boundaries and inside the k-1 halo, random bytes,
+odd row bases, a partial last tile); it times K3 and its plain version at
+[4, ...] and at the path's batch, per call, back to back and (K3) in a
+CUDA graph of 20 launches. It then
 holds the gather kernels against their plain versions, bit for bit, at
 phase 6's shapes: `counts_rows` on one chunk of [8192, 8, 4096] planes
 (PAD slots, the hash 2^64-1, forced spills) against a ~600 k-hash query,
@@ -97,10 +102,13 @@ instruments at k=31), before the main path, and prints neither line;
 --profile runs `sketch dna`, `sketch protein`, `sketch translate` and
 `gather` once more under cProfile and torch.profiler and prints where their
 time goes. --sass-against DIR (a checkout of another commit) builds DIR's
-`csrc/sketch.cu` with this tree's flags after phase 1 and fails unless the
-SASS of K3 equals this tree's; it prints K2's and K1's instruction counts
-on both sides. Without a CUDA device, or outside a checkout of the repository,
-the script exits non-zero before any result.
+`csrc/sketch.cu` and this tree's with this tree's flags after phase 1 and
+fails unless the SASS of K1 and K2 equals this tree's for every k they are
+built for (21, 31, 51 and run-time k); it prints K3's instruction counts
+per template k, registers and spill bytes on both sides, and times DIR's K3
+beside this tree's at k = 10, B = 4 and the path's batch. Without a CUDA
+device, or outside a checkout of the repository, the script exits non-zero
+before any result.
 """
 
 from __future__ import annotations
@@ -351,6 +359,33 @@ def back_to_back_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Time per call of n calls captured in one CUDA graph, the median of
+    `reps` replays: the kernel's own time back to back, without the
+    wrapper's host gap (which back_to_back_ms still holds where the gap is
+    longer than the kernel)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
 def kernel_times(fn, reps: int) -> tuple:
     "(median per call, per call back to back) of a kernel's wrapper, reps calls each."
     return time_ms(fn, reps), back_to_back_ms(fn, reps)
@@ -507,41 +542,111 @@ def check_k1_edges(rng, thresholds):
     torch.cuda.empty_cache()
 
 
+AA_EDGE_S = (1 << 20) + 301  # K3 edge rows: odd S, a partial last tile
+AA_TILE = 1024  # csrc/sketch_common.cuh kAaTile
+
+
+def path_aa_batch() -> int:
+    """Rows of one K3 launch on `sketch protein`'s path: one flush of
+    `_AA_FLUSH_BYTES` amino-acid bytes in chunks of CHUNK windows (a flush
+    runs a little over, by its separators: phase 4 prints the batches)."""
+    from sourmash_tpu_torch.command_sketch import _AA_FLUSH_BYTES
+
+    return _AA_FLUSH_BYTES // CHUNK
+
+
+def aa_edge_rows(B: int, k: int, rng) -> np.ndarray:
+    """[B, AA_EDGE_S] rows of K3's edge inputs, by b % 4:
+    0. residues with a zero run of 1 to k + 2 bytes at every 1,024-window
+       tile boundary, ending just before it, spanning it or starting at it;
+    1. uniformly random bytes (all 256 values, zeros among them);
+    2. DAYHOFF-remapped residues with a zero run of 1 to k - 1 bytes
+       inside every tile's k-1 halo;
+    3. HP-remapped records joined by k zero bytes, ending in a zero tail.
+    S is odd, so every odd row starts at an odd byte; the last tile of a
+    row is partial (n_pad is not a multiple of 1,024)."""
+    from sourmash_tpu_torch.ops.encodings import DAYHOFF, HP
+
+    S = AA_EDGE_S
+    letters = np.frombuffer(AA_RESIDUES + b"X*", dtype=np.uint8)
+    rows = rng.choice(letters, size=(B, S))
+    tiles = np.arange(AA_TILE, S, AA_TILE)
+    for b in range(B):
+        kind = b % 4
+        if kind == 0:
+            lengths = rng.integers(1, k + 3, size=tiles.size)
+            starts = tiles - rng.integers(0, lengths + 2)
+            for start, length in zip(starts, lengths):
+                rows[b, start : start + length] = 0
+        elif kind == 1:
+            rows[b] = rng.integers(0, 256, size=S, dtype=np.uint8)
+        elif kind == 2:
+            rows[b] = DAYHOFF[rows[b]]
+            if k > 1:
+                lengths = rng.integers(1, k, size=tiles.size)
+                starts = tiles + rng.integers(0, k - lengths)
+                for start, length in zip(starts, lengths):
+                    rows[b, start : start + length] = 0
+        else:
+            rows[b] = HP[rows[b]]
+            ends = np.cumsum(rng.integers(50, 1501, size=S // 50 + 1) + k) - k
+            for end in ends[ends < S]:
+                rows[b, end : end + k] = 0
+            rows[b, S - 5000 :] = 0
+    return rows
+
+
 def check_aa_kernel(quick: bool, rng, clock_hz: float) -> dict:
-    """K3 against its plain version, whole outputs bit for bit; timed at
-    [4, ...] for every k (the kernels line reports k=10)."""
+    """K3 against its plain version, whole outputs bit for bit (pad windows
+    and garbage hashes included), at [B, 2^21 + k - 1] on aa_rows and at
+    [B, AA_EDGE_S] on aa_edge_rows, for B = 4, 32 and the path's batch;
+    timed per call, back to back and in a CUDA graph at B = 4 and the
+    path's batch for every k (the kernels line reports k=10, B=4)."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_sketch as cs
 
+    path_b = path_aa_batch()
     results = {}
     for k in ((TIMED_AA_K,) if quick else AA_KS):
-        for B in ((4,) if quick else (4, 32)):
-            rows = torch.from_numpy(aa_rows(B, k, rng)).cuda()
-            h, v = cs.aa_window_hashes(rows, ksize=k)
-            hp, vp = cs.aa_window_hashes_plain(rows, ksize=k)
-            err = max(exact(f"K3 hashes k={k} B={B}", h, hp), exact(f"K3 valid k={k} B={B}", v, vp))
-            n = cs.geometry(rows.shape[1], k)[0]
-            share = float(v[:, :n].float().mean())
-            if not 0.5 < share < 1.0 or bool(v[:, n:].any()):
-                raise AssertionError(f"K3 k={k} B={B}: valid share {share} or padding valid")
-            log(f"  k={k:3d} B={B:2d}: K3 equals its plain version ({100 * share:.2f} % valid)")
-            del hp, vp
-            if B == 4:
+        for B in ((4, path_b) if quick else (4, 32, path_b)):
+            for kind in ("records", "edges"):
+                rows = torch.from_numpy(aa_rows(B, k, rng) if kind == "records"
+                                        else aa_edge_rows(B, k, rng)).cuda()
+                h, v = cs.aa_window_hashes(rows, ksize=k)
+                hp, vp = cs.aa_window_hashes_plain(rows, ksize=k)
+                err = max(exact(f"K3 {kind} hashes k={k} B={B}", h, hp),
+                          exact(f"K3 {kind} valid k={k} B={B}", v, vp))
                 S = rows.shape[1]
-                _, _, n_pad = cs.geometry(S, k)
-                t3, b2b = kernel_times(lambda: cs.aa_window_hashes(rows, ksize=k), 3 if quick else 20)
-                p3 = time_ms(lambda: cs.aa_window_hashes_plain(rows, ksize=k), 3, warmup=1)
-                bms, by, b3 = mul_bounds(
-                    B * S + B * n_pad * 9,
-                    lambda m: tuple(B * n_pad * x for x in int_ops_per_aa_window(k, m)), clock_hz)
-                results[k] = dict(ms=t3, b2b_ms=b2b, plain_ms=p3, bound_ms=bms, bound_by=by,
-                                  bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
-                log(f"    aa_window_hashes: {t3:.4f} ms/launch ({b2b:.4f} back to back), plain "
-                    f"{p3:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a multiply), "
-                    f"{B * n / t3 / 1e6:.2f} Gwindows/s")
-            del rows
-            torch.cuda.empty_cache()
+                n, _, n_pad = cs.geometry(S, k)
+                share = float(v[:, :n].float().mean())
+                if not 0.5 < share < 1.0 or bool(v[:, n:].any()):
+                    raise AssertionError(f"K3 {kind} k={k} B={B}: valid share {share} or "
+                                         f"padding valid")
+                log(f"  k={k:3d} B={B:2d} {kind}: K3 equals its plain version "
+                    f"({100 * share:.2f} % valid, {n_pad - n} pad windows a row)")
+                del h, v, hp, vp
+                if kind == "records" and B in (4, path_b):
+                    t3, b2b = kernel_times(lambda: cs.aa_window_hashes(rows, ksize=k),
+                                           3 if quick else 20)
+                    g3 = graph_ms(lambda: cs.aa_window_hashes(rows, ksize=k))
+                    p3 = time_ms(lambda: cs.aa_window_hashes_plain(rows, ksize=k), 3, warmup=1)
+                    bms, by, b3 = mul_bounds(
+                        B * S + B * n_pad * 9,
+                        lambda m: tuple(B * n_pad * x for x in int_ops_per_aa_window(k, m)),
+                        clock_hz)
+                    at = dict(ms=t3, b2b_ms=b2b, graph_ms=g3, plain_ms=p3, bound_ms=bms,
+                              bound_by=by, bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
+                    if B == 4:
+                        results[k] = at
+                    else:
+                        results[k]["path"] = dict(at, B=B)
+                    log(f"    aa_window_hashes B={B}: {t3:.4f} ms/launch ({b2b:.4f} back to "
+                        f"back, {g3:.4f} in a CUDA graph), plain {p3:.3f} ms, bound {bms:.4f} "
+                        f"ms ({by}; {b3:.4f} at 3 IMAD a multiply), {B * n / g3 / 1e6:.2f} "
+                        f"Gwindows/s in the graph, {100 * bms / g3:.1f} % of the bound")
+                del rows
+                torch.cuda.empty_cache()
     return results
 
 
@@ -708,8 +813,9 @@ def sketch_end_to_end(mbp: int, rng, tmp: str, profile_cli: bool = False) -> dic
     argv = ["sketch", "dna", path, "-o", out]
     for p in PARAMS:
         argv += ["-p", p]
-    wall, launches = run_cli("sketch dna", argv, ("survivor_slots", "window_hashes"))
-    log(f"  sketch dna: {wall:.2f} s wall, {bases / 1e6 / wall:.1f} Mbp/s, launches {launches}")
+    wall, launches, batches = run_cli("sketch dna", argv, ("survivor_slots", "window_hashes"))
+    log(f"  sketch dna: {wall:.2f} s wall, {bases / 1e6 / wall:.1f} Mbp/s, launches {launches}; "
+        f"launches by rows {batches}")
 
     profile = None
     if profile_cli:
@@ -737,7 +843,7 @@ def sketch_end_to_end(mbp: int, rng, tmp: str, profile_cli: bool = False) -> dic
             raise AssertionError(f"tandem record k={k}: expected reroute and retry, K2 ran {rerouted}x")
         log(f"  tandem record k={k}: {hs.size} survivors == host, K2 reroutes {rerouted}")
     return dict(wall_s=wall, mbp=bases / 1e6, records=n_rec, launches=launches,
-                profile=profile)
+                batches=batches, profile=profile)
 
 
 # -- phase 4: sketch protein end to end -------------------------------------
@@ -778,26 +884,48 @@ def protein_host_sketches(path: str) -> dict:
     return host_sketches(path, {sketch_key(mh): mh for mh in mhs}, add="add_protein")
 
 
+SKETCH_WRAPPERS = ("survivor_slots", "window_hashes", "aa_window_hashes")
+
+
 def run_cli(what: str, argv: list, kernels=("aa_window_hashes",)) -> tuple:
     """One CLI run with the launch counters set to 0 just before and read
-    just after: (wall, launches). Each of `kernels` must have launched."""
+    just after: (wall, launches, {kernel: {rows of a launch: launches}} for
+    the sketch kernels that ran). Each of `kernels` must have launched."""
+    import collections
+
     import torch
 
     from sourmash_tpu_torch.__main__ import main as cli_main
     from sourmash_tpu_torch.ops import cuda_sketch as cs
 
+    batches = {name: collections.Counter() for name in SKETCH_WRAPPERS}
+    wrappers = {name: getattr(cs, name) for name in SKETCH_WRAPPERS}
+
+    def spy(name):  # records each launch's rows; the wrapper counts the launch
+        def call(squ, *args, **kw):
+            if squ.device.type == "cuda":
+                batches[name][int(squ.shape[0])] += 1
+            return wrappers[name](squ, *args, **kw)
+        return call
+
     torch.cuda.synchronize()
     cs.reset_launch_counts()
-    t0 = time.time()
-    rc = cli_main(argv)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    for name in SKETCH_WRAPPERS:
+        setattr(cs, name, spy(name))
+    try:
+        t0 = time.time()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        for name, fn in wrappers.items():
+            setattr(cs, name, fn)
     launches = dict(cs.LAUNCHES)
     if rc not in (None, 0):
         raise AssertionError(f"{what} returned {rc}")
     if min(launches[name] for name in kernels) < 1:
         raise AssertionError(f"{what}: a kernel of the path was not launched: {launches}")
-    return wall, launches
+    return wall, launches, {name: dict(sorted(c.items())) for name, c in batches.items() if c}
 
 
 def sketch_protein_end_to_end(m_aa: int, rng, tmp: str, profile_cli: bool = False) -> dict:
@@ -817,9 +945,9 @@ def sketch_protein_end_to_end(m_aa: int, rng, tmp: str, profile_cli: bool = Fals
         return ["sketch", "protein", path, "-o", out] + [x for p in PROTEIN_PARAMS for x in ("-p", p)]
 
     out = os.path.join(tmp, "proteomes.zip")
-    wall, launches = run_cli("sketch protein", argv(out))
+    wall, launches, batches = run_cli("sketch protein", argv(out))
     log(f"  sketch protein: {wall:.2f} s wall, {residues / 1e6 / wall:.2f} M aa/s, "
-        f"launches {launches}")
+        f"launches {launches}; launches by rows {batches}")
 
     profile = None
     if profile_cli:
@@ -842,7 +970,7 @@ def sketch_protein_end_to_end(m_aa: int, rng, tmp: str, profile_cli: bool = Fals
             got[sketch_key(sig.minhash)] = sig.minhash
     check_against_host("sketch protein", got, want)
     return dict(wall_s=wall, m_aa=residues / 1e6, records=n_rec, launches=launches,
-                profile=profile)
+                batches=batches, profile=profile)
 
 
 # -- phase 5: sketch translate end to end -----------------------------------
@@ -862,9 +990,9 @@ def sketch_translate_end_to_end(mbp: int, rng, tmp: str, profile_cli: bool = Fal
     argv = ["sketch", "translate", path, "-o", out]
     for p in TRANSLATE_PARAMS:
         argv += ["-p", p]
-    wall, launches = run_cli("sketch translate", argv)
+    wall, launches, batches = run_cli("sketch translate", argv)
     log(f"  sketch translate: {wall:.2f} s wall, {bases / 1e6 / wall:.2f} Mbp/s, "
-        f"launches {launches}")
+        f"launches {launches}; launches by rows {batches}")
     profile = None
     if profile_cli:
         from sourmash_tpu_torch.__main__ import main as cli_main
@@ -892,7 +1020,7 @@ def sketch_translate_end_to_end(mbp: int, rng, tmp: str, profile_cli: bool = Fal
         raise AssertionError("add_protein on 300,000 aa did not launch K3")
     check_against_host("add_protein 300,000 aa", {0: dev}, {0: host})
     return dict(wall_s=wall, mbp=bases / 1e6, records=n_rec, launches=launches,
-                profile=profile)
+                batches=batches, profile=profile)
 
 
 # -- phase 2 (gather kernels) and phase 6: gather end to end -----------------
@@ -1225,46 +1353,143 @@ def sass_opcodes(lib: str, kernel: str):
     return dict(collections.Counter(m.group(1) for m in ops if m).most_common())
 
 
-def sass_against(other_root: str):
-    """Build `other_root`'s csrc/sketch.cu as this tree builds its own and
-    require the SASS of K3 to equal this tree's, instruction for
-    instruction; print K2's and K1's instruction counts on both sides (they
-    may differ: each k they are built for is a kernel of its own)."""
+def ptxas_usage(build_log: str) -> dict:
+    """{mangled entry: (registers, spill store bytes, spill load bytes)}
+    from nvcc's `-Xptxas -v` report."""
     import re
 
+    usage = {}
+    for section in build_log.split("Compiling entry function '")[1:]:
+        name = section.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", section)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", section)
+        usage[name] = (int(regs.group(1)) if regs else None,
+                       *(int(x) for x in (spills.groups() if spills else (-1, -1))))
+    return usage
+
+
+def by_template_k(functions: dict, kernel: str) -> dict:
+    """{"k=21" ...: value} of the entries of `kernel` in `functions`, keyed
+    by their template k; 0 reads k at run time and is keyed "k=any"."""
+    import re
+
+    out = {}
+    for name, value in functions.items():
+        if f"{len(kernel)}{kernel}" in name:  # the mangled, length-prefixed name
+            m = re.search(r"ILi(\d+)E", name)
+            out[f"k={m.group(1) if m and m.group(1) != '0' else 'any'}"] = value
+    return out
+
+
+def sass_against(other_root: str) -> dict:
+    """Build this tree's and `other_root`'s csrc/sketch.cu with this tree's
+    flags and require the SASS of K1 and K2 to equal the other tree's,
+    instruction for instruction, for every k they are built for (21, 31,
+    51 and run-time k); print K3's instruction counts per template k, its
+    registers and spill bytes on both sides, and time the other tree's K3
+    beside this tree's (k = 10 at B = 4 and the path's batch, alternating
+    other, this, this, other). Returns those times."""
     from sourmash_tpu_torch.ops import _build
 
-    src = os.path.join(other_root, "sourmash_tpu_torch", "csrc", "sketch.cu")
+    sides = {"this tree": os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "sourmash_tpu_torch", "csrc", "sketch.cu"),
+             other_root: os.path.join(other_root, "sourmash_tpu_torch", "csrc", "sketch.cu")}
     with tempfile.TemporaryDirectory() as tmp:
-        so = os.path.join(tmp, "other_sketch.so")
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src], check=True,
-                       capture_output=True, text=True)
-        other = sass_functions(so)
-    ours = sass_functions(_build._so_path("sketch"))
-    if ours is None or other is None:
-        raise AssertionError("--sass-against needs cuobjdump")
-    differ = None
-    kernel = "aa_window_hashes_kernel"
-    a, b = sass_of(ours, kernel), sass_of(other, kernel)
-    if not a or a != b:
-        differ = (f"{kernel}: SASS differs from {other_root}'s "
-                  f"({len(a or [])} vs {len(b or [])} instructions)")
-        log(f"  {differ}; first differences:")
-        for x, y in [(x, y) for x, y in zip(a or [], b or []) if x != y][:8]:
-            log(f"    {x}\n    {y}")
-    else:
-        log(f"  {kernel}: SASS identical to {other_root}'s ({len(a)} instructions)")
-    for kernel in ("window_hashes_kernel", "survivor_slots_kernel"):
-        for side, functions in (("this tree", ours), (other_root, other)):
-            counts = {}
-            for name, lines in functions.items():
-                if f"{len(kernel)}{kernel}" in name:
-                    # the template's k; 0 reads k at run time, no template takes every k
-                    m = re.search(r"ILi(\d+)E", name)
-                    counts[f"k={m.group(1) if m and m.group(1) != '0' else 'any'}"] = len(lines)
-            log(f"  {kernel} ({side}): {counts} instructions")
+        procs = {}
+        for i, (side, src) in enumerate(sides.items()):
+            so = os.path.join(tmp, f"sketch{i}.so")
+            procs[side] = (so, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", so, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        sass, usage = {}, {}
+        for side, (so, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"--sass-against: building {sides[side]} failed\n{out}")
+            sass[side], usage[side] = sass_functions(so), ptxas_usage(out)
+        if None in sass.values():
+            raise AssertionError("--sass-against needs cuobjdump")
+        ours, other = sass["this tree"], sass[other_root]
+        differ = []
+        for kernel in ("survivor_slots_kernel", "window_hashes_kernel"):
+            a, b = by_template_k(ours, kernel), by_template_k(other, kernel)
+            if not a or a.keys() != b.keys():
+                differ.append(f"{kernel}: template ks {sorted(a)} vs {sorted(b)}")
+            for tk in sorted(a.keys() & b.keys()):
+                if a[tk] != b[tk]:
+                    differ.append(f"{kernel} {tk}: SASS differs from {other_root}'s "
+                                  f"({len(a[tk])} vs {len(b[tk])} instructions)")
+                    log(f"  {differ[-1]}; first differences:")
+                    for x, y in [(x, y) for x, y in zip(a[tk], b[tk]) if x != y][:8]:
+                        log(f"    {x}\n    {y}")
+                else:
+                    log(f"  {kernel} {tk}: SASS identical to {other_root}'s "
+                        f"({len(a[tk])} instructions)")
+        kernel = "aa_window_hashes_kernel"
+        for side in sides:
+            counts = {tk: len(lines) for tk, lines in by_template_k(sass[side], kernel).items()}
+            regs = {tk: dict(registers=u[0], spill_stores=u[1], spill_loads=u[2])
+                    for tk, u in by_template_k(usage[side], kernel).items()}
+            log(f"  {kernel} ({side}): {counts} instructions; {regs}")
+        times = time_other_k3(procs[other_root][0], other_root)
     if differ:
-        raise AssertionError(differ)
+        raise AssertionError("; ".join(differ))
+    return times
+
+
+def time_other_k3(so: str, other_root: str) -> dict:
+    """K3 of the library `so` (another tree's sketch.cu) against this
+    tree's at k = TIMED_AA_K on aa_rows at B = 4 and the path's batch:
+    outputs bit for bit, then (per call, back to back) of each, timed
+    other, this, this, other, with the time per launch in a CUDA graph
+    beside them (the other tree's launch has a shorter host path than the
+    wrapper, so only the graph times compare the kernels); each side's
+    pair of runs is averaged."""
+    import ctypes
+
+    import torch
+
+    from sourmash_tpu_torch.ops import _build, u64
+    from sourmash_tpu_torch.ops import cuda_sketch as cs
+
+    lib = ctypes.CDLL(so)
+    entry = lib.sm_aa_window_hashes
+    entry.argtypes = _build._LIBRARIES["sketch"][1]["sm_aa_window_hashes"]
+    entry.restype = ctypes.c_int
+    k = TIMED_AA_K
+    rng = np.random.default_rng(7)
+    times = {}
+    for B in (4, path_aa_batch()):
+        rows = torch.from_numpy(aa_rows(B, k, rng)).cuda()
+        S = rows.shape[1]
+        _, _, n_pad = cs.geometry(S, k)
+
+        def other():
+            h = torch.empty((B, n_pad), dtype=torch.int64, device="cuda")
+            v = torch.empty((B, n_pad), dtype=torch.uint8, device="cuda")
+            rc = entry(rows.data_ptr(), B, S, n_pad, k, 42 & u64.MASK64, h.data_ptr(),
+                       v.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise AssertionError(f"{other_root}'s sm_aa_window_hashes: CUDA error {rc}")
+            return h, v
+
+        def this():
+            return cs.aa_window_hashes(rows, ksize=k)
+
+        for name, a, b in zip(("hashes", "valid"), this(), other()):
+            exact(f"K3 {name} k={k} B={B} against {other_root}'s", a, b)
+        runs = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            run = other if side == "other" else this
+            runs[side].append((*kernel_times(run, 20), graph_ms(run)))
+        times[B] = {side: tuple(sum(x) / 2 for x in zip(*r)) for side, r in runs.items()}
+        o, t = times[B]["other"], times[B]["this"]
+        log(f"  K3 k={k} B={B}: {other_root}'s {o[0]:.4f} ms/launch ({o[1]:.4f} back to back, "
+            f"{o[2]:.4f} in a CUDA graph), this tree's {t[0]:.4f} ({t[1]:.4f}, {t[2]:.4f}); "
+            f"{o[2] / t[2]:.2f}x in the graph")
+        del rows
+    cs.reset_launch_counts()
+    return times
 
 
 def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
@@ -1896,7 +2121,8 @@ def main(argv=None) -> int:
                     help="build and check each kernel once, then stop")
     ap.add_argument("--json", help="also write every measurement to this file")
     ap.add_argument("--sass-against", metavar="DIR",
-                    help="fail unless K3's SASS equals that of the checkout in DIR")
+                    help="fail unless K1's and K2's SASS equals that of the checkout in "
+                         "DIR; time DIR's K3 beside this tree's")
     ap.add_argument("--profile", action="store_true",
                     help="run each sketch command once more under cProfile and "
                          "torch.profiler")
@@ -1930,8 +2156,7 @@ def main(argv=None) -> int:
         for line in build_log.splitlines():
             if any(w in line for w in ("Compiling entry", "registers", "spill", "rror")):
                 log(f"  {name}.cu: {line.strip()}")
-    if args.sass_against:
-        sass_against(args.sass_against)
+    k3_against = sass_against(args.sass_against) if args.sass_against else None
 
     rng = np.random.default_rng(20261016)
     t0 = time.time()
@@ -2005,7 +2230,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath,
-                           instrument_launches=instr), f, indent=1)
+                           instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,6 @@
 
 namespace {
 
-// Hash of the k-byte amino-acid window at s (shared memory), as it is, and
-// its validity (no zero byte: zero separates records and pads rows).
-__device__ uint64_t aa_window_hash(const uint8_t* s, int k, uint64_t seed, bool& ok) {
-  return murmur_window<true>(s, k, false, seed, ok);
-}
-
 // K2. Replaces sourmash_tpu/ops/pallas_sketch.py:window_hash_pairs_pallas
 // (kernel _sketch_block_kernel over _hash_streams).
 //
@@ -76,28 +70,43 @@ window_hashes_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k_ar
 // K3. Replaces sourmash_tpu/ops/pallas_sketch.py:aa_window_hash_pairs_pallas
 // (kernel _sketch_block_kernel over _aa_hash_streams).
 //
-// Bound: about half K2's integer work per window (no strand compare, one
-// byte stream), so at sourmash's protein k=10 the 9 bytes written per
-// window bound it, and integer ALU from k ~ 16 up. Design: one thread per
-// window over the block's bytes plus the k-1 halo in shared memory; the
-// murmur runs on native uint64_t.
+// Bound: about half K2's integer work per window (no strand, one byte
+// stream), so at sourmash's protein k=10 the 9 bytes written per window
+// bound it, and integer issue from k ~ 16 up. Design: the amino-acid tile
+// (sketch_common.cuh): a block stages kAaTile windows and the k-1 halo
+// once, with a ballot plane of the zero bytes; validity is a funnel shift
+// of that plane, the murmur words two funnel shifts of aligned 32-bit
+// shared loads, with no per-byte loop. Each thread hashes kAaWin
+// consecutive windows, whose murmur chains interleave and which share
+// their loads, and writes them with 16-byte hash stores and one 4-byte
+// validity store. Every window is hashed as its bytes are, zero bytes,
+// pad windows and the bytes past the row (staged as 0) included. k is a
+// template constant for sourmash's protein 10, dayhoff 16 and hp 42;
+// kK = 0 reads it from its argument.
+template <int kK>
 __global__ void __launch_bounds__(kTile)
-aa_window_hashes_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k,
+aa_window_hashes_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k_arg,
                         uint64_t seed, uint64_t* __restrict__ hashes,
                         uint8_t* __restrict__ valid) {
-  extern __shared__ uint8_t smem[];
+  extern __shared__ __align__(16) uint8_t aa_smem[];
+  const int k = kK > 0 ? kK : k_arg;
   const int b = blockIdx.y;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  stage_row(seq + static_cast<int64_t>(b) * S, S, w0, kTile + k - 1, smem);
+  const int w0 = blockIdx.x * kAaTile;  // n_pad < 2^31 (the wrapper's range check)
+  const AaTile tile = stage_aa_tile(seq + static_cast<int64_t>(b) * S, S, w0, k, aa_smem);
   __syncthreads();
 
-  const int64_t w = w0 + threadIdx.x;
-  if (w >= n_pad) return;
-  bool ok;
-  uint64_t h = aa_window_hash(smem + threadIdx.x, k, seed, ok);
-  const int64_t out = static_cast<int64_t>(b) * n_pad + w;
-  hashes[out] = h;
-  valid[out] = ok ? 1 : 0;
+  const int s = kAaWin * threadIdx.x;
+  // n_pad is a multiple of kAaWin: a thread's windows are all in or all out
+  if (w0 + s >= n_pad) return;
+  const uint32_t* at = reinterpret_cast<const uint32_t*>(tile.bytes) + threadIdx.x;
+  uint64_t h[kAaWin];
+#pragma unroll
+  for (int j = 0; j < kAaWin; ++j) h[j] = funnel_murmur(at, 8 * j, k, seed);
+  const int64_t out = static_cast<int64_t>(b) * n_pad + w0 + s;
+  ulonglong2* hout = reinterpret_cast<ulonglong2*>(hashes + out);
+  hout[0] = make_ulonglong2(h[0], h[1]);
+  hout[1] = make_ulonglong2(h[2], h[3]);
+  *reinterpret_cast<uint32_t*>(valid + out) = aa_valid_word(tile, s, k);
 }
 
 // K1. Replaces sourmash_tpu/ops/pallas_sketch.py:sketch_survivor_slots_pallas
@@ -162,6 +171,18 @@ cudaError_t with_template_k(int k, F f) {
   }
 }
 
+// f(std::integral_constant<int, K>) with K = k for sourmash's protein 10,
+// dayhoff 16 and hp 42, else K = 0 (the kernel reads k at run time).
+template <typename F>
+cudaError_t with_template_aa_k(int k, F f) {
+  switch (k) {
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 42: return f(std::integral_constant<int, 42>{});
+    default: return f(std::integral_constant<int, 0>{});
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -186,17 +207,22 @@ int sm_window_hashes(const void* seq, int B, int S, int n_pad, int ksize,
   }));
 }
 
-// hashes [B, n_pad] u64, valid [B, n_pad] u8 for amino-acid rows seq [B, S] u8.
+// hashes [B, n_pad] u64, valid [B, n_pad] u8 for amino-acid rows seq [B, S] u8
+// (n_pad a multiple of 128; hashes 16-byte and valid 4-byte aligned).
 int sm_aa_window_hashes(const void* seq, int B, int S, int n_pad, int ksize,
                         uint64_t seed, void* hashes, void* valid, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare_smem(aa_window_hashes_kernel, ksize, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n_pad + kTile - 1) / kTile, B);
-  aa_window_hashes_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), S, n_pad, ksize, seed,
-      static_cast<uint64_t*>(hashes), static_cast<uint8_t*>(valid));
-  return static_cast<int>(cudaGetLastError());
+  if (n_pad % kAaWin != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_template_aa_k(ksize, [&](auto kk) {
+    constexpr int kK = decltype(kk)::value;
+    const size_t smem = aa_smem_bytes(ksize);
+    cudaError_t err = opt_in_smem(aa_window_hashes_kernel<kK>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((n_pad + kAaTile - 1) / kAaTile, B);
+    aa_window_hashes_kernel<kK><<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(seq), S, n_pad, ksize, seed,
+        static_cast<uint64_t*>(hashes), static_cast<uint8_t*>(valid));
+    return cudaGetLastError();
+  }));
 }
 
 // slots_hi, slots_lo [B, R, slots] u32 and counts [B, R] i32 for rows

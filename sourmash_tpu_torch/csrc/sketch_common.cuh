@@ -1,11 +1,13 @@
 // Device functions shared by the sketch kernels (sketch.cu: K1, K2, K3) and
-// the sketch-kernel instruments (sketch_parts.cu: T2, T3, T4).
+// the sketch-kernel instruments (sketch_parts.cu: T2, T3, T4). K1 and K2
+// share the DNA tile below, K3 has the amino-acid tile after it.
 //
 // The hash is the canonical-strand MurmurHash3 x64_128 (first 64-bit word,
 // seed given) that sourmash uses for DNA: a k-byte window and its reverse
 // complement are compared lexicographically and the lesser is hashed. A
 // window is valid when all of its k bytes are A, C, G or T; a zero pad byte
-// is never valid.
+// is never valid. Amino-acid windows hash their bytes as they are with the
+// same murmur, and are valid when none of their bytes is 0.
 //
 // The complement is the branchless ASCII map of the TPU kernel
 // (`sourmash_tpu/ops/pallas_sketch.py:_complement_bytes`): c ^ 4 when bit 1
@@ -62,17 +64,14 @@ __device__ __forceinline__ uint32_t canon_byte(const uint8_t* s, int k, bool rev
   return rev ? complement(c) : c;
 }
 
-// Little-endian word of `len` (1..8) window bytes from position `start`;
-// clears `ok` if one of them is not valid. DNA (kAA false): canonical bytes,
-// valid when ACGT. Amino acids (kAA true): the bytes as they are, valid when
-// not 0.
-template <bool kAA>
+// Little-endian word of `len` (1..8) canonical bytes of the DNA window at
+// s from position `start`; clears `ok` if one of them is not ACGT.
 __device__ __forceinline__ uint64_t window_word(const uint8_t* s, int k, bool rev,
                                                 int start, int len, bool& ok) {
   uint64_t w = 0;
   for (int i = 0; i < len; ++i) {
-    uint32_t c = kAA ? s[start + i] : canon_byte(s, k, rev, start + i);
-    ok = ok && (kAA ? c != 0u : is_acgt(c));
+    uint32_t c = canon_byte(s, k, rev, start + i);
+    ok = ok && is_acgt(c);
     w |= static_cast<uint64_t>(c) << (8 * i);
   }
   return w;
@@ -113,17 +112,6 @@ __device__ __forceinline__ uint64_t murmur_words(int k, uint64_t seed, Word word
   return h1 + h2;
 }
 
-// Murmur of the k-byte window at s (shared memory) read through
-// window_word<kAA>, and its validity.
-template <bool kAA>
-__device__ __forceinline__ uint64_t murmur_window(const uint8_t* s, int k, bool rev,
-                                                  uint64_t seed, bool& ok) {
-  ok = true;
-  return murmur_words(k, seed, [&](int start, int len) {
-    return window_word<kAA>(s, k, rev, start, len, ok);
-  });
-}
-
 // The strand of the k-byte DNA window at s: true when its reverse
 // complement is the lesser. The first byte where the two differ decides; a
 // palindrome takes the forward strand.
@@ -134,12 +122,6 @@ __device__ __forceinline__ bool reverse_is_less(const uint8_t* s, int k) {
     if (f != r) return r < f;
   }
   return false;
-}
-
-// Canonical hash of the k-byte DNA window at s (shared memory) and its
-// validity (every byte ACGT).
-__device__ uint64_t window_hash(const uint8_t* s, int k, uint64_t seed, bool& ok) {
-  return murmur_window<false>(s, k, reverse_is_less(s, k), seed, ok);
 }
 
 // Stage bytes [w0, w0 + span) of one row into shared memory with coalesced
@@ -324,22 +306,110 @@ __device__ __forceinline__ void plane_strand(const DnaTile& tile, int s, int k, 
   }
 }
 
-// Murmur of the canonical k-window at tile position s: bytes s.. of the
-// tile, or rc bytes L - s - k.. when `rev`. rc holds complement() of every
-// byte, 0 and other bytes included, so this is the reference's garbage
-// hash for an invalid window too. Each word is two funnel shifts of
-// aligned 32-bit shared loads.
-__device__ __forceinline__ uint64_t tile_murmur(const DnaTile& tile, int s, int k, bool rev,
-                                                uint64_t seed) {
-  const int off = rev ? 2 * tile.L - s - k : s;
-  const uint32_t* at = reinterpret_cast<const uint32_t*>(tile.bytes) + (off >> 2);
-  const int sh = 8 * (off & 3);
+// Murmur of the k staged bytes that start sh / 8 bytes into the aligned
+// word at `at` (sh in {0, 8, 16, 24}): each murmur word is two funnel
+// shifts of aligned 32-bit shared loads, with no per-byte loop. The loads
+// reach up to 11 bytes past the k bytes; what they read there is masked
+// off.
+__device__ __forceinline__ uint64_t funnel_murmur(const uint32_t* at, int sh, int k,
+                                                  uint64_t seed) {
   return murmur_words(k, seed, [&](int start, int len) {
     const uint32_t* p = at + (start >> 2);
     const uint64_t x = static_cast<uint64_t>(__funnelshift_r(p[1], p[2], sh)) << 32 |
                        __funnelshift_r(p[0], p[1], sh);
     return len >= 8 ? x : x & ((1ULL << (8 * len)) - 1);
   });
+}
+
+// Murmur of the canonical k-window at tile position s: bytes s.. of the
+// tile, or rc bytes L - s - k.. when `rev`. rc holds complement() of every
+// byte, 0 and other bytes included, so this is the reference's garbage
+// hash for an invalid window too.
+__device__ __forceinline__ uint64_t tile_murmur(const DnaTile& tile, int s, int k, bool rev,
+                                                uint64_t seed) {
+  const int off = rev ? 2 * tile.L - s - k : s;
+  return funnel_murmur(reinterpret_cast<const uint32_t*>(tile.bytes) + (off >> 2),
+                       8 * (off & 3), k, seed);
+}
+
+// -- the amino-acid tile of K3 -------------------------------------------------
+//
+// A block of kTile threads stages kAaTile windows of one row once: the
+// tile's L bytes as they are (its windows and the k-1 halo, in whole
+// 32-position plane words), 16 zeroed bytes of reach for the last words'
+// aligned loads, and one ballot plane marking the zero bytes. There is no
+// strand and no code plane. Each thread takes kAaWin consecutive windows,
+// s = kAaWin * threadIdx.x onwards: they share one read of the zero plane
+// and their aligned word loads (window s + j is the same words funnel-
+// shifted by 8 * j), and the thread writes their hashes as two 16-byte
+// stores and their validity as one 4-byte store.
+
+constexpr int kAaWin = 4;
+constexpr int kAaTile = kAaWin * kTile;
+
+__host__ __device__ constexpr int aa_staged(int k) {
+  return (kAaTile + k - 1 + 31) / 32 * 32;
+}
+
+// A tile's dynamic shared memory: the L staged bytes, 16 bytes of reach
+// and the zero plane of L / 32 + 1 words (one spare).
+__host__ __device__ constexpr int aa_smem_bytes(int k) {
+  return aa_staged(k) + 16 + 4 * (aa_staged(k) / 32 + 1);
+}
+
+struct AaTile {
+  const uint8_t* bytes;  // L bytes, then the 16 zero bytes of reach
+  const uint32_t* zero;  // bit i of word m: staged byte 32m + i is 0
+};
+
+// Stage the tile of positions [w0, w0 + L) of one row into `smem`
+// (aa_smem_bytes(k), 16-byte aligned); bytes past the row read 0. Every
+// thread of the kTile block calls it; the caller synchronises.
+__device__ __forceinline__ AaTile stage_aa_tile(const uint8_t* row, int S, int w0, int k,
+                                               uint8_t* smem) {
+  const int L = aa_staged(k);
+  uint32_t* zero = reinterpret_cast<uint32_t*>(smem + L + 16);
+  const uint8_t* src = row + w0;
+  const int in_row = S - w0;  // staged positions below this lie in the row
+  const int t = threadIdx.x;
+  // L and kTile are multiples of 32, so every lane of a warp takes part in
+  // each ballot; the warp's 32 positions are one word of the plane. Whole
+  // rounds of kTile positions, then the part round (warp-uniform).
+  auto stage = [&](int i) {
+    const uint32_t c = i < in_row ? src[i] : 0u;
+    smem[i] = static_cast<uint8_t>(c);
+    const unsigned z = __ballot_sync(0xffffffffu, c == 0u);
+    if ((t & 31) == 0) zero[i >> 5] = z;
+  };
+#pragma unroll
+  for (int r = 0; r < L / kTile; ++r) stage(r * kTile + t);
+  if (t < L % kTile) stage(L / kTile * kTile + t);
+  if (t < 4) reinterpret_cast<uint32_t*>(smem + L)[t] = 0u;
+  if (t == 4) zero[L / 32] = 0u;
+  return AaTile{smem, zero};
+}
+
+// Validity of the kAaWin windows at tile positions s.. (s a multiple of
+// kAaWin) as one little-endian word, byte j 1 when window s + j holds no
+// zero byte: funnel shifts of the zero plane, 32 positions a step. The
+// windows share each step's two plane words ((s & 31) + j stays below 32).
+__device__ __forceinline__ uint32_t aa_valid_word(const AaTile& tile, int s, int k) {
+  bool ok[kAaWin];
+#pragma unroll
+  for (int j = 0; j < kAaWin; ++j) ok[j] = true;
+#pragma unroll
+  for (int c = 0; c < k; c += 32) {
+    const int q = s + c;
+    const uint32_t lo = tile.zero[q >> 5], hi = tile.zero[(q >> 5) + 1];
+    const uint32_t m = low_mask(k - c);
+#pragma unroll
+    for (int j = 0; j < kAaWin; ++j)
+      ok[j] = ok[j] && (__funnelshift_r(lo, hi, (q & 31) + j) & m) == 0;
+  }
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < kAaWin; ++j) v |= static_cast<uint32_t>(ok[j]) << (8 * j);
+  return v;
 }
 
 // Opt a kernel in to `bytes` of dynamic shared memory where that exceeds
@@ -352,8 +422,8 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Dynamic shared memory for one block of K1-K3: the tile's bytes plus the
-// k-1 halo.
+// Dynamic shared memory for one block of the instruments' one-window-a-
+// thread kernels: the tile's bytes plus the k-1 halo.
 template <typename Kernel>
 cudaError_t prepare_smem(Kernel kernel, int k, size_t* bytes) {
   *bytes = static_cast<size_t>(kTile) + static_cast<size_t>(k) - 1;

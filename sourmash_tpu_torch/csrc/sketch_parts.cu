@@ -31,7 +31,7 @@ constexpr uint64_t kT4Seed = 42;
 __device__ __forceinline__ uint64_t canonical_word(const uint8_t* s, int k, bool rev,
                                                    int start, bool& ok) {
   if (start >= k) return 0;
-  return window_word<false>(s, k, rev, start, min(8, k - start), ok);
+  return window_word(s, k, rev, start, min(8, k - start), ok);
 }
 
 // T2 pass A. Replaces tools/exp_split_kernel.py:split_sketch's first call
