@@ -60,6 +60,23 @@ Phases, each raising on failure:
    `time` at [8, 2^21 + 30], T4 `murmur assembly mul16`, T5 `full kernel
    gatheronly`), the launch counters set to 0 just before and read just
    after; every instrument kernel must have run.
+8. `search`, `prefetch` and `multigather` against phase 6's zip, each
+   command with the launch counters set to 0 just before and read just
+   after. `search` of a genome of a clade of >= 5 (Jaccard, then
+   `--containment`): the cutoff form of `counts_rows` must run and the rows
+   must be exactly the genomes whose numpy score passes 0.08, with those
+   scores. `prefetch` of phase 6's metagenome with `--save-matching-hashes`
+   and `--save-unmatched-hashes`: every genome sharing >= 50 kbp and only
+   those, with numpy's intersect_bp, and the two hash files an np.isin
+   split. `multigather` of 16 samples (`make_gather_query`: 4 of ~600 k
+   hashes first, then 12 of 20 k-150 k): `counts_block`,
+   `membership_bits_batch` and `round_dec_batch` must run, every sample's
+   counts must come from the warm cache, the first block of schedules must
+   take the device-membership route and the rest host matrices, and every
+   sample's rows must equal the numpy greedy gather; then the 4 large
+   samples under SOURMASH_TORCH_SCHEDULE_CAP=512 (batched recounts) and 4
+   small ones with the device budget below the planes (streamed banks)
+   must write byte-identical CSVs.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -80,7 +97,16 @@ cutoffs; the cost of the wrapper's query-order check; `membership_bits`
 at [2048, W =
 ceil(600 k / 32)], and on edge inputs: the identity slot map of
 `membership_matrix`, buckets with cnt = 8, emptied and repeated rows, and
-a W above the block's shared memory; `round_dec` at [4096, W].
+a W above the block's shared memory; `round_dec` at [4096, W]. And the
+batch kernels at phase 8's shapes: `counts_block` on the same chunk against
+phase 8's block of 16 queries (4 of ~600 k hashes, 12 of 20 k-150 k) and
+a block of 32 (8 and 24; columns in shared memory, staged a sub-block of
+queries at a time), each timed beside
+`counts_rows` launched for each query of the block, and against a B = 128
+bank whose columns exceed shared memory; `membership_bits_batch` with 4
+queries (~600 k, 150 k, empty, 20 k hashes) x 2,048 rows at W = ceil(600 k
+/ 32), repacked at a depth above the block's own, with padded selections
+and rows with cnt = 8 and 2^64-1; `round_dec_batch` on its words.
 
 Phase 2 then holds the sketch-kernel instruments (`csrc/sketch_parts.cu`)
 against their plain versions on the card, bit for bit: T2's passes
@@ -98,10 +124,10 @@ of the 8 unrolled rounds, and its opcode counts are printed.
 The last two lines are a JSON object with every kernel's numbers and then
 `{"ok": true, "device": {...}}`. --quick stops after checking each kernel
 once at the main path's shape (the gather kernels on a 512-row chunk, the
-instruments at k=31), before the main path, and prints neither line;
---profile runs `sketch dna`, `sketch protein`, `sketch translate` and
-`gather` once more under cProfile and torch.profiler and prints where their
-time goes. --sass-against DIR (a checkout of another commit) builds DIR's
+batch kernels with a block of 4 queries, the instruments at k=31), before
+the main path, and prints neither line; --profile runs `sketch dna`,
+`sketch protein`, `sketch translate`, `gather` and `multigather` once more
+under cProfile and torch.profiler and prints where their time goes. --sass-against DIR (a checkout of another commit) builds DIR's
 `csrc/sketch.cu` and this tree's with this tree's flags after phase 1 and
 fails unless the SASS of K1 and K2 equals this tree's for every k they are
 built for (21, 31, 51 and run-time k); it prints K3's instruction counts
@@ -173,6 +199,13 @@ GATHER_DEVICE = "cuda"  # the gather phases' tensors (a CPU rehearsal sets "cpu"
 # schedule builds membership on the device, and one of phase 6's size above it
 GATHER_ROUTE_QUERIES = (20_000, 150_000, 600_000)
 ROUTE_REPS = 4
+# phase 8: `multigather` of many samples against one collection (config 5
+# of BASELINE.json: 1000 metagenomes against full GTDB), cut to 16 samples
+# on one card for the run's time limit: 4 of ~600 k hashes, 12 of 20 k-150 k
+MULTI_LARGE, MULTI_SMALL = 4, 12
+MULTI_SMALL_HASHES = (20_000, 150_000)
+MULTI_CAP = "512"  # the capped rerun of the large samples: converge's recounts
+BLOCK_QUERIES = 32  # phase 2's counts_block block: phase 8's mix, a quarter large
 
 
 def log(*args):
@@ -1092,7 +1125,7 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     B = bank.B
     log(f"  bank [{rows}, 8, {B}] ({bank.n_spilled} spills), query {len(q)} hashes "
         f"({time.time() - t0:.1f} s to make)")
-    qhi, qlo, _qcnt, dq, _tail = _cached_query_pack(q, B, torch.device(GATHER_DEVICE))
+    qhi, qlo, qcnt, dq, _tail = _cached_query_pack(q, B, torch.device(GATHER_DEVICE))
     Shi, Slo = bank.hi, bank.lo
     reps = 3 if quick else 10
     step = 512
@@ -1116,13 +1149,12 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
             1, warmup=0)
         # the least work of the function, not of the kernel's all-pairs
         # compare: both sides hold each bucket sorted ascending (PAD last),
-        # so each of a row's 8 slots needs a binary search of its bucket's
-        # dq query slots, ceil(log2 dq) probes of three ops (hi compare, lo
-        # compare, select); with cuts, one unsigned <= test (three ops) per
+        # so each valid slot of a row needs a binary search of its bucket's
+        # occupied query slots and each PAD slot takes the PAD run
+        # (`search_ops`); with cuts, one unsigned <= test (three ops) per
         # slot. Reading the planes once usually outweighs that.
         compares = rows * B * 8 * dq  # what the kernel does, for the rate below
-        probes = rows * B * 8 * max(1, (dq - 1).bit_length())
-        other = 3 * probes + (3 * rows * B * 8 if cut else 0)
+        other = search_ops(qcnt, bank.cnt) + (3 * rows * B * 8 if cut else 0)
         nbytes = 2 * Shi.numel() * 4 + 2 * qhi.numel() * 4 + rows * 4 + (8 * rows if cut else 0)
         bms, by = bound_ms(nbytes, 0, other, clock_hz)
         results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -1168,11 +1200,11 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     plain = time_ms(lambda: member_plain(sel, slotmap, inv), 1, warmup=0)
     # least work of the function: each selected row's cnt bytes and its
     # valid slots' two limbs read once, each valid slot searched in its
-    # bucket's sorted query slots (ceil(log2 dq) probes of three ops) with
+    # bucket's sorted query slots (`search_ops`, PAD slots skipped) with
     # one map read and one bit set per hit, the query planes, occupancy and
     # inverse map read once, every output word written once
     valid = int(Scnt[sel].to(torch.int64).sum())
-    other = 3 * valid * max(1, (mdq - 1).bit_length()) + 2 * valid + nm * W
+    other = search_ops(mq[2], Scnt[sel], pad=False) + 2 * valid + nm * W
     nbytes = (nm * (B + 8) + valid * 8 + mq[0].numel() * 8 + B * 4 + inv.numel() * 4
               + nm * W * 4)
     bms, by = bound_ms(nbytes, 0, other, clock_hz)
@@ -1197,8 +1229,218 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
                                 max_abs_err=err, k=k, W=W)
     log(f"  round_dec [{k}, {W}]: equals its plain version; {ms:.4f} ms/launch "
         f"({b2b:.4f} back to back), plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
-    del bank, Shi, Slo, M
+    del M
+    results.update(check_batch_kernels(quick, rng, clock_hz, mins_list, bank, q))
+    del bank, Shi, Slo
     torch.cuda.empty_cache()
+    return results
+
+
+def plain_grid(fn, n_q: int, n_rows: int, q_step: int, row_step: int):
+    "fn(query slice, row slice) [q, rows] over a grid of slices, joined."
+    import torch
+
+    return torch.cat([
+        torch.cat([fn(slice(a, min(a + q_step, n_q)), slice(r, min(r + row_step, n_rows)))
+                   for r in range(0, n_rows, row_step)], dim=1)
+        for a in range(0, n_q, q_step)])
+
+
+def search_ops(Qcnt, Scnt, d: int = 8, pad: bool = True) -> int:
+    """The least integer ops of matching a chunk's slots against sorted
+    query columns: each valid slot of bucket b is binary-searched in each
+    query's own Qcnt[q, b] sorted slots of that bucket (bit_length of that
+    occupancy probes, at least one, of three ops: hi compare, lo compare,
+    select); with `pad`, each PAD slot costs one op a query (its count is
+    the column's PAD run, read from the occupancy). Qcnt [bq, B] or [B],
+    Scnt [rows, B]; the count is this run's data, not the most it could be."""
+    import torch
+
+    occ = Qcnt.reshape(-1, Qcnt.shape[-1]).to(torch.int64)
+    probes = torch.zeros_like(occ)
+    while bool((occ > 0).any()):
+        probes += (occ > 0).to(torch.int64)
+        occ = occ >> 1
+    valid = Scnt.to(torch.int64).sum(dim=0)  # [B] valid slots of each bucket
+    ops = 3 * int((probes.clamp(min=1) * valid).sum())
+    if pad:
+        ops += probes.shape[0] * (Scnt.numel() * d - int(valid.sum()))
+    return ops
+
+
+def check_counts_block(label: str, qs, Shi, Slo, Scnt, reps: int, clock_hz: float, dev) -> dict:
+    """counts_block of a block of queries against one chunk, bit for bit
+    against its plain version, timed (per call, back to back) beside
+    counts_rows launched for each query, with its bound (`search_ops`)."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    bq, rows, B = len(qs), Shi.shape[0], Shi.shape[2]
+    Qhi, Qlo, Qcnt, dq, _raw = bk.pack_query_block_device(qs, B, device=dev)
+    got = cg.counts_block(Qhi, Qlo, Shi, Slo)
+    t0 = time.time()
+    torch.cuda.synchronize()
+    want = plain_grid(lambda a, r: cg.counts_block_plain(
+        Qhi[a].contiguous(), Qlo[a].contiguous(), Shi[r].contiguous(), Slo[r].contiguous()),
+        bq, rows, 8, 32)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    err = exact(f"counts_block, {label}", got, want)
+    for i in (0, bq - 1):
+        exact(f"counts_block, {label}, query {i} vs counts_rows", got[i], cg.counts_rows(
+            Qhi[i].contiguous(), Qlo[i].contiguous(), Shi, Slo))
+    ms, b2b = kernel_times(lambda: cg.counts_block(Qhi, Qlo, Shi, Slo), reps)
+    views = [(Qhi[i].contiguous(), Qlo[i].contiguous()) for i in range(bq)]
+    rows_ms = time_ms(lambda: [cg.counts_rows(h, lo, Shi, Slo) for h, lo in views], reps)
+    qsub = cg.counts_block_plan(bq, dq, dev)
+    rereads = -(-bq // qsub) if qsub else -(-bq // 384)  # the global branch's sub-blocks
+    ops = search_ops(Qcnt, Scnt)
+    nbytes = 2 * Shi.numel() * 4 + 2 * Qhi.numel() * 4 + bq * rows * 4
+    bms, by = bound_ms(nbytes, 0, ops, clock_hz)
+    log(f"  counts_block [{bq}, {dq}, {B}] vs [{rows}, 8, {B}] ({label}): equals its plain "
+        f"version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} ms, bound "
+        f"{bms:.4f} ms ({by}, {ops} ops), {100 * bms / b2b:.1f} % of it back to back; {qsub} "
+        f"queries staged together, rows read {rereads}x; counts_rows for each of the {bq} "
+        f"queries {rows_ms:.4f} ms")
+    return dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+                bq=bq, rows=rows, dq=dq, B=B, qsub=qsub, row_reads=rereads, ops=ops,
+                counts_rows_x_bq_ms=rows_ms)
+
+
+def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -> dict:
+    """The batch kernels against their plain versions on the card, bit for
+    bit, at phase 8's shapes, each timed with its bound: counts_block on
+    phase 2's chunk against phase 8's block (MULTI_LARGE queries of ~600 k
+    hashes, then MULTI_SMALL of 20 k-150 k) and a block of BLOCK_QUERIES
+    of the same mix (a quarter large; columns in shared memory, sub-blocks
+    of queries), each beside counts_rows launched for each query of the
+    block, and against a B = 128 bank whose columns exceed shared memory; membership_bits_batch with 4 queries x 2,048
+    rows at W = ceil(600 k / 32) on edge inputs (padded selections, an
+    empty query, the block repacked at a depth above its own, rows with
+    cnt = 8 and 2^64-1); round_dec_batch on its words."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    dev = torch.device(GATHER_DEVICE)
+    rows, B = bank.hi.shape[0], bank.B
+    Shi, Slo, Scnt = bank.hi, bank.lo, bank.cnt
+    reps = 3 if quick else 10
+    bq = 4 if quick else BLOCK_QUERIES
+    n_large = bq // 4
+    t0 = time.time()
+    sizes = [GATHER_QUERY_HASHES] * (n_large - 1) + rng.integers(
+        MULTI_SMALL_HASHES[0], MULTI_SMALL_HASHES[1] + 1, size=bq - n_large).tolist()
+    qs = [q] + [make_gather_query(rng, mins_list, n)[0] for n in sizes]
+    log(f"  {bq} queries ({n_large} of ~600 k hashes) made in {time.time() - t0:.1f} s")
+    # phase 8's block (MULTI_LARGE large samples first, then MULTI_SMALL
+    # small), whose launches the kernels line counts, and a block of
+    # BLOCK_QUERIES; --quick: one block of 4
+    blocks = ([(f"block of {bq}", qs)] if quick else
+              [("phase 8's block", qs[:MULTI_LARGE] + qs[n_large : n_large + MULTI_SMALL]),
+               (f"block of {bq}", qs)])
+    results = {}
+    for label, bqs in blocks:
+        res = check_counts_block(label, bqs, Shi, Slo, Scnt, reps, clock_hz, dev)
+        if "counts_block" in results:
+            results["counts_block"][f"block{len(bqs)}"] = res
+        else:
+            results["counts_block"] = res
+
+    # the global-memory branch: a bank of small genomes (B = 128)
+    n_small = min(GLOBAL_ROWS, len(mins_list))
+    small = [m[: int(n)] for m, n in zip(mins_list[:n_small], rng.integers(150, 321, size=n_small))]
+    gbank = bk.pack_rows_device(small, GLOBAL_B, device=dev)
+    gq = qs[: min(8, bq)]
+    Ghi, Glo, Gcnt, gdq, _graw = bk.pack_query_block_device(gq, GLOBAL_B, device=dev)
+    if cg.counts_block_plan(len(gq), gdq, dev):
+        raise AssertionError(f"dq={gdq} at B = {GLOBAL_B} fits shared memory: not the global branch")
+    got = cg.counts_block(Ghi, Glo, gbank.hi, gbank.lo)
+    grows = gbank.hi.shape[0]
+    exact("counts_block global columns", got, plain_grid(lambda a, r: cg.counts_block_plain(
+        Ghi[a].contiguous(), Glo[a].contiguous(), gbank.hi[r].contiguous(),
+        gbank.lo[r].contiguous()), len(gq), grows, 8, 16))
+    gms, gb2b = kernel_times(lambda: cg.counts_block(Ghi, Glo, gbank.hi, gbank.lo), reps)
+    gbms, gby = bound_ms(2 * gbank.hi.numel() * 4 + 2 * Ghi.numel() * 4 + len(gq) * grows * 4,
+                         0, search_ops(Gcnt, gbank.cnt), clock_hz)
+    results["counts_block"]["global"] = dict(ms=gms, b2b_ms=gb2b, bound_ms=gbms, bound_by=gby,
+                                             bq=len(gq), rows=grows, dq=gdq, B=GLOBAL_B)
+    log(f"  counts_block [{len(gq)}, {gdq}, {GLOBAL_B}] vs [{grows}, 8, {GLOBAL_B}] (global-memory "
+        f"columns): equals its plain version; {gms:.4f} ms/launch ({gb2b:.4f} back to back), "
+        f"bound {gbms:.4f} ms ({gby})")
+    del gbank, Ghi, Glo
+
+    # membership_bits_batch: a block of 4 (600 k, 150 k, empty, 20 k hashes),
+    # repacked at a depth above the block's own, as a block of a larger wave is
+    mq = [q, make_gather_query(rng, mins_list, 150_000)[0], np.zeros(0, dtype=np.uint64),
+          make_gather_query(rng, mins_list, 20_000)[0]]
+    cores = [m[m != np.uint64(2**64 - 1)] for m in mq]
+    _h, _l, _c, own_dq, mraw = bk.pack_query_block_device(cores, B, device=dev)
+    dqm = own_dq + 8
+    Mhi, Mlo, Mcnt = bk._device_pack(mraw[0], mraw[1], B, dqm, torch.int32)
+    W = -(-len(q) // 32)
+    smaps = np.full((len(mq), W * 32), dqm * B, dtype=np.int32)
+    for j, core in enumerate(cores):
+        if len(core):
+            smaps[j] = bk.query_slot_map(core, B, dqm, W * 32)
+    smaps = torch.from_numpy(smaps).to(dev)
+    inv = bk.inverse_slot_map(smaps, dqm * B)
+    nm = min(2048, rows)
+    sel = np.zeros((len(mq), nm), dtype=np.int64)
+    sel[0] = np.r_[np.arange(min(9, rows)), rng.choice(np.arange(9, rows), size=nm - min(9, rows),
+                                                       replace=False)]
+    sel[1] = rng.choice(rows, size=nm, replace=False)
+    sel[3, : nm // 8] = rng.choice(rows, size=nm // 8, replace=False)  # the rest padded with row 0
+    sel = torch.from_numpy(sel).to(dev)
+    if not bool((Scnt[1 : min(9, rows)] == 8).any()):
+        raise AssertionError("membership_bits_batch: no bucket with cnt = 8 among rows 1-8")
+
+    def member():
+        return cg.membership_bits_batch(Mhi, Mlo, Mcnt, Shi, Slo, Scnt, sel, smaps, inv)
+
+    got = member()
+    t0 = time.time()
+    torch.cuda.synchronize()
+    want = torch.cat([cg.membership_bits_batch_plain(
+        Mhi, Mlo, Mcnt, Shi, Slo, Scnt, sel[:, c : c + 256].contiguous(), smaps, inv)
+        for c in range(0, nm, 256)], dim=1)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    err = exact("membership_bits_batch", got, want)
+    if not bool(got[0].any()) or bool(got[2].any()):
+        raise AssertionError("membership_bits_batch: the 600 k query has no bit or the empty one has")
+    ms, b2b = kernel_times(member, reps)
+    valid = [int(Scnt[sel[j]].to(torch.int64).sum()) if len(cores[j]) else 0 for j in range(len(mq))]
+    other = sum(search_ops(Mcnt[j], Scnt[sel[j]], pad=False) + 2 * v
+                for j, v in enumerate(valid) if v) + len(mq) * nm * W
+    nbytes = (sum(nm * (B + 8) + v * 8 for v in valid) + Mhi.numel() * 8 + Mcnt.numel() * 4
+              + inv.numel() * 4 + len(mq) * nm * W * 4)
+    bms, by = bound_ms(nbytes, 0, other, clock_hz)
+    results["membership_bits_batch"] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms,
+                                            bound_by=by, max_abs_err=err, bq=len(mq), nm=nm, W=W,
+                                            dq=dqm, valid_slots=sum(valid))
+    log(f"  membership_bits_batch [{len(mq)}, {nm}, {W}] (dq={dqm}, above the block's {own_dq}; "
+        f"an empty query, padded selections, cnt = 8, 2^64-1): equals its plain version; "
+        f"{ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} ms, bound {bms:.4f} ms "
+        f"({by})")
+
+    M = got
+    alive = torch.from_numpy(rng.integers(-2**31, 2**31, size=(len(mq), W), dtype=np.int64)
+                             .astype(np.int32)).to(dev)
+    rm = (M[:, 0] & alive).contiguous()
+    got = cg.round_dec_batch(M, rm)
+    err = exact("round_dec_batch", got, cg.round_dec_batch_plain(M, rm))
+    ms, b2b = kernel_times(lambda: cg.round_dec_batch(M, rm), reps)
+    plain = time_ms(lambda: cg.round_dec_batch_plain(M, rm), 3, warmup=1)
+    Q, k, _ = M.shape
+    bms, by = bound_ms(M.numel() * 4 + rm.numel() * 4 + Q * k * 4, 0, 3 * M.numel(), clock_hz)
+    results["round_dec_batch"] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms,
+                                      bound_by=by, max_abs_err=err, Q=Q, k=k, W=W)
+    log(f"  round_dec_batch [{Q}, {k}, {W}]: equals its plain version; {ms:.4f} ms/launch "
+        f"({b2b:.4f} back to back), plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
     return results
 
 
@@ -1756,42 +1998,56 @@ def make_gather_query(rng, mins_list, target: int):
     collection genomes until they make 70 % of it, then 30 % fresh hashes;
     abundances 1-50. Returns (mins, abunds, genomes used)."""
     mh = max_hash_for(GATHER_SCALED)
-    found = np.zeros(0, dtype=np.uint64)
+    parts, seen = [], set()  # the distinct hashes so far, counted as they come
     used = 0
     for i in rng.permutation(len(mins_list)):
         m = mins_list[i]
-        found = np.union1d(found, m[rng.random(len(m)) < rng.uniform(0.4, 1.0)])
+        parts.append(m[rng.random(len(m)) < rng.uniform(0.4, 1.0)])
+        seen.update(parts[-1].tolist())
         used += 1
-        if len(found) >= 0.7 * target:
+        if len(seen) >= 0.7 * target:
             break
-    q = np.unique(np.r_[found, random_sketch(rng, int(0.3 * target), mh)])
+    q = np.unique(np.concatenate(parts + [random_sketch(rng, int(0.3 * target), mh)]))
     return q, rng.integers(1, 51, size=len(q)).astype(np.int64), used
 
 
-def oracle_gather(q, abunds, mins_list, threshold_hashes: int):
-    """An independent greedy gather in numpy: initial counts from one
-    np.isin over the concatenated collection, a CSR from query hash to the
-    candidates holding it, then per round the argmax (lowest id on ties),
-    the removal of its hashes and a bincount decrement. Returns rows of
-    (index, intersect_bp, unique_intersect_bp, f_unique_weighted)."""
+def collection_index(mins_list) -> tuple:
+    """(every hash of the collection sorted, the sketch holding each): the
+    numpy oracles' lookup, built once per collection."""
     lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64)
-    offs = np.r_[0, np.cumsum(lens)]
     allv = np.concatenate(mins_list)
-    hit = np.isin(allv, q, assume_unique=False)
-    counts0 = np.add.reduceat(hit.astype(np.int64), offs[:-1])
-    counts0[lens == 0] = 0
+    order = np.argsort(allv, kind="stable")
+    return allv[order], np.repeat(np.arange(len(mins_list)), lens)[order]
+
+
+def holders(q, index) -> tuple:
+    """(position in q, sketch) of every pair of a query hash and a sketch
+    holding it, by position then sketch, from collection_index's lookup."""
+    vals, owners = index
+    lo = np.searchsorted(vals, q, "left")
+    n = np.searchsorted(vals, q, "right") - lo
+    first = np.cumsum(n) - n
+    at = np.repeat(lo - first, n) + np.arange(int(n.sum()))
+    return np.repeat(np.arange(len(q)), n), owners[at]
+
+
+def overlap_counts(q: np.ndarray, mins_list, index) -> np.ndarray:
+    "|q ∩ m| for every sketch m of the collection."
+    return np.bincount(holders(q, index)[1], minlength=len(mins_list))
+
+
+def oracle_gather(q, abunds, mins_list, threshold_hashes: int, index=None):
+    """An independent greedy gather in numpy: a CSR from query hash to the
+    sketches holding it (binary searches into the sorted collection,
+    `collection_index`, built here unless given) gives the initial counts;
+    then per round the argmax (lowest id on ties), the removal of its
+    hashes and a bincount decrement. Returns rows of (index, intersect_bp,
+    unique_intersect_bp, f_unique_weighted)."""
+    pos, cands = holders(q, collection_index(mins_list) if index is None else index)
+    counts0 = np.bincount(cands, minlength=len(mins_list))
     cand = np.flatnonzero(counts0 >= max(threshold_hashes, 1))
-    # CSR: query position -> candidates holding that hash
-    pos_parts, cand_parts = [], []
-    for c in cand:
-        m = mins_list[c]
-        p = np.searchsorted(q, m[hit[offs[c] : offs[c + 1]]])
-        pos_parts.append(p)
-        cand_parts.append(np.full(len(p), c, dtype=np.int64))
-    pos = np.concatenate(pos_parts)
-    cands = np.concatenate(cand_parts)
-    order = np.argsort(pos, kind="stable")
-    pos, cands = pos[order], cands[order]
+    keep = counts0[cands] >= max(threshold_hashes, 1)
+    pos, cands = pos[keep], cands[keep]
     starts = np.searchsorted(pos, np.arange(len(q) + 1))
     counts = np.zeros(len(mins_list), dtype=np.int64)
     counts[cand] = counts0[cand]
@@ -1815,29 +2071,29 @@ def oracle_gather(q, abunds, mins_list, threshold_hashes: int):
     return rows
 
 
-def run_gather_cli(argv: list, env: dict) -> tuple:
-    """One `gather` run with every launch counter set to 0 just before and
-    read just after, under `env`: (wall, launches, schedule facts)."""
+@contextlib.contextmanager
+def patched(obj, name: str, wrap):
+    "obj.name replaced by wrap(the original) inside the block."
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def run_counted(argv: list, env: dict) -> tuple:
+    """One port command through `__main__.main`, with every launch counter
+    set to 0 just before and read just after, under `env` (set for the run
+    only): (wall, launches)."""
     import torch
 
     from sourmash_tpu_torch.__main__ import main as cli_main
-    from sourmash_tpu_torch.index import flat
     from sourmash_tpu_torch.ops import cuda_gather as cg
     from sourmash_tpu_torch.ops import cuda_sketch as cs
 
-    seen = {}
-    schedule = flat.schedule_device_gather
-
-    def spy(counters):  # records what the command scheduled
-        coord = schedule(counters)
-        seen.update(coord=coord, k=sum(
-            int(np.count_nonzero(c.counts)) if hasattr(c, "counts") else len(c.counter)
-            for c in counters))
-        return coord
-
     before = {key: os.environ.get(key) for key in env}
     os.environ.update(env)
-    flat.schedule_device_gather = spy
     try:
         torch.cuda.synchronize()
         cs.reset_launch_counts()
@@ -1849,14 +2105,34 @@ def run_gather_cli(argv: list, env: dict) -> tuple:
         launches = dict(cg.LAUNCHES)
         launches.update(cs.LAUNCHES)
     finally:
-        flat.schedule_device_gather = schedule
         for key, val in before.items():
             if val is None:
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = val
     if rc not in (None, 0):
-        raise AssertionError(f"gather returned {rc}")
+        raise AssertionError(f"{argv[0]} returned {rc}")
+    return wall, launches
+
+
+def run_gather_cli(argv: list, env: dict) -> tuple:
+    """One `gather` run with every launch counter set to 0 just before and
+    read just after, under `env`: (wall, launches, schedule facts)."""
+    from sourmash_tpu_torch.index import flat
+
+    seen = {}
+
+    def spy(schedule):  # records what the command scheduled
+        def spied(counters):
+            coord = schedule(counters)
+            seen.update(coord=coord, k=sum(
+                int(np.count_nonzero(c.counts)) if hasattr(c, "counts") else len(c.counter)
+                for c in counters))
+            return coord
+        return spied
+
+    with patched(flat, "schedule_device_gather", spy):
+        wall, launches = run_counted(argv, env)
     coord = seen.get("coord")
     facts = dict(k=seen.get("k"), scheduled=coord is not None,
                  route=getattr(coord, "route", None) or "host rounds",
@@ -2013,7 +2289,8 @@ def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
     log(f"  query: {len(q)} hashes from {used} genomes + 30 % fresh, abundances 1-50")
 
     t0 = time.time()
-    want = oracle_gather(q, abunds, mins_list, int(GATHER_THRESHOLD_BP // GATHER_SCALED))
+    index = collection_index(mins_list)
+    want = oracle_gather(q, abunds, mins_list, int(GATHER_THRESHOLD_BP // GATHER_SCALED), index)
     log(f"  numpy oracle: {len(want)} rounds in {time.time() - t0:.1f} s")
 
     runs = {}
@@ -2038,14 +2315,7 @@ def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
 
     got = read_csv(first["csv"])
     names = [ss.name for ss in sigs]
-    if len(got) != len(want):
-        raise AssertionError(f"gather found {len(got)} matches, the oracle {len(want)}")
-    for row, (i, ibp, uibp, fuw) in zip(got, want):
-        seen = (row["name"], int(float(row["intersect_bp"])), int(float(row["unique_intersect_bp"])),
-                float(row["f_unique_weighted"]))
-        if seen != (names[i], ibp, uibp, fuw):
-            raise AssertionError(f"gather row {row['gather_result_rank']}: {seen} vs oracle "
-                                 f"{(names[i], ibp, uibp, fuw)}")
+    check_gather_rows("gather", got, want, names)
     log(f"  all {len(got)} rows equal the numpy oracle (order, intersect_bp, "
         f"unique_intersect_bp, f_unique_weighted) and the host-round run")
 
@@ -2055,11 +2325,225 @@ def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
     if profile_cli:
         argv = ["gather", qpath, db, "-o", os.path.join(tmp, "profiled.csv"), "-q"]
         profile = profiled(lambda: cli_main(argv), "gather")
+    world = dict(db=db, mins_list=mins_list, names=names, qpath=qpath, q=q, index=index)
     return dict(genomes=len(sigs), hashes=n_hashes, query_hashes=len(q), zip_save_s=save_s,
                 rounds=len(got), runs={t: {k: v for k, v in r.items() if k != "csv"}
                                        for t, r in runs.items()},
-                routes=routes, profile=profile)
+                routes=routes, profile=profile), world
 
+
+def check_gather_rows(what: str, got: list, want: list, names: list):
+    "CSV rows of a gather against oracle_gather's: order, bp and weighted fractions."
+    if len(got) != len(want):
+        raise AssertionError(f"{what} found {len(got)} matches, the oracle {len(want)}")
+    for row, (i, ibp, uibp, fuw) in zip(got, want):
+        seen = (row["name"], int(float(row["intersect_bp"])), int(float(row["unique_intersect_bp"])),
+                float(row["f_unique_weighted"]))
+        if seen != (names[i], ibp, uibp, fuw):
+            raise AssertionError(f"{what} row {row['gather_result_rank']}: {seen} vs oracle "
+                                 f"{(names[i], ibp, uibp, fuw)}")
+
+
+# -- phase 8: search, prefetch and multigather end to end -------------------
+
+
+def save_sig(path: str, mins, name: str, abunds=None):
+    from sourmash_tpu_torch import signature_from_arrays
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    params = dict(ksize=31, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
+                  track_abundance=abunds is not None)
+    with SaveSignaturesToLocation(path) as save:
+        save.add(signature_from_arrays(params, mins, abunds, name=name,
+                                       filename=os.path.basename(path).replace(".sig", ".fa.gz")))
+
+
+def search_end_to_end(tmp: str, world: dict) -> dict:
+    """`search` of one genome of a clade of >= 5 against phase 6's zip, by
+    Jaccard and by containment: the cutoff form of counts_rows must run,
+    and the rows must be exactly the genomes whose numpy score (from
+    np.isin overlaps) passes search's 0.08 threshold, with those scores."""
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    mins_list, names = world["mins_list"], world["names"]
+    clade = np.array([int(n.rsplit("clade_", 1)[1]) for n in names])
+    gi = int(np.flatnonzero(np.bincount(clade)[clade] >= 5)[0])
+    g = mins_list[gi]
+    qpath = os.path.join(tmp, "genome.sig")
+    save_sig(qpath, g, "query genome")
+    inter = overlap_counts(g, mins_list, world["index"])
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64)
+    out = {}
+    for tag, flags, denom in (("jaccard", [], lambda i: len(g) + int(lens[i]) - int(inter[i])),
+                              ("containment", ["--containment"], lambda i: len(g))):
+        csv_path = os.path.join(tmp, f"search_{tag}.csv")
+        cut_calls = []
+
+        def spy(counts_rows):
+            def spied(*a, **kw):
+                cut_calls.append(len(a) > 4 and a[4] is not None)
+                return counts_rows(*a, **kw)
+            return spied
+
+        with patched(cg, "counts_rows", spy):
+            wall, launches = run_counted(["search", qpath, world["db"], "-o", csv_path, "-q",
+                                          *flags], {})
+        want = {names[i]: int(inter[i]) / denom(i) for i in np.flatnonzero(inter)}
+        want = {n: v for n, v in want.items() if v >= 0.08}
+        got = {row["name"]: float(row["similarity"]) for row in read_csv(csv_path)}
+        if got != want:
+            raise AssertionError(f"search ({tag}): {len(got)} rows, numpy {len(want)}; "
+                                 f"differ at {sorted(set(got.items()) ^ set(want.items()))[:4]}")
+        if not any(cut_calls) or launches["counts_rows"] < 1:
+            raise AssertionError(f"search ({tag}): counts_rows with cuts did not run")
+        out[tag] = dict(wall_s=wall, rows=len(got), launches=launches["counts_rows"])
+        log(f"  search ({tag}) of genome {gi} (clade of {int(np.sum(clade == clade[gi]))}): "
+            f"{wall:.2f} s wall, {len(got)} rows equal numpy's scores; counts_rows with cuts "
+            f"{launches['counts_rows']} launches")
+    return out
+
+
+def prefetch_end_to_end(tmp: str, world: dict) -> dict:
+    """`prefetch` of phase 6's metagenome against its zip with both hash
+    outputs: every genome with >= 50 shared hashes (50 kbp) and only those,
+    each row's intersect_bp numpy's, and the matched and unmatched hashes
+    an np.isin split of the query over those genomes."""
+    from sourmash_tpu_torch.sourmash_args import load_one_signature
+
+    mins_list, names, q = world["mins_list"], world["names"], world["q"]
+    paths = {n: os.path.join(tmp, f"prefetch.{n}") for n in ("csv", "known.sig", "unknown.sig")}
+    wall, launches = run_counted(
+        ["prefetch", world["qpath"], world["db"], "-o", paths["csv"], "-q",
+         "--save-matching-hashes", paths["known.sig"],
+         "--save-unmatched-hashes", paths["unknown.sig"]], {})
+    inter = overlap_counts(q, mins_list, world["index"])
+    hits = np.flatnonzero(inter * GATHER_SCALED >= GATHER_THRESHOLD_BP)
+    want = {names[i]: int(inter[i]) * GATHER_SCALED for i in hits}
+    got = {row["match_name"]: int(float(row["intersect_bp"])) for row in read_csv(paths["csv"])}
+    if got != want:
+        raise AssertionError(f"prefetch: {len(got)} rows, numpy {len(want)}")
+    known = np.isin(q, np.concatenate([mins_list[i] for i in hits]))
+    for name, part in (("known.sig", q[known]), ("unknown.sig", q[~known])):
+        saved = load_one_signature(paths[name]).minhash.mins_array()
+        if not np.array_equal(saved, part):
+            raise AssertionError(f"prefetch: {name} holds {len(saved)} hashes, numpy {len(part)}")
+    log(f"  prefetch: {wall:.2f} s wall, {len(got)} rows equal numpy's overlaps; "
+        f"{int(known.sum())} matched and {int((~known).sum())} unmatched hashes equal the "
+        f"np.isin split; counts_rows {launches['counts_rows']} launches")
+    return dict(wall_s=wall, rows=len(got), known=int(known.sum()), launches=launches)
+
+
+def run_multigather(tag: str, paths: list, out_dir: str, db: str, env: dict) -> dict:
+    """One `multigather --output-dir` run with its launches, wall, warm-cache
+    hits, bank residency and the routes and reschedules of its schedules."""
+    from sourmash_tpu_torch.index import flat
+
+    views, coords = [], []
+
+    def warm_spy(warm):
+        def spied(self, *a, **kw):
+            views.append(self)
+            return warm(self, *a, **kw)
+        return spied
+
+    def converge_spy(converge):
+        def spied(cs, *a, **kw):
+            coords.extend(c for c in cs if c is not None)
+            return converge(cs, *a, **kw)
+        return spied
+
+    os.makedirs(out_dir)
+    with patched(flat.FlatIndex, "warm_gather_counts", warm_spy), \
+            patched(flat, "converge_schedules_batch", converge_spy):
+        wall, launches = run_counted(
+            ["multigather", "--query", *paths, "--db", db, "--output-dir", out_dir, "-q"], env)
+    view = views[0]
+    run = dict(wall_s=wall, launches={n: launches[n] for n in MULTI_KERNELS},
+               cache_hits=view.counts_cache_hits, resident=all(b.resident for b in view._banks),
+               routes=[c.route for c in coords], reschedules=[c.reschedules for c in coords])
+    log(f"  multigather ({tag}), {len(paths)} samples: {wall:.2f} s wall, warm-cache hits "
+        f"{run['cache_hits']}, banks {'resident' if run['resident'] else 'streamed'}, routes "
+        f"{[r[:6] for r in run['routes']]}, reschedules {run['reschedules']}, launches "
+        f"{run['launches']}")
+    if run["cache_hits"] != len(paths):
+        raise AssertionError(f"multigather ({tag}): {run['cache_hits']} warm-cache hits, "
+                             f"{len(paths)} samples")
+    return run
+
+
+def multigather_end_to_end(rng, tmp: str, world: dict, profile_cli: bool = False) -> dict:
+    """`multigather` of MULTI_LARGE + MULTI_SMALL samples (make_gather_query,
+    the large first) against phase 6's zip: counts_block,
+    membership_bits_batch and round_dec_batch must run, the first block of
+    schedules on the device-membership route and the rest on host matrices,
+    and every sample's CSV must equal oracle_gather. Then the large samples
+    again under SOURMASH_TORCH_SCHEDULE_CAP=MULTI_CAP (converge's batched
+    recounts) and MULTI_LARGE small ones with the device budget below the
+    planes (streamed banks): byte-identical CSVs."""
+    mins_list, names, db = world["mins_list"], world["names"], world["db"]
+    sizes = [GATHER_QUERY_HASHES] * MULTI_LARGE + rng.integers(
+        MULTI_SMALL_HASHES[0], MULTI_SMALL_HASHES[1] + 1, size=MULTI_SMALL).tolist()
+    t0 = time.time()
+    samples = []
+    for i, target in enumerate(sizes):
+        q, abunds, _used = make_gather_query(rng, mins_list, target)
+        path = os.path.join(tmp, f"s{i:02d}.sig")
+        save_sig(path, q, f"sample {i}", abunds)
+        samples.append((path, q, abunds))
+    log(f"  {len(samples)} samples of {[len(s[1]) for s in samples]} hashes "
+        f"({time.time() - t0:.1f} s to make)")
+    t0 = time.time()
+    wants = [oracle_gather(q, ab, mins_list, int(GATHER_THRESHOLD_BP // GATHER_SCALED),
+                           world["index"]) for _p, q, ab in samples]
+    log(f"  numpy oracle: {[len(w) for w in wants]} rounds in {time.time() - t0:.1f} s")
+
+    def csv_of(out_dir, path):
+        return os.path.join(out_dir, os.path.basename(path).replace(".sig", ".fa.gz") + ".csv")
+
+    paths = [p for p, _q, _a in samples]
+    out = os.path.join(tmp, "multi")
+    runs = {"all": run_multigather("all samples", paths, out, db, {})}
+    first = runs["all"]
+    missing = [n for n, c in first["launches"].items() if c < 1]
+    if missing:
+        raise AssertionError(f"multigather: {missing} not launched: {first['launches']}")
+    if first["routes"] != (["device membership"] * MULTI_LARGE
+                           + ["host membership"] * MULTI_SMALL):
+        raise AssertionError(f"multigather routes: {first['routes']}")
+    for i, ((path, _q, _ab), want) in enumerate(zip(samples, wants)):
+        check_gather_rows(f"multigather sample {i}", read_csv(csv_of(out, path)), want, names)
+    log(f"  every sample's rows equal the numpy oracle ({sum(len(w) for w in wants)} rows)")
+
+    for tag, part, env in (
+        ("capped", paths[:MULTI_LARGE], {"SOURMASH_TORCH_SCHEDULE_CAP": MULTI_CAP}),
+        ("streamed", paths[MULTI_LARGE : 2 * MULTI_LARGE], {BUDGET_ENV: "1"}),
+    ):
+        rerun = os.path.join(tmp, f"multi_{tag}")
+        runs[tag] = run_multigather(tag, part, rerun, db, env)
+        for path in part:
+            with open(csv_of(out, path), "rb") as a, open(csv_of(rerun, path), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"multigather ({tag}): {path}'s CSV differs")
+    if not any(runs["capped"]["reschedules"]):
+        raise AssertionError("multigather (capped): no schedule was recounted")
+    if runs["streamed"]["resident"]:
+        raise AssertionError("multigather (streamed): the banks stayed resident")
+    log("  the capped and streamed runs wrote byte-identical CSVs")
+
+    profile = None
+    if profile_cli:
+        from sourmash_tpu_torch.__main__ import main as cli_main
+
+        out = os.path.join(tmp, "multi_profiled")
+        os.makedirs(out)
+        argv = ["multigather", "--query", *paths, "--db", db, "-q", "--output-dir", out]
+        profile = profiled(lambda: cli_main(argv), "multigather")
+    return dict(samples=[len(q) for _p, q, _a in samples], rounds=[len(w) for w in wants],
+                runs=runs, profile=profile)
+
+
+MULTI_KERNELS = ("counts_block", "membership_bits_batch", "round_dec_batch")
+BUDGET_ENV = "SOURMASH_TORCH_GPU_BUDGET_BYTES"
 
 KERNELS = {
     "survivor_slots": dict(
@@ -2085,6 +2569,18 @@ KERNELS = {
     "round_dec": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
         replaces="sourmash_tpu/index/flat.py:354",
+    ),
+    "counts_block": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:619",
+    ),
+    "membership_bits_batch": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:985",
+    ),
+    "round_dec_batch": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/index/flat.py:1598",
     ),
     "split_words": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
@@ -2194,12 +2690,17 @@ def main(argv=None) -> int:
         log(f"phase 5 done in {time.time() - t0:.1f} s")
         t0 = time.time()
         log(f"phase 6: gather end to end on {GATHER_GENOMES} genomes")
-        gath = gather_end_to_end(rng, tmp, args.profile)
+        gath, world = gather_end_to_end(rng, tmp, args.profile)
         log(f"phase 6 done in {time.time() - t0:.1f} s")
-    t0 = time.time()
-    log("phase 7: the sketch-kernel instruments, as `python -m sourmash_tpu_torch.tools...`")
-    instr = instruments_path()
-    log(f"phase 7 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log("phase 7: the sketch-kernel instruments, as `python -m sourmash_tpu_torch.tools...`")
+        instr = instruments_path()
+        log(f"phase 7 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log(f"phase 8: search, prefetch and multigather against phase 6's {GATHER_GENOMES} genomes")
+        multi = dict(search=search_end_to_end(tmp, world), prefetch=prefetch_end_to_end(tmp, world),
+                     multigather=multigather_end_to_end(rng, tmp, world, args.profile))
+        log(f"phase 8 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -2209,6 +2710,7 @@ def main(argv=None) -> int:
                     counts_rows=gather_launches["counts_rows"],
                     membership_bits=gather_launches["membership_bits"],
                     round_dec=gather_launches["round_dec"],
+                    **multi["multigather"]["runs"]["all"]["launches"],
                     **{name: instr[name] for name in INSTRUMENTS})
     timed = dict(survivor_slots=timings["survivor_slots"][TIMED_K],
                  window_hashes=timings["window_hashes"][TIMED_K],
@@ -2216,6 +2718,7 @@ def main(argv=None) -> int:
                  counts_rows=timings["counts_rows"],
                  membership_bits=timings["membership_bits"],
                  round_dec=timings["round_dec"],
+                 **{name: timings[name] for name in MULTI_KERNELS},
                  **{name: timings[name] for name in INSTRUMENTS})
     line = []
     for name, meta in KERNELS.items():
@@ -2229,7 +2732,7 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
-                           protein=prot, translate=trans, gather=gath,
+                           protein=prot, translate=trans, gather=gath, multi=multi,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(card)
     print(json.dumps({"kernels": line}))

@@ -1,21 +1,24 @@
-"""Entry point: `python -m sourmash_tpu_torch sketch dna ...` or
-`... gather query.sig db.zip` (counterpart of `sourmash_tpu/__main__.py`;
-`sketch` and `gather` are ported)."""
+"""Entry point: `python -m sourmash_tpu_torch sketch dna ...`, `... gather
+query.sig db.zip` and so on (counterpart of `sourmash_tpu/__main__.py`;
+`sketch`, `search`, `gather`, `multigather` and `prefetch` are ported)."""
 
 from __future__ import annotations
 
 import sys
+
+_COMMANDS = ("search", "gather", "multigather", "prefetch")
 
 
 def main(arglist=None):
     from . import cli, command_sketch
 
     args = cli.parse_args(arglist)
-    if getattr(args, "cmd", None) == "gather":
+    cmd = getattr(args, "cmd", None)
+    if cmd in _COMMANDS:
         from . import commands
 
-        return commands.gather(args)
-    if getattr(args, "cmd", None) != "sketch":
+        return getattr(commands, cmd)(args)
+    if cmd != "sketch":
         cli.get_parser().print_help()
         return 1
     subcmd = getattr(args, "subcmd", None)

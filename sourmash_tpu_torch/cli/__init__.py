@@ -1,9 +1,10 @@
-"""Command-line interface of the port: the `sketch` subtree and `gather`.
+"""Command-line interface of the port: the `sketch` subtree, `search`,
+`gather`, `multigather` and `prefetch`.
 
 Parity: `sourmash_tpu/cli/__init__.py` (itself reference
 `src/sourmash/cli/__init__.py`) and `sourmash_tpu/cli/utils.py` — same
-command names, flags and defaults for `sketch` and `gather`; the other
-commands are not ported yet.
+command names, flags and defaults for these commands; the other commands
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -136,6 +137,46 @@ def add_scaled_arg(parser, default=None):
     )
 
 
+def _add_search(sub):
+    "`search` (`sourmash_tpu/cli/__init__.py:151`)."
+    p = sub.add_parser("search", description="search a signature against databases")
+    p.add_argument("query", help="query signature")
+    p.add_argument("databases", nargs="+", help="signatures/SBTs to search")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-d", "--debug", action="store_true")
+    p.add_argument("-t", "--threshold", metavar="T", default=0.08, type=float,
+                   help="minimum threshold for reporting matches; default=0.08")
+    p.add_argument("--save-matches", metavar="FILE",
+                   help="output matching signatures to the specified file")
+    p.add_argument("--best-only", action="store_true",
+                   help="report only the best match (with greater speed)")
+    p.add_argument("-n", "--num-results", default=3, type=int, metavar="N",
+                   help="number of results to display; 0 to report all")
+    p.add_argument("--containment", action="store_true",
+                   help="score based on containment rather than similarity")
+    p.add_argument("--max-containment", action="store_true",
+                   help="score based on max containment rather than similarity")
+    p.add_argument("--estimate-ani-ci", action="store_true",
+                   help="output confidence intervals for ANI estimates")
+    p.add_argument("--ignore-abundance", action="store_true",
+                   help="do NOT use k-mer abundances if present")
+    p.add_argument("-o", "--output", metavar="FILE",
+                   help="output CSV containing matches to this file")
+    p.add_argument("--md5", default=None,
+                   help="select the signature with this md5 as query")
+    p.add_argument("--fail-on-empty-database", action="store_true",
+                   help="stop at databases that contain no compatible signatures")
+    p.add_argument("--no-fail-on-empty-database", action="store_false",
+                   dest="fail_on_empty_database")
+    p.set_defaults(fail_on_empty_database=True)
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    add_picklist_args(p)
+    add_pattern_args(p)
+    add_scaled_arg(p, 0)
+    p.set_defaults(func="search")
+
+
 def _add_gather(sub):
     "`gather` (`sourmash_tpu/cli/__init__.py:190`)."
     p = sub.add_parser("gather", description="greedy min-set-cov decomposition")
@@ -185,6 +226,79 @@ def _add_gather(sub):
     add_pattern_args(p)
     add_scaled_arg(p, 0)
     p.set_defaults(func="gather")
+
+
+def _add_multigather(sub):
+    "`multigather` (`sourmash_tpu/cli/__init__.py:240`)."
+    p = sub.add_parser(
+        "multigather",
+        description="gather many signatures against multiple databases",
+    )
+    p.add_argument("--query", nargs="*", default=[], action="append",
+                   help="query signature")
+    p.add_argument("--query-from-file",
+                   help="file containing list of signature files to query")
+    p.add_argument("--db", nargs="+", action="append",
+                   help="signatures/SBTs to search")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-d", "--debug", action="store_true")
+    p.add_argument("--threshold-bp", metavar="REAL", type=float, default=5e4,
+                   help="threshold (in bp) for reporting results (default=50,000)")
+    p.add_argument("--ignore-abundance", action="store_true",
+                   help="do NOT use k-mer abundances if present")
+    p.add_argument("--estimate-ani-ci", action="store_true",
+                   help="output confidence intervals for ANI estimates")
+    p.add_argument("--fail-on-empty-database", action="store_true")
+    p.add_argument("--no-fail-on-empty-database", action="store_false",
+                   dest="fail_on_empty_database")
+    p.set_defaults(fail_on_empty_database=True)
+    p.add_argument("--force-allow-overwrite-output", action="store_true",
+                   help="allow overwriting of output files")
+    p.add_argument("--output-dir", "--outdir",
+                   help="output CSV results to this directory")
+    p.add_argument("-U", "--output-add-query-md5sum", action="store_true",
+                   help="add query md5sum to output file names")
+    p.add_argument("-E", "--extension", type=str, default=".sig",
+                   help="write signature files with this extension ('.sig' by default)")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    add_scaled_arg(p, 0)
+    p.set_defaults(func="multigather")
+
+
+def _add_prefetch(sub):
+    "`prefetch` (`sourmash_tpu/cli/__init__.py:346`)."
+    p = sub.add_parser("prefetch", description="overlap search")
+    p.add_argument("query", help="query signature")
+    p.add_argument("databases", nargs="*", help="one or more databases to search")
+    p.add_argument("--db-from-file", default=None,
+                   help="list of paths containing signatures to search")
+    p.add_argument("--linear", action="store_true",
+                   help="force linear traversal of indexes")
+    p.add_argument("--no-linear", dest="linear", action="store_false")
+    p.set_defaults(linear=False)
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-d", "--debug", action="store_true")
+    p.add_argument("-o", "--output", metavar="FILE",
+                   help="output CSV containing matches to this file")
+    p.add_argument("--save-matches", metavar="FILE",
+                   help="save all matching signatures to this file/directory")
+    p.add_argument("--threshold-bp", metavar="REAL", type=float, default=5e4,
+                   help="reporting threshold (in bp); default=50kb")
+    p.add_argument("--save-unmatched-hashes", metavar="FILE",
+                   help="output unmatched query hashes as a signature")
+    p.add_argument("--save-matching-hashes", metavar="FILE",
+                   help="output matching query hashes as a signature")
+    p.add_argument("--md5", default=None,
+                   help="select the signature with this md5 as query")
+    p.add_argument("--estimate-ani-ci", action="store_true",
+                   help="output confidence intervals for ANI estimates")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    add_picklist_args(p)
+    add_pattern_args(p)
+    add_scaled_arg(p, 0)
+    p.set_defaults(func="prefetch")
 
 
 def _add_sketch(sub):
@@ -279,7 +393,10 @@ def get_parser():
     sub = parser.add_subparsers(title="Instructions", dest="cmd", metavar="cmd",
                                 help=SUPPRESS)
     _add_sketch(sub)
+    _add_search(sub)
     _add_gather(sub)
+    _add_multigather(sub)
+    _add_prefetch(sub)
     parser._action_groups.reverse()
     return parser
 

@@ -1,6 +1,6 @@
-"""Top-level command drivers of the port: `gather` (the port of
-`sourmash_tpu/commands.py:791-957`, reference `src/sourmash/commands.py`
-gather:836).
+"""Top-level command drivers of the port: `search`, `gather`, `multigather`
+and `prefetch` (the port of `sourmash_tpu/commands.py:484-596` and
+`:791-1398`, reference `src/sourmash/commands.py`).
 
 The command is organized around reusable pipeline stages:
 
@@ -12,17 +12,20 @@ The command is organized around reusable pipeline stages:
   greedy rounds.
 
 Console strings and CSV schemas are parity surface and match the reference
-exactly. At or above the flat-view threshold a database gathers on the
-device (`index/flat.py`); the other commands are not ported yet.
+exactly. At or above the flat-view threshold a database searches and
+gathers on the device (`index/flat.py`); multigather counts and schedules
+its queries in batches there.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import shutil
 import sys
 from dataclasses import dataclass
 
+from . import signature as sig
 from . import sourmash_args
 from .logging import notify, error, print_results, set_quiet
 from .sourmash_args import FileOutputCSV
@@ -105,6 +108,125 @@ def _screen_width():
     col, _ = shutil.get_terminal_size()
     return col
 
+
+
+# ===========================================================================
+# search
+# ===========================================================================
+
+
+def search(args):
+    "Search a query signature against databases."
+    from .search import (
+        search_databases_with_flat_query,
+        search_databases_with_abund_query,
+    )
+
+    set_quiet(args.quiet, args.debug)
+    sel = _Selectors.parse(args)
+
+    query = _load_announced_query(args, sel.moltype)
+
+    if args.scaled:
+        if not query.minhash.scaled:
+            error("cannot downsample a signature not created with --scaled")
+            sys.exit(-1)
+        query = _downsample_query_inplace(query, args.scaled)
+
+    if args.containment and args.max_containment:
+        notify("ERROR: cannot specify both --containment and --max-containment!")
+        sys.exit(-1)
+    is_containment = args.containment or args.max_containment
+
+    databases = sourmash_args.load_dbs_and_sigs(
+        args.databases,
+        query,
+        not is_containment,
+        picklist=sel.picklist,
+        pattern=sel.pattern,
+        fail_on_empty_database=args.fail_on_empty_database,
+    )
+
+    # abundance handling: flatten on request; forbid containment w/ abund
+    if not query.minhash.track_abundance:
+        args.ignore_abundance = True
+    elif args.ignore_abundance:
+        with query.update() as query:
+            query.minhash = query.minhash.flatten()
+    elif is_containment:
+        notify(
+            "ERROR: cannot do containment searches on an abund signature; maybe specify --ignore-abundance?"
+        )
+        sys.exit(-1)
+
+    common = dict(
+        threshold=args.threshold,
+        do_containment=args.containment,
+        do_max_containment=args.max_containment,
+        best_only=args.best_only,
+        unload_data=True,
+    )
+    if query.minhash.track_abundance:
+        try:
+            results = search_databases_with_abund_query(query, databases, **common)
+        except TypeError as exc:
+            error(f"ERROR: {str(exc)}")
+            sys.exit(-1)
+    else:
+        results = search_databases_with_flat_query(
+            query, databases, estimate_ani_ci=args.estimate_ani_ci, **common
+        )
+
+    n_shown = len(results)
+    if args.best_only:
+        args.num_results = 1
+
+    if not args.num_results or n_shown <= args.num_results:
+        print_results(f"{len(results)} matches above threshold {args.threshold:0.3f}:")
+    else:
+        print_results(
+            f"{len(results)} matches above threshold {args.threshold:0.3f}; showing first {args.num_results}:"
+        )
+        n_shown = args.num_results
+
+    size_may_be_inaccurate = False
+    jaccard_ani_untrustworthy = False
+
+    print_results("similarity   match")
+    print_results("----------   -----")
+    for sr in results[:n_shown]:
+        pct = f"{sr.similarity * 100:.1f}%"
+        name = sr.match._display_name(60)
+        print_results("{:>6}       {}", pct, name)
+        if sr.cmp_scaled is not None:
+            size_may_be_inaccurate = size_may_be_inaccurate or sr.size_may_be_inaccurate
+            if not is_containment and sr.cmp.jaccard_ani_untrustworthy:
+                jaccard_ani_untrustworthy = True
+
+    if args.best_only:
+        notify("** reporting only one match because --best-only was set")
+
+    if args.output:
+        with FileOutputCSV(args.output) as fp:
+            writer = None
+            for sr in results:
+                if writer is None:
+                    writer = sr.init_dictwriter(fp)
+                sr.write(writer)
+
+    if args.save_matches:
+        notify(f'saving all matched signatures to "{args.save_matches}"')
+        with SaveSignaturesToLocation(args.save_matches) as save_sig:
+            for sr in results:
+                save_sig.add(sr.match)
+
+    sel.report_picklist(args)
+
+    if size_may_be_inaccurate:
+        notify(_SIZE_WARN)
+    if jaccard_ani_untrustworthy:
+        notify("WARNING: Jaccard estimation for at least one of these comparisons"
+               " is likely inaccurate. Could not estimate ANI for these comparisons.")
 
 
 # ===========================================================================
@@ -399,3 +521,451 @@ def gather(args):
 
     if size_may_be_inaccurate:
         notify(_SIZE_WARN)
+
+
+# ===========================================================================
+# multigather
+# ===========================================================================
+
+
+def _multigather_output_base(query, args, used_output_bases):
+    "Per-query output naming for multigather, refusing accidental overwrites."
+    query_filename = query.filename
+    if not query_filename or query_filename == "-":
+        base = query.md5sum()
+    elif args.output_add_query_md5sum:
+        base = os.path.basename(query_filename) + "." + query.md5sum()
+    else:
+        base = os.path.basename(query_filename)
+
+    if args.output_dir:
+        base = os.path.join(args.output_dir, base)
+
+    if base in used_output_bases:
+        error(
+            f"ERROR: detected overwritten outputs! '{base}' has already been used. Failing."
+        )
+        if args.force_allow_overwrite_output:
+            error("continuing because --force-allow-overwrite was specified")
+        else:
+            error(
+                "Consider using '-U/--output-add-query-md5sum' to build unique outputs"
+            )
+            error("and/or '--force-allow-overwrite-output'")
+            sys.exit(-1)
+    used_output_bases.add(base)
+    return base
+
+
+def _multigather_prepare(all_queries, databases, args):
+    """Phase 1 of multigather, silent: build each eligible query's prefetch
+    sweep (its counters take the batched warm counts) and compute every
+    query's round schedule in batches (`index.flat.converge_schedules_batch`).
+    Returns {query index -> _PrefetchSweep}; a query skipped here (no
+    scaled, empty after downsampling, a ValueError from its sweep) goes
+    through the output loop's own path, so its messages and ordering stay
+    as they are. Any other error of the batched phase propagates."""
+    from .index.flat import converge_schedules_batch, schedule_device_gather
+
+    pre = {}
+    coords = []
+    for qi, query in enumerate(all_queries):
+        mh = query.minhash
+        if not mh.scaled:
+            continue
+        if args.scaled and int(args.scaled) != mh.scaled:
+            try:
+                mh = mh.downsample(scaled=int(args.scaled))
+            except ValueError:
+                continue
+        if not len(mh):
+            continue
+        q2 = query.to_mutable()
+        q2.minhash = mh
+        # frozen, as loaded queries are: the sweep's flattened copy of a
+        # sample with abundances goes through update(), which a mutable
+        # signature lacks (sourmash_tpu leaves such samples to the output loop)
+        q2.into_frozen()
+        try:
+            sweep = _PrefetchSweep(q2, args.threshold_bp)
+            for db in databases:
+                sweep.sweep_one(db)
+        except ValueError:
+            continue  # the output loop runs this query again and reports
+        pre[qi] = sweep
+        if sweep.counters:
+            coord = schedule_device_gather(sweep.counters)
+            if coord is not None:
+                coords.append(coord)
+    if coords:
+        converge_schedules_batch(coords, args.threshold_bp)
+    return pre
+
+
+def multigather(args):
+    """Gather many signatures against multiple databases.
+
+    Per query, writes one `.csv`, one `.matches.sig`, and one
+    `.unassigned<ext>` output named after the query filename
+    (reference `commands.py:1124-1382`).
+    """
+    from .search import GatherDatabases, format_bp
+
+    set_quiet(args.quiet)
+    moltype = sourmash_args.calculate_moltype(args)
+
+    required = (
+        (args.db, "Error! must specify at least one database with --db"),
+        (
+            args.query or args.query_from_file,
+            "Error! must specify at least one query signature with --query",
+        ),
+    )
+    for present, message in required:
+        if not present:
+            error(message)
+            sys.exit(-1)
+
+    args.db = [item for sublist in args.db for item in sublist]
+    inp_files = [item for sublist in args.query for item in sublist]
+    if args.query_from_file:
+        inp_files.extend(sourmash_args.load_pathlist_from_file(args.query_from_file))
+
+    # one representative query pins ksize/moltype for database loading
+    first_query = next(
+        iter(
+            sourmash_args.load_file_as_signatures(
+                inp_files[0], ksize=args.ksize, select_moltype=moltype
+            )
+        )
+    )
+    _announce_query(first_query, first=True)
+
+    databases = sourmash_args.load_dbs_and_sigs(
+        args.db, first_query, False, fail_on_empty_database=args.fail_on_empty_database
+    )
+
+    # every query up front, so a flat database counts them in batched passes
+    all_queries = []
+    for queryfile in inp_files:
+        for query in sourmash_args.load_file_as_signatures(
+            queryfile, ksize=args.ksize, select_moltype=moltype
+        ):
+            all_queries.append(query)
+
+    warm_mhs = []
+    for query in all_queries:
+        mh = query.minhash
+        if not mh.scaled:
+            continue
+        if args.scaled and args.scaled != mh.scaled:
+            try:
+                # silent twin of the loop's downsample (which notifies);
+                # only the cache key needs the downsampled mins
+                mh = mh.downsample(scaled=int(args.scaled))
+            except ValueError:
+                continue
+        if len(mh):
+            warm_mhs.append(mh.flatten())
+    if warm_mhs:
+        for db in databases:
+            view = db._as_flat_view()  # a FlatIndex returns itself
+            if view is not None:
+                view.warm_gather_counts(warm_mhs)
+
+    # phase 1 (silent): every query's prefetch sweep and round schedule up
+    # front, the schedules computed in batches; the output loop below
+    # reuses them, so console and CSV ordering are unchanged
+    pre_sweeps = _multigather_prepare(all_queries, databases, args)
+
+    n = 0
+    size_may_be_inaccurate = False
+    used_output_bases = set()
+    for qi, query in enumerate(all_queries):
+        _announce_query(query)
+
+        if not query.minhash.scaled:
+            error("query signature needs to be created with --scaled; skipping")
+            continue
+
+        query = _downsample_query_inplace(query, args.scaled)
+
+        if not len(query.minhash):
+            error("no query hashes!? skipping to next..")
+            continue
+
+        # per-query prefetch sweep (always on for multigather); phase 1
+        # usually built it already, with its round schedule
+        sweep = pre_sweeps.pop(qi, None)
+        if sweep is None:
+            sweep = _PrefetchSweep(query, args.threshold_bp)
+            for db in databases:
+                sweep.sweep_one(db)
+
+            if sweep.counters:
+                from .index.flat import schedule_device_gather
+
+                schedule_device_gather(sweep.counters)
+
+        is_abundance = query.minhash.track_abundance and not args.ignore_abundance
+        orig_query_mh = query.minhash
+        gather_iter = GatherDatabases(
+            query,
+            sweep.counters,
+            threshold_bp=args.threshold_bp,
+            ignore_abundance=args.ignore_abundance,
+            noident_mh=sweep.noident_mh,
+            ident_mh=sweep.ident_mh,
+        )
+
+        output_base = _multigather_output_base(query, args, used_output_bases)
+
+        output_matches = output_base + ".matches.sig"
+        save_sig_obj = SaveSignaturesToLocation(output_matches)
+        save_sig = save_sig_obj.__enter__()
+        notify(f"saving all matching signatures to '{output_matches}'")
+
+        output_csv = output_base + ".csv"
+        notify(f'saving all CSV matches to "{output_csv}"')
+        csv_out_obj = FileOutputCSV(output_csv)
+        csv_outfp = csv_out_obj.__enter__()
+
+        report = _GatherReport(is_abundance, csv_fp=csv_outfp)
+
+        for result in gather_iter:
+            report.row(result)
+            save_sig.add(result.match)
+            if not size_may_be_inaccurate and result.size_may_be_inaccurate:
+                size_may_be_inaccurate = True
+
+        if gather_iter.query.minhash:
+            notify(
+                f"found less than {format_bp(args.threshold_bp)} in common. => exiting"
+            )
+
+        print_results("\nfound {} matches total;", report.found)
+
+        save_sig_obj.close()
+        save_sig_obj = save_sig = None
+
+        csv_out_obj.close()
+        csv_out_obj = csv_outfp = None
+
+        report.coverage_summary()
+        print_results("")
+
+        if report.found == 0:
+            notify("nothing found... skipping.")
+            continue
+
+        # save unassigned (remaining + unidentified) hashes
+        output_unassigned = output_base + f".unassigned{args.extension}"
+        remaining_query = _assemble_unassigned(
+            gather_iter, sweep.noident_mh, is_abundance, orig_query_mh,
+            downsample_noident=True,
+        )
+
+        if remaining_query:
+            notify(f'saving unassigned hashes to "{output_unassigned}"')
+        else:
+            notify("no unassigned hashes! not saving.")
+
+        with SaveSignaturesToLocation(output_unassigned) as save_sig:
+            save_sig.add(remaining_query)
+
+        n += 1
+
+    notify(f"\nconducted gather searches on {n} signatures")
+    if size_may_be_inaccurate:
+        notify(_SIZE_WARN)
+
+
+# ===========================================================================
+# prefetch
+# ===========================================================================
+
+
+class _RatchetedPartition:
+    """prefetch's matched/unmatched hash split, under a scaled value that
+    ratchets up to the max of query + every match seen so far."""
+
+    def __init__(self, query_mh):
+        self.scaled = query_mh.scaled
+        self.ident_mh = query_mh.copy_and_clear()
+        self.noident_mh = query_mh.to_mutable()
+
+    def absorb_match(self, query, match):
+        "Fold one matching signature in; returns the (ratcheted) scaled."
+        self.scaled = max(match.minhash.scaled, query.minhash.scaled, self.scaled)
+
+        query_mh = query.minhash.downsample(scaled=self.scaled)
+        match_mh = match.minhash.downsample(scaled=self.scaled)
+
+        if self.ident_mh.scaled != self.scaled:
+            self.ident_mh = self.ident_mh.downsample(scaled=self.scaled)
+        if self.noident_mh.scaled != self.scaled:
+            self.noident_mh = self.noident_mh.downsample(scaled=self.scaled)
+
+        self.ident_mh += query_mh & match_mh.flatten()
+        self.noident_mh.remove_many(match_mh)
+        return query_mh
+
+
+def prefetch(args):
+    "Output the raw results of a containment/overlap search."
+    from .index import LazyLinearIndex
+    from .search import prefetch_database
+
+    if args.db_from_file:
+        args.databases.extend(sourmash_args.load_pathlist_from_file(args.db_from_file))
+
+    if not args.databases:
+        notify("ERROR: no databases or signatures to search!?")
+        sys.exit(-1)
+
+    any_output = (args.save_unmatched_hashes or args.save_matching_hashes
+                  or args.save_matches or args.output)
+    if not any_output:
+        notify(
+            "WARNING: no output(s) specified! Nothing will be saved from this prefetch!"
+        )
+
+    sel = _Selectors.parse(args)
+
+    query = _load_announced_query(args, sel.moltype)
+
+    if not query.minhash.scaled:
+        error("query signature needs to be created with --scaled")
+        sys.exit(-1)
+
+    # flatten + optionally downsample the working query sketch
+    orig_query_mh = query.minhash
+    query_mh = orig_query_mh.flatten() if orig_query_mh.track_abundance else orig_query_mh
+
+    if args.scaled and args.scaled != query_mh.scaled:
+        notify(f"downsampling query from scaled={query_mh.scaled}"
+               f" to {int(args.scaled)}")
+        query_mh = query_mh.downsample(scaled=args.scaled)
+
+    notify(f"query sketch has scaled={query_mh.scaled};"
+           " will be dynamically downsampled as needed.")
+
+    if not len(query_mh):
+        error("no query hashes!? exiting.")
+        sys.exit(-1)
+
+    with query.update() as query:
+        query.minhash = query_mh
+    ksize = query_mh.ksize
+
+    csvout_w = None
+    csvout_fp = FileOutputCSV(args.output).open() if args.output else None
+
+    matches_out = SaveSignaturesToLocation(args.save_matches)
+    matches_out.open()
+    if args.save_matches:
+        notify(f"saving all matching database signatures to '{args.save_matches}'")
+
+    part = _RatchetedPartition(query_mh)
+
+    did_a_search = size_may_be_inaccurate = False
+    total_signatures_loaded = sum_signatures_after_select = 0
+    for dbfilename in args.databases:
+        notify(f"loading signatures from '{dbfilename}'", end="\r")
+
+        db = sourmash_args.load_file_as_index(dbfilename)
+        total_signatures_loaded += len(db)
+
+        if args.linear:
+            db = LazyLinearIndex(db)
+
+        db = db.select(ksize=ksize, moltype=sel.moltype, containment=True)
+        sum_signatures_after_select += len(db)
+
+        db = sourmash_args.apply_picklist_and_pattern(db, sel.picklist, sel.pattern)
+
+        if not db:
+            notify(f"...no compatible signatures in '{dbfilename}'; skipping")
+            continue
+
+        hits = prefetch_database(query, db, args.threshold_bp,
+                                 estimate_ani_ci=args.estimate_ani_ci)
+        for result in hits:
+            match = result.match
+            query_mh = part.absorb_match(query, match)
+
+            if csvout_fp:
+                if csvout_w is None:
+                    csvout_w = result.init_dictwriter(csvout_fp)
+                result.write(csvout_w)
+
+            matches_out.add(match)
+            if matches_out.count % 10 == 0:
+                notify(f"total of {matches_out.count} matching signatures so far.",
+                       end="\r")
+
+            if not size_may_be_inaccurate and result.size_may_be_inaccurate:
+                size_may_be_inaccurate = True
+
+        did_a_search = True
+        if csvout_fp:
+            csvout_fp.flush()
+        del db
+
+    notify("--")
+    loaded_line = (
+        f"loaded {total_signatures_loaded} total signatures"
+        f" from {len(args.databases)} locations."
+    )
+    notify(loaded_line)
+    notify(f"after selecting signatures compatible with search,"
+           f" {sum_signatures_after_select} remain.")
+
+    if not did_a_search:
+        notify("ERROR in prefetch: after picklists and patterns,"
+               " no signatures to search!?")
+        sys.exit(-1)
+
+    notify("--")
+    notify(f"total of {matches_out.count} matching signatures.")
+    matches_out.close()
+
+    if csvout_fp:
+        notify(f"saved {matches_out.count} matches to CSV file '{args.output}'")
+        csvout_fp.close()
+
+    ident_mh, noident_mh = part.ident_mh, part.noident_mh
+    assert len(query_mh) == len(ident_mh) + len(noident_mh)
+    notify(
+        f"of {len(query_mh)} distinct query hashes, {len(ident_mh)} were found in matches above threshold."
+    )
+    notify(f"a total of {len(noident_mh)} query hashes remain unmatched.")
+    notify(f"final scaled value (max across query and all matches) is {part.scaled}")
+
+    def _save_hash_subset(filename, subset_mh, suffix):
+        "Write a matched/unmatched hash subset as a standalone signature."
+        sig_name = f"{query.name}-{suffix}" if query.name else ""
+        if orig_query_mh.track_abundance:
+            subset_mh = subset_mh.inflate(orig_query_mh)
+        ss = sig.SourmashSignature(subset_mh, name=sig_name)
+        with SaveSignaturesToLocation(filename) as save_sig:
+            save_sig.add(ss)
+
+    if args.save_matching_hashes:
+        notify(
+            f"saving {len(ident_mh)} matched hashes to '{args.save_matching_hashes}'"
+        )
+        _save_hash_subset(args.save_matching_hashes, ident_mh, "known")
+
+    if args.save_unmatched_hashes:
+        notify(
+            f"saving {len(noident_mh)} unmatched hashes to '{args.save_unmatched_hashes}'"
+        )
+        _save_hash_subset(args.save_unmatched_hashes, noident_mh, "unknown")
+
+    sel.report_picklist(args)
+
+    if size_may_be_inaccurate:
+        notify(_SIZE_WARN)
+
+    return 0

@@ -61,10 +61,37 @@
 // (`_dec_counts`, and the decrement inside `_schedule_scan`): out[r] =
 // sum_w popc(M[r, w] & rm[w]). One block per row; bound by reading M.
 //
+// The batch forms serve multigather, where a block of queries meets one
+// collection:
+// - counts_block (X3b) is the query-block form of counts_rows, the raw
+//   accumulator of `sourmash_tpu/ops/bucketed.py:_counts_block_impl`:
+//   out[q, r] = the raw limb-pair matches of query q's planes
+//   qhi/qlo[q] [dq, B] against row r, PAD==PAD included. Same design as
+//   counts_rows (one block per 32 buckets and a range of rows, a warp a
+//   row, the row's 8 slot pairs of the lane's bucket held in registers),
+//   but the block stages the columns of a sub-block of qsub queries in
+//   shared memory (as many as fit: qsub * dq * 32 pairs) and searches
+//   each held row slot in each of them, so a row slot is read from HBM
+//   once per sub-block of queries, not once per query: the rows are read
+//   ceil(bq / qsub) times in all (gridDim.z sub-blocks), which
+//   gm_counts_block_plan reports. Where one query's columns exceed shared
+//   memory, every query's columns are searched in global memory (L2) and
+//   the rows are read once. Each query's PAD run per bucket is found once
+//   per block and kept in shared memory.
+// - membership_bits_batch (X4b), the hand-written form of
+//   `_membership_bits_packed_batch`: membership_bits over a query axis,
+//   one block per (selected row, query), query q's planes, occupancy,
+//   selection and inverse slot map taken at its offsets.
+// - round_dec_batch (X5b), the decrement inside
+//   `sourmash_tpu/index/flat.py:_schedule_scan_batch`: out[q, r] =
+//   sum_w popc(M[q, r, w] & rm[q, w]), one block per (row, query), so a
+//   round of the whole query block is one launch.
+//
 // Plain C interface, loaded with ctypes (sourmash_tpu_torch/ops/_build.py).
 // Each entry launches on the caller's stream, does not synchronise, and
 // returns cudaGetLastError() so a refused launch is reported.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -155,31 +182,19 @@ counts_rows_kernel(const uint32_t* __restrict__ qhi,
   }
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kMemThreads)
-membership_bits_kernel(const uint32_t* __restrict__ qhi,
-                       const uint32_t* __restrict__ qlo,
-                       const int32_t* __restrict__ qcnt, int B,
-                       const uint32_t* __restrict__ shi,
-                       const uint32_t* __restrict__ slo,
-                       const uint8_t* __restrict__ scnt,
-                       const int64_t* __restrict__ sel,
-                       const int32_t* __restrict__ inv, int W,
-                       uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t row_bits[];  // kShared: the row's W words
-  const int t = threadIdx.x;
-  uint32_t* dst = out + (size_t)blockIdx.x * W;
-  uint32_t* bits = kShared ? row_bits : dst;
-  if (kShared) {
-    for (int w = t; w < W; w += kMemThreads) row_bits[w] = 0u;
-    __syncthreads();
-  }
-  const size_t s = (size_t)sel[blockIdx.x];
-  const uint8_t* cnt = scnt + s * B;
-  const uint32_t* rh = shi + s * kD * B;
-  const uint32_t* rl = slo + s * kD * B;
+// Set, in the row's W words `bits` (shared memory or the zeroed output),
+// the bit of every query hash that sits in a valid slot of the row; the
+// body of membership_bits and, query by query, of membership_bits_batch.
+__device__ __forceinline__ void row_membership(const uint32_t* __restrict__ qhi,
+                                               const uint32_t* __restrict__ qlo,
+                                               const int32_t* __restrict__ qcnt, int B,
+                                               const uint8_t* __restrict__ cnt,
+                                               const uint32_t* __restrict__ rh,
+                                               const uint32_t* __restrict__ rl,
+                                               const int32_t* __restrict__ inv, int W,
+                                               uint32_t* bits) {
   const long long nbits = 32LL * W;
-  for (int b = t; b < B; b += kMemThreads) {
+  for (int b = threadIdx.x; b < B; b += kMemThreads) {
     const int c = cnt[b];
     for (int k2 = 0; k2 < c; k2++) {
       const uint32_t h = rh[k2 * B + b];
@@ -205,29 +220,201 @@ membership_bits_kernel(const uint32_t* __restrict__ qhi,
       }
     }
   }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kMemThreads)
+membership_bits_kernel(const uint32_t* __restrict__ qhi,
+                       const uint32_t* __restrict__ qlo,
+                       const int32_t* __restrict__ qcnt, int B,
+                       const uint32_t* __restrict__ shi,
+                       const uint32_t* __restrict__ slo,
+                       const uint8_t* __restrict__ scnt,
+                       const int64_t* __restrict__ sel,
+                       const int32_t* __restrict__ inv, int W,
+                       uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t row_bits[];  // kShared: the row's W words
+  const int t = threadIdx.x;
+  uint32_t* dst = out + (size_t)blockIdx.x * W;
+  uint32_t* bits = kShared ? row_bits : dst;
+  if (kShared) {
+    for (int w = t; w < W; w += kMemThreads) row_bits[w] = 0u;
+    __syncthreads();
+  }
+  const size_t s = (size_t)sel[blockIdx.x];
+  row_membership(qhi, qlo, qcnt, B, scnt + s * B, shi + s * kD * B, slo + s * kD * B, inv, W,
+                 bits);
   if (kShared) {
     __syncthreads();
     for (int w = t; w < W; w += kMemThreads) dst[w] = row_bits[w];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-round_dec_kernel(const uint32_t* __restrict__ M, const uint32_t* __restrict__ rm,
-                 int W, int32_t* __restrict__ out) {
+// membership_bits over a query axis: block (x, y) builds the words of
+// selection x of query y, out [bq, cap, W].
+template <bool kShared>
+__global__ void __launch_bounds__(kMemThreads)
+membership_bits_batch_kernel(const uint32_t* __restrict__ qhi,
+                             const uint32_t* __restrict__ qlo,
+                             const int32_t* __restrict__ qcnt, int dq, int B,
+                             const uint32_t* __restrict__ shi,
+                             const uint32_t* __restrict__ slo,
+                             const uint8_t* __restrict__ scnt,
+                             const int64_t* __restrict__ sel, int cap,
+                             const int32_t* __restrict__ inv, int W,
+                             uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t row_bits[];  // kShared: the row's W words
+  const int t = threadIdx.x;
+  const size_t q = blockIdx.y;
+  const size_t plane = q * dq * (size_t)B;
+  uint32_t* dst = out + (q * cap + blockIdx.x) * (size_t)W;
+  uint32_t* bits = kShared ? row_bits : dst;
+  if (kShared) {
+    for (int w = t; w < W; w += kMemThreads) row_bits[w] = 0u;
+    __syncthreads();
+  }
+  const size_t s = (size_t)sel[q * cap + blockIdx.x];
+  row_membership(qhi + plane, qlo + plane, qcnt + q * B, B, scnt + s * B, shi + s * kD * B,
+                 slo + s * kD * B, inv + plane, W, bits);
+  if (kShared) {
+    __syncthreads();
+    for (int w = t; w < W; w += kMemThreads) dst[w] = row_bits[w];
+  }
+}
+
+// sum_w popc(m[w] & rm[w]) over the block, returned to thread 0.
+__device__ __forceinline__ int block_popc_and(const uint32_t* __restrict__ m,
+                                              const uint32_t* __restrict__ rm, int W) {
   __shared__ int partial[kThreads / 32];
-  const size_t row = blockIdx.x;
-  const uint32_t* m = M + row * (size_t)W;
   int acc = 0;
   for (int w = threadIdx.x; w < W; w += kThreads) acc += __popc(m[w] & __ldg(rm + w));
   acc = warp_sum(acc);
   if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
   __syncthreads();
+  int v = 0;
   if (threadIdx.x < 32) {
-    int v = threadIdx.x < kThreads / 32 ? partial[threadIdx.x] : 0;
+    v = threadIdx.x < kThreads / 32 ? partial[threadIdx.x] : 0;
     v = warp_sum(v);
-    if (threadIdx.x == 0) out[row] = v;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+round_dec_kernel(const uint32_t* __restrict__ M, const uint32_t* __restrict__ rm,
+                 int W, int32_t* __restrict__ out) {
+  const size_t row = blockIdx.x;
+  const int v = block_popc_and(M + row * (size_t)W, rm, W);
+  if (threadIdx.x == 0) out[row] = v;
+}
+
+// round_dec over a query axis: block (r, q) reduces row r of query q's
+// matrix M [Q, k, W] against rm [Q, W] into out [Q, k].
+__global__ void __launch_bounds__(kThreads)
+round_dec_batch_kernel(const uint32_t* __restrict__ M, const uint32_t* __restrict__ rm,
+                       int k, int W, int32_t* __restrict__ out) {
+  const size_t row = (size_t)blockIdx.y * k + blockIdx.x;
+  const int v = block_popc_and(M + row * (size_t)W, rm + (size_t)blockIdx.y * W, W);
+  if (threadIdx.x == 0) out[row] = v;
+}
+
+// counts_block: its staged columns take most of an SM's shared memory, so
+// one block of 32 warps (a warp a row) runs on each SM
+constexpr int kBlockThreads = 1024;
+constexpr int kBlockWarps = kBlockThreads / 32;
+
+// out[q, r] += the raw limb-pair matches of query q's planes against row r
+// (counts_rows for a block of queries): grid (bucket tiles, row ranges,
+// query sub-blocks of qsub). kShared: the sub-block's columns are staged
+// in shared memory as [qsub][dq][32] pairs; else searched in global memory.
+// Either way the sub-block's PAD runs follow as [qsub][32] ints.
+template <bool kShared>
+__global__ void __launch_bounds__(kBlockThreads)
+counts_block_kernel(const uint32_t* __restrict__ qhi,
+                    const uint32_t* __restrict__ qlo, int bq, int dq, int B, int qsub,
+                    const uint32_t* __restrict__ shi,
+                    const uint32_t* __restrict__ slo, int rows, int rows_per_block,
+                    int32_t* __restrict__ out) {
+  extern __shared__ uint64_t qcols[];
+  const int lane = threadIdx.x & 31;
+  const int tile0 = blockIdx.x * kCountBuckets;
+  const int b = tile0 + lane;
+  const bool in_b = b < B;
+  const int q0 = blockIdx.z * qsub;
+  const int nq = min(qsub, bq - q0);
+  const size_t col_len = (size_t)dq * kCountBuckets;  // one query's staged pairs
+  int* pad_runs = reinterpret_cast<int*>(qcols + (kShared ? qsub * col_len : 0));
+  if (kShared) {
+    for (size_t i = threadIdx.x; i < nq * col_len; i += kBlockThreads) {
+      const size_t qi = i / col_len;
+      const size_t rem = i - qi * col_len;
+      const int bb = tile0 + (int)(rem % kCountBuckets);
+      const size_t at = ((q0 + qi) * dq + rem / kCountBuckets) * B + bb;
+      qcols[i] = bb < B ? limb_pair(qhi[at], qlo[at]) : kPadPair;
+    }
+    __syncthreads();
+  }
+  // the column of query qi of the sub-block for bucket tile0 + l, as
+  // p -> its pair p, addressed from a base taken once (32-bit offsets: the
+  // probes' cost is their instructions)
+  const auto column = [&](int qi, int l) {
+    const uint64_t* staged = kShared ? qcols + qi * dq * kCountBuckets + l : nullptr;
+    const size_t at = (size_t)(q0 + qi) * dq * B + tile0 + l;
+    const uint32_t* h = qhi + at;
+    const uint32_t* lo = qlo + at;
+    return [=](int p) -> uint64_t {
+      if (kShared) return staged[p * kCountBuckets];
+      return limb_pair(__ldg(h + p * B), __ldg(lo + p * B));
+    };
+  };
+  for (int i = threadIdx.x; i < nq * kCountBuckets; i += kBlockThreads) {
+    const int qi = i / kCountBuckets, l = i % kCountBuckets;
+    const int n = tile0 + l < B ? dq : 0;
+    pad_runs[i] = n - lower_bound(column(qi, l), n, kPadPair);
+  }
+  __syncthreads();
+
+  const int n = in_b ? dq : 0;
+  const int row0 = static_cast<int>(blockIdx.y) * rows_per_block;
+  const int row_end = min(rows, row0 + rows_per_block);
+  for (int r = row0 + static_cast<int>(threadIdx.x >> 5); r < row_end; r += kBlockWarps) {
+    uint64_t v[kD];
+    if (in_b) {
+      const size_t base = (size_t)r * kD * B + b;
+#pragma unroll
+      for (int k = 0; k < kD; k++)
+        v[k] = limb_pair(__ldcs(shi + base + (size_t)k * B), __ldcs(slo + base + (size_t)k * B));
+    }
+    for (int qi = 0; qi < nq; qi++) {
+      int count = 0;
+      if (in_b) {
+        const auto col = column(qi, lane);
+        const int pad_run = pad_runs[qi * kCountBuckets + lane];
+#pragma unroll
+        for (int k = 0; k < kD; k++) {
+          if (v[k] == kPadPair) {
+            count += pad_run;
+          } else {
+            for (int p = lower_bound(col, n, v[k]); p < n && col(p) == v[k]; p++) count++;
+          }
+        }
+      }
+      const int c = warp_sum(count);
+      if (lane == 0 && c != 0) atomicAdd(out + (size_t)(q0 + qi) * rows + r, c);
+    }
   }
 }
+
+// Queries of a block of bq whose columns [dq][32] pairs (and PAD runs) fit
+// the block's shared memory together, or 0 where one query's do not.
+int counts_block_qsub(int bq, int dq, size_t smem_max) {
+  const size_t per_query =
+      sizeof(uint64_t) * kCountBuckets * (size_t)dq + sizeof(int) * kCountBuckets;
+  return (int)std::min((size_t)bq, smem_max / per_query);
+}
+
+// the global-memory form keeps only PAD runs in shared memory, under the
+// default 48 KiB
+constexpr int kGlobalQsub = 384;
 
 }  // namespace
 
@@ -319,6 +506,107 @@ int gm_round_dec(const void* M, const void* rm, int k, int W, void* out,
   if (k <= 0) return 0;
   round_dec_kernel<<<(unsigned)k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(M), static_cast<const uint32_t*>(rm), W,
+      static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Write to *qsub the queries of a block of bq whose columns counts_block
+// stages together at dq (0: the columns are searched in global memory and
+// each launch reads the rows ceil(bq / 384) times), on the current device.
+int gm_counts_block_plan(int bq, int dq, int* qsub) {
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *qsub = counts_block_qsub(bq, dq, (size_t)smem_max);
+  return 0;
+}
+
+// out [bq, rows] i32 (zeroed by the caller) += raw limb-pair matches of
+// each query's planes [dq, B] (of qhi/qlo [bq, dq, B], each column
+// ascending) against subject planes [rows, 8, B].
+int gm_counts_block(const void* qhi, const void* qlo, int bq, int dq, int B,
+                    const void* shi, const void* slo, int rows, void* out, void* stream) {
+  if (rows <= 0 || B <= 0 || bq <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, smem_max = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int qsub = counts_block_qsub(bq, dq, (size_t)smem_max);
+  const bool shared = qsub > 0;
+  if (!shared) qsub = std::min(bq, kGlobalQsub);
+  const size_t runs = sizeof(int) * kCountBuckets * (size_t)qsub;
+  const size_t smem = shared ? sizeof(uint64_t) * kCountBuckets * (size_t)dq * qsub + runs : runs;
+  auto kernel = shared ? counts_block_kernel<true> : counts_block_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B + kCountBuckets - 1) / kCountBuckets;
+  const int zs = (bq + qsub - 1) / qsub;
+  // rows per block: up to 512, 16 a warp (the staged columns, qsub * dq
+  // pairs a lane, then cost a fraction of the block's 8 * 512 row slots a
+  // lane), fewer where that leaves under two blocks an SM
+  int rows_per_block = 512;
+  while (rows_per_block > kBlockWarps &&
+         (long long)tiles * zs * ((rows + rows_per_block - 1) / rows_per_block) < 2LL * sms)
+    rows_per_block /= 2;
+  while ((rows + rows_per_block - 1) / rows_per_block > 65535) rows_per_block *= 2;
+  if (zs > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 grid(tiles, (rows + rows_per_block - 1) / rows_per_block, zs);
+  kernel<<<grid, kBlockThreads, smem, s>>>(
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), bq, dq, B, qsub,
+      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo), rows,
+      rows_per_block, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [bq, cap, W] u32 membership words: for each query q, rows sel[q]
+// [cap] (i64) of one chunk's planes [rows, 8, B] / cnt [rows, B] u8,
+// against query planes qhi/qlo[q] [dq, B] with occupancy qcnt[q] [B] i32
+// and inverse slot map inv[q] [dq * B] i32.
+int gm_membership_bits_batch(const void* qhi, const void* qlo, const void* qcnt, int bq,
+                             int dq, int B, const void* shi, const void* slo,
+                             const void* scnt, const void* sel, int cap, const void* inv,
+                             int W, void* out, void* stream) {
+  if (bq <= 0 || cap <= 0 || W <= 0) return 0;
+  if (bq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = sizeof(uint32_t) * (size_t)W;
+  const bool shared = smem <= (size_t)smem_max;
+  if (shared) {
+    err = cudaFuncSetAttribute(membership_bits_batch_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  } else {
+    err = cudaMemsetAsync(out, 0, smem * (size_t)cap * bq, st);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = shared ? membership_bits_batch_kernel<true> : membership_bits_batch_kernel<false>;
+  kernel<<<dim3((unsigned)cap, (unsigned)bq), kMemThreads, shared ? smem : 0, st>>>(
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
+      static_cast<const int32_t*>(qcnt), dq, B,
+      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo),
+      static_cast<const uint8_t*>(scnt), static_cast<const int64_t*>(sel), cap,
+      static_cast<const int32_t*>(inv), W, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [Q, k] i32 = per-row popcount of M [Q, k, W] & rm [Q, W].
+int gm_round_dec_batch(const void* M, const void* rm, int Q, int k, int W, void* out,
+                       void* stream) {
+  if (Q <= 0 || k <= 0) return 0;
+  if (Q > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  round_dec_batch_kernel<<<dim3((unsigned)k, (unsigned)Q), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(M), static_cast<const uint32_t*>(rm), k, W,
       static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,13 +10,21 @@ Results are identical to the host CounterGather (reference
 including Counter.most_common tie-breaking (the round scan breaks ties by
 the lowest dataset id, which is insertion order).
 
-Not ported yet: saving and loading as a revindex, the batched multigather
-schedules (`compute_schedules_batch`, `converge_schedules_batch`) and the
-multi-device branch of `DeviceGatherSchedule.compute`.
+For many queries against one collection (multigather), the counts come
+from batched `counts_block` passes (`FlatIndex.warm_gather_counts`), and
+the round schedules of a block of queries are built and scanned together
+(`compute_schedules_batch`, `converge_schedules_batch`): membership words
+by `membership_bits_batch`, one `round_dec_batch` launch per round of the
+block.
+
+Not ported yet: saving and loading as a revindex and the multi-device
+branches (`DeviceGatherSchedule.compute`, the sharded query blocks of
+`compute_schedules_batch`).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -26,7 +34,7 @@ from . import Index, IndexSearchResult, _check_select_parameters, select_signatu
 from ..minhash import _get_max_hash_for_scaled
 from ..ops import cuda_gather
 from ..ops.bucketed import pack_bits_u32, to_torch, unpack_bits_u32
-from ..ops.index_ops import build_banks, counts_for_banks
+from ..ops.index_ops import build_banks, counts_for_banks, counts_for_banks_batch
 from ..search import calc_threshold_from_bp
 
 SCHEDULE_CAP_ENV = "SOURMASH_TORCH_SCHEDULE_CAP"
@@ -67,6 +75,7 @@ class FlatIndex(Index):
         if self._locations is not None:
             assert len(self._locations) == len(self._signatures)
         self._device = device
+        self.counts_cache_hits = 0  # counts_for calls answered by warm_gather_counts
         self._reset()
 
     def _reset(self):
@@ -74,6 +83,7 @@ class FlatIndex(Index):
         self._ds_mins = None
         self._scaled = None
         self._cuts_cache = None  # (q_scaled, cuts, subj_sizes)
+        self._counts_cache = {}  # md5(query mins) -> counts, popped on a hit
         self._all_scaled = None  # lazy: every signature has nonzero scaled
         self._row_lut = None  # lazy: dataset id -> (bank, chunk, row)
 
@@ -158,9 +168,45 @@ class FlatIndex(Index):
         self._scaled = max(scaleds)
 
     def counts_for(self, query_mins: np.ndarray) -> np.ndarray:
-        "Overlap counts of the (already downsampled) query with each dataset."
+        """Overlap counts of the (already downsampled) query with each
+        dataset; a row that `warm_gather_counts` computed for these exact
+        mins is handed out once."""
+        if self._counts_cache:
+            key = hashlib.md5(np.ascontiguousarray(query_mins).tobytes()).digest()
+            hit = self._counts_cache.pop(key, None)
+            if hit is not None:
+                self.counts_cache_hits += 1
+                return hit.copy()
         self._build()
         return counts_for_banks(self._banks, query_mins, n_datasets=len(self._signatures))
+
+    def warm_gather_counts(self, query_mhs, block: int | None = None) -> None:
+        """Compute the counter_gather overlap counts of many queries in
+        batched passes (`counts_for_banks_batch`: the bank planes are read
+        once per block of queries) into a pop-on-hit cache, which the next
+        `counter_gather` of each query takes. The cache key is the md5 of
+        exactly the mins FlatCounterGather counts: the query's, below the
+        cutoff of max(query scaled, collection scaled)."""
+        self._build()
+        qs = []
+        for mh in query_mhs:
+            if not mh.scaled:
+                continue
+            cutoff = np.uint64(_get_max_hash_for_scaled(max(mh.scaled, self._scaled)))
+            q = mh.mins_array()
+            qs.append(q[q <= cutoff])
+        if not qs:
+            return
+        if block is None:
+            # bounded by the query planes of a block: dq (estimated from the
+            # mean load of the largest B) x B x 8 bytes a query, ~256 MiB
+            B_max = max(b.B for b in self._banks)
+            longest = max(max(len(q) for q in qs), 1)
+            dq_est = max(8, 1 << int(np.ceil(np.log2(longest / B_max + 1))))
+            block = int(max(1, min(64, (256 << 20) // (dq_est * B_max * 8))))
+        rows = counts_for_banks_batch(self._banks, qs, len(self._signatures), block=block)
+        for q, row in zip(qs, rows):
+            self._counts_cache[hashlib.md5(np.ascontiguousarray(q).tobytes()).digest()] = row
 
     def _row_lookup(self):
         "Per-dataset (bank idx, chunk idx, row-in-chunk) int32 lookup arrays."
@@ -1041,6 +1087,286 @@ class DeviceGatherSchedule:
         # to exact host rounds
         self.truncated = bool(self._cap_guard)
         self._sched = schedule
+
+
+def _membership_rows_device_batch(counters, ids_list, W, bq: int = 32):
+    """Membership words of many single-counter queries over ONE FlatIndex
+    with resident banks, on the device: (M [Q, K, W] int32 in bank-grouped
+    row order, K the same for every query, and row_srcs, per query a host
+    int64 [K] mapping matrix row -> position in ids_list[q], -1 for
+    padding rows). One `membership_bits_batch` launch per (chunk, block of
+    bq queries). A chunk contributes as many rows as its largest
+    per-query selection; shorter selections are padded with row 0, whose
+    words the -1 row_src disregards. Spilled hashes and 2^64-1 tails are
+    patched in exactly, query by query."""
+    from ..ops.bucketed import (
+        _membership_bits_packed_batch,
+        inverse_slot_map,
+        pack_query_block_device,
+        query_slot_map,
+    )
+
+    index = counters[0].index
+    device = counters[0].device
+    lut_b, lut_c, lut_r = index._row_lookup()
+    banks = index._banks
+    Q = len(counters)
+
+    # per (bank, chunk): per query (rows in the chunk, positions in ids)
+    sel_by_chunk: dict = {}
+    for qi, ids in enumerate(ids_list):
+        ids = np.asarray(ids, dtype=np.int64)
+        if not len(ids):
+            continue
+        gb, gc = lut_b[ids], lut_c[ids]
+        order = np.lexsort((lut_r[ids], gc, gb))
+        gbs, gcs = gb[order], gc[order]
+        bounds = np.flatnonzero(np.diff(gbs.astype(np.int64) << 32 | gcs)) + 1
+        for a, e in zip(np.concatenate([[0], bounds]), np.concatenate([bounds, [len(ids)]])):
+            pos = order[a:e]
+            sel_by_chunk.setdefault((int(gbs[a]), int(gcs[a])), {})[qi] = (lut_r[ids[pos]], pos)
+
+    cores = [c._q_mins[:-1] if c._q_has_max else c._q_mins for c in counters]
+    layout = [(key, max(len(v[0]) for v in sel_by_chunk[key].values()))
+              for key in sorted(sel_by_chunk)]
+    K = sum(width for _key, width in layout)
+    row_srcs = [np.full(K, -1, dtype=np.int64) for _ in range(Q)]
+    blocks = []
+    for q0 in range(0, Q, bq):
+        qs = range(q0, min(q0 + bq, Q))
+        block_cores = [cores[qi] for qi in qs]
+        raw = None
+        packs = {}
+        pieces = []
+        base = 0
+        for (bank_i, chunk_i), width in layout:
+            if bank_i not in packs:
+                # each block at its own depth: the words do not depend on it
+                B = banks[bank_i].B
+                Qhi, Qlo, Qcnt, dq, raw = pack_query_block_device(block_cores, B, raw, device)
+                smaps = np.full((len(qs), W * 32), dq * B, dtype=np.int32)
+                for j, core in enumerate(block_cores):
+                    if len(core):
+                        smaps[j] = query_slot_map(core, B, dq, W * 32)
+                smaps = torch.from_numpy(smaps).to(device)
+                packs[bank_i] = (Qhi, Qlo, Qcnt, smaps, inverse_slot_map(smaps, dq * B))
+            chunk = banks[bank_i].chunks[chunk_i]
+            slots = sel_by_chunk[(bank_i, chunk_i)]
+            sel = np.zeros((len(qs), width), dtype=np.int64)
+            for j, qi in enumerate(qs):
+                got = slots.get(qi)
+                if got is not None:
+                    rows_sel, pos = got
+                    sel[j, : len(rows_sel)] = rows_sel
+                    row_srcs[qi][base : base + len(pos)] = pos
+            Qhi, Qlo, Qcnt, smaps, inv = packs[bank_i]
+            pieces.append(_membership_bits_packed_batch(
+                Qhi, Qlo, Qcnt, chunk.hi, chunk.lo, chunk.cnt,
+                torch.from_numpy(sel).to(device), smaps, inv))
+            base += width
+        blocks.append(torch.cat(pieces, dim=1) if len(pieces) > 1 else pieces[0])
+    M = torch.cat(blocks) if len(blocks) > 1 else blocks[0]
+
+    qws, rws, cws, msks = [], [], [], []
+    for qi, ids in enumerate(ids_list):
+        patches = counters[qi]._membership_patches(W)
+        if not patches:
+            continue
+        for r, src in enumerate(row_srcs[qi]):
+            p = patches.get(int(ids[src])) if src >= 0 else None
+            if p is not None:
+                qws.extend([qi] * len(p[0]))
+                rws.extend([r] * len(p[0]))
+                cws.extend(p[0].tolist())
+                msks.extend(p[1].tolist())
+    if qws:
+        at = tuple(torch.tensor(x, dtype=torch.int64, device=device) for x in (qws, rws, cws))
+        M[at] = M[at] | to_torch(np.asarray(msks, dtype=np.uint32), device)
+    return M, row_srcs
+
+
+def _schedule_scan_batch(M, alive, counts, thresh, length, keys=None):
+    """`_schedule_scan` for a block of independent queries: M [Q, k, W]
+    int32 words, alive [Q, W], counts [Q, k], thresh [Q] (and keys [Q, k]
+    int64, else the row index). Each round is one argmax per query and one
+    `round_dec_batch` launch for the whole block. Returns ((alive, counts),
+    (best row or -1 [Q, length], count or 0 [Q, length]))."""
+    Q, k, _W = M.shape
+    if keys is None:
+        keys = torch.arange(k, dtype=torch.int64, device=M.device).expand(Q, k)
+    qi = torch.arange(Q, device=M.device)
+    cnt = counts
+    bests, bcs = [], []
+    for _ in range(length):
+        best = torch.argmax((cnt.to(torch.int64) << 32) - keys, dim=1)
+        bc = cnt[qi, best]
+        active = bc >= thresh
+        rm = torch.where(active[:, None], M[qi, best], 0) & alive
+        dec = cuda_gather.round_dec_batch(M, rm)
+        cnt = torch.where(active[:, None], torch.clamp(cnt - dec, min=0), cnt)
+        alive = alive & ~rm
+        bests.append(torch.where(active, best, -1))
+        bcs.append(torch.where(active, bc, 0))
+    return (alive, cnt), (torch.stack(bests, dim=1), torch.stack(bcs, dim=1))
+
+
+def compute_schedules_batch(coords, threshold_bp, block: int = 64, extend=False):
+    """Compute many coordinators' round schedules in blocks of `block`
+    queries: each block pads its queries' matrices to one [Q, k, W] (k
+    rounded up to 1,024, W to 128; padding rows have count 0 and key 2^40,
+    so they never win) and scans them together. A block of several
+    single-counter queries over one index whose candidates are worth the
+    device membership builds every matrix with `membership_bits_batch`;
+    any other block uploads host matrices. Each coordinator ends with the
+    schedule its own compute() would build; with `extend`, the rounds are
+    appended to the schedule it has."""
+    pending = []
+    for coord in coords:
+        coord.ready = True
+        if not extend:
+            coord._sched = []
+        dev_ok = len(coord.counters) == 1 and coord.counters[0]._device_membership_worthwhile(
+            threshold_bp)
+        built = coord._build_inputs(threshold_bp, build_mats=not dev_ok)
+        if built is not None:
+            pending.append((coord, built, dev_ok))
+
+    for b0 in range(0, len(pending), block):
+        sub = pending[b0 : b0 + block]
+        Q = len(sub)
+        device = sub[0][0].counters[0].device
+        Wmax = -(-max(b[2].shape[0] for _c, b, _d in sub) // 128) * 128
+        on_device = Q > 1 and all(d for _c, _b, d in sub) and (
+            len({id(c.counters[0].index) for c, _b, _d in sub}) == 1)
+        if on_device:
+            M, row_srcs = _membership_rows_device_batch(
+                [c.counters[0] for c, _b, _d in sub],
+                [np.asarray([ds for _ci, ds in b[0]], dtype=np.int64) for _c, b, _d in sub],
+                Wmax)
+            mats = None
+            K = M.shape[1]
+        else:
+            mats = []
+            for coord, (rows, _counts, alive_p, _th, _nk, Mq), dev_ok in sub:
+                if dev_ok:
+                    Mq = coord.counters[0]._membership_for_ids(
+                        alive_p.shape[0], np.asarray([ds for _ci, ds in rows], dtype=np.int64))
+                mats.append(Mq)
+            row_srcs = [np.arange(len(b[0]), dtype=np.int64) for _c, b, _d in sub]
+            K = max(m.shape[0] for m in mats)
+        kmax = -(-K // 1024) * 1024
+
+        Ab = np.zeros((Q, Wmax), dtype=np.uint32)
+        Cb = np.zeros((Q, kmax), dtype=np.int32)
+        Tb = np.ones(Q, dtype=np.int32)
+        Kb = np.full((Q, kmax), 1 << 40, dtype=np.int64)
+        for qi, (coord, (_rows, counts, alive_p, thresh, _nk, _M), _d) in enumerate(sub):
+            src = row_srcs[qi]
+            real = src >= 0
+            Cb[qi, : len(src)][real] = counts[src[real]]
+            Kb[qi, : len(src)][real] = src[real]
+            Ab[qi, : alive_p.shape[0]] = alive_p
+            Tb[qi] = thresh
+            coord.route = "device membership" if on_device else "host membership"
+        if on_device:
+            Mj = torch.nn.functional.pad(M, (0, 0, 0, kmax - K))
+        else:
+            Mb = np.zeros((Q, kmax, Wmax), dtype=np.uint32)
+            for qi, Mq in enumerate(mats):
+                Mb[qi, : Mq.shape[0], : Mq.shape[1]] = Mq
+            Mj = to_torch(Mb, device)
+        carry = (to_torch(Ab, device), torch.from_numpy(Cb).to(device))
+        Tj = torch.from_numpy(Tb).to(device)
+        Kj = torch.from_numpy(Kb).to(device)
+        chunk = int(min(kmax, 64 if kmax > 4096 else 256))
+
+        scheds = [[] for _ in range(Q)]
+        open_q = np.ones(Q, dtype=bool)
+        rounds_done = 0
+        while open_q.any() and rounds_done < kmax:
+            carry, (bests, bcs) = _schedule_scan_batch(Mj, *carry, Tj, chunk, Kj)
+            b_np, c_np = bests.cpu().numpy(), bcs.cpu().numpy()
+            for qi in np.nonzero(open_q)[0]:
+                coord, rows = sub[qi][0], sub[qi][1][0]
+                for b, c in zip(b_np[qi], c_np[qi]):
+                    if b < 0 or (coord._cap_guard and int(c) <= coord._cap_bound):
+                        open_q[qi] = False
+                        break
+                    ci, ds = rows[int(row_srcs[qi][int(b)])]
+                    scheds[qi].append((ci, ds, int(c)))
+                else:
+                    if len(scheds[qi]) >= len(rows):
+                        open_q[qi] = False
+            rounds_done += chunk
+        for qi, (coord, _built, _d) in enumerate(sub):
+            coord.truncated = bool(coord._cap_guard)
+            coord._sched = list(coord._sched) + scheds[qi] if extend else scheds[qi]
+
+
+def converge_schedules_batch(coords, threshold_bp, block: int | None = None):
+    """compute_schedules_batch, then the capped reschedules of every
+    truncated single-counter coordinator in batches: per iteration, one
+    `counts_for_banks_batch` pass recounts all of them against what is
+    left of their queries, and their schedules are extended in place, so a
+    replay never restarts. At most 16 iterations; a coordinator that gains
+    no round stops there and falls back to host rounds at exhaustion."""
+    live = [c for c in coords if c is not None]
+    if block is None:
+        # the block's stacked [Q, k, W] scan matrix stays ~256 MiB
+        cap = _schedule_cap()
+        k_est = w_est = 1
+        for c in live:
+            c0 = c.counters[0]
+            k = int(np.count_nonzero(c0.counts))
+            k_est = max(k_est, min(k, cap) if cap else k)
+            w_est = max(w_est, -(-len(c0._q_mins) // 32))
+        block = int(max(4, min(64, (256 << 20) // max(k_est * w_est * 4, 1))))
+        block = 1 << (block.bit_length() - 1)
+    compute_schedules_batch(live, threshold_bp, block)
+    stalled: set = set()
+    for _ in range(16):
+        pending = [c for c in live
+                   if c.truncated and len(c.counters) == 1 and id(c) not in stalled]
+        if not pending:
+            break
+        progress = {id(c): len(c._sched) for c in pending}
+        # what is left of each query after its rounds so far (a round removes
+        # its winner's hashes, so the union of the winners is what went)
+        alive_list = []
+        for coord in pending:
+            c0 = coord.counters[0]
+            won = [c0.index._ds_mins[ds] for _ci, ds, _cnt in coord._sched]
+            alive_list.append(np.setdiff1d(c0._q_mins, np.concatenate(won)) if won
+                              else c0._q_mins)
+        groups = {}
+        for coord, alive in zip(pending, alive_list):
+            groups.setdefault(id(coord.counters[0].index), []).append((coord, alive))
+        fresh = {}
+        for grp in groups.values():
+            idx = grp[0][0].counters[0].index
+            rows = counts_for_banks_batch(idx._banks, [a for _c, a in grp], len(idx._signatures))
+            for (coord, _a), row in zip(grp, rows):
+                fresh[id(coord)] = row
+        for coord, alive in zip(pending, alive_list):
+            c0 = coord.counters[0]
+            counts = np.where(c0.counts > 0, fresh[id(coord)], 0).astype(np.int64)
+            if threshold_bp:
+                try:
+                    _, n_th = calc_threshold_from_bp(threshold_bp, c0.scaled, max(len(alive), 1))
+                except ValueError:
+                    n_th = None
+                if n_th is not None:
+                    counts = np.where(counts >= max(n_th, 1), counts, 0)
+            c0.counts = counts
+            c0._groups = None
+            c0._bitsets_cache = None
+            coord.reschedules += 1
+            coord._alive_mins = alive
+            coord.truncated = False
+        compute_schedules_batch(pending, threshold_bp, block, extend=True)
+        for c in pending:
+            if len(c._sched) == progress[id(c)]:
+                stalled.add(id(c))
 
 
 def schedule_device_gather(counters):

@@ -6,7 +6,8 @@ a sketch of l hashes over B = next_pow2(l_max * 0.4) buckets with
 Poisson(<= 2.5) occupancy. A sketch becomes two u32 limb planes hi, lo
 [d = 8, B] (bucket dimension last), and intersection counting becomes a
 dense equality compare between planes: the hand-written `counts_rows`
-kernel (`ops/cuda_gather.py`, T1).
+kernel (`ops/cuda_gather.py`, T1), and `counts_block` for a block of
+queries [bq, dq, B] (X3b).
 
 Exactness is kept by construction, as in the JAX package:
 
@@ -413,6 +414,35 @@ def _counts_qvm_impl(qhi, qlo, qcnt, Shi, Slo, Scnt):
     return acc - _pad_correction(qcnt, Scnt, qhi.shape[0], Shi.shape[1])
 
 
+def _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt):
+    """[bq, dq, B] query planes vs [ns, d, B] subjects -> [bq, ns] int32
+    exact stored-element counts: the raw counts of `counts_block` (X3b)
+    minus each query's exact PAD==PAD correction (`_pad_correction`)."""
+    acc = cuda_gather.counts_block(Qhi, Qlo, Shi, Slo)
+    dq, d = Qhi.shape[1], Shi.shape[1]
+    return acc - torch.stack([_pad_correction(qcnt, Scnt, dq, d) for qcnt in Qcnt])
+
+
+def _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, B: int, d: int):
+    """Block counts against a host-streamed chunk: pack its uploaded raw
+    limb rows into planes on the device, count, and drop the planes."""
+    Shi, Slo, Scnt = _device_pack_kernel(Hi, Lo, B, d)
+    return _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt)
+
+
+def counts_block_dispatch(Qhi, Qlo, Qcnt, chunk: BucketedRows):
+    """[bq, padded rows] device counts of one query block against one chunk
+    (no spill correction, no readback). Host-streamed chunks upload their
+    raw limb rows and pack on the device, as `query_counts_device` does."""
+    if not chunk.resident:
+        if chunk.raw is not None:
+            Hi, Lo = (to_torch(x, Qhi.device) for x in chunk.raw)
+            return _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, chunk.B, chunk.d)
+        planes = _to_device(chunk.hi, chunk.lo, chunk.cnt, Qhi.device)
+        return _counts_block_impl(Qhi, Qlo, Qcnt, *planes)
+    return _counts_block_impl(Qhi, Qlo, Qcnt, chunk.hi, chunk.lo, chunk.cnt)
+
+
 def _counts_qvm_cutoff_impl(qhi, qlo, qcnt, Shi, Slo, Scnt, cut_hi, cut_lo):
     """Query vs many with a per-subject u64 cutoff on the matched value: a
     hit counts iff equal and value <= cut[s]. PAD==PAD hits pass the cutoff
@@ -579,6 +609,16 @@ def _membership_bits_packed(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv):
     return cuda_gather.membership_bits(qhi, qlo, qcnt, Shi, Slo, Scnt, sel, slotmap, inv)
 
 
+def _membership_bits_packed_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv):
+    """`_membership_bits_packed` for a block of queries against per-query
+    row selections `sel [bq, cap]` of ONE chunk's planes: [bq, cap, W]
+    int32 words (the `membership_bits_batch` kernel). Qcnt [bq, B] is each
+    query's occupancy, slotmaps [bq, W*32] its slot map and inv [bq, dq*B]
+    the inverses (`inverse_slot_map`); empty (padding) queries give zero
+    words, padded selections the words of the row they name."""
+    return cuda_gather.membership_bits_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv)
+
+
 def query_slot_map(q_core: np.ndarray, B: int, dq: int, n_positions: int):
     """Flat slot position (slot*B + bucket) of each sorted query hash,
     padded with the dummy position dq*B out to n_positions (covers the
@@ -591,13 +631,15 @@ def query_slot_map(q_core: np.ndarray, B: int, dq: int, n_positions: int):
 
 
 def inverse_slot_map(slotmap: torch.Tensor, n_slots: int) -> torch.Tensor:
-    """[n_slots] int32 on slotmap's device: the query index j whose flat
-    slot position slotmap[j] is each position, -1 where none is. Positions
-    >= n_slots (the dummy dq*B) go to a dump element that is cut off."""
-    inv = torch.full((n_slots + 1,), -1, dtype=torch.int32, device=slotmap.device)
-    index = torch.arange(slotmap.shape[0], dtype=torch.int32, device=slotmap.device)
-    inv.scatter_(0, slotmap.long().clamp(max=n_slots), index)
-    return inv[:-1]
+    """[..., n_slots] int32 on slotmap's device: for each slot map along
+    the last axis, the query index j whose flat slot position slotmap[j]
+    is each position, -1 where none is. Positions >= n_slots (the dummy
+    dq*B) go to a dump element that is cut off."""
+    lead = tuple(slotmap.shape[:-1])
+    inv = torch.full(lead + (n_slots + 1,), -1, dtype=torch.int32, device=slotmap.device)
+    index = torch.arange(slotmap.shape[-1], dtype=torch.int32, device=slotmap.device)
+    inv.scatter_(-1, slotmap.long().clamp(max=n_slots), index.expand(slotmap.shape))
+    return inv[..., :-1].contiguous()
 
 
 def membership_matrix(q_full: np.ndarray, bank: BucketedRows, row_ids, q_packed=None):

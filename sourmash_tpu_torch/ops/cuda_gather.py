@@ -17,6 +17,21 @@ code of `sourmash_tpu` (see `csrc/gather.cu` for what each replaces).
 - `round_dec` (X5, `index/flat.py:_dec_counts`): `[k]` int32
   `sum_w popc(M[r, w] & rm[w])`.
 
+Their batch forms, for a block of queries against one collection
+(multigather):
+
+- `counts_block` (X3b, `ops/bucketed.py:_counts_block_impl`): `counts_rows`
+  for each query of `Qhi/Qlo [bq, dq, B]`, `[bq, rows]` int32; the kernel
+  reads each subject slot once per sub-block of queries whose columns fit
+  its shared memory (`counts_block_plan`).
+- `membership_bits_batch` (X4b, `ops/bucketed.py:
+  _membership_bits_packed_batch`): `membership_bits` for each query, with
+  per-query occupancy `Qcnt [bq, B]`, selections `sel [bq, cap]`, slot
+  maps `slotmaps [bq, W * 32]` and inverse maps `inv [bq, dq * B]`;
+  `[bq, cap, W]` int32.
+- `round_dec_batch` (X5b, the decrement of `index/flat.py:
+  _schedule_scan_batch`): `[Q, k]` int32 `sum_w popc(M[q, r, w] & rm[q, w])`.
+
 Limbs and words are int32 bit patterns of u32 values (PAD = -1). Each
 wrapper checks its inputs (a wrong dtype, shape or layout raises
 TypeError, so no caller's ValueError handling can swallow it), allocates
@@ -31,7 +46,8 @@ import torch
 
 # kernel launches since the last reset_launch_counts(); only the CUDA
 # wrappers add to them, the plain versions never do
-LAUNCHES = {"counts_rows": 0, "membership_bits": 0, "round_dec": 0}
+LAUNCHES = {"counts_rows": 0, "membership_bits": 0, "round_dec": 0,
+            "counts_block": 0, "membership_bits_batch": 0, "round_dec_batch": 0}
 _D = 8  # subject slots per bucket, as the CUDA kernels are built
 _INT32_MIN = -(1 << 31)
 
@@ -84,13 +100,14 @@ def _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo):
 
 
 def _columns_ascending(qhi, qlo) -> bool:
-    "Is every column of the [dq, B] query planes ascending in unsigned (hi, lo) order?"
-    h0, h1 = _flip(qhi[:-1]), _flip(qhi[1:])
-    ok = (h0 < h1) | ((h0 == h1) & (_flip(qlo[:-1]) <= _flip(qlo[1:])))
+    """Is every column of the [..., dq, B] query planes ascending in
+    unsigned (hi, lo) order?"""
+    h0, h1 = _flip(qhi[..., :-1, :]), _flip(qhi[..., 1:, :])
+    ok = (h0 < h1) | ((h0 == h1) & (_flip(qlo[..., :-1, :]) <= _flip(qlo[..., 1:, :])))
     return bool(ok.all())
 
 
-def _check_query_order(qhi, qlo):
+def _check_query_order(qhi, qlo, name="counts_rows"):
     """Raise TypeError unless every query column is ascending. The check
     reads the planes back once; a pass is recorded on `qhi` with both
     planes' addresses and version counters, so the same unmodified planes
@@ -100,7 +117,7 @@ def _check_query_order(qhi, qlo):
     if getattr(qhi, "_ascending_at", None) == stamp:
         return
     if not _columns_ascending(qhi, qlo):
-        raise TypeError("counts_rows: a query column is not ascending in unsigned "
+        raise TypeError(f"{name}: a query column is not ascending in unsigned "
                         "(hi, lo) order, PAD last")
     qhi._ascending_at = stamp
 
@@ -244,3 +261,169 @@ def round_dec_plain(M, rm):
 
     _check_round(M, rm)
     return popcount_u32(M & rm[None]).sum(dim=1, dtype=torch.int32)
+
+
+# -- counts_block: X3b -------------------------------------------------------
+
+
+def _check_counts_block(Qhi, Qlo, Shi, Slo):
+    dev = Qhi.device if torch.is_tensor(Qhi) else None
+    _check("Qhi", Qhi, torch.int32, 3)
+    _check("Qlo", Qlo, torch.int32, 3, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    if Qhi.shape != Qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != Qhi.shape[2]:
+        raise TypeError(f"planes {tuple(Qhi.shape)} vs {tuple(Shi.shape)} do not match")
+
+
+def counts_block(Qhi, Qlo, Shi, Slo):
+    """Raw count of each query's limb pairs equal to a subject slot's,
+    PAD==PAD included: `counts_rows` for every query of the block at once.
+    Returns [bq, rows] int32.
+
+    Precondition: every query column `Qhi/Qlo[q, :, b]` is ascending in
+    unsigned (hi, lo) order, PAD last, as `pack_query_block_device` gives
+    it; a column out of order raises TypeError, on CPU tensors too."""
+    _check_counts_block(Qhi, Qlo, Shi, Slo)
+    _check_query_order(Qhi, Qlo, "counts_block")
+    if Qhi.device.type == "cpu":
+        return counts_block_plain(Qhi, Qlo, Shi, Slo)
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    if d != _D:
+        raise TypeError(f"the counts kernel takes {_D} subject slots, not {d}")
+    out = torch.zeros((bq, rows), dtype=torch.int32, device=Qhi.device)
+    _launch(
+        "gm_counts_block", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(), bq, dq, B,
+        Shi.data_ptr(), Slo.data_ptr(), rows, out.data_ptr(),
+    )
+    LAUNCHES["counts_block"] += 1
+    return out
+
+
+def counts_block_plan(bq: int, dq: int, device) -> int:
+    """The queries of a block of bq whose columns `counts_block` stages in
+    shared memory together at dq on `device` (each launch then reads the
+    subject rows ceil(bq / that) times), or 0 where one query's columns do
+    not fit and they are searched in global memory."""
+    import ctypes
+
+    from . import _build
+
+    qsub = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.load("gather").gm_counts_block_plan(bq, dq, ctypes.addressof(qsub))
+    if rc != 0:
+        raise RuntimeError(f"gm_counts_block_plan failed: CUDA error {rc}")
+    return qsub.value
+
+
+def counts_block_plain(Qhi, Qlo, Shi, Slo):
+    """Plain PyTorch version of `counts_block`: the d-loop broadcast compare
+    of `_counts_block_impl`, the query block broadcast inside."""
+    _check_counts_block(Qhi, Qlo, Shi, Slo)
+    qh = Qhi[:, None]  # [bq, 1, dq, B]
+    ql = Qlo[:, None]
+    acc = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int32, device=Shi.device)
+    for k2 in range(Shi.shape[1]):
+        eq = (Shi[None, :, k2, None, :] == qh) & (Slo[None, :, k2, None, :] == ql)
+        acc += eq.sum(dim=(2, 3), dtype=torch.int32)
+    return acc
+
+
+# -- membership_bits_batch: X4b ----------------------------------------------
+
+
+def _check_membership_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv):
+    dev = Qhi.device if torch.is_tensor(Qhi) else None
+    _check("Qhi", Qhi, torch.int32, 3)
+    _check("Qlo", Qlo, torch.int32, 3, dev)
+    _check("Qcnt", Qcnt, torch.int32, 2, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    _check("Scnt", Scnt, torch.uint8, 2, dev)
+    _check("sel", sel, torch.int64, 2, dev)
+    _check("slotmaps", slotmaps, torch.int32, 2, dev)
+    _check("inv", inv, torch.int32, 2, dev)
+    bq, dq, B = Qhi.shape
+    if Qhi.shape != Qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != B:
+        raise TypeError(f"planes {tuple(Qhi.shape)} vs {tuple(Shi.shape)} do not match")
+    if tuple(Scnt.shape) != (Shi.shape[0], B) or slotmaps.shape[1] % 32:
+        raise TypeError("Scnt must be [rows, B] and slotmaps a multiple of 32 long")
+    if (tuple(Qcnt.shape) != (bq, B) or tuple(inv.shape) != (bq, dq * B)
+            or sel.shape[0] != bq or slotmaps.shape[0] != bq):
+        raise TypeError("Qcnt must be [bq, B], inv [bq, dq * B], sel and slotmaps [bq, ...]")
+
+
+def membership_bits_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv):
+    """Membership words [bq, cap, W] int32: for each query q, the words of
+    rows `sel[q]` of one chunk's planes over the query hashes of
+    `slotmaps[q]` (`membership_bits` of query q). The kernel reads the
+    per-query occupancy Qcnt and inverse slot maps inv in the slot maps'
+    place; an entry of `sel` gives the words of the row it names, so a
+    padded selection gives real words that the caller disregards."""
+    _check_membership_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv)
+    if Qhi.device.type == "cpu":
+        return membership_bits_batch_plain(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv)
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    if d != _D:
+        raise TypeError(f"the membership kernel takes {_D} subject slots, not {d}")
+    if dq * B >= 2**31:
+        raise TypeError(f"query planes of {dq * B} slots are out of the kernel's range")
+    cap, W = sel.shape[1], slotmaps.shape[1] // 32
+    if sel.numel() and not (0 <= int(sel.min()) and int(sel.max()) < rows):
+        raise IndexError(f"sel holds rows outside [0, {rows})")
+    out = torch.empty((bq, cap, W), dtype=torch.int32, device=Qhi.device)
+    _launch(
+        "gm_membership_bits_batch", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(),
+        Qcnt.data_ptr(), bq, dq, B, Shi.data_ptr(), Slo.data_ptr(), Scnt.data_ptr(),
+        sel.data_ptr(), cap, inv.data_ptr(), W, out.data_ptr(),
+    )
+    LAUNCHES["membership_bits_batch"] += 1
+    return out
+
+
+def membership_bits_batch_plain(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv):
+    """Plain PyTorch version of `membership_bits_batch`: the plain
+    `membership_bits` of each query, stacked (the JAX function's vmap)."""
+    _check_membership_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv)
+    if not Qhi.shape[0]:
+        return torch.zeros((0, sel.shape[1], slotmaps.shape[1] // 32), dtype=torch.int32,
+                           device=Qhi.device)
+    return torch.stack([
+        membership_bits_plain(Qhi[q], Qlo[q], Qcnt[q], Shi, Slo, Scnt, sel[q], slotmaps[q],
+                              inv[q])
+        for q in range(Qhi.shape[0])
+    ])
+
+
+# -- round_dec_batch: X5b ----------------------------------------------------
+
+
+def _check_round_batch(M, rm):
+    _check("M", M, torch.int32, 3)
+    _check("rm", rm, torch.int32, 2, M.device)
+    if tuple(rm.shape) != (M.shape[0], M.shape[2]):
+        raise TypeError(f"rm is {tuple(rm.shape)}, M {tuple(M.shape)}")
+
+
+def round_dec_batch(M, rm):
+    "Per-row popcount of M [Q, k, W] & rm [Q, W] of its query: [Q, k] int32."
+    _check_round_batch(M, rm)
+    if M.device.type == "cpu":
+        return round_dec_batch_plain(M, rm)
+    Q, k, W = M.shape
+    out = torch.empty((Q, k), dtype=torch.int32, device=M.device)
+    _launch("gm_round_dec_batch", M.device, M.data_ptr(), rm.data_ptr(), Q, k, W,
+            out.data_ptr())
+    LAUNCHES["round_dec_batch"] += 1
+    return out
+
+
+def round_dec_batch_plain(M, rm):
+    "Plain PyTorch version of `round_dec_batch` (SWAR popcount in int64)."
+    from .bucketed import popcount_u32
+
+    _check_round_batch(M, rm)
+    return popcount_u32(M & rm[:, None]).sum(dim=2, dtype=torch.int32)

@@ -4,7 +4,8 @@
 The collection's sketches live on the device as bucketed u32 hi/lo planes
 (`ops/bucketed.py`), grouped into banks by sketch-length class and split
 into row chunks. A counter query is one `counts_rows` launch per chunk;
-the chunks' counts are concatenated on the device and read back once.
+the chunks' counts are concatenated on the device and read back once. A
+block of queries (multigather) is one `counts_block` launch per chunk.
 Collections whose planes exceed the device-memory budget stay on the host
 and stream to the device per query pass, a few chunks at a time.
 """
@@ -26,6 +27,7 @@ from .bucketed import (
     _pad_rows,
     _spill_counts_qvm,
     choose_buckets,
+    counts_block_dispatch,
     membership_matrix,
     pack_query_block_device,
     pack_query_bucketed,
@@ -200,6 +202,37 @@ def counts_for_banks(banks, query_mins: np.ndarray, n_datasets: int) -> np.ndarr
                     segs = []
     _drain_chunk_counts(segs, q, counts)
     return counts
+
+
+def counts_for_banks_batch(banks, queries, n_datasets: int, block: int = 8) -> np.ndarray:
+    """Overlap counts of many sorted queries with every bank row:
+    [len(queries), n_datasets] int64. One `counts_block` launch per (bank
+    chunk, block of `block` queries), so the bank planes are read once per
+    query block (the kernel's sub-blocks aside), not once per query. Each
+    block uploads its raw limb rows once and packs them on the device for
+    every bank's B; resident banks read back once per block and bank,
+    streamed banks every _STREAM_WINDOW chunks."""
+    qs = [np.asarray(q, dtype=np.uint64) for q in queries]
+    out = np.zeros((len(qs), n_datasets), dtype=np.int64)
+    for b0 in range(0, len(qs), block):
+        sub = qs[b0 : b0 + block]
+        raw = None
+        for bank in banks:
+            Qhi, Qlo, Qcnt, _dq, raw = pack_query_block_device(sub, bank.B, raw, bank.device)
+            pairs = list(zip(bank.chunks, bank.ids))
+            window = len(pairs) if bank.resident else _STREAM_WINDOW
+            for g0 in range(0, len(pairs), window):
+                parts = [(counts_block_dispatch(Qhi, Qlo, Qcnt, chunk), chunk, ids)
+                         for chunk, ids in pairs[g0 : g0 + window]]
+                host = torch.cat([p[0] for p in parts], dim=1).cpu().numpy()
+                off = 0
+                for dev, chunk, ids in parts:
+                    for qi, q in enumerate(sub):
+                        c = host[qi, off : off + len(ids)].astype(np.int64)
+                        _spill_counts_qvm(q, chunk, c)
+                        out[b0 + qi, ids] = c
+                    off += dev.shape[1]
+    return out
 
 
 # small LRU of packed query planes on the device: prefetch, counter build
