@@ -73,10 +73,24 @@ Phases, each raising on failure:
    `membership_bits_batch` and `round_dec_batch` must run, every sample's
    counts must come from the warm cache, the first block of schedules must
    take the device-membership route and the rest host matrices, and every
-   sample's rows must equal the numpy greedy gather; then the 4 large
+   sample's rows must equal the numpy greedy gather; then 2 of the large
    samples under SOURMASH_TORCH_SCHEDULE_CAP=512 (batched recounts) and 4
    small ones with the device budget below the planes (streamed banks)
    must write byte-identical CSVs.
+9. `compare` (config 2 of BASELINE.json) on collections of make_collection's
+   clades with abundances 1-50 (scaled=1000, B = 4096), written as zips, each
+   command with the launch counters set to 0 just before and read just
+   after. At n = 2,000, k = 31: Jaccard (`--ignore-abundance`), angular and
+   `--containment`, each writing `-o` and `--csv`: `counts_block` (or
+   `products_block`, angular) must run, the count (product) matrix the
+   command computed must equal a scipy.sparse oracle (X X^T, A A^T)
+   exactly, and the written matrix and CSV the oracle's counts through
+   compare.py's closed forms. At n = 200: `--max-containment` and
+   `--avg-containment`, each with and without `--estimate-ani`, at k = 31,
+   and `--avg-containment --estimate-ani` at k = 21 and 51, on the card and
+   with SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout, `.npy`, labels and CSV. Each
+   command's wall, all-pairs compares a second, launches and the matrix
+   and host-pack walls are printed.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -106,7 +120,17 @@ queries at a time), each timed beside
 bank whose columns exceed shared memory; `membership_bits_batch` with 4
 queries (~600 k, 150 k, empty, 20 k hashes) x 2,048 rows at W = ceil(600 k
 / 32), repacked at a depth above the block's own, with padded selections
-and rows with cnt = 8 and 2^64-1; `round_dec_batch` on its words.
+and rows with cnt = 8 and 2^64-1; `round_dec_batch` on its words. And
+compare's kernels on phase 9's own k=31 collection (2,000 sketches with
+abundances, [2048, 8, 4096] planes): `counts_block` with the bank's own
+rows as the query block at blocks of 16 and of `counts_block_plan`'s
+size, and `products_block` on `_pack_weighted`'s planes at blocks of 8 and
+of `products_block_plan`'s size, each timed with its bound and beside
+`torch.sparse.mm` of the same block (the library_ms yardstick), and the
+whole count and product matrices held to the scipy.sparse oracle; both
+again on edge rows (spills and 2^64-1 in two rows, a weighted bucket 20
+deep); `query_intersection_counts` of one sketch against the collection
+(the `counts_rows` engine) against `np.intersect1d`.
 
 Phase 2 then holds the sketch-kernel instruments (`csrc/sketch_parts.cu`)
 against their plain versions on the card, bit for bit: T2's passes
@@ -126,8 +150,9 @@ The last two lines are a JSON object with every kernel's numbers and then
 once at the main path's shape (the gather kernels on a 512-row chunk, the
 batch kernels with a block of 4 queries, the instruments at k=31), before
 the main path, and prints neither line; --profile runs `sketch dna`,
-`sketch protein`, `sketch translate`, `gather` and `multigather` once more
-under cProfile and torch.profiler and prints where their time goes. --sass-against DIR (a checkout of another commit) builds DIR's
+`sketch protein`, `sketch translate`, `gather`, `multigather` and `compare`
+(Jaccard and angular) once more under cProfile and torch.profiler and
+prints where their time goes. --sass-against DIR (a checkout of another commit) builds DIR's
 `csrc/sketch.cu` and this tree's with this tree's flags after phase 1 and
 fails unless the SASS of K1 and K2 equals this tree's for every k they are
 built for (21, 31, 51 and run-time k); it prints K3's instruction counts
@@ -141,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gzip
 import json
 import os
@@ -205,7 +231,17 @@ ROUTE_REPS = 4
 MULTI_LARGE, MULTI_SMALL = 4, 12
 MULTI_SMALL_HASHES = (20_000, 150_000)
 MULTI_CAP = "512"  # the capped rerun of the large samples: converge's recounts
+MULTI_CAPPED = 2  # large samples in the capped rerun (of MULTI_LARGE; cut for the time limit)
 BLOCK_QUERIES = 32  # phase 2's counts_block block: phase 8's mix, a quarter large
+# phase 9: `compare` (config 2 of BASELINE.json: Jaccard, containment and ANI
+# matrices at k = 21/31/51) at the size sourmash_tpu's docstring measures
+# ("2k x 5000", `sourmash_tpu/ops/bucketed.py:824`): make_collection's
+# clades at scaled=1000 (B = 4096) with abundances; n = 2,000 at k = 31, and
+# n = 200 at each k for the card-against-CPU byte comparison
+COMPARE_GENOMES = 2000
+COMPARE_SMALL = 200
+COMPARE_KS = (21, 31, 51)
+COMPARE_SEED = 20261017  # each collection's own, so phases 2 and 9 share it
 
 
 def log(*args):
@@ -1967,14 +2003,15 @@ def instruments_path() -> dict:
     return launches
 
 
-def make_collection(rng, n: int):
-    """n sketches at k=31, scaled=1000 in clades of 1-20 genomes: each member
-    holds 2,000-6,000 hashes, 50-95 % of them from the clade's core."""
+def make_collection(rng, n: int, ksize: int = 31, abundances: bool = False):
+    """n sketches at `ksize`, scaled=1000 in clades of 1-20 genomes: each
+    member holds 2,000-6,000 hashes, 50-95 % of them from the clade's core;
+    with `abundances`, abundances 1-50 (`abunds_array()` of each sketch)."""
     from sourmash_tpu_torch import signature_from_arrays
 
     mh = max_hash_for(GATHER_SCALED)
-    params = dict(ksize=31, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
-                  track_abundance=False)
+    params = dict(ksize=ksize, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
+                  track_abundance=abundances)
     sigs, mins_list, clade = [], [], 0
     while len(sigs) < n:
         core = random_sketch(rng, 6000, mh)
@@ -1983,8 +2020,10 @@ def make_collection(rng, n: int):
             kept = core[: int(size * rng.uniform(0.5, 0.95))]
             kept = rng.permutation(kept)
             m = np.unique(np.r_[kept, random_sketch(rng, size - len(kept), mh)])
+            ab = rng.integers(1, 51, size=len(m)) if abundances else None
             mins_list.append(m)
-            sigs.append(signature_from_arrays(params, m, name=f"genome_{len(sigs)} clade_{clade}",
+            sigs.append(signature_from_arrays(params, m, ab,
+                                              name=f"genome_{len(sigs)} clade_{clade}",
                                               filename=f"genome_{len(sigs)}.fa.gz"))
             if len(sigs) == n:
                 break
@@ -2476,8 +2515,8 @@ def multigather_end_to_end(rng, tmp: str, world: dict, profile_cli: bool = False
     the large first) against phase 6's zip: counts_block,
     membership_bits_batch and round_dec_batch must run, the first block of
     schedules on the device-membership route and the rest on host matrices,
-    and every sample's CSV must equal oracle_gather. Then the large samples
-    again under SOURMASH_TORCH_SCHEDULE_CAP=MULTI_CAP (converge's batched
+    and every sample's CSV must equal oracle_gather. Then MULTI_CAPPED large
+    samples again under SOURMASH_TORCH_SCHEDULE_CAP=MULTI_CAP (converge's batched
     recounts) and MULTI_LARGE small ones with the device budget below the
     planes (streamed banks): byte-identical CSVs."""
     mins_list, names, db = world["mins_list"], world["names"], world["db"]
@@ -2515,7 +2554,7 @@ def multigather_end_to_end(rng, tmp: str, world: dict, profile_cli: bool = False
     log(f"  every sample's rows equal the numpy oracle ({sum(len(w) for w in wants)} rows)")
 
     for tag, part, env in (
-        ("capped", paths[:MULTI_LARGE], {"SOURMASH_TORCH_SCHEDULE_CAP": MULTI_CAP}),
+        ("capped", paths[:MULTI_CAPPED], {"SOURMASH_TORCH_SCHEDULE_CAP": MULTI_CAP}),
         ("streamed", paths[MULTI_LARGE : 2 * MULTI_LARGE], {BUDGET_ENV: "1"}),
     ):
         rerun = os.path.join(tmp, f"multi_{tag}")
@@ -2542,6 +2581,431 @@ def multigather_end_to_end(rng, tmp: str, world: dict, profile_cli: bool = False
                 runs=runs, profile=profile)
 
 
+# -- phase 2 (compare's kernels) and phase 9: compare end to end --------------
+
+
+def incidence(mins_list, values=None):
+    """scipy.sparse CSR [n, distinct hashes] of the sketches: 1 where a
+    sketch holds a hash, or the hash's value of `values` (its abundance)."""
+    import scipy.sparse as sp
+
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64, count=len(mins_list))
+    uniq, cols = np.unique(np.concatenate(mins_list), return_inverse=True)
+    data = (np.ones(int(lens.sum()), dtype=np.int64) if values is None
+            else np.concatenate(values).astype(np.int64))
+    rows = np.repeat(np.arange(len(mins_list)), lens)
+    return sp.csr_matrix((data, (rows, cols)), shape=(len(mins_list), len(uniq)))
+
+
+def oracle_pairwise(mins_list, values=None) -> np.ndarray:
+    """[n, n] int64 X @ X.T of the sketches' sparse incidence matrix: each
+    pair's shared hashes, or with `values` the sum of the products of their
+    values over them. Independent of the port's packs and kernels."""
+    X = incidence(mins_list, values)
+    return np.asarray((X @ X.T).toarray(), dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def compare_collection(k: int, n: int) -> tuple:
+    """(sigs, mins, clades, abundances) of n sketches at ksize k with
+    abundances 1-50 (make_collection), made once from COMPARE_SEED, k and
+    n: phase 2 times compare's kernels on the planes that phase 9's path
+    gives them."""
+    rng = np.random.default_rng([COMPARE_SEED, k, n])
+    sigs, mins_list, clades = make_collection(rng, n, ksize=k, abundances=True)
+    return sigs, mins_list, clades, [s.minhash.abunds_array() for s in sigs]
+
+
+@functools.lru_cache(maxsize=None)
+def compare_oracle(k: int, n: int) -> tuple:
+    "(counts, products) of compare_collection(k, n) by oracle_pairwise."
+    _sigs, mins_list, _clades, abunds = compare_collection(k, n)
+    return oracle_pairwise(mins_list), oracle_pairwise(mins_list, abunds)
+
+
+def sparse_product_ms(mins_list, values, q_rows: int, reps: int, want) -> float | None:
+    """The time of one torch.sparse.mm on the card of q_rows sketches'
+    incidence rows against every sketch's (float64, exact below 2^53): the
+    library call that computes the same block of counts (or products) from
+    another layout, the kernels line's library_ms. None, with the reason
+    logged, where the call is refused or disagrees with `want`."""
+    import torch
+
+    X = incidence(mins_list, values)
+
+    def on_card(m):
+        m = m.tocoo()
+        idx = torch.from_numpy(np.vstack([m.row, m.col]).astype(np.int64))
+        return torch.sparse_coo_tensor(idx, torch.from_numpy(m.data.astype(np.float64)),
+                                       m.shape, device=GATHER_DEVICE).coalesce()
+
+    try:
+        Q, XT = on_card(X[:q_rows]), on_card(X.T)
+        got = torch.sparse.mm(Q, XT).to_dense().cpu().numpy()
+        if not np.array_equal(got, want[:q_rows].astype(np.float64)):
+            log("  torch.sparse.mm disagrees with the oracle; no library time")
+            return None
+        return time_ms(lambda: torch.sparse.mm(Q, XT), reps)
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  torch.sparse.mm refused ({str(exc)[:200]}); no library time")
+        return None
+
+
+def weighted_edge_rows(rng):
+    """16 sketches with abundances at B = 128: 2^64-1 (a valid hash in the
+    weighted planes) in two of them, and 20 hashes of one bucket in rows 0
+    and 1 (a depth of 20, past the 8 slots a lane holds in registers)."""
+    rows = [random_sketch(rng, int(rng.integers(80, 160)), 2**64 - 1) for _ in range(16)]
+    rows = [np.sort(m) for m in rows]
+    for i in range(1, 16, 2):
+        rows[i] = np.unique(np.r_[rows[i], rows[i - 1][::2]])
+    top = np.uint64(2**64 - 1)
+    rows[2], rows[5] = np.unique(np.r_[rows[2], top]), np.unique(np.r_[rows[5], top])
+    deep = (np.arange(20, dtype=np.uint64) << np.uint64(32)) * np.uint64(128) + np.uint64(5)
+    rows[0], rows[1] = np.unique(np.r_[rows[0], deep]), np.unique(np.r_[rows[1], deep[3:]])
+    return rows, [rng.integers(1, 2**19, size=len(m)).astype(np.int64) for m in rows]
+
+
+def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
+    """compare's kernels on phase 9's k=31 collection ([2048, 8, 4096] at
+    n = 2,000; 256 sketches with --quick), so at the path's block and depth,
+    bit for bit against their plain versions, each timed with its bound and
+    beside torch.sparse.mm of the same block: counts_block with the bank's
+    own rows as the query block [block, 8, B], at sourmash_tpu's block of
+    16 and at counts_block_plan's (every query staged), each beside the
+    whole matrix (`pairwise_counts_bucketed`) at that block held to the
+    scipy.sparse oracle; products_block at the path's block on
+    `_pack_weighted`'s planes, and the whole product matrix held to the
+    oracle; both again on edge rows (spills and 2^64-1 in two rows; a
+    weighted bucket 20 deep); `query_intersection_counts` of one sketch
+    against the collection (`counts_rows` on CUDA) against np.intersect1d."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops import intersect
+
+    dev = torch.device(GATHER_DEVICE)
+    n = 256 if quick else COMPARE_GENOMES
+    reps = 3 if quick else 10
+    t0 = time.time()
+    _sigs, mins_list, _clades, abunds = compare_collection(TIMED_K, n)
+    C, P = compare_oracle(TIMED_K, n)
+    log(f"  {n} sketches with abundances and their scipy.sparse oracle in {time.time() - t0:.1f} s")
+
+    B = bk.choose_buckets(max(len(m) for m in mins_list))
+    bank = bk.pack_rows_device(mins_list, B, device=dev)
+    Shi, Slo, Scnt = bank.hi, bank.lo, bank.cnt
+    rows = Shi.shape[0]
+    Qcnt = Scnt.to(torch.int32)
+    path_block = bk._PAIRWISE_BLOCK
+    blocks = {}
+    for block in sorted({16, cg.counts_block_plan(rows, 8, dev)}):
+        Qhi, Qlo = Shi[:block], Slo[:block]
+        got = cg.counts_block(Qhi, Qlo, Shi, Slo)
+        t0 = time.time()
+        torch.cuda.synchronize()
+        want = plain_grid(lambda a, r: cg.counts_block_plain(
+            Qhi[a].contiguous(), Qlo[a].contiguous(), Shi[r].contiguous(), Slo[r].contiguous()),
+            block, rows, 8, 256)
+        torch.cuda.synchronize()
+        plain = (time.time() - t0) * 1e3
+        err = exact(f"counts_block pairwise, block {block}", got, want)
+        ms, b2b = kernel_times(lambda: cg.counts_block(Qhi, Qlo, Shi, Slo), reps)
+        ops = search_ops(Qcnt[:block], Scnt)
+        bms, by = bound_ms(2 * Shi.numel() * 4 + 2 * Qhi.numel() * 4 + block * rows * 4, 0, ops,
+                           clock_hz)
+        lib = sparse_product_ms(mins_list, None, min(block, n), reps, C)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        M = bk.pairwise_counts_bucketed(mins_list, block=block, device=dev)
+        whole = time.time() - t0
+        if not np.array_equal(M, C):
+            raise AssertionError(f"pairwise_counts_bucketed, block {block}: "
+                                 f"{int((M != C).sum())} entries differ from the sparse oracle")
+        launches = -(-rows // block)
+        blocks[block] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
+                             max_abs_err=err, library_ms=lib, bq=block, rows=rows, B=B, ops=ops,
+                             launches_per_matrix=launches, matrix_kernel_ms=launches * b2b,
+                             matrix_wall_s=whole)
+        log(f"  counts_block [{block}, 8, {B}] vs [{rows}, 8, {B}] (the bank's own rows): equals "
+            f"its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} "
+            f"ms, bound {bms:.4f} ms ({by}, {ops} ops), {100 * bms / b2b:.1f} % of it back to "
+            f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
+            f"({launches * b2b:.2f} ms back to back); pairwise_counts_bucketed {whole:.3f} s, "
+            f"equal to the sparse oracle")
+    best = min(blocks, key=lambda b: blocks[b]["matrix_kernel_ms"])
+    log(f"  counts_block blocks: {best} is the faster a matrix; the path takes {path_block}")
+    results = {"counts_block_pairwise": dict(blocks[path_block], blocks=blocks, faster=best)}
+
+    t0 = time.time()
+    hi, lo, av, cnt, _B = bk._pack_weighted(mins_list, abunds)
+    pack_s = time.time() - t0
+    S = tuple(bk.to_torch(x, dev) for x in (hi, lo, av, cnt))
+    d = S[0].shape[1]
+    path_block = cg.products_block_plan(rows, d, dev)
+    blocks = {}
+    for block in sorted({8, path_block}):
+        Q = tuple(x[:block] for x in S)
+        got = cg.products_block(*Q, *S)
+        t0 = time.time()
+        torch.cuda.synchronize()
+        want = plain_grid(lambda a, r: cg.products_block_plain(
+            *(x[a].contiguous() for x in Q), *(x[r].contiguous() for x in S)), block, rows, 4, 128)
+        torch.cuda.synchronize()
+        plain = (time.time() - t0) * 1e3
+        err = exact(f"products_block, block {block}", got, want)
+        if not np.array_equal(got[: min(block, n), :n].cpu().numpy(), P[: min(block, n)]):
+            raise AssertionError("products_block: the block differs from the sparse oracle")
+        ms, b2b = kernel_times(lambda: cg.products_block(*Q, *S), reps)
+        # least work: each valid row slot binary-searched in each query's
+        # valid prefix of its bucket (`search_ops`, no PAD slots), and for
+        # each hit a 64-bit multiply and add; least bytes: the occupancies,
+        # the valid slots' hi, lo and abundance (12 bytes each; the slots
+        # past an occupancy need no read), and the [block, rows] int64 out
+        hits = int(C[: min(block, n)].sum())
+        ops = search_ops(Q[3], S[3], pad=False) + 2 * hits
+        nbytes = sum(c.numel() * c.element_size() + 12 * int(c.sum(dtype=torch.int64))
+                     for c in (Q[3], S[3])) + block * rows * 8
+        bms, by = bound_ms(nbytes, IMAD_PER_MUL * hits, ops, clock_hz)
+        lib = sparse_product_ms(mins_list, abunds, min(block, n), reps, P)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        M = bk.pairwise_weighted_products(mins_list, abunds, block=block, device=dev)
+        whole = time.time() - t0
+        if not np.array_equal(M, P):
+            raise AssertionError(f"pairwise_weighted_products, block {block}: "
+                                 f"{int((M != P).sum())} entries differ from the sparse oracle")
+        launches = -(-rows // block)
+        blocks[block] = dict(
+            ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+            library_ms=lib, bq=block, rows=rows, d=d, B=B, hits=hits, ops=ops, pack_s=pack_s,
+            launches_per_matrix=launches, matrix_kernel_ms=launches * b2b, matrix_wall_s=whole)
+        log(f"  products_block [{block}, {d}, {B}] vs [{rows}, {d}, {B}]: equals its plain "
+            f"version and the oracle; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain "
+            f"{plain:.0f} ms, bound {bms:.4f} ms ({by}), {100 * bms / b2b:.1f} % of it back to "
+            f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
+            f"({launches * b2b:.2f} ms back to back); pairwise_weighted_products {whole:.3f} s "
+            f"(host pack {pack_s:.2f} s), equal to the sparse oracle")
+    best = min(blocks, key=lambda b: blocks[b]["matrix_kernel_ms"])
+    log(f"  products_block blocks: {best} is the faster a matrix; the path takes {path_block}")
+    results["products_block"] = dict(blocks[path_block], blocks=blocks, faster=best)
+    del bank, Shi, Slo, S, Q
+
+    # edge rows: spills and 2^64-1 in the counts; 2^64-1 and a deep bucket in the products
+    erows, eab = weighted_edge_rows(rng)
+    got = bk.pairwise_counts_bucketed(erows, device=dev)
+    if not np.array_equal(got, oracle_pairwise(erows)):
+        raise AssertionError("pairwise_counts_bucketed on edge rows differs from the oracle")
+    planes = [bk.to_torch(x, dev) for x in bk._pack_weighted(erows, eab)[:4]]
+    got = cg.products_block(*planes, *planes)
+    exact("products_block, edge rows", got, cg.products_block_plain(*planes, *planes))
+    if not np.array_equal(got[:16, :16].cpu().numpy(), oracle_pairwise(erows, eab)):
+        raise AssertionError("products_block on edge rows differs from the oracle")
+    log(f"  edge rows (spills, 2^64-1 in two rows, a weighted bucket {planes[0].shape[1]} deep): "
+        f"pairwise_counts_bucketed and products_block equal the oracle and the plain version")
+
+    # query vs many without cutoffs, past the host cutoff: the counts_rows engine
+    q = max(mins_list, key=len)
+    if len(q) * n + sum(len(m) for m in mins_list) < intersect._HOST_WORK_CUTOFF:
+        raise AssertionError("query_intersection_counts: the collection is under the host cutoff")
+    cg.reset_launch_counts()
+    got = intersect.query_intersection_counts(q, mins_list, device=dev)
+    if cg.LAUNCHES["counts_rows"] < 1:
+        raise AssertionError("query_intersection_counts: counts_rows was not launched")
+    want = np.array([len(np.intersect1d(q, m)) for m in mins_list], dtype=np.int64)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"query_intersection_counts: {int((got != want).sum())} counts "
+                             f"differ from np.intersect1d")
+    log(f"  query_intersection_counts of a {len(q)}-hash sketch vs {n}: "
+        f"{cg.LAUNCHES['counts_rows']} counts_rows launches, equal to np.intersect1d")
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_compare(argv: list, env: dict) -> dict:
+    """One `compare` run (run_counted: launches and wall), its stdout and
+    stderr captured, with the count and product matrices the command
+    computed and the wall of each, and of the packs inside them."""
+    import io
+
+    import torch
+
+    from sourmash_tpu_torch import compare as tcompare
+    from sourmash_tpu_torch.ops import bucketed as bk
+
+    seen = {}
+
+    def spy(key, keep):
+        def wrap(fn):
+            def spied(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                seen[f"{key}_s"] = seen.get(f"{key}_s", 0.0) + time.time() - t0
+                if keep:
+                    seen[key] = out
+                return out
+            return spied
+        return wrap
+
+    stdout = io.StringIO()
+    with patched(tcompare, "pairwise_intersection_counts", spy("counts", True)), \
+            patched(bk, "pairwise_weighted_products", spy("products", True)), \
+            patched(bk, "pack_rows_device", spy("pack", False)), \
+            patched(bk, "_pack_weighted", spy("pack", False)), \
+            contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(io.StringIO()):
+        wall, launches = run_counted(["compare", *argv], env)
+    return dict(wall_s=wall, launches={n: launches[n] for n in COMPARE_KERNELS},
+                stdout=stdout.getvalue(), **seen)
+
+
+def compare_closed_form(mode: str, C, P, norms, scaled: int) -> np.ndarray:
+    """The matrix `compare` writes, from exact counts C (and products P,
+    abundance norms) by compare.py's closed forms, term for term: Jaccard
+    common / max(1, union); angular 1 - 2 arccos(min(P / (|a_i| |a_j|), 1))
+    / pi; containment of j in i common / (len_j * bias(len_j))."""
+    n = len(C)
+    lens = np.diagonal(C).astype(np.int64)
+    if mode == "jaccard":
+        out = C / np.maximum(1, lens[:, None] + lens[None, :] - C)
+    elif mode == "angular":
+        zero = 1.0 - 2.0 * np.arccos(min(0.0 / 1.0, 1.0)) / np.pi
+        out = np.full((n, n), zero)
+        for i, j in zip(*np.nonzero(np.triu(P, 1))):
+            if norms[i] == 0.0 or norms[j] == 0.0:
+                v = 0.0
+            else:
+                cos = min(float(P[i, j]) / (norms[i] * norms[j]), 1.0)
+                v = 1.0 - 2.0 * np.arccos(cos) / np.pi
+            out[i, j] = out[j, i] = v
+    else:
+        bias = np.array([1.0 - (1.0 - 1.0 / scaled) ** float(int(m) * scaled) for m in lens])
+        out = np.maximum(0.0, np.minimum(1.0, C / (lens * bias)[None, :]))
+    np.fill_diagonal(out, 1.0)
+    return out
+
+
+def read_compare_outputs(out: str) -> tuple:
+    "(labels, matrix, csv matrix) that `compare -o out --csv out.csv` wrote."
+    import csv
+
+    with open(out + ".labels.txt") as f:
+        labels = f.read().split("\n")
+    with open(out + ".csv", newline="") as f:
+        table = list(csv.reader(f))
+    if table[0] != labels:
+        raise AssertionError(f"{out}.csv: its header is not the labels")
+    return labels, np.load(out), np.array([[float(v) for v in row] for row in table[1:]])
+
+
+def compare_end_to_end(tmp: str, profile_cli: bool = False) -> dict:
+    """`compare` (config 2 of BASELINE.json) on compare_collection's
+    sketches (abundances 1-50): COMPARE_GENOMES at k=31, phase 2's, and
+    COMPARE_SMALL at each of COMPARE_KS, each a zip. At n = 2,000: Jaccard
+    with --ignore-abundance, angular (products_block) and --containment,
+    each writing -o and --csv; the count and product matrices the command
+    computed must equal the scipy.sparse oracle exactly, and each written
+    matrix (and its CSV) the oracle's counts through compare.py's closed
+    forms. At n = 200: COMPARE_SMALL_MODES at k=31 and the last of them at
+    each other k, on the card and with
+    SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout
+    and files."""
+    from sourmash_tpu_torch.__main__ import main as cli_main
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    t0 = time.time()
+    colls = {}
+    for k in COMPARE_KS:
+        n = COMPARE_GENOMES if k == TIMED_K else COMPARE_SMALL
+        sigs, mins_list, clades, abunds = compare_collection(k, n)
+        paths = {}
+        parts = [("all", sigs)] if k == TIMED_K else []
+        for tag, part in parts + [("small", sigs[:COMPARE_SMALL])]:
+            paths[tag] = os.path.join(tmp, f"compare_k{k}_{tag}.zip")
+            with SaveSignaturesToLocation(paths[tag]) as save:
+                for ss in part:
+                    save.add(ss)
+        colls[k] = dict(sigs=sigs, mins=mins_list, abunds=abunds, paths=paths, clades=clades)
+    log(f"  made {COMPARE_GENOMES} sketches at k={TIMED_K} and {COMPARE_SMALL} at each other k "
+        f"of {COMPARE_KS} (abundances 1-50), written as zips, in {time.time() - t0:.1f} s")
+
+    big = colls[TIMED_K]
+    t0 = time.time()
+    C, P = compare_oracle(TIMED_K, COMPARE_GENOMES)
+    norms = np.array([np.sqrt(float(np.sum(ab.astype(np.float64) ** 2))) for ab in big["abunds"]])
+    where = {str(s): i for i, s in enumerate(big["sigs"])}
+    log(f"  scipy.sparse oracle (X X^T and A A^T, phase 2's) in {time.time() - t0:.1f} s")
+
+    runs = {}
+    n = COMPARE_GENOMES
+    for mode, flags, kernel in (("jaccard", ["--ignore-abundance"], "counts_block"),
+                                ("angular", [], "products_block"),
+                                ("containment", ["--containment"], "counts_block")):
+        out = os.path.join(tmp, f"compare_{mode}.npy")
+        run = run_compare([big["paths"]["all"], *flags, "-o", out, "--csv", out + ".csv"], {})
+        labels, M, M_csv = read_compare_outputs(out)
+        idx = np.array([where[label] for label in labels])
+        Ci, Pi = C[np.ix_(idx, idx)], P[np.ix_(idx, idx)]
+        if run["launches"][kernel] < 1:
+            raise AssertionError(f"compare ({mode}): {kernel} not launched: {run['launches']}")
+        computed = run.get("products" if mode == "angular" else "counts")
+        if not np.array_equal(computed, Pi if mode == "angular" else Ci):
+            raise AssertionError(f"compare ({mode}): the matrix it computed differs from the oracle")
+        want = compare_closed_form(mode, Ci, Pi, norms[idx], GATHER_SCALED)
+        if not (np.array_equal(M, want) and np.array_equal(M_csv, want)):
+            raise AssertionError(f"compare ({mode}): {int((M != want).sum())} written values differ "
+                                 f"from the oracle's closed form")
+        run = {key: v for key, v in run.items() if key not in ("counts", "products", "stdout")}
+        runs[mode] = dict(run, pairs_per_s=n * n / run["wall_s"])
+        log(f"  compare ({mode}), n = {n}: {run['wall_s']:.2f} s wall, {n * n / run['wall_s']:.0f} "
+            f"all-pairs compares/s; matrix {run.get('products_s', run.get('counts_s', 0)):.3f} s "
+            f"(host pack {run.get('pack_s', 0.0):.3f} s); launches {run['launches']}; the "
+            f"computed matrix equals the oracle and -o and --csv its closed form")
+
+    cross = {}
+    for k in COMPARE_KS:
+        for flags in COMPARE_SMALL_MODES if k == TIMED_K else COMPARE_SMALL_MODES[-1:]:
+            tag = f"k{k} {' '.join(flags)}"
+            outs = {}
+            for dev, env in (("cuda", {}), ("cpu", {"SOURMASH_TORCH_DEVICE": "cpu"})):
+                d = os.path.join(tmp, f"cross_{k}_{'_'.join(f.strip('-') for f in flags)}_{dev}")
+                os.makedirs(d)
+                run = run_compare([colls[k]["paths"]["small"], *flags, "-o", os.path.join(d, "m"),
+                                   "--csv", os.path.join(d, "m.csv")], env)
+                files = {f: open(os.path.join(d, f), "rb").read() for f in sorted(os.listdir(d))}
+                outs[dev] = (run, files)
+            (crun, cfiles), (hrun, hfiles) = outs["cuda"], outs["cpu"]
+            if crun["launches"]["counts_block"] < 1 or any(hrun["launches"].values()):
+                raise AssertionError(f"compare ({tag}): launches {crun['launches']} on the card, "
+                                     f"{hrun['launches']} on the CPU")
+            if cfiles != hfiles or crun["stdout"] != hrun["stdout"]:
+                raise AssertionError(f"compare ({tag}): the card's outputs differ from the CPU's")
+            cross[tag] = dict(cuda_s=crun["wall_s"], cpu_s=hrun["wall_s"],
+                              launches=crun["launches"])
+    log(f"  n = {COMPARE_SMALL}, k = {COMPARE_KS}: {len(cross)} commands "
+        f"({', '.join(cross)}) on the card byte-identical to the CPU's sorted engine; walls card "
+        f"{[round(c['cuda_s'], 2) for c in cross.values()]} s, CPU "
+        f"{[round(c['cpu_s'], 2) for c in cross.values()]} s")
+
+    profile = {}
+    if profile_cli:
+        for mode, flags in (("jaccard", ["--ignore-abundance"]), ("angular", [])):
+            argv = ["compare", big["paths"]["all"], *flags, "-q",
+                    "-o", os.path.join(tmp, f"profiled_{mode}.npy")]
+            profile[mode] = profiled(lambda: cli_main(argv), f"compare ({mode})")
+    return dict(n=n, small=COMPARE_SMALL, ks=list(COMPARE_KS), runs=runs, cross=cross,
+                clades=big["clades"], hashes=int(np.diagonal(C).sum()), profile=profile)
+
+
+COMPARE_KERNELS = ("counts_block", "products_block")
+# phase 9's n = 200 commands, run on the card and on the CPU: all four at
+# k = 31, the last (both directions' containment and ANI) at the other k
+# (cut from all four for the time limit)
+COMPARE_SMALL_MODES = (["--max-containment"], ["--avg-containment"],
+                       ["--max-containment", "--estimate-ani"],
+                       ["--avg-containment", "--estimate-ani"])
 MULTI_KERNELS = ("counts_block", "membership_bits_batch", "round_dec_batch")
 BUDGET_ENV = "SOURMASH_TORCH_GPU_BUDGET_BYTES"
 
@@ -2577,6 +3041,16 @@ KERNELS = {
     "membership_bits_batch": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
         replaces="sourmash_tpu/ops/bucketed.py:985",
+    ),
+    # compare's all-pairs counts: counts_block with the bank's own rows as
+    # the query block (dq = d = 8)
+    "counts_block (compare)": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:619",
+    ),
+    "products_block": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:1025",
     ),
     "round_dec_batch": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
@@ -2659,6 +3133,7 @@ def main(argv=None) -> int:
     log("phase 2: kernels against their plain versions on the card (exact)")
     timings = check_kernels(args.quick, rng, clock_hz)
     timings.update(check_gather_kernels(args.quick, rng, clock_hz))
+    timings.update(check_compare_kernels(args.quick, rng, clock_hz))
     t1 = time.time()
     log("phase 2: the sketch-kernel instruments against their plain versions and K1 (exact)")
     timings.update(check_instruments(args.quick, rng, clock_hz))
@@ -2701,6 +3176,10 @@ def main(argv=None) -> int:
         multi = dict(search=search_end_to_end(tmp, world), prefetch=prefetch_end_to_end(tmp, world),
                      multigather=multigather_end_to_end(rng, tmp, world, args.profile))
         log(f"phase 8 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log(f"phase 9: compare end to end on {COMPARE_GENOMES} genomes")
+        cmp = compare_end_to_end(tmp, args.profile)
+        log(f"phase 9 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -2711,6 +3190,8 @@ def main(argv=None) -> int:
                     membership_bits=gather_launches["membership_bits"],
                     round_dec=gather_launches["round_dec"],
                     **multi["multigather"]["runs"]["all"]["launches"],
+                    **{"counts_block (compare)": cmp["runs"]["jaccard"]["launches"]["counts_block"],
+                       "products_block": cmp["runs"]["angular"]["launches"]["products_block"]},
                     **{name: instr[name] for name in INSTRUMENTS})
     timed = dict(survivor_slots=timings["survivor_slots"][TIMED_K],
                  window_hashes=timings["window_hashes"][TIMED_K],
@@ -2719,7 +3200,15 @@ def main(argv=None) -> int:
                  membership_bits=timings["membership_bits"],
                  round_dec=timings["round_dec"],
                  **{name: timings[name] for name in MULTI_KERNELS},
+                 **{"counts_block (compare)": timings["counts_block_pairwise"],
+                    "products_block": timings["products_block"]},
                  **{name: timings[name] for name in INSTRUMENTS})
+    # phase 2 timed compare's kernels on phase 9's planes at the path's block
+    for name in ("counts_block (compare)", "products_block"):
+        if launches[name] != timed[name]["launches_per_matrix"]:
+            raise AssertionError(f"{name}: phase 9 launched it {launches[name]} times a matrix, "
+                                 f"phase 2 timed blocks of {timed[name]['bq']} "
+                                 f"({timed[name]['launches_per_matrix']} a matrix)")
     line = []
     for name, meta in KERNELS.items():
         t = timed[name]
@@ -2727,12 +3216,12 @@ def main(argv=None) -> int:
             name=name, **meta,
             launches=launches[name],
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t.get("library_ms"),
         ))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
-                           protein=prot, translate=trans, gather=gath, multi=multi,
+                           protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(card)
     print(json.dumps({"kernels": line}))

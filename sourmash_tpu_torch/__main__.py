@@ -1,12 +1,13 @@
 """Entry point: `python -m sourmash_tpu_torch sketch dna ...`, `... gather
 query.sig db.zip` and so on (counterpart of `sourmash_tpu/__main__.py`;
-`sketch`, `search`, `gather`, `multigather` and `prefetch` are ported)."""
+`sketch`, `compare`, `search`, `gather`, `multigather` and `prefetch` are
+ported)."""
 
 from __future__ import annotations
 
 import sys
 
-_COMMANDS = ("search", "gather", "multigather", "prefetch")
+_COMMANDS = ("compare", "search", "gather", "multigather", "prefetch")
 
 
 def main(arglist=None):

@@ -1,5 +1,5 @@
-"""Command-line interface of the port: the `sketch` subtree, `search`,
-`gather`, `multigather` and `prefetch`.
+"""Command-line interface of the port: the `sketch` subtree, `compare`,
+`search`, `gather`, `multigather` and `prefetch`.
 
 Parity: `sourmash_tpu/cli/__init__.py` (itself reference
 `src/sourmash/cli/__init__.py`) and `sourmash_tpu/cli/utils.py` — same
@@ -135,6 +135,49 @@ def add_scaled_arg(parser, default=None):
         "--scaled", metavar="FLOAT", type=check_scaled_bounds,
         help="downsample to this scaled; value should be between 100 and 1e6",
     )
+
+
+def _add_compare(sub):
+    "`compare` (`sourmash_tpu/cli/__init__.py:77`)."
+    p = sub.add_parser("compare", description="compare sequence signatures")
+    p.add_argument("signatures", nargs="*", default=[],
+                   help="list of signatures to compare")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="suppress non-error output")
+    p.add_argument("-o", "--output", metavar="F",
+                   help="file to which output will be written; default is terminal")
+    p.add_argument("--ignore-abundance", action="store_true",
+                   help="do NOT use k-mer abundances even if present")
+    p.add_argument("--containment", action="store_true",
+                   help="calculate containment instead of similarity")
+    p.add_argument("--max-containment", action="store_true",
+                   help="calculate max containment instead of similarity")
+    p.add_argument("--avg-containment", "--average-containment",
+                   action="store_true",
+                   help="calculate average containment instead of similarity")
+    p.add_argument("--estimate-ani", "--ANI", "--ani", action="store_true",
+                   help="return ANI estimates instead of similarity/containment")
+    p.add_argument("--from-file",
+                   help="a text file containing a list of files to load signatures from")
+    p.add_argument("-f", "--force", action="store_true",
+                   help="continue past errors in file loading")
+    p.add_argument("--csv", metavar="F",
+                   help="write matrix to specified file in CSV format")
+    p.add_argument("--labels-to", "--labels-save",
+                   help="a CSV file containing label information")
+    p.add_argument("-p", "--processes", metavar="N", type=int, default=None,
+                   help="number of processes to use for calculation")
+    p.add_argument("--distance-matrix", action="store_true",
+                   help="output a distance matrix, instead of a similarity matrix")
+    p.add_argument("--similarity-matrix", action="store_false",
+                   dest="distance_matrix",
+                   help="output a similarity matrix (default)")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    add_picklist_args(p)
+    add_pattern_args(p)
+    add_scaled_arg(p)
+    p.set_defaults(func="compare")
 
 
 def _add_search(sub):
@@ -392,6 +435,7 @@ def get_parser():
                         help="don't print citation information")
     sub = parser.add_subparsers(title="Instructions", dest="cmd", metavar="cmd",
                                 help=SUPPRESS)
+    _add_compare(sub)
     _add_sketch(sub)
     _add_search(sub)
     _add_gather(sub)

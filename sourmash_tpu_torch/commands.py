@@ -1,6 +1,6 @@
-"""Top-level command drivers of the port: `search`, `gather`, `multigather`
-and `prefetch` (the port of `sourmash_tpu/commands.py:484-596` and
-`:791-1398`, reference `src/sourmash/commands.py`).
+"""Top-level commands of the port: `compare`, `search`, `gather`,
+`multigather` and `prefetch` (the port of `sourmash_tpu/commands.py:119-354`,
+`:484-596` and `:791-1398`, reference `src/sourmash/commands.py`).
 
 The command is organized around reusable pipeline stages:
 
@@ -19,11 +19,14 @@ its queries in batches there.
 
 from __future__ import annotations
 
+import csv
 import io
 import os
 import shutil
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+import numpy
 
 from . import signature as sig
 from . import sourmash_args
@@ -108,6 +111,243 @@ def _screen_width():
     col, _ = shutil.get_terminal_size()
     return col
 
+
+
+# ===========================================================================
+# compare
+# ===========================================================================
+
+
+@dataclass
+class _ComparePool:
+    """Signatures collected for an all-pairs comparison, with provenance and
+    the parameter sets observed while loading (used for consistency checks)."""
+
+    sigs: list = field(default_factory=list)  # (signature, source filename)
+    ksizes: set = field(default_factory=set)
+    moltypes: set = field(default_factory=set)
+
+    def absorb(self, ss, filename):
+        self.sigs.append((ss, filename))
+        self.ksizes.add(ss.minhash.ksize)
+        self.moltypes.add(sourmash_args.get_moltype(ss))
+
+    @property
+    def inconsistent(self):
+        return len(self.ksizes) > 1 or len(self.moltypes) > 1
+
+    def fail_if_mixed_params(self):
+        if len(self.ksizes) > 1:
+            error("multiple k-mer sizes loaded; please specify one with -k.")
+            error("(saw k-mer sizes {})".format(", ".join(map(str, sorted(self.ksizes)))))
+            sys.exit(-1)
+        if len(self.moltypes) > 1:
+            error("multiple molecule types loaded; please specify --dna, --protein")
+            sys.exit(-1)
+
+
+def _fill_compare_pool(args, sel):
+    "Load every input file for `compare` into a _ComparePool."
+    inp_files = list(args.signatures)
+    if args.from_file:
+        inp_files.extend(sourmash_args.load_pathlist_from_file(args.from_file))
+
+    progress = sourmash_args.SignatureLoadingProgress()
+    pool = _ComparePool()
+
+    for filename in inp_files:
+        notify(f"loading '{filename}'", end="\r")
+        loaded = list(
+            sourmash_args.load_file_as_signatures(
+                filename,
+                ksize=args.ksize,
+                select_moltype=sel.moltype,
+                picklist=sel.picklist,
+                yield_all_files=args.force,
+                progress=progress,
+                pattern=sel.pattern,
+            )
+        )
+        if not loaded:
+            notify(
+                f"\nwarning: no signatures loaded at given ksize/molecule type/picklist from {filename}"
+            )
+        for ss in loaded:
+            pool.absorb(ss, filename)
+
+        # once inconsistency is guaranteed, further loading is pointless
+        if pool.inconsistent:
+            break
+
+    if not pool.sigs:
+        error("no signatures found! exiting.")
+        sys.exit(-1)
+
+    notify(" " * 79, end="\r")
+    notify(f"loaded {len(pool.sigs)} signatures total.")
+    return pool
+
+
+def _common_scaled_for(siglist, args):
+    "Pick the scaled value every signature will be brought to."
+    target = max(s.minhash.scaled for s, _ in siglist)
+    if args.scaled:
+        args.scaled = int(args.scaled)
+        target = max(target, args.scaled)
+        if target > args.scaled:
+            notify(
+                f"WARNING: --scaled specified {args.scaled}, but max scaled of sketches is {target}"
+            )
+            notify(f"WARNING: continuing with scaled value of {target}.")
+    return target
+
+
+def compare(args):
+    "Compare multiple signature files and create a similarity matrix."
+    from .compare import (
+        compare_all_pairs,
+        compare_serial_containment,
+        compare_serial_max_containment,
+        compare_serial_avg_containment,
+    )
+
+    set_quiet(args.quiet)
+    sel = _Selectors.parse(args)
+
+    pool = _fill_compare_pool(args, sel)
+    pool.fail_if_mixed_params()
+    sel.report_picklist(args)
+    siglist = pool.sigs
+
+    # signatures must be uniformly scaled or uniformly num
+    scaled_vals = [s.minhash.scaled for (s, _) in siglist]
+    is_scaled = all(scaled_vals)
+    if is_scaled != any(scaled_vals):
+        error("ERROR: cannot mix scaled signatures with num signatures")
+        sys.exit(-1)
+
+    # comparison-mode flags: at most one containment variant
+    cont_flags = [args.containment, args.max_containment, args.avg_containment]
+    is_containment = any(cont_flags)
+    if sum(cont_flags) > 1:
+        notify("ERROR: cannot specify more than one containment argument!")
+        sys.exit(-1)
+    if is_containment and not is_scaled:
+        error(
+            "must use scaled signatures with --containment, --max-containment, and --avg-containment"
+        )
+        sys.exit(-1)
+
+    return_ani = bool(args.estimate_ani)
+    if return_ani and not is_scaled:
+        error("must use scaled signatures with --estimate-ani")
+        sys.exit(-1)
+
+    if (is_containment or return_ani) and any(
+        s.minhash.track_abundance for s, _ in siglist
+    ):
+        notify(
+            "NOTE: --containment, --max-containment, --avg-containment, and --estimate-ani ignore signature abundances."
+        )
+
+    # harmonize all scaled sketches to one common (max) scaled
+    size_may_be_inaccurate = False
+    if is_scaled:
+        target_scaled = _common_scaled_for(siglist, args)
+        printed_scaled_msg = False
+        for i, (ss, filename) in enumerate(siglist):
+            if not size_may_be_inaccurate and not ss.minhash.size_is_accurate():
+                size_may_be_inaccurate = True
+            if ss.minhash.scaled != target_scaled:
+                if not printed_scaled_msg:
+                    notify(f"NOTE: downsampling to scaled value of {target_scaled}")
+                    printed_scaled_msg = True
+                # sig.update() hands back a fresh frozen signature — rebind
+                with ss.update() as ss:
+                    ss.minhash = ss.minhash.downsample(scaled=target_scaled)
+                siglist[i] = (ss, filename)
+    elif args.scaled is not None:
+        error("ERROR: cannot specify --scaled with non-scaled signatures.")
+        sys.exit(-1)
+
+    if not siglist:
+        error("no signatures!")
+        sys.exit(-1)
+    notify("")
+    numpy.set_printoptions(precision=3, suppress=True)
+
+    labeltext = [str(ss) for ss, _ in siglist]
+    sigsonly = [ss for ss, _ in siglist]
+
+    # pick the device-batched all-pairs engine for the requested metric
+    if args.containment:
+        engine = lambda: compare_serial_containment(sigsonly, return_ani=return_ani)  # noqa: E731
+    elif args.max_containment:
+        engine = lambda: compare_serial_max_containment(sigsonly, return_ani=return_ani)  # noqa: E731
+    elif args.avg_containment:
+        engine = lambda: compare_serial_avg_containment(sigsonly, return_ani=return_ani)  # noqa: E731
+    else:
+        engine = lambda: compare_all_pairs(  # noqa: E731
+            sigsonly, args.ignore_abundance,
+            n_jobs=args.processes, return_ani=return_ani,
+        )
+    similarity = engine()
+
+    matrix = 1 - similarity if args.distance_matrix else similarity
+
+    if len(siglist) < 30:
+        for i, (ss, _) in enumerate(siglist):
+            name_num = f"{i}-{str(ss)}"
+            if len(name_num) > 20:
+                name_num = name_num[:17] + "..."
+            print_results("{:20s}\t{}".format(name_num, matrix[i, :]))
+
+    summary_stat = (
+        ("max distance in matrix: {:.3f}", numpy.max)
+        if args.distance_matrix
+        else ("min similarity in matrix: {:.3f}", numpy.min)
+    )
+    print_results(summary_stat[0], summary_stat[1](matrix))
+
+    _write_compare_outputs(args, matrix, siglist, labeltext)
+
+    if size_may_be_inaccurate:
+        kind = "ANI distances" if args.distance_matrix else "ANI values"
+        notify(
+            f"WARNING: size estimation for at least one of these sketches may be inaccurate. {kind} will be set to 1 for these comparisons."
+        )
+
+
+def _write_compare_outputs(args, matrix, siglist, labeltext):
+    "All the optional file outputs of `compare`: .npy matrix, labels, CSVs."
+    if args.output:
+        labeloutname = args.output + ".labels.txt"
+        notify(f"saving labels to: {labeloutname}")
+        with open(labeloutname, "w") as fp:
+            fp.write("\n".join(labeltext))
+
+        notify(f"saving comparison matrix to: {args.output}")
+        with open(args.output, "wb") as matrix_fp:
+            numpy.save(matrix_fp, matrix)
+
+    if args.labels_to:
+        notify(f"saving labels to: {args.labels_to}")
+        with sourmash_args.FileOutputCSV(args.labels_to) as fp:
+            w = csv.writer(fp)
+            w.writerow(
+                ["sort_order", "md5", "label", "name", "filename", "signature_file"]
+            )
+            for n, (ss, location) in enumerate(siglist):
+                w.writerow(
+                    [str(n + 1), ss.md5sum(), str(ss), ss.name, ss.filename, location]
+                )
+
+    if args.csv:
+        with FileOutputCSV(args.csv) as csv_fp:
+            w = csv.writer(csv_fp)
+            w.writerow(labeltext)
+            for row in matrix:
+                w.writerow([str(v) for v in row])
 
 
 # ===========================================================================
@@ -564,7 +804,17 @@ def _multigather_prepare(all_queries, databases, args):
     Returns {query index -> _PrefetchSweep}; a query skipped here (no
     scaled, empty after downsampling, a ValueError from its sweep) goes
     through the output loop's own path, so its messages and ordering stay
-    as they are. Any other error of the batched phase propagates."""
+    as they are. Any other error of the batched phase propagates.
+
+    `sourmash_tpu` skips a query whose sweep raises anything and lets the
+    output loop's rerun fail after the earlier queries' outputs are
+    written. No input makes the two differ in what they write: the
+    SourmashErrors that are not ValueErrors (MismatchSignatureType,
+    CannotUpsampleScaled, NeedsAbundanceTracking) are raised nowhere in
+    either package, and the one other error a sweep raises from its
+    inputs, the TypeError of a negative --threshold-bp, is every query's,
+    so both stop before the first query's output
+    (`test_multigather_negative_threshold_fails_alike`)."""
     from .index.flat import converge_schedules_batch, schedule_device_gather
 
     pre = {}

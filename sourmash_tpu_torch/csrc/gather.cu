@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the gather hot paths: the
 // bucketed counts (T1), the membership bitsets (X4) and the greedy round
-// decrement (X5).
+// decrement (X5), their batch forms, and compare's abundance products (X6).
 //
 // Layout (`sourmash_tpu_torch/ops/bucketed.py`): a sketch is bucketed by
 // the low log2(B) bits of its hashes; a bank row holds d = 8 slots per
@@ -86,6 +86,29 @@
 //   `sourmash_tpu/index/flat.py:_schedule_scan_batch`: out[q, r] =
 //   sum_w popc(M[q, r, w] & rm[q, w]), one block per (row, query), so a
 //   round of the whole query block is one launch.
+//
+// compare launches counts_block with a bank's own rows as the query block
+// (dq = d = 8), and for abundance-weighted (angular) similarity:
+// - products_block (X6) is the hand-written form of
+//   `sourmash_tpu/ops/bucketed.py:_products_block_impl`: out[q, s] = the
+//   int64 sum of Qav * Sav over the valid slot pairs of query q and row s
+//   that hold the same (hi, lo) pair, on `_pack_weighted`'s planes: depth d
+//   the largest bucket load (8-255, a run-time argument), zeros past each
+//   bucket's occupancy cnt (uint8), and 2^64-1 a valid hash, so validity
+//   comes from cnt alone. Precondition: each query column's valid prefix
+//   is ascending (the pack sorts stably by bucket over value-sorted rows).
+//   Same design as counts_block, driven by the rows' valid slots: one block
+//   per 32 buckets and a range of rows, a warp a row and a lane a bucket;
+//   the block stages the valid columns of a sub-block of queries (pairs
+//   and abundances, [qsub][dq][32]) and their occupancies in shared memory,
+//   each lane holds its bucket's first 8 valid row slots in registers
+//   (past 8, rare at a mean load of ~1, it reads them again per query) and
+//   binary-searches each in each staged query's valid prefix, walking a
+//   run of equal pairs. A hit adds (int64)qa * sa; the warp reduces its
+//   lanes' sums, then one 64-bit atomicAdd per warp and (query, row).
+//   int64 sums are exact and do not depend on the order of the atomics.
+//   Bound, like counts_block, by the searches' instructions at a mean
+//   load of ~1 slot a bucket.
 //
 // Plain C interface, loaded with ctypes (sourmash_tpu_torch/ops/_build.py).
 // Each entry launches on the caller's stream, does not synchronise, and
@@ -416,6 +439,105 @@ int counts_block_qsub(int bq, int dq, size_t smem_max) {
 // default 48 KiB
 constexpr int kGlobalQsub = 384;
 
+constexpr int kProdHeld = 8;  // products_block: row slots a lane holds in registers
+
+__device__ __forceinline__ long long warp_sum64(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// out[q, s] += sum of qav * sav over the valid slot pairs of query q and
+// row s holding equal pairs: grid (bucket tiles, row ranges, query
+// sub-blocks of qsub). Shared memory: the sub-block's pairs [qsub][dq][32],
+// then its abundances [qsub][dq][32] and occupancies [qsub][32].
+__global__ void __launch_bounds__(kBlockThreads)
+products_block_kernel(const uint32_t* __restrict__ qhi, const uint32_t* __restrict__ qlo,
+                      const int32_t* __restrict__ qav, const uint8_t* __restrict__ qcnt,
+                      int bq, int dq, int B, int qsub,
+                      const uint32_t* __restrict__ shi, const uint32_t* __restrict__ slo,
+                      const int32_t* __restrict__ sav, const uint8_t* __restrict__ scnt,
+                      int rows, int d, int rows_per_block, long long* __restrict__ out) {
+  extern __shared__ uint64_t qpairs[];
+  const size_t col_len = (size_t)dq * kCountBuckets;  // one query's staged slots
+  int32_t* qabund = reinterpret_cast<int32_t*>(qpairs + qsub * col_len);
+  int* qocc = qabund + qsub * col_len;
+  const int lane = threadIdx.x & 31;
+  const int tile0 = blockIdx.x * kCountBuckets;
+  const int b = tile0 + lane;
+  const bool in_b = b < B;
+  const int q0 = blockIdx.z * qsub;
+  const int nq = min(qsub, bq - q0);
+  for (size_t i = threadIdx.x; i < nq * col_len; i += kBlockThreads) {
+    const size_t qi = i / col_len;
+    const size_t rem = i - qi * col_len;
+    const int bb = tile0 + (int)(rem % kCountBuckets);
+    const size_t at = ((q0 + qi) * dq + rem / kCountBuckets) * B + bb;
+    qpairs[i] = bb < B ? limb_pair(qhi[at], qlo[at]) : 0;
+    qabund[i] = bb < B ? qav[at] : 0;
+  }
+  for (int i = threadIdx.x; i < nq * kCountBuckets; i += kBlockThreads) {
+    const int bb = tile0 + i % kCountBuckets;
+    qocc[i] = bb < B ? min((int)qcnt[(size_t)(q0 + i / kCountBuckets) * B + bb], dq) : 0;
+  }
+  __syncthreads();
+
+  const int row0 = static_cast<int>(blockIdx.y) * rows_per_block;
+  const int row_end = min(rows, row0 + rows_per_block);
+  for (int r = row0 + static_cast<int>(threadIdx.x >> 5); r < row_end; r += kBlockWarps) {
+    const int n = in_b ? min((int)scnt[(size_t)r * B + b], d) : 0;
+    if (!__any_sync(0xffffffffu, n > 0)) continue;
+    const size_t base = (size_t)r * d * B + b;
+    uint64_t v[kProdHeld];
+    int32_t a[kProdHeld];
+#pragma unroll
+    for (int k = 0; k < kProdHeld; k++) {
+      v[k] = 0;
+      a[k] = 0;
+      if (k < n) {
+        const size_t at = base + (size_t)k * B;
+        v[k] = limb_pair(__ldcs(shi + at), __ldcs(slo + at));
+        a[k] = __ldcs(sav + at);
+      }
+    }
+    for (int qi = 0; qi < nq; qi++) {
+      const uint64_t* pairs = qpairs + qi * col_len + lane;
+      const int32_t* abund = qabund + qi * col_len + lane;
+      const auto col = [&](int p) -> uint64_t { return pairs[p * kCountBuckets]; };
+      const int m = qocc[qi * kCountBuckets + lane];
+      long long acc = 0;
+      if (m > 0) {
+#pragma unroll
+        for (int k = 0; k < kProdHeld; k++) {
+          if (k < n) {
+            for (int p = lower_bound(col, m, v[k]); p < m && col(p) == v[k]; p++)
+              acc += static_cast<long long>(abund[p * kCountBuckets]) * a[k];
+          }
+        }
+        for (int k = kProdHeld; k < n; k++) {
+          const size_t at = base + (size_t)k * B;
+          const uint64_t vk = limb_pair(__ldg(shi + at), __ldg(slo + at));
+          const int32_t ak = __ldg(sav + at);
+          for (int p = lower_bound(col, m, vk); p < m && col(p) == vk; p++)
+            acc += static_cast<long long>(abund[p * kCountBuckets]) * ak;
+        }
+      }
+      acc = warp_sum64(acc);
+      if (lane == 0 && acc != 0)
+        atomicAdd(reinterpret_cast<unsigned long long*>(out + (size_t)(q0 + qi) * rows + r),
+                  static_cast<unsigned long long>(acc));
+    }
+  }
+}
+
+// Queries of a block of bq whose valid columns (pairs, abundances and
+// occupancies) fit the block's shared memory together at depth dq.
+int products_block_qsub(int bq, int dq, size_t smem_max) {
+  const size_t per_query = (sizeof(uint64_t) + sizeof(int32_t)) * kCountBuckets * (size_t)dq +
+                           sizeof(int) * kCountBuckets;
+  return (int)std::min((size_t)bq, smem_max / per_query);
+}
+
 }  // namespace
 
 extern "C" {
@@ -561,6 +683,61 @@ int gm_counts_block(const void* qhi, const void* qlo, int bq, int dq, int B,
       static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), bq, dq, B, qsub,
       static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo), rows,
       rows_per_block, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Write to *qsub the queries of a block of bq whose valid columns
+// products_block stages together at depth dq (0: not one query's fit).
+int gm_products_block_plan(int bq, int dq, int* qsub) {
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *qsub = products_block_qsub(bq, dq, (size_t)smem_max);
+  return 0;
+}
+
+// out [bq, rows] i64 (zeroed by the caller) += sums of abundance products
+// over the shared valid slots of each query's planes qhi/qlo/qav [dq, B]
+// with occupancy qcnt [B] u8 (of [bq, ...], each valid prefix ascending)
+// and subject planes shi/slo/sav [rows, d, B] with occupancy scnt [rows, B].
+int gm_products_block(const void* qhi, const void* qlo, const void* qav, const void* qcnt,
+                      int bq, int dq, int B, const void* shi, const void* slo, const void* sav,
+                      const void* scnt, int rows, int d, void* out, void* stream) {
+  if (rows <= 0 || B <= 0 || bq <= 0 || dq <= 0 || d <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, smem_max = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int qsub = products_block_qsub(bq, dq, (size_t)smem_max);
+  if (qsub == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (sizeof(uint64_t) + sizeof(int32_t)) * kCountBuckets * (size_t)dq * qsub +
+                      sizeof(int) * kCountBuckets * (size_t)qsub;
+  err = cudaFuncSetAttribute(products_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (B + kCountBuckets - 1) / kCountBuckets;
+  const int zs = (bq + qsub - 1) / qsub;
+  if (zs > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // rows per block as counts_block: up to 512, fewer where that leaves
+  // under two blocks an SM
+  int rows_per_block = 512;
+  while (rows_per_block > kBlockWarps &&
+         (long long)tiles * zs * ((rows + rows_per_block - 1) / rows_per_block) < 2LL * sms)
+    rows_per_block /= 2;
+  while ((rows + rows_per_block - 1) / rows_per_block > 65535) rows_per_block *= 2;
+  dim3 grid(tiles, (rows + rows_per_block - 1) / rows_per_block, zs);
+  products_block_kernel<<<grid, kBlockThreads, smem, s>>>(
+      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
+      static_cast<const int32_t*>(qav), static_cast<const uint8_t*>(qcnt), bq, dq, B, qsub,
+      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo),
+      static_cast<const int32_t*>(sav), static_cast<const uint8_t*>(scnt), rows, d,
+      rows_per_block, static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each source in `csrc/` (`sketch.cu`: K1, K2, K3; `gather.cu`: counts_rows,
-membership_bits, round_dec and their batch forms counts_block,
-membership_bits_batch, round_dec_batch; `sketch_parts.cu`: the sketch-kernel
+membership_bits, round_dec, their batch forms counts_block,
+membership_bits_batch, round_dec_batch, and compare's products_block;
+`sketch_parts.cu`: the sketch-kernel
 instruments T2, T3, T4) has a plain C interface with an error-string
 entry, and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
 `build/kernels/<name>_<hash>.so` at first use, then loaded with ctypes.
@@ -63,6 +64,10 @@ _LIBRARIES = {
         "gm_membership_bits_batch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
         # M, rm, Q, k, W, out, stream
         "gm_round_dec_batch": [_P, _P, _I, _I, _I, _P, _P],
+        # bq, dq, qsub (out); called directly, no stream
+        "gm_products_block_plan": [_I, _I, _P],
+        # qhi, qlo, qav, qcnt, bq, dq, B, shi, slo, sav, scnt, rows, d, out, stream
+        "gm_products_block": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     }),
     "sketch_parts": ("sp_error_string", {
         # seq, B, S, n_pad, ksize, nw, words, valid, stream

@@ -1,5 +1,6 @@
 """Bucketed dense-compare engine for set intersection: the port of
-`sourmash_tpu/ops/bucketed.py`, as far as gather and find need it.
+`sourmash_tpu/ops/bucketed.py`, as far as gather, find and compare need it
+(compare's all-pairs counts and abundance products at the end).
 
 MurmurHash values are uniform, so bucketing by the low log2(B) bits spreads
 a sketch of l hashes over B = next_pow2(l_max * 0.4) buckets with
@@ -414,13 +415,22 @@ def _counts_qvm_impl(qhi, qlo, qcnt, Shi, Slo, Scnt):
     return acc - _pad_correction(qcnt, Scnt, qhi.shape[0], Shi.shape[1])
 
 
+def _pad_correction_block(Qcnt, Scnt, dq: int, d: int):
+    """[bq, ns] int32 PAD==PAD hits of a query block: `_pad_correction` of
+    each query at once, as one [bq, B] x [B, ns] product of PAD counts.
+    float64, because torch has no integer matmul on CUDA: exact while
+    d * dq * B < 2^31, far inside 2^53, so it equals the int64 sum."""
+    npad_q = (dq - Qcnt.to(torch.int32)).to(torch.float64)  # [bq, B]
+    npad_s = (d - Scnt.to(torch.int32)).to(torch.float64)  # [ns, B]
+    return (npad_q @ npad_s.T).to(torch.int32)
+
+
 def _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt):
     """[bq, dq, B] query planes vs [ns, d, B] subjects -> [bq, ns] int32
     exact stored-element counts: the raw counts of `counts_block` (X3b)
-    minus each query's exact PAD==PAD correction (`_pad_correction`)."""
+    minus the block's exact PAD==PAD correction (`_pad_correction_block`)."""
     acc = cuda_gather.counts_block(Qhi, Qlo, Shi, Slo)
-    dq, d = Qhi.shape[1], Shi.shape[1]
-    return acc - torch.stack([_pad_correction(qcnt, Scnt, dq, d) for qcnt in Qcnt])
+    return acc - _pad_correction_block(Qcnt, Scnt, Qhi.shape[1], Shi.shape[1])
 
 
 def _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, B: int, d: int):
@@ -682,3 +692,185 @@ def membership_matrix(q_full: np.ndarray, bank: BucketedRows, row_ids, q_packed=
                              np.asarray(masks, dtype=np.uint32))
             M = to_torch(M, device)
     return M, q_packed
+
+
+# -- all pairs (compare) -------------------------------------------------------
+
+
+# query rows a launch of the all-pairs counts takes: at 2,000 sketches of
+# 2,000-6,000 hashes, 128 `counts_block` launches of 16 take 184 ms on an
+# H100 and 20 launches of the 106 that counts_block_plan stages together
+# 213 ms (PERF.md §6); sourmash_tpu's block is 16 as well
+_PAIRWISE_BLOCK = 16
+
+
+def pairwise_counts_bucketed(mins_list, block=_PAIRWISE_BLOCK, device=None):
+    """All-pairs exact intersection-count matrix [n, n] int64 by bucketed
+    dense compare: the bank's own rows are the query block (dq = d = 8) of
+    `counts_block` (X3b), `block` rows a launch,
+    read back once; then the host spill correction. The bank is packed on
+    the device from raw limb rows; its columns are ascending, PAD last (a
+    stable sort by bucket of sorted rows), which `counts_block` needs and
+    checks once for the whole bank."""
+    from . import resolve_device
+
+    n = len(mins_list)
+    if not n:
+        return np.zeros((0, 0), dtype=np.int64)
+    device = resolve_device(device)
+    B = choose_buckets(max((len(m) for m in mins_list), default=0))
+    bank = pack_rows_device(mins_list, B, device=device)
+    if bank is None:
+        bank = pack_rows_bucketed(mins_list, B, device=device)
+    Qcnt = bank.cnt.to(torch.int32)  # the pad correction's query occupancy
+    outs = [
+        _counts_block_impl(Qhi, Qlo, Qcnt[i : i + block], bank.hi, bank.lo, bank.cnt)
+        for i, Qhi, Qlo in cuda_gather.query_row_blocks(bank.hi, bank.lo, block)
+    ]
+    out = torch.cat(outs)[:n, :n].cpu().numpy().astype(np.int64)
+    _pairwise_spill_correction(out, mins_list, bank)
+    return out
+
+
+def _pairwise_spill_correction(out, mins_list, bank: BucketedRows) -> None:
+    """Exact all-pairs spill correction, in place. For pair (i, j):
+
+        true = stored∩stored + |sp_i ∩ m_j| + |sp_j ∩ m_i| − |sp_i ∩ sp_j|
+
+    (the cross-term is counted once from each side). Every spilled value is
+    joined against one value-sorted table of ALL (value, row) pairs, so the
+    cost scales with the spill count, not with n^2."""
+    if not bank.n_spilled:
+        return
+    n = len(mins_list)
+    sp_rows_list = [i for i in range(n) if len(bank.spills[i])]
+    sp_vals = np.concatenate([bank.spills[i] for i in sp_rows_list])
+    sp_rows = np.repeat(
+        np.asarray(sp_rows_list, dtype=np.int64),
+        [len(bank.spills[i]) for i in sp_rows_list],
+    )
+    # the value-sorted (value, row) table over the distinct spilled values
+    # only: each row is sorted, so membership is one searchsorted a row
+    uniq = np.unique(sp_vals)
+    cols_parts, rows_parts = [], []
+    for j in range(n):
+        mj = np.asarray(mins_list[j], dtype=np.uint64)
+        if not len(mj):
+            continue
+        idx = np.searchsorted(mj, uniq)
+        np.minimum(idx, len(mj) - 1, out=idx)
+        cols = np.flatnonzero(mj[idx] == uniq)
+        if len(cols):
+            cols_parts.append(cols)
+            rows_parts.append(np.full(len(cols), j, dtype=np.int64))
+    if not cols_parts:
+        return
+    Cv = np.concatenate(cols_parts)
+    Rv = np.concatenate(rows_parts)
+    order = np.argsort(Cv, kind="stable")
+    Cv, R = Cv[order], Rv[order]
+    kcol = np.searchsorted(uniq, sp_vals)
+    lo = np.searchsorted(Cv, kcol, side="left")
+    hi_b = np.searchsorted(Cv, kcol, side="right")
+    # every (spill k, matching row j) pair at once
+    spans = hi_b - lo
+    if spans.sum():
+        is_ = np.repeat(sp_rows, spans)
+        js = R[
+            np.repeat(lo, spans)
+            + (np.arange(int(spans.sum())) - np.repeat(np.cumsum(spans) - spans, spans))
+        ]
+        np.add.at(out, (is_, js), 1)
+        off = js != is_
+        np.add.at(out, (js[off], is_[off]), 1)
+    # a value spilled by BOTH rows of a pair was counted from each side;
+    # remove the double count once per ordered pair
+    sp_order = np.argsort(sp_vals, kind="stable")
+    sv, sr = sp_vals[sp_order], sp_rows[sp_order]
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(sv)) + 1])
+    ends = np.concatenate([starts[1:], [len(sv)]])
+    for a, b in zip(starts, ends):
+        if b - a < 2:
+            continue
+        grp = sr[a:b]
+        for x in range(len(grp)):
+            for y in range(len(grp)):
+                if x != y:
+                    out[grp[x], grp[y]] -= 1
+
+
+# -- abundance-weighted products (angular similarity) --------------------------
+
+
+def _pack_weighted(mins_list, abunds_list):
+    """Occupancy-validity packing of (hash, abundance) rows, on the host:
+    the slot depth d is the largest bucket load (at least 8), so nothing
+    spills and every value (2**64-1 included) is representable; empty
+    slots hold zeros. Returns numpy (hi, lo, av, cnt, B)."""
+    n = len(mins_list)
+    B = choose_buckets(max((len(m) for m in mins_list), default=0))
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64, count=n)
+    N = int(lens.sum())
+
+    if N:
+        vals = np.concatenate([np.asarray(m, np.uint64) for m in mins_list])
+        ab = np.concatenate([np.asarray(a, np.int64) for a in abunds_list])
+        row = np.repeat(np.arange(n, dtype=np.int64), lens)
+        b = (vals & np.uint64(B - 1)).astype(np.int64)
+        key = row * B + b
+        order = np.argsort(key, kind="stable")
+        ks, vs, avs = key[order], vals[order], ab[order]
+        pos = np.arange(len(ks), dtype=np.int64)
+        is_start = np.empty(len(ks), dtype=bool)
+        is_start[0] = True
+        np.not_equal(ks[1:], ks[:-1], out=is_start[1:])
+        slot = pos - np.maximum.accumulate(np.where(is_start, pos, 0))
+        d = max(8, int(slot.max()) + 1)
+    else:
+        d = 8
+
+    rows = _pad_rows(n)
+    hi = np.zeros((rows, d, B), dtype=np.uint32)
+    lo = np.zeros((rows, d, B), dtype=np.uint32)
+    av = np.zeros((rows, d, B), dtype=np.int32)
+    cnt = np.zeros((rows, B), dtype=np.uint8)
+    if N:
+        ro = row[order]
+        bo = b[order]
+        hi[ro, slot, bo] = (vs >> np.uint64(32)).astype(np.uint32)
+        lo[ro, slot, bo] = (vs & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        av[ro, slot, bo] = avs.astype(np.int32)
+        starts = np.flatnonzero(is_start)
+        sizes = np.diff(np.concatenate([starts, [len(ks)]]))
+        assert sizes.max() <= 255
+        cnt.reshape(-1)[ks[starts]] = sizes.astype(np.uint8)
+    return hi, lo, av, cnt, B
+
+
+def pairwise_weighted_products(mins_list, abunds_list, block=None, device=None):
+    """All-pairs exact [n, n] int64 matrix of sum(a_i(h) * a_j(h)) over
+    each pair's shared hashes, the hot term of abundance-weighted (angular)
+    similarity: the host pack `_pack_weighted`, uploaded once, then
+    `block` query rows a `products_block` launch (X6, the port of
+    `sourmash_tpu`'s `_products_block_impl`; default: as many as the kernel
+    stages in shared memory together on CUDA, 8 on the CPU). Integer
+    accumulation is exact and independent of order, so the result equals
+    the host's f64 merge-join sum whenever it fits 2**53 (callers guard)."""
+    from . import resolve_device
+
+    n = len(mins_list)
+    if not n:
+        return np.zeros((0, 0), dtype=np.int64)
+    device = resolve_device(device)
+    hi, lo, av, cnt, _B = _pack_weighted(mins_list, abunds_list)
+    hi, lo, av, cnt = (to_torch(x, device) for x in (hi, lo, av, cnt))
+    rows, d = hi.shape[0], hi.shape[1]
+    if block is None:
+        block = (max(1, cuda_gather.products_block_plan(rows, d, device))
+                 if device.type == "cuda" else 8)
+    outs = [
+        cuda_gather.products_block(Qhi, Qlo, av[i : i + block], cnt[i : i + block], hi, lo, av,
+                                   cnt)
+        for i, Qhi, Qlo in cuda_gather.query_row_blocks(hi, lo, block, cnt)
+    ]
+    return torch.cat(outs)[:n, :n].cpu().numpy()

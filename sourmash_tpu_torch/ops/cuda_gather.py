@@ -32,6 +32,16 @@ Their batch forms, for a block of queries against one collection
 - `round_dec_batch` (X5b, the decrement of `index/flat.py:
   _schedule_scan_batch`): `[Q, k]` int32 `sum_w popc(M[q, r, w] & rm[q, w])`.
 
+`compare` launches `counts_block` with a bank's own rows as the query block
+(dq = d = 8), and for abundance-weighted similarity:
+
+- `products_block` (X6, `sourmash_tpu/ops/bucketed.py:
+  _products_block_impl`): `[bq, ns]` int64 sums of `Qav * Sav` over the
+  hashes query q and row s share, on `_pack_weighted`'s planes: zeros past
+  each bucket's occupancy (`Qcnt`, `Scnt` uint8), any depth, and 2^64-1 a
+  valid hash. Each query column's valid prefix must be ascending in
+  unsigned (hi, lo) order.
+
 Limbs and words are int32 bit patterns of u32 values (PAD = -1). Each
 wrapper checks its inputs (a wrong dtype, shape or layout raises
 TypeError, so no caller's ValueError handling can swallow it), allocates
@@ -47,7 +57,8 @@ import torch
 # kernel launches since the last reset_launch_counts(); only the CUDA
 # wrappers add to them, the plain versions never do
 LAUNCHES = {"counts_rows": 0, "membership_bits": 0, "round_dec": 0,
-            "counts_block": 0, "membership_bits_batch": 0, "round_dec_batch": 0}
+            "counts_block": 0, "membership_bits_batch": 0, "round_dec_batch": 0,
+            "products_block": 0}
 _D = 8  # subject slots per bucket, as the CUDA kernels are built
 _INT32_MIN = -(1 << 31)
 
@@ -99,27 +110,54 @@ def _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo):
             raise TypeError("one cut per subject row")
 
 
-def _columns_ascending(qhi, qlo) -> bool:
+def _columns_ascending(qhi, qlo, qcnt=None) -> bool:
     """Is every column of the [..., dq, B] query planes ascending in
-    unsigned (hi, lo) order?"""
+    unsigned (hi, lo) order (with the occupancy qcnt [..., B], every
+    column's valid prefix, its first qcnt slots)?"""
     h0, h1 = _flip(qhi[..., :-1, :]), _flip(qhi[..., 1:, :])
     ok = (h0 < h1) | ((h0 == h1) & (_flip(qlo[..., :-1, :]) <= _flip(qlo[..., 1:, :])))
+    if qcnt is not None:
+        second = torch.arange(1, qhi.shape[-2], device=qhi.device)[:, None]  # slot p + 1
+        ok |= second >= qcnt[..., None, :]
     return bool(ok.all())
 
 
-def _check_query_order(qhi, qlo, name="counts_rows"):
-    """Raise TypeError unless every query column is ascending. The check
-    reads the planes back once; a pass is recorded on `qhi` with both
-    planes' addresses and version counters, so the same unmodified planes
-    (a cached query pack, launched against every chunk) are not read
-    again."""
-    stamp = (qhi.data_ptr(), qlo.data_ptr(), qhi._version, qlo._version)
-    if getattr(qhi, "_ascending_at", None) == stamp:
+def _order_stamp(qhi, qlo, qcnt=None) -> tuple:
+    "The planes' addresses and version counters (and the occupancy's, if given)."
+    planes = (qhi, qlo) if qcnt is None else (qhi, qlo, qcnt)
+    return tuple(t.data_ptr() for t in planes) + tuple(t._version for t in planes)
+
+
+def _check_query_order(qhi, qlo, name="counts_rows", qcnt=None):
+    """Raise TypeError unless every query column is ascending, PAD last
+    (with `qcnt`: unless each column's valid prefix is). The check reads
+    the planes back once; a pass is recorded on `qhi` with the planes'
+    addresses and version counters, so the same unmodified planes (a cached
+    query pack, launched against every chunk) are not read again."""
+    attr = "_ascending_at" if qcnt is None else "_prefix_ascending_at"
+    stamp = _order_stamp(qhi, qlo, qcnt)
+    if getattr(qhi, attr, None) == stamp:
         return
-    if not _columns_ascending(qhi, qlo):
-        raise TypeError(f"{name}: a query column is not ascending in unsigned "
-                        "(hi, lo) order, PAD last")
-    qhi._ascending_at = stamp
+    if not _columns_ascending(qhi, qlo, qcnt):
+        raise TypeError(f"{name}: a query column is not ascending in unsigned (hi, lo) "
+                        + ("order, PAD last" if qcnt is None else "order in its valid prefix"))
+    setattr(qhi, attr, stamp)
+
+
+def query_row_blocks(hi, lo, block: int, cnt=None):
+    """(i, hi[i : i + block], lo[i : i + block]) for i in steps of block:
+    row blocks of query planes as `counts_block` (or, with the occupancy
+    `cnt`, `products_block`) takes them. The order is checked once for the
+    whole planes, and each block carries the pass, so the kernels' own
+    check does not read every block back again."""
+    _check_query_order(hi, lo, "counts_block" if cnt is None else "products_block", cnt)
+    for i in range(0, hi.shape[0], block):
+        bh, bl = hi[i : i + block], lo[i : i + block]
+        if cnt is None:
+            bh._ascending_at = _order_stamp(bh, bl)
+        else:
+            bh._prefix_ascending_at = _order_stamp(bh, bl, cnt[i : i + block])
+        yield i, bh, bl
 
 
 def counts_rows(qhi, qlo, Shi, Slo, cut_hi=None, cut_lo=None):
@@ -427,3 +465,86 @@ def round_dec_batch_plain(M, rm):
 
     _check_round_batch(M, rm)
     return popcount_u32(M & rm[:, None]).sum(dim=2, dtype=torch.int32)
+
+
+# -- products_block: X6 -------------------------------------------------------
+
+
+def _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
+    dev = Qhi.device if torch.is_tensor(Qhi) else None
+    _check("Qhi", Qhi, torch.int32, 3)
+    _check("Qlo", Qlo, torch.int32, 3, dev)
+    _check("Qav", Qav, torch.int32, 3, dev)
+    _check("Qcnt", Qcnt, torch.uint8, 2, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    _check("Sav", Sav, torch.int32, 3, dev)
+    _check("Scnt", Scnt, torch.uint8, 2, dev)
+    bq, dq, B = Qhi.shape
+    if (Qlo.shape != Qhi.shape or Qav.shape != Qhi.shape or Slo.shape != Shi.shape
+            or Sav.shape != Shi.shape or Shi.shape[2] != B):
+        raise TypeError(f"planes {tuple(Qhi.shape)} vs {tuple(Shi.shape)} do not match")
+    if tuple(Qcnt.shape) != (bq, B) or tuple(Scnt.shape) != (Shi.shape[0], B):
+        raise TypeError("Qcnt must be [bq, B] and Scnt [rows, B]")
+
+
+def products_block(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
+    """[bq, rows] int64: for each query q and row s, the sum of
+    Qav[q, p, b] * Sav[s, k, b] over the valid slot pairs (p < Qcnt[q, b],
+    k < Scnt[s, b]) that hold the same (hi, lo) pair.
+
+    Precondition: the valid prefix of every query column is ascending in
+    unsigned (hi, lo) order, as `_pack_weighted` gives it (the slots past
+    it are zeros); out of order raises TypeError, on CPU tensors too. The
+    subject planes need no order."""
+    _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
+    _check_query_order(Qhi, Qlo, "products_block", Qcnt)
+    if Qhi.device.type == "cpu":
+        return products_block_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    out = torch.zeros((bq, rows), dtype=torch.int64, device=Qhi.device)
+    _launch(
+        "gm_products_block", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(), Qav.data_ptr(),
+        Qcnt.data_ptr(), bq, dq, B, Shi.data_ptr(), Slo.data_ptr(), Sav.data_ptr(),
+        Scnt.data_ptr(), rows, d, out.data_ptr(),
+    )
+    LAUNCHES["products_block"] += 1
+    return out
+
+
+def products_block_plan(bq: int, dq: int, device) -> int:
+    """The queries of a block of bq whose valid columns `products_block`
+    stages in shared memory together at depth dq on `device` (each launch
+    reads the subject rows ceil(bq / that) times); 0 where one query's do
+    not fit (dq far past the 255 a uint8 occupancy can fill)."""
+    import ctypes
+
+    from . import _build
+
+    qsub = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _build.load("gather").gm_products_block_plan(bq, dq, ctypes.addressof(qsub))
+    if rc != 0:
+        raise RuntimeError(f"gm_products_block_plan failed: CUDA error {rc}")
+    return qsub.value
+
+
+def products_block_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
+    """Plain PyTorch version of `products_block`: the d-loop broadcast of
+    `_products_block_impl`, valid slots masked by occupancy, products in
+    int64."""
+    _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
+    dq = Qhi.shape[1]
+    acc = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int64, device=Shi.device)
+    qa64 = Qav.to(torch.int64)[:, None]  # [bq, 1, dq, B]
+    slots = torch.arange(dq, device=Qhi.device)[None, :, None]
+    qvalid = (Qcnt.to(torch.int64)[:, None, :] > slots)[:, None]  # [bq, 1, dq, B]
+    scnt = Scnt.to(torch.int64)
+    for k2 in range(Shi.shape[1]):
+        svalid = (scnt > k2)[None, :, None, :]  # [1, ns, 1, B]
+        eq = ((Shi[None, :, k2, None, :] == Qhi[:, None]) & (Slo[None, :, k2, None, :] == Qlo[:, None])
+              & qvalid & svalid)
+        prod = qa64 * Sav[None, :, k2, None, :].to(torch.int64)
+        acc += torch.where(eq, prod, 0).sum(dim=(2, 3))
+    return acc

@@ -1,16 +1,22 @@
-"""Batched query-vs-many intersection counts with per-pair cutoffs, with
-engine dispatch: the port of `sourmash_tpu/ops/intersect.py` as far as
-`Index._find_batched` needs it.
+"""Batched set-intersection counts with engine dispatch: the port of
+`sourmash_tpu/ops/intersect.py`. `query_vs_many_cutoff_counts` serves
+`Index._find_batched`; `pairwise_intersection_counts` (the all-pairs
+matrix of `compare`) and `query_intersection_counts` the counts without
+cutoffs.
 
-Two engines sit behind `query_vs_many_cutoff_counts`, chosen by the
-device alone, as the JAX package chooses per backend:
+Two engines sit behind each, chosen by the device alone, as the JAX
+package chooses per backend:
 
 - **bucketed** (`ops/bucketed.py`): dense equality compares over
-  low-bit-bucketed u32 planes, the hand-written `counts_rows` kernel with
-  per-row cutoffs. The CUDA path.
-- **sorted** (this module): padded sorted `[n, L]` rows and a vectorised
-  `torch.searchsorted` on sign-flipped int64 (unsigned order): O(L log L)
-  work that suits the CPU.
+  low-bit-bucketed u32 planes, the hand-written `counts_rows` kernel (with
+  per-row cutoffs) and, for the all-pairs matrix, `counts_block` with the
+  bank's own rows as the query block. The CUDA path.
+- **sorted** (this module, X7): padded sorted `[n, L]` rows and a
+  vectorised `torch.searchsorted` on sign-flipped int64 (unsigned order):
+  O(L log L) work that suits the CPU.
+
+Below `_HOST_WORK_CUTOFF` of merge work both wrappers join on the host
+with `np.intersect1d`, whatever the device.
 """
 
 from __future__ import annotations
@@ -50,6 +56,52 @@ def pack_query(q_mins: np.ndarray) -> tuple[np.ndarray, int]:
     return q, n
 
 
+_ROW_BLOCK = 8  # query rows per step of the all-pairs matrix
+
+
+def _hits(fH, lens, fq):
+    """[n, m] bool: is each flipped query value fq [n, m] (row i searched
+    in row i of fH) stored in that row of the flipped padded rows fH [n, L]
+    of lengths lens [n]?"""
+    idx = torch.searchsorted(fH, fq)
+    idxc = idx.clamp(0, fH.shape[1] - 1)
+    return (idx < lens[:, None]) & (fH.gather(1, idxc) == fq)
+
+
+def _query_block_vs_many_counts(qs, q_lens, H, lens):
+    """[b, Lq] query rows (lengths q_lens [b]) vs [n, L] rows -> [b, n]
+    int32 intersection counts, hashes as int64 bit patterns. The
+    all-pairs matrix streams blocks of query rows through this, so the
+    hit mask stays [n, b * Lq] instead of [n, n * L]."""
+    b, Lq = qs.shape
+    n = H.shape[0]
+    fq = u64.flip(qs).reshape(1, b * Lq).expand(n, -1).contiguous()
+    hit = _hits(u64.flip(H), lens, fq).view(n, b, Lq)
+    valid_q = torch.arange(Lq, device=qs.device)[None, :] < q_lens[:, None]  # [b, Lq]
+    return (hit & valid_q[None]).sum(dim=2, dtype=torch.int32).T
+
+
+def _pairwise_counts(H, lens):
+    """[n, L] sorted padded rows (int64 bit patterns, n a multiple of
+    _ROW_BLOCK) -> [n, n] int32 numpy intersection-count matrix, computed
+    in _ROW_BLOCK-row slabs."""
+    n = H.shape[0]
+    out = np.empty((n, n), dtype=np.int32)
+    for i in range(0, n, _ROW_BLOCK):
+        out[i : i + _ROW_BLOCK] = _query_block_vs_many_counts(
+            H[i : i + _ROW_BLOCK], lens[i : i + _ROW_BLOCK], H, lens
+        ).cpu().numpy()
+    return out
+
+
+def _query_vs_many_counts(q, q_len, H, lens):
+    """[Lq] query row vs [n, L] rows -> [n] int32 intersection counts. Lq
+    is independent of L: the query is binary-searched into each row."""
+    fq = u64.flip(q)[None, :].expand(H.shape[0], -1).contiguous()
+    valid_q = torch.arange(q.shape[0], device=q.device)[None, :] < q_len
+    return (_hits(u64.flip(H), lens, fq) & valid_q).sum(dim=1, dtype=torch.int32)
+
+
 def _query_vs_many_cutoffs(q, q_len, H, lens, cut_q, cut_s):
     """Query vs many with per-pair scaled cutoffs, on torch tensors (hashes
     as int64 bit patterns). cut_q[i]: cutoff applied to the query for pair
@@ -63,9 +115,7 @@ def _query_vs_many_cutoffs(q, q_len, H, lens, cut_q, cut_s):
     fcs = u64.flip(cut_s)[:, None]
     valid_q = (torch.arange(q.shape[0], device=q.device) < q_len)[None, :]
     both = torch.minimum(fcq, fcs)
-    idx = torch.searchsorted(fH, fq[None, :].expand(H.shape[0], -1).contiguous())
-    idxc = idx.clamp(0, L - 1)
-    hit = (idx < lens[:, None]) & (fH.gather(1, idxc) == fq[None, :]) & valid_q
+    hit = _hits(fH, lens, fq[None, :].expand(H.shape[0], -1).contiguous()) & valid_q
     hit &= fq[None, :] <= both
     shared = hit.sum(dim=1, dtype=torch.int32)
     q_size = (valid_q & (fq[None, :] <= fcq)).sum(dim=1, dtype=torch.int32)
@@ -137,3 +187,71 @@ def query_vs_many_cutoff_counts(query_mins, mins_list, pair_cutoffs, device=None
         np.asarray(pair_cutoffs, dtype=np.uint64),
         device,
     )
+
+
+# Below this much total merge work, host np.intersect1d beats any device
+# dispatch (the JAX package's cutoff, kept so that both packages give the
+# same matrices on the same inputs by the same engines).
+_HOST_WORK_CUTOFF = 2_000_000
+
+
+def _host_pairwise_counts(mins_list, n):
+    counts = np.zeros((n, n), dtype=np.int64)
+    for i in range(n):
+        counts[i, i] = len(mins_list[i])
+        for j in range(i + 1, n):
+            c = len(np.intersect1d(mins_list[i], mins_list[j], assume_unique=True))
+            counts[i, j] = counts[j, i] = c
+    return counts
+
+
+def pairwise_intersection_counts(mins_list, device=None) -> np.ndarray:
+    """Host wrapper: list of sorted uint64 arrays -> [n, n] int64 count
+    matrix. Host joins below the cutoff; above it `counts_block` on CUDA,
+    the sorted engine on the CPU."""
+    from . import resolve_device
+
+    n = len(mins_list)
+    if not n:
+        return np.zeros((0, 0), dtype=np.int64)
+    if n * sum(len(m) for m in mins_list) < _HOST_WORK_CUTOFF:
+        return _host_pairwise_counts(mins_list, n)
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from . import bucketed
+
+        return bucketed.pairwise_counts_bucketed(mins_list, device=device)
+    H, lens = pack_sketches(mins_list, pad_rows=True)
+    out = _pairwise_counts(u64.from_numpy(H).to(device), torch.from_numpy(lens).to(device))
+    return out[:n, :n].astype(np.int64)
+
+
+def query_intersection_counts(query_mins, mins_list, device=None) -> np.ndarray:
+    """Host wrapper: one sorted uint64 query vs many sketches -> [n] int64
+    counts, with the engines of `pairwise_intersection_counts`."""
+    from . import resolve_device
+
+    n = len(mins_list)
+    if not n:
+        return np.zeros(0, dtype=np.int64)
+    q = np.asarray(query_mins, dtype=np.uint64)
+    total = len(q) * n + sum(len(m) for m in mins_list)
+    if total < _HOST_WORK_CUTOFF:
+        return np.array(
+            [len(np.intersect1d(q, m, assume_unique=True)) for m in mins_list],
+            dtype=np.int64,
+        )
+    device = resolve_device(device)
+    if device.type == "cuda":
+        from . import bucketed
+
+        B = bucketed.choose_buckets(max((len(m) for m in mins_list), default=0))
+        bank = bucketed.pack_rows_bucketed(list(mins_list), B, device=device)
+        return bucketed.query_counts_bucketed(q, bank)
+    H, lens = pack_sketches(mins_list, pad_rows=True)
+    qp, q_len = pack_query(q)
+    out = _query_vs_many_counts(
+        u64.from_numpy(qp).to(device), q_len, u64.from_numpy(H).to(device),
+        torch.from_numpy(lens).to(device),
+    )
+    return out.cpu().numpy()[:n].astype(np.int64)

@@ -227,6 +227,25 @@ def test_multigather_batched_phase_errors_propagate(world, tmp_path, monkeypatch
     assert not list(tmp_path.iterdir())
 
 
+def test_multigather_negative_threshold_fails_alike(world, tmp_path, capsys, monkeypatch):
+    """The one error other than a ValueError that a sweep raises from its
+    inputs: a negative --threshold-bp. The port fails in its batched phase,
+    sourmash_tpu in its output loop's rerun of the first sample; both with
+    the same TypeError, the same stdout and no file written."""
+    monkeypatch.setenv("SOURMASH_TORCH_DEVICE", "cpu")
+    monkeypatch.chdir(world)
+    outs = []
+    for tag, main in (("jax", jax_main), ("torch", torch_main)):
+        out = tmp_path / tag
+        out.mkdir()
+        with pytest.raises(TypeError, match="threshold_bp must be non-negative"):
+            main(["multigather", "--query", "sample0.sig", "sample1.sig", "--db", "big.zip",
+                  "--output-dir", str(out), "--threshold-bp", "-1"])
+        assert not list(out.iterdir())
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+
+
 # -- batched schedules on the library level -----------------------------------
 
 
