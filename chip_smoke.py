@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive sourmash_tpu_torch on one CUDA card and hold it to its references.
 
-    python3 chip_smoke.py [--quick] [--json PATH] [--profile] [--sass-against DIR]
+    python3 chip_smoke.py [--quick] [--compare-only] [--json PATH] [--profile]
+                          [--sass-against DIR]
 
 Phases, each raising on failure:
 
@@ -81,11 +82,16 @@ Phases, each raising on failure:
    clades with abundances 1-50 (scaled=1000, B = 4096), written as zips, each
    command with the launch counters set to 0 just before and read just
    after. At n = 2,000, k = 31: Jaccard (`--ignore-abundance`), angular and
-   `--containment`, each writing `-o` and `--csv`: `counts_block` (or
-   `products_block`, angular) must run, the count (product) matrix the
-   command computed must equal a scipy.sparse oracle (X X^T, A A^T)
-   exactly, and the written matrix and CSV the oracle's counts through
-   compare.py's closed forms. At n = 200: `--max-containment` and
+   `--containment`, each writing `-o` and `--csv`: the join
+   `pairwise_counts` (angular: `pairwise_products`) must run once and no
+   other compare kernel, the count (product) matrix the command computed
+   must equal a scipy.sparse oracle (X X^T, A A^T) exactly, and the
+   written matrix and CSV the oracle's counts through compare.py's closed
+   forms. Then the block routes through the library entry points
+   (`pairwise_counts_bucketed` at 16 rows a `counts_block` launch,
+   `pairwise_weighted_products` at `products_block_plan`'s block), each
+   matrix equal to the oracle, their launches counted for the kernels
+   line. At n = 200: `--max-containment` and
    `--avg-containment`, each with and without `--estimate-ani`, at k = 31,
    and `--avg-containment --estimate-ani` at k = 21 and 51, on the card and
    with SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout, `.npy`, labels and CSV. Each
@@ -122,15 +128,25 @@ queries (~600 k, 150 k, empty, 20 k hashes) x 2,048 rows at W = ceil(600 k
 / 32), repacked at a depth above the block's own, with padded selections
 and rows with cnt = 8 and 2^64-1; `round_dec_batch` on its words. And
 compare's kernels on phase 9's own k=31 collection (2,000 sketches with
-abundances, [2048, 8, 4096] planes): `counts_block` with the bank's own
-rows as the query block at blocks of 16 and of `counts_block_plan`'s
-size, and `products_block` on `_pack_weighted`'s planes at blocks of 8 and
-of `products_block_plan`'s size, each timed with its bound and beside
-`torch.sparse.mm` of the same block (the library_ms yardstick), and the
-whole count and product matrices held to the scipy.sparse oracle; both
-again on edge rows (spills and 2^64-1 in two rows, a weighted bucket 20
-deep); `query_intersection_counts` of one sketch against the collection
-(the `counts_rows` engine) against `np.intersect1d`.
+abundances, [2048, 8, 4096] planes): the joins `pairwise_counts` on the
+bank and `pairwise_products` on `_pack_weighted`'s planes, one launch a
+matrix, each bit for bit against its plain version and, on its [:n, :n],
+against the scipy.sparse oracle, timed as the wrapper and as the kernel
+alone at the path's tiles, at each tile width one block holds and with no
+value shared between rows (the walk's pair atomics left out), beside its
+bound, its atomics and `torch.sparse.mm` of the whole matrix;
+`counts_block` with the bank's own rows as the query block at 16 rows,
+and `products_block` on the weighted planes at blocks of 8 and of
+`products_block_plan`'s size, each timed with its bound and beside
+`torch.sparse.mm` of the same block; the joins and the block kernels on
+edge rows (spills and 2^64-1 in two rows, a weighted bucket 20 deep; 2,600
+sketches padded to 4,096 rows, one empty, all others sharing 8 hashes of
+one bucket: the joins' global-memory tiles); `query_intersection_counts`
+of one sketch against the collection (the `counts_rows` engine) against
+`np.intersect1d`. Beside `counts_rows` and phase 8's block of
+`counts_block` it times `torch.sparse.mm` of the same counts (the
+query's or the block's incidence rows against the chunk's), held to the
+exact counts.
 
 Phase 2 then holds the sketch-kernel instruments (`csrc/sketch_parts.cu`)
 against their plain versions on the card, bit for bit: T2's passes
@@ -152,7 +168,10 @@ batch kernels with a block of 4 queries, the instruments at k=31), before
 the main path, and prints neither line; --profile runs `sketch dna`,
 `sketch protein`, `sketch translate`, `gather`, `multigather` and `compare`
 (Jaccard and angular) once more under cProfile and torch.profiler and
-prints where their time goes. --sass-against DIR (a checkout of another commit) builds DIR's
+prints where their time goes. --compare-only builds, runs phase 2's
+checks of compare's kernels and phase 9, and stops, printing neither line
+(with --quick: phase 2's compare checks at 256 sketches, no phase 9).
+--sass-against DIR (a checkout of another commit) builds DIR's
 `csrc/sketch.cu` and this tree's with this tree's flags after phase 1 and
 fails unless the SASS of K1 and K2 equals this tree's for every k they are
 built for (21, 31, 51 and run-time k); it prints K3's instruction counts
@@ -1152,7 +1171,7 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
 
     from sourmash_tpu_torch.ops import cuda_gather as cg
     from sourmash_tpu_torch.ops.bucketed import (
-        inverse_slot_map, pack_query_bucketed, query_slot_map)
+        inverse_slot_map, pack_query_bucketed, query_counts_bucketed, query_slot_map)
     from sourmash_tpu_torch.ops.index_ops import _cached_query_pack
 
     rows = 512 if quick else GATHER_KERNEL_ROWS
@@ -1205,6 +1224,11 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     check_ms = time_ms(lambda: cg._columns_ascending(qhi, qlo), reps)
     results["counts_rows"]["order_check_ms"] = check_ms
     log(f"  counts_rows query order check (first call with new planes): {check_ms:.4f} ms")
+    # the library call of the same counts: torch.sparse.mm of the query's
+    # incidence row against the chunk's rows, held to the exact counts
+    results["counts_rows"]["library_ms"] = lib = sparse_product_ms(
+        [q], mins_list, reps, query_counts_bucketed(q, bank)[None])
+    log(f"  counts_rows: torch.sparse.mm of the query against the chunk {lib} ms")
     results["counts_rows global columns"] = check_counts_global_branch(
         rng, mins_list, q, reps, clock_hz)
 
@@ -1385,6 +1409,11 @@ def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -
             results["counts_block"][f"block{len(bqs)}"] = res
         else:
             results["counts_block"] = res
+    # the library call of phase 8's block of counts (the kernels line's row)
+    path_qs = blocks[0][1]
+    want = np.stack([bk.query_counts_bucketed(x, bank) for x in path_qs])
+    results["counts_block"]["library_ms"] = lib = sparse_product_ms(path_qs, mins_list, reps, want)
+    log(f"  counts_block ({blocks[0][0]}): torch.sparse.mm of the block against the chunk {lib} ms")
 
     # the global-memory branch: a bank of small genomes (B = 128)
     n_small = min(GLOBAL_ROWS, len(mins_list))
@@ -2121,34 +2150,43 @@ def patched(obj, name: str, wrap):
         setattr(obj, name, orig)
 
 
-def run_counted(argv: list, env: dict) -> tuple:
-    """One port command through `__main__.main`, with every launch counter
-    set to 0 just before and read just after, under `env` (set for the run
-    only): (wall, launches)."""
+def call_counted(fn, env: dict) -> tuple:
+    """fn() with every launch counter set to 0 just before and read just
+    after, under `env` (set for the call only): (its result, wall,
+    launches)."""
     import torch
 
-    from sourmash_tpu_torch.__main__ import main as cli_main
     from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops import cuda_pairwise as cp
     from sourmash_tpu_torch.ops import cuda_sketch as cs
 
     before = {key: os.environ.get(key) for key in env}
     os.environ.update(env)
     try:
         torch.cuda.synchronize()
-        cs.reset_launch_counts()
-        cg.reset_launch_counts()
+        for module in (cs, cg, cp):
+            module.reset_launch_counts()
         t0 = time.time()
-        rc = cli_main(argv)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(cg.LAUNCHES)
-        launches.update(cs.LAUNCHES)
+        launches = {**cg.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
     finally:
         for key, val in before.items():
             if val is None:
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = val
+    return out, wall, launches
+
+
+def run_counted(argv: list, env: dict) -> tuple:
+    """One port command through `__main__.main`, with every launch counter
+    set to 0 just before and read just after, under `env` (set for the run
+    only): (wall, launches)."""
+    from sourmash_tpu_torch.__main__ import main as cli_main
+
+    rc, wall, launches = call_counted(lambda: cli_main(argv), env)
     if rc not in (None, 0):
         raise AssertionError(f"{argv[0]} returned {rc}")
     return wall, launches
@@ -2623,26 +2661,35 @@ def compare_oracle(k: int, n: int) -> tuple:
     return oracle_pairwise(mins_list), oracle_pairwise(mins_list, abunds)
 
 
-def sparse_product_ms(mins_list, values, q_rows: int, reps: int, want) -> float | None:
-    """The time of one torch.sparse.mm on the card of q_rows sketches'
-    incidence rows against every sketch's (float64, exact below 2^53): the
-    library call that computes the same block of counts (or products) from
-    another layout, the kernels line's library_ms. None, with the reason
-    logged, where the call is refused or disagrees with `want`."""
+def sparse_product_ms(queries, rows, reps: int, want, qvalues=None, rvalues=None) -> float | None:
+    """The time of one torch.sparse.mm on the card of the queries' sparse
+    incidence rows against every row's (float64 over the distinct hashes of
+    both, built on the card; values: 1, or the hashes' abundances of
+    `qvalues` and `rvalues`): the library call that computes the same
+    counts (or products) from another layout, the kernels line's
+    library_ms. None, with the reason logged, where the call is refused or
+    disagrees with `want` [queries, rows]."""
     import torch
 
-    X = incidence(mins_list, values)
-
-    def on_card(m):
-        m = m.tocoo()
-        idx = torch.from_numpy(np.vstack([m.row, m.col]).astype(np.int64))
-        return torch.sparse_coo_tensor(idx, torch.from_numpy(m.data.astype(np.float64)),
-                                       m.shape, device=GATHER_DEVICE).coalesce()
-
+    dev = torch.device(GATHER_DEVICE)
+    parts = list(queries) + list(rows)
+    nq = sum(len(m) for m in queries)
     try:
-        Q, XT = on_card(X[:q_rows]), on_card(X.T)
+        vals = torch.from_numpy(np.concatenate(parts).view(np.int64)).to(dev)
+        _uniq, cols = torch.unique(vals, return_inverse=True)
+        lens = torch.tensor([len(m) for m in parts], device=dev)
+        owner = torch.repeat_interleave(torch.arange(len(parts), device=dev), lens)
+        data = (torch.ones(len(vals), dtype=torch.float64, device=dev) if qvalues is None else
+                torch.from_numpy(np.concatenate(list(qvalues) + list(rvalues))
+                                 .astype(np.float64)).to(dev))
+        shape = (len(queries), len(_uniq))
+        Q = torch.sparse_coo_tensor(torch.stack([owner[:nq], cols[:nq]]), data[:nq],
+                                    shape).coalesce()
+        XT = torch.sparse_coo_tensor(torch.stack([cols[nq:], owner[nq:] - len(queries)]),
+                                     data[nq:], (shape[1], len(rows))).coalesce()
+        del vals, cols, owner, data
         got = torch.sparse.mm(Q, XT).to_dense().cpu().numpy()
-        if not np.array_equal(got, want[:q_rows].astype(np.float64)):
+        if not np.array_equal(got, np.asarray(want).astype(np.float64)):
             log("  torch.sparse.mm disagrees with the oracle; no library time")
             return None
         return time_ms(lambda: torch.sparse.mm(Q, XT), reps)
@@ -2666,23 +2713,142 @@ def weighted_edge_rows(rng):
     return rows, [rng.integers(1, 2**19, size=len(m)).astype(np.int64) for m in rows]
 
 
+OVERLOAD_N = 2600  # overloaded_rows' sketches: rows padded to 4096
+
+
+def overloaded_rows(rng):
+    """OVERLOAD_N sketches of 40-80 hashes (B = 128; a count that is not a
+    multiple of the row padding), row 7 empty, every other row holding the
+    same 8 hashes of bucket 5: ~20,800 valid slots in that bucket, more
+    than one block holds in shared memory, so its tile takes the join's
+    global-memory branch. Abundances 1 to 2^19 - 1."""
+    shared = (np.arange(8, dtype=np.uint64) << np.uint64(32)) * np.uint64(128) + np.uint64(5)
+    rows = [np.unique(np.r_[random_sketch(rng, int(rng.integers(40, 81)), 2**64 - 1), shared])
+            for _ in range(OVERLOAD_N)]
+    rows[7] = np.zeros(0, dtype=np.uint64)
+    return rows, [rng.integers(1, 2**19, size=len(m)).astype(np.int64) for m in rows]
+
+
+def check_join(name: str, planes, mins_list, want, reps: int, clock_hz: float, bank=None,
+               values=None) -> dict:
+    """One all-pairs join on a whole bank, `pairwise_counts` on (hi, lo,
+    cnt) or `pairwise_products` on (hi, lo, av, cnt): bit for bit against
+    its plain version, its [:n, :n] (with `bank`'s spill correction) equal
+    to the oracle `want`; timed as the wrapper (its tile plan reads the
+    bucket loads back once, then the launch and the mirror), as the kernel
+    alone on the path's tiles (two blocks an SM) and on the widest tiles
+    one block holds, beside its bound, its atomics, its plain version and
+    torch.sparse.mm of the whole matrix."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+    from sourmash_tpu_torch.ops import cuda_pairwise as cp
+
+    weighted = len(planes) == 4
+    fn, plain_fn = ((cp.pairwise_products, cp.pairwise_products_plain) if weighted else
+                    (cp.pairwise_counts, cp.pairwise_counts_plain))
+    hi, lo, cnt = planes[0], planes[1], planes[-1]
+    av = planes[2] if weighted else None
+    rows, d, B = hi.shape
+    n = len(mins_list)
+    got = fn(*planes)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want_plain = plain_fn(*planes)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    err = exact(name, got, want_plain)
+    del want_plain
+    M = got[:n, :n].cpu().numpy().astype(np.int64)
+    if bank is not None:
+        bk._pairwise_spill_correction(M, mins_list, bank)
+    if not np.array_equal(M, want):
+        raise AssertionError(f"{name}: {int((M != want).sum())} entries differ from the oracle")
+    # the pairs the walk adds: sum over runs of g (g + 1) / 2, the upper
+    # triangle (diagonal included) of the stored count matrix
+    C = got if not weighted else cp.pairwise_counts(hi, lo, cnt)
+    pairs = (int(C.sum(dtype=torch.int64)) + int(C.diagonal().sum(dtype=torch.int64))) // 2
+    valid = int(cnt.to(torch.int64).clamp(max=d).sum())
+    del C
+    ms = time_ms(lambda: fn(*planes), reps)
+    out = torch.zeros((rows, rows), dtype=torch.int64 if weighted else torch.int32,
+                      device=hi.device)
+    # the wrapper's parts around the launch: the tile plan (a reduction of
+    # the occupancy, read back) and the mirror of the upper triangle
+    plan_ms = time_ms(lambda: cp.join_plan(cnt, d, weighted), reps)
+    mirror_ms = time_ms(lambda: cp._mirror(out), reps)
+    cap, pair_cap = cp.join_capacity(weighted, hi.device), cp.join_capacity(weighted, hi.device, 2)
+    per_bucket = cnt.clamp(max=min(d, 255)).sum(dim=0, dtype=torch.int64)
+    # the kernel alone at the path's tiles and at each width one block holds
+    tiles = {}
+    for label, target in [("path", None)] + [
+            (f"{1 << lg} buckets", int(per_bucket.view(-1, 1 << lg).sum(dim=1).max()))
+            for lg in range(cp._MAX_TILE_LOG2 + 1)]:
+        if target is not None and target > cap:
+            continue
+        plan = cp.join_plan(cnt, d, weighted, target)
+        launch = functools.partial(cp.launch_join, plan, hi, lo, av, out)
+        tiles[label] = dict(tile=1 << plan.tile_log2, kernel_ms=time_ms(launch, reps),
+                            b2b_ms=back_to_back_ms(launch, reps), cap=plan.cap,
+                            global_tiles=plan.global_tiles)
+    # the same stage and sort with no value shared between rows (each row's
+    # hi limbs xor-ed with a row constant; buckets and loads unchanged): the
+    # walk adds only the diagonal, so the difference is the pair atomics
+    salt = (torch.arange(rows, device=hi.device, dtype=torch.int32) * 0x01000193)[:, None, None]
+    plan = cp.join_plan(cnt, d, weighted)
+    launch = functools.partial(cp.launch_join, plan, hi ^ salt, lo, av, out)
+    tiles["path, no shared values"] = dict(tile=1 << plan.tile_log2, b2b_ms=back_to_back_ms(
+        launch, reps))
+    del out
+    # atomics the kernel issues: a pair of a run, and the diagonal once a
+    # row and tile that holds a valid slot
+    lg = plan.tile_log2
+    rows_tiles = int((cnt.view(rows, B >> lg, 1 << lg).to(torch.int32).sum(dim=2) > 0).sum())
+    kernel_atomics = pairs - valid + rows_tiles
+    # least bytes: the occupancies, each valid slot's limbs (and abundance)
+    # once, the output once; least operations: a compare an entry for the
+    # runs, an add a pair (with a 64-bit multiply, the products). The pair
+    # increments are atomics in L2, whose rate the model does not hold.
+    nbytes = cnt.numel() + (12 if weighted else 8) * valid + rows * rows * (8 if weighted else 4)
+    imad = IMAD_PER_MUL * pairs if weighted else 0
+    bms, by = bound_ms(nbytes, imad, (2 if weighted else 1) * pairs + valid, clock_hz)
+    lib = sparse_product_ms(mins_list, mins_list, reps, want, values, values)
+    path = tiles["path"]
+    log(f"  {name} [{rows}, {rows}] on [{rows}, {d}, {B}] planes ({valid} valid slots, {pairs} "
+        f"pairs, {kernel_atomics} atomics): equals its plain version and the oracle; wrapper "
+        f"{ms:.4f} ms (plan {plan_ms:.4f}, mirror {mirror_ms:.4f}), kernel "
+        f"{path['kernel_ms']:.4f} ms ({path['b2b_ms']:.4f} back to back) at "
+        f"tiles of {path['tile']} buckets; back to back by width "
+        f"{ {k: round(v['b2b_ms'], 4) for k, v in tiles.items()} }; plain {plain:.1f} ms; bound "
+        f"{bms:.4f} ms ({by}, {nbytes} bytes), {100 * bms / path['b2b_ms']:.1f} % of it back to "
+        f"back; torch.sparse.mm of the whole matrix {lib} ms; 1 launch a matrix")
+    return dict(ms=ms, b2b_ms=path["b2b_ms"], kernel_ms=path["kernel_ms"], plan_ms=plan_ms,
+                mirror_ms=mirror_ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, bytes=nbytes, max_abs_err=err, library_ms=lib,
+                atomics=pairs, kernel_atomics=kernel_atomics, valid_slots=valid, rows=rows, d=d,
+                B=B, tiles=tiles, cap=cap, cap_pair=pair_cap, launches_per_matrix=1)
+
+
 def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
     """compare's kernels on phase 9's k=31 collection ([2048, 8, 4096] at
-    n = 2,000; 256 sketches with --quick), so at the path's block and depth,
-    bit for bit against their plain versions, each timed with its bound and
-    beside torch.sparse.mm of the same block: counts_block with the bank's
-    own rows as the query block [block, 8, B], at sourmash_tpu's block of
-    16 and at counts_block_plan's (every query staged), each beside the
-    whole matrix (`pairwise_counts_bucketed`) at that block held to the
-    scipy.sparse oracle; products_block at the path's block on
-    `_pack_weighted`'s planes, and the whole product matrix held to the
-    oracle; both again on edge rows (spills and 2^64-1 in two rows; a
-    weighted bucket 20 deep); `query_intersection_counts` of one sketch
-    against the collection (`counts_rows` on CUDA) against np.intersect1d."""
+    n = 2,000; 256 sketches with --quick), bit for bit against their plain
+    versions, each timed with its bound and beside torch.sparse.mm: the
+    joins `pairwise_counts` on the bank and `pairwise_products` on
+    `_pack_weighted`'s planes, one launch a matrix, each held to the
+    scipy.sparse oracle (`check_join`); the block routes' kernels,
+    counts_block with the bank's own rows as the query block at
+    sourmash_tpu's block of 16, and products_block at blocks of 8 and of
+    `products_block_plan`'s size, each beside torch.sparse.mm of the same
+    block; the edge rows (spills and 2^64-1 in two rows, a weighted bucket
+    20 deep; `overloaded_rows`: a bucket past shared memory, an empty
+    sketch, n not a multiple of the row padding) through the joins and the
+    block kernels; `query_intersection_counts` of one sketch against the
+    collection (`counts_rows` on CUDA) against np.intersect1d."""
     import torch
 
     from sourmash_tpu_torch.ops import bucketed as bk
     from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops import cuda_pairwise as cp
     from sourmash_tpu_torch.ops import intersect
 
     dev = torch.device(GATHER_DEVICE)
@@ -2697,52 +2863,47 @@ def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
     bank = bk.pack_rows_device(mins_list, B, device=dev)
     Shi, Slo, Scnt = bank.hi, bank.lo, bank.cnt
     rows = Shi.shape[0]
-    Qcnt = Scnt.to(torch.int32)
-    path_block = bk._PAIRWISE_BLOCK
-    blocks = {}
-    for block in sorted({16, cg.counts_block_plan(rows, 8, dev)}):
-        Qhi, Qlo = Shi[:block], Slo[:block]
-        got = cg.counts_block(Qhi, Qlo, Shi, Slo)
-        t0 = time.time()
-        torch.cuda.synchronize()
-        want = plain_grid(lambda a, r: cg.counts_block_plain(
-            Qhi[a].contiguous(), Qlo[a].contiguous(), Shi[r].contiguous(), Slo[r].contiguous()),
-            block, rows, 8, 256)
-        torch.cuda.synchronize()
-        plain = (time.time() - t0) * 1e3
-        err = exact(f"counts_block pairwise, block {block}", got, want)
-        ms, b2b = kernel_times(lambda: cg.counts_block(Qhi, Qlo, Shi, Slo), reps)
-        ops = search_ops(Qcnt[:block], Scnt)
-        bms, by = bound_ms(2 * Shi.numel() * 4 + 2 * Qhi.numel() * 4 + block * rows * 4, 0, ops,
-                           clock_hz)
-        lib = sparse_product_ms(mins_list, None, min(block, n), reps, C)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        M = bk.pairwise_counts_bucketed(mins_list, block=block, device=dev)
-        whole = time.time() - t0
-        if not np.array_equal(M, C):
-            raise AssertionError(f"pairwise_counts_bucketed, block {block}: "
-                                 f"{int((M != C).sum())} entries differ from the sparse oracle")
-        launches = -(-rows // block)
-        blocks[block] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
-                             max_abs_err=err, library_ms=lib, bq=block, rows=rows, B=B, ops=ops,
-                             launches_per_matrix=launches, matrix_kernel_ms=launches * b2b,
-                             matrix_wall_s=whole)
-        log(f"  counts_block [{block}, 8, {B}] vs [{rows}, 8, {B}] (the bank's own rows): equals "
-            f"its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} "
-            f"ms, bound {bms:.4f} ms ({by}, {ops} ops), {100 * bms / b2b:.1f} % of it back to "
-            f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
-            f"({launches * b2b:.2f} ms back to back); pairwise_counts_bucketed {whole:.3f} s, "
-            f"equal to the sparse oracle")
-    best = min(blocks, key=lambda b: blocks[b]["matrix_kernel_ms"])
-    log(f"  counts_block blocks: {best} is the faster a matrix; the path takes {path_block}")
-    results = {"counts_block_pairwise": dict(blocks[path_block], blocks=blocks, faster=best)}
+    results = {"pairwise_counts": check_join("pairwise_counts", (Shi, Slo, Scnt), mins_list, C,
+                                             reps, clock_hz, bank=bank)}
+
+    # the block route: counts_block with the bank's own rows as the query
+    # block, at sourmash_tpu's block of 16 (the plan's block of 106, slower
+    # a matrix, is no longer timed: PERF.md keeps its numbers)
+    block = COMPARE_BLOCK
+    Qhi, Qlo = Shi[:block], Slo[:block]
+    got = cg.counts_block(Qhi, Qlo, Shi, Slo)
+    t0 = time.time()
+    torch.cuda.synchronize()
+    want = plain_grid(lambda a, r: cg.counts_block_plain(
+        Qhi[a].contiguous(), Qlo[a].contiguous(), Shi[r].contiguous(), Slo[r].contiguous()),
+        block, rows, 8, 256)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    err = exact(f"counts_block pairwise, block {block}", got, want)
+    ms, b2b = kernel_times(lambda: cg.counts_block(Qhi, Qlo, Shi, Slo), reps)
+    ops = search_ops(Scnt[:block].to(torch.int32), Scnt)
+    bms, by = bound_ms(2 * Shi.numel() * 4 + 2 * Qhi.numel() * 4 + block * rows * 4, 0, ops,
+                       clock_hz)
+    lib = sparse_product_ms(mins_list[:block], mins_list, reps, C[:block])
+    launches = -(-rows // block)
+    results["counts_block_pairwise"] = dict(
+        ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
+        library_ms=lib, bq=block, rows=rows, B=B, ops=ops, launches_per_matrix=launches,
+        matrix_kernel_ms=launches * b2b)
+    log(f"  counts_block [{block}, 8, {B}] vs [{rows}, 8, {B}] (the bank's own rows): equals "
+        f"its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} "
+        f"ms, bound {bms:.4f} ms ({by}, {ops} ops), {100 * bms / b2b:.1f} % of it back to "
+        f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
+        f"({launches * b2b:.2f} ms back to back)")
 
     t0 = time.time()
     hi, lo, av, cnt, _B = bk._pack_weighted(mins_list, abunds)
     pack_s = time.time() - t0
     S = tuple(bk.to_torch(x, dev) for x in (hi, lo, av, cnt))
     d = S[0].shape[1]
+    results["pairwise_products"] = dict(
+        check_join("pairwise_products", S, mins_list, P, reps, clock_hz, values=abunds),
+        pack_s=pack_s)
     path_block = cg.products_block_plan(rows, d, dev)
     blocks = {}
     for block in sorted({8, path_block}):
@@ -2768,42 +2929,73 @@ def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
         nbytes = sum(c.numel() * c.element_size() + 12 * int(c.sum(dtype=torch.int64))
                      for c in (Q[3], S[3])) + block * rows * 8
         bms, by = bound_ms(nbytes, IMAD_PER_MUL * hits, ops, clock_hz)
-        lib = sparse_product_ms(mins_list, abunds, min(block, n), reps, P)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        M = bk.pairwise_weighted_products(mins_list, abunds, block=block, device=dev)
-        whole = time.time() - t0
-        if not np.array_equal(M, P):
-            raise AssertionError(f"pairwise_weighted_products, block {block}: "
-                                 f"{int((M != P).sum())} entries differ from the sparse oracle")
+        lib = sparse_product_ms(mins_list[:block], mins_list, reps, P[:block],
+                                abunds[:block], abunds)
         launches = -(-rows // block)
         blocks[block] = dict(
             ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-            library_ms=lib, bq=block, rows=rows, d=d, B=B, hits=hits, ops=ops, pack_s=pack_s,
-            launches_per_matrix=launches, matrix_kernel_ms=launches * b2b, matrix_wall_s=whole)
+            library_ms=lib, bq=block, rows=rows, d=d, B=B, hits=hits, ops=ops,
+            launches_per_matrix=launches, matrix_kernel_ms=launches * b2b)
         log(f"  products_block [{block}, {d}, {B}] vs [{rows}, {d}, {B}]: equals its plain "
             f"version and the oracle; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain "
             f"{plain:.0f} ms, bound {bms:.4f} ms ({by}), {100 * bms / b2b:.1f} % of it back to "
             f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
-            f"({launches * b2b:.2f} ms back to back); pairwise_weighted_products {whole:.3f} s "
-            f"(host pack {pack_s:.2f} s), equal to the sparse oracle")
+            f"({launches * b2b:.2f} ms back to back; host pack {pack_s:.2f} s)")
     best = min(blocks, key=lambda b: blocks[b]["matrix_kernel_ms"])
-    log(f"  products_block blocks: {best} is the faster a matrix; the path takes {path_block}")
+    log(f"  products_block blocks: {best} is the faster a matrix; the block route takes "
+        f"{path_block}")
     results["products_block"] = dict(blocks[path_block], blocks=blocks, faster=best)
     del bank, Shi, Slo, S, Q
 
-    # edge rows: spills and 2^64-1 in the counts; 2^64-1 and a deep bucket in the products
+    # edge rows: spills and 2^64-1 in the counts; 2^64-1 and a deep bucket
+    # in the products; through the joins and through the block kernels
     erows, eab = weighted_edge_rows(rng)
-    got = bk.pairwise_counts_bucketed(erows, device=dev)
-    if not np.array_equal(got, oracle_pairwise(erows)):
-        raise AssertionError("pairwise_counts_bucketed on edge rows differs from the oracle")
-    planes = [bk.to_torch(x, dev) for x in bk._pack_weighted(erows, eab)[:4]]
-    got = cg.products_block(*planes, *planes)
-    exact("products_block, edge rows", got, cg.products_block_plain(*planes, *planes))
-    if not np.array_equal(got[:16, :16].cpu().numpy(), oracle_pairwise(erows, eab)):
-        raise AssertionError("products_block on edge rows differs from the oracle")
-    log(f"  edge rows (spills, 2^64-1 in two rows, a weighted bucket {planes[0].shape[1]} deep): "
-        f"pairwise_counts_bucketed and products_block equal the oracle and the plain version")
+    want = oracle_pairwise(erows)
+    for block in (None, COMPARE_BLOCK):
+        if not np.array_equal(bk.pairwise_counts_bucketed(erows, block=block, device=dev), want):
+            raise AssertionError(f"pairwise_counts_bucketed (block {block}) on edge rows differs "
+                                 f"from the oracle")
+    ebank = bk.pack_rows_device(erows, bk.choose_buckets(max(len(m) for m in erows)), device=dev)
+    exact("pairwise_counts, edge rows", cp.pairwise_counts(ebank.hi, ebank.lo, ebank.cnt),
+          cp.pairwise_counts_plain(ebank.hi, ebank.lo, ebank.cnt))
+    wplanes = [bk.to_torch(x, dev) for x in bk._pack_weighted(erows, eab)[:4]]
+    want = oracle_pairwise(erows, eab)
+    for name, got, plain in (
+            ("products_block", cg.products_block(*wplanes, *wplanes),
+             cg.products_block_plain(*wplanes, *wplanes)),
+            ("pairwise_products", cp.pairwise_products(*wplanes),
+             cp.pairwise_products_plain(*wplanes))):
+        exact(f"{name}, edge rows", got, plain)
+        if not np.array_equal(got[:16, :16].cpu().numpy(), want):
+            raise AssertionError(f"{name} on edge rows differs from the oracle")
+    # a bucket past shared memory (the join's global-memory branch), an
+    # empty sketch, n not a multiple of the row padding
+    orows, oab = overloaded_rows(rng)
+    OB = bk.choose_buckets(max(len(m) for m in orows))
+    obank = bk.pack_rows_device(orows, OB, device=dev)
+    oplanes = tuple(bk.to_torch(x, dev) for x in bk._pack_weighted(orows, oab)[:4])
+    went_global = {}
+    for name, planes, fn, plain_fn, want in (
+            ("pairwise_counts", (obank.hi, obank.lo, obank.cnt), cp.pairwise_counts,
+             cp.pairwise_counts_plain, oracle_pairwise(orows)),
+            ("pairwise_products", oplanes, cp.pairwise_products, cp.pairwise_products_plain,
+             oracle_pairwise(orows, oab))):
+        plan = cp.join_plan(planes[-1], planes[0].shape[1], len(planes) == 4)
+        if not plan.global_tiles:
+            raise AssertionError(f"{name}: the overloaded bucket's tile fits shared memory")
+        went_global[name] = plan.global_tiles
+        got = fn(*planes)
+        exact(f"{name}, overloaded bucket", got, plain_fn(*planes))
+        M = got[:OVERLOAD_N, :OVERLOAD_N].cpu().numpy().astype(np.int64)
+        if len(planes) == 3:
+            bk._pairwise_spill_correction(M, orows, obank)
+        if not np.array_equal(M, want):
+            raise AssertionError(f"{name} on the overloaded bucket differs from the oracle")
+    log(f"  edge rows (spills, 2^64-1 in two rows, a weighted bucket {wplanes[0].shape[1]} deep; "
+        f"{OVERLOAD_N} sketches padded to {obank.hi.shape[0]} rows, one empty, 8 shared hashes "
+        f"in one of {OB} buckets: global-memory tiles {went_global}): the joins and the block "
+        f"kernels equal their plain versions and the oracle")
+    del obank, oplanes
 
     # query vs many without cutoffs, past the host cutoff: the counts_rows engine
     q = max(mins_list, key=len)
@@ -2900,19 +3092,24 @@ def read_compare_outputs(out: str) -> tuple:
     return labels, np.load(out), np.array([[float(v) for v in row] for row in table[1:]])
 
 
-def compare_end_to_end(tmp: str, profile_cli: bool = False) -> dict:
+def compare_end_to_end(tmp: str, products_block: int, profile_cli: bool = False) -> dict:
     """`compare` (config 2 of BASELINE.json) on compare_collection's
     sketches (abundances 1-50): COMPARE_GENOMES at k=31, phase 2's, and
     COMPARE_SMALL at each of COMPARE_KS, each a zip. At n = 2,000: Jaccard
-    with --ignore-abundance, angular (products_block) and --containment,
-    each writing -o and --csv; the count and product matrices the command
-    computed must equal the scipy.sparse oracle exactly, and each written
-    matrix (and its CSV) the oracle's counts through compare.py's closed
-    forms. At n = 200: COMPARE_SMALL_MODES at k=31 and the last of them at
-    each other k, on the card and with
+    with --ignore-abundance, angular and --containment, each writing -o and
+    --csv, each launching its join (`pairwise_counts`, angular
+    `pairwise_products`) once and no block kernel; the count and product
+    matrices the command computed must equal the scipy.sparse oracle
+    exactly, and each written matrix (and its CSV) the oracle's counts
+    through compare.py's closed forms. Then the block routes through the
+    library entry points (`pairwise_counts_bucketed` at COMPARE_BLOCK,
+    `pairwise_weighted_products` at `products_block`), launches counted,
+    each matrix held to the oracle. At n = 200: COMPARE_SMALL_MODES at k=31
+    and the last of them at each other k, on the card and with
     SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout
     and files."""
     from sourmash_tpu_torch.__main__ import main as cli_main
+    from sourmash_tpu_torch.ops import bucketed as bk
     from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
 
     t0 = time.time()
@@ -2940,16 +3137,18 @@ def compare_end_to_end(tmp: str, profile_cli: bool = False) -> dict:
 
     runs = {}
     n = COMPARE_GENOMES
-    for mode, flags, kernel in (("jaccard", ["--ignore-abundance"], "counts_block"),
-                                ("angular", [], "products_block"),
-                                ("containment", ["--containment"], "counts_block")):
+    for mode, flags, kernel in (("jaccard", ["--ignore-abundance"], "pairwise_counts"),
+                                ("angular", [], "pairwise_products"),
+                                ("containment", ["--containment"], "pairwise_counts")):
         out = os.path.join(tmp, f"compare_{mode}.npy")
         run = run_compare([big["paths"]["all"], *flags, "-o", out, "--csv", out + ".csv"], {})
         labels, M, M_csv = read_compare_outputs(out)
         idx = np.array([where[label] for label in labels])
         Ci, Pi = C[np.ix_(idx, idx)], P[np.ix_(idx, idx)]
-        if run["launches"][kernel] < 1:
-            raise AssertionError(f"compare ({mode}): {kernel} not launched: {run['launches']}")
+        others = {k: c for k, c in run["launches"].items() if k != kernel and c}
+        if run["launches"][kernel] != 1 or others:
+            raise AssertionError(f"compare ({mode}): {kernel} must run once a matrix and no "
+                                 f"other compare kernel: {run['launches']}")
         computed = run.get("products" if mode == "angular" else "counts")
         if not np.array_equal(computed, Pi if mode == "angular" else Ci):
             raise AssertionError(f"compare ({mode}): the matrix it computed differs from the oracle")
@@ -2964,6 +3163,25 @@ def compare_end_to_end(tmp: str, profile_cli: bool = False) -> dict:
             f"(host pack {run.get('pack_s', 0.0):.3f} s); launches {run['launches']}; the "
             f"computed matrix equals the oracle and -o and --csv its closed form")
 
+    # the block routes (the JAX package's design), through the library
+    # entry points, each matrix held to the oracle
+    block_routes = {}
+    for name, kernel, block, fn, want in (
+            ("counts_block (compare)", "counts_block", COMPARE_BLOCK,
+             lambda: bk.pairwise_counts_bucketed(big["mins"], block=COMPARE_BLOCK, device="cuda"),
+             C),
+            ("products_block", "products_block", products_block,
+             lambda: bk.pairwise_weighted_products(big["mins"], big["abunds"],
+                                                   block=products_block, device="cuda"),
+             P)):
+        M, wall, launches = call_counted(fn, {})
+        if not np.array_equal(M, want):
+            raise AssertionError(f"{name}: the block route's matrix differs from the oracle")
+        block_routes[name] = dict(wall_s=wall, block=block,
+                                  launches={k: launches[k] for k in COMPARE_KERNELS})
+        log(f"  {name}: the block route at {block} rows a launch, {launches[kernel]} launches, "
+            f"{wall:.3f} s a matrix, equal to the oracle")
+
     cross = {}
     for k in COMPARE_KS:
         for flags in COMPARE_SMALL_MODES if k == TIMED_K else COMPARE_SMALL_MODES[-1:]:
@@ -2977,7 +3195,7 @@ def compare_end_to_end(tmp: str, profile_cli: bool = False) -> dict:
                 files = {f: open(os.path.join(d, f), "rb").read() for f in sorted(os.listdir(d))}
                 outs[dev] = (run, files)
             (crun, cfiles), (hrun, hfiles) = outs["cuda"], outs["cpu"]
-            if crun["launches"]["counts_block"] < 1 or any(hrun["launches"].values()):
+            if crun["launches"]["pairwise_counts"] != 1 or any(hrun["launches"].values()):
                 raise AssertionError(f"compare ({tag}): launches {crun['launches']} on the card, "
                                      f"{hrun['launches']} on the CPU")
             if cfiles != hfiles or crun["stdout"] != hrun["stdout"]:
@@ -2996,10 +3214,12 @@ def compare_end_to_end(tmp: str, profile_cli: bool = False) -> dict:
                     "-o", os.path.join(tmp, f"profiled_{mode}.npy")]
             profile[mode] = profiled(lambda: cli_main(argv), f"compare ({mode})")
     return dict(n=n, small=COMPARE_SMALL, ks=list(COMPARE_KS), runs=runs, cross=cross,
-                clades=big["clades"], hashes=int(np.diagonal(C).sum()), profile=profile)
+                block_routes=block_routes, clades=big["clades"],
+                hashes=int(np.diagonal(C).sum()), profile=profile)
 
 
-COMPARE_KERNELS = ("counts_block", "products_block")
+COMPARE_KERNELS = ("pairwise_counts", "pairwise_products", "counts_block", "products_block")
+COMPARE_BLOCK = 16  # sourmash_tpu's rows a launch of the all-pairs counts (the block route)
 # phase 9's n = 200 commands, run on the card and on the CPU: all four at
 # k = 31, the last (both directions' containment and ANI) at the other k
 # (cut from all four for the time limit)
@@ -3044,6 +3264,19 @@ KERNELS = {
     ),
     # compare's all-pairs counts: counts_block with the bank's own rows as
     # the query block (dq = d = 8)
+    # compare's all-pairs matrices: hash joins of a bank's valid slots, one
+    # launch a matrix (the main path of compare)
+    "pairwise_counts": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/pairwise.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:619",
+    ),
+    "pairwise_products": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/pairwise.cu",
+        replaces="sourmash_tpu/ops/bucketed.py:1025",
+    ),
+    # the block routes of the all-pairs counts and products (the JAX
+    # package's design, kept behind an integer `block`): counts_block with
+    # the bank's own rows as the query block (dq = d = 8), products_block
     "counts_block (compare)": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
         replaces="sourmash_tpu/ops/bucketed.py:619",
@@ -3096,6 +3329,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="run each sketch command once more under cProfile and "
                          "torch.profiler")
+    ap.add_argument("--compare-only", action="store_true",
+                    help="build, check compare's kernels (phase 2's part) and run phase 9, "
+                         "then stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -3129,6 +3365,23 @@ def main(argv=None) -> int:
     k3_against = sass_against(args.sass_against) if args.sass_against else None
 
     rng = np.random.default_rng(20261016)
+    if args.compare_only:
+        t0 = time.time()
+        log("phase 2 (compare's kernels only): against their plain versions on the card (exact)")
+        timings = check_compare_kernels(args.quick, rng, clock_hz)
+        log(f"phase 2 done in {time.time() - t0:.1f} s")
+        if not args.quick:
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.time()
+                log(f"phase 9: compare end to end on {COMPARE_GENOMES} genomes")
+                cmp = compare_end_to_end(tmp, timings["products_block"]["bq"], args.profile)
+                log(f"phase 9 done in {time.time() - t0:.1f} s")
+            timings["compare"] = cmp
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings), f, indent=1)
+        log("--compare-only: stopped after compare; no kernels line and no result")
+        return 0
     t0 = time.time()
     log("phase 2: kernels against their plain versions on the card (exact)")
     timings = check_kernels(args.quick, rng, clock_hz)
@@ -3178,7 +3431,7 @@ def main(argv=None) -> int:
         log(f"phase 8 done in {time.time() - t0:.1f} s")
         t0 = time.time()
         log(f"phase 9: compare end to end on {COMPARE_GENOMES} genomes")
-        cmp = compare_end_to_end(tmp, args.profile)
+        cmp = compare_end_to_end(tmp, timings["products_block"]["bq"], args.profile)
         log(f"phase 9 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
@@ -3190,8 +3443,10 @@ def main(argv=None) -> int:
                     membership_bits=gather_launches["membership_bits"],
                     round_dec=gather_launches["round_dec"],
                     **multi["multigather"]["runs"]["all"]["launches"],
-                    **{"counts_block (compare)": cmp["runs"]["jaccard"]["launches"]["counts_block"],
-                       "products_block": cmp["runs"]["angular"]["launches"]["products_block"]},
+                    pairwise_counts=cmp["runs"]["jaccard"]["launches"]["pairwise_counts"],
+                    pairwise_products=cmp["runs"]["angular"]["launches"]["pairwise_products"],
+                    **{name: cmp["block_routes"][name]["launches"][name.split()[0]]
+                       for name in ("counts_block (compare)", "products_block")},
                     **{name: instr[name] for name in INSTRUMENTS})
     timed = dict(survivor_slots=timings["survivor_slots"][TIMED_K],
                  window_hashes=timings["window_hashes"][TIMED_K],
@@ -3200,15 +3455,17 @@ def main(argv=None) -> int:
                  membership_bits=timings["membership_bits"],
                  round_dec=timings["round_dec"],
                  **{name: timings[name] for name in MULTI_KERNELS},
+                 pairwise_counts=timings["pairwise_counts"],
+                 pairwise_products=timings["pairwise_products"],
                  **{"counts_block (compare)": timings["counts_block_pairwise"],
                     "products_block": timings["products_block"]},
                  **{name: timings[name] for name in INSTRUMENTS})
-    # phase 2 timed compare's kernels on phase 9's planes at the path's block
-    for name in ("counts_block (compare)", "products_block"):
+    # phase 2 timed compare's kernels on phase 9's planes at each route's block
+    for name in ("pairwise_counts", "pairwise_products", "counts_block (compare)",
+                 "products_block"):
         if launches[name] != timed[name]["launches_per_matrix"]:
             raise AssertionError(f"{name}: phase 9 launched it {launches[name]} times a matrix, "
-                                 f"phase 2 timed blocks of {timed[name]['bq']} "
-                                 f"({timed[name]['launches_per_matrix']} a matrix)")
+                                 f"phase 2 timed {timed[name]['launches_per_matrix']} a matrix")
     line = []
     for name, meta in KERNELS.items():
         t = timed[name]

@@ -3,9 +3,10 @@ of `sourmash_tpu/compare.py` (itself reference `src/sourmash/compare.py`:
 compare_serial:14, compare_serial_containment:67, compare_all_pairs:328).
 
 The whole intersection-count matrix is computed in one batched pass
-(`ops/intersect.pairwise_intersection_counts`: `counts_block` on CUDA, the
-sorted engine on the CPU), and the abundance-product matrix of angular
-similarity by `products_block` (`ops/bucketed.pairwise_weighted_products`);
+(`ops/intersect.pairwise_intersection_counts`: the `pairwise_counts` join
+on CUDA, the sorted engine on the CPU), and the abundance-product matrix of
+angular similarity by the `pairwise_products` join
+(`ops/bucketed.pairwise_weighted_products`);
 the scalar similarity and ANI formulas run on the host per pair, with
 numerics identical to the reference, so both packages write the same
 floats. `compare_parallel` delegates to the batched path.

@@ -3,8 +3,9 @@
 Each source in `csrc/` (`sketch.cu`: K1, K2, K3; `gather.cu`: counts_rows,
 membership_bits, round_dec, their batch forms counts_block,
 membership_bits_batch, round_dec_batch, and compare's products_block;
-`sketch_parts.cu`: the sketch-kernel
-instruments T2, T3, T4) has a plain C interface with an error-string
+`pairwise.cu`: compare's all-pairs joins pairwise_counts and
+pairwise_products; `sketch_parts.cu`: the sketch-kernel instruments T2,
+T3, T4) has a plain C interface with an error-string
 entry, and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
 `build/kernels/<name>_<hash>.so` at first use, then loaded with ctypes.
 The hash covers the source, the shared headers (`csrc/*.cuh`) and the
@@ -28,7 +29,8 @@ from ..buildpaths import build_dir, sources_tag
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = {
-    name: os.path.join(_CSRC, f"{name}.cu") for name in ("sketch", "gather", "sketch_parts")
+    name: os.path.join(_CSRC, f"{name}.cu")
+    for name in ("sketch", "gather", "pairwise", "sketch_parts")
 }
 HEADERS = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
 NVCC_FLAGS = (
@@ -68,6 +70,13 @@ _LIBRARIES = {
         "gm_products_block_plan": [_I, _I, _P],
         # qhi, qlo, qav, qcnt, bq, dq, B, shi, slo, sav, scnt, rows, d, out, stream
         "gm_products_block": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    }),
+    "pairwise": ("pw_error_string", {
+        # weighted, blocks, cap (out); called directly, no stream
+        "pw_join_capacity": [_I, _I, _P],
+        # hi, lo, av, cnt, rows, d, B, tile_log2, meta, g_key, g_head, g_next, g_row, g_ab,
+        # cap, out, stream
+        "pw_join": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     }),
     "sketch_parts": ("sp_error_string", {
         # seq, B, S, n_pad, ksize, nw, words, valid, stream

@@ -8,7 +8,8 @@ Poisson(<= 2.5) occupancy. A sketch becomes two u32 limb planes hi, lo
 [d = 8, B] (bucket dimension last), and intersection counting becomes a
 dense equality compare between planes: the hand-written `counts_rows`
 kernel (`ops/cuda_gather.py`, T1), and `counts_block` for a block of
-queries [bq, dq, B] (X3b).
+queries [bq, dq, B] (X3b); compare's all-pairs matrices are hash joins of
+a bank's valid slots (`ops/cuda_pairwise.py`).
 
 Exactness is kept by construction, as in the JAX package:
 
@@ -39,7 +40,7 @@ import hashlib
 import numpy as np
 import torch
 
-from . import cuda_gather
+from . import cuda_gather, cuda_pairwise
 
 MAX_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 _D = 8  # subject slots per bucket
@@ -697,21 +698,16 @@ def membership_matrix(q_full: np.ndarray, bank: BucketedRows, row_ids, q_packed=
 # -- all pairs (compare) -------------------------------------------------------
 
 
-# query rows a launch of the all-pairs counts takes: at 2,000 sketches of
-# 2,000-6,000 hashes, 128 `counts_block` launches of 16 take 184 ms on an
-# H100 and 20 launches of the 106 that counts_block_plan stages together
-# 213 ms (PERF.md §6); sourmash_tpu's block is 16 as well
-_PAIRWISE_BLOCK = 16
-
-
-def pairwise_counts_bucketed(mins_list, block=_PAIRWISE_BLOCK, device=None):
+def pairwise_counts_bucketed(mins_list, block=None, device=None):
     """All-pairs exact intersection-count matrix [n, n] int64 by bucketed
-    dense compare: the bank's own rows are the query block (dq = d = 8) of
-    `counts_block` (X3b), `block` rows a launch,
-    read back once; then the host spill correction. The bank is packed on
-    the device from raw limb rows; its columns are ascending, PAD last (a
-    stable sort by bucket of sorted rows), which `counts_block` needs and
-    checks once for the whole bank."""
+    dense compare of a bank packed on the device from raw limb rows, read
+    back once, then the host spill correction. With block=None (the
+    default) one `pairwise_counts` launch joins the bank's valid slots
+    bucket by bucket. An integer `block` keeps the JAX package's design:
+    the bank's own rows as the query block (dq = d = 8) of `counts_block`
+    (X3b), `block` rows a launch, minus the PAD correction; the bank's
+    columns are ascending, PAD last (a stable sort by bucket of sorted
+    rows), which `counts_block` needs and checks once for the whole bank."""
     from . import resolve_device
 
     n = len(mins_list)
@@ -722,12 +718,15 @@ def pairwise_counts_bucketed(mins_list, block=_PAIRWISE_BLOCK, device=None):
     bank = pack_rows_device(mins_list, B, device=device)
     if bank is None:
         bank = pack_rows_bucketed(mins_list, B, device=device)
-    Qcnt = bank.cnt.to(torch.int32)  # the pad correction's query occupancy
-    outs = [
-        _counts_block_impl(Qhi, Qlo, Qcnt[i : i + block], bank.hi, bank.lo, bank.cnt)
-        for i, Qhi, Qlo in cuda_gather.query_row_blocks(bank.hi, bank.lo, block)
-    ]
-    out = torch.cat(outs)[:n, :n].cpu().numpy().astype(np.int64)
+    if block is None:
+        out = cuda_pairwise.pairwise_counts(bank.hi, bank.lo, bank.cnt)
+    else:
+        Qcnt = bank.cnt.to(torch.int32)  # the pad correction's query occupancy
+        out = torch.cat([
+            _counts_block_impl(Qhi, Qlo, Qcnt[i : i + block], bank.hi, bank.lo, bank.cnt)
+            for i, Qhi, Qlo in cuda_gather.query_row_blocks(bank.hi, bank.lo, block)
+        ])
+    out = out[:n, :n].cpu().numpy().astype(np.int64)
     _pairwise_spill_correction(out, mins_list, bank)
     return out
 
@@ -850,12 +849,13 @@ def _pack_weighted(mins_list, abunds_list):
 def pairwise_weighted_products(mins_list, abunds_list, block=None, device=None):
     """All-pairs exact [n, n] int64 matrix of sum(a_i(h) * a_j(h)) over
     each pair's shared hashes, the hot term of abundance-weighted (angular)
-    similarity: the host pack `_pack_weighted`, uploaded once, then
-    `block` query rows a `products_block` launch (X6, the port of
-    `sourmash_tpu`'s `_products_block_impl`; default: as many as the kernel
-    stages in shared memory together on CUDA, 8 on the CPU). Integer
-    accumulation is exact and independent of order, so the result equals
-    the host's f64 merge-join sum whenever it fits 2**53 (callers guard)."""
+    similarity, on the host pack `_pack_weighted`, uploaded once. With
+    block=None (the default) one `pairwise_products` launch joins the
+    planes' valid slots bucket by bucket; an integer `block` keeps the JAX
+    package's design, `block` query rows a `products_block` launch (X6, the
+    port of `sourmash_tpu`'s `_products_block_impl`). Integer accumulation
+    is exact and independent of order, so the result equals the host's f64
+    merge-join sum whenever it fits 2**53 (callers guard)."""
     from . import resolve_device
 
     n = len(mins_list)
@@ -864,13 +864,12 @@ def pairwise_weighted_products(mins_list, abunds_list, block=None, device=None):
     device = resolve_device(device)
     hi, lo, av, cnt, _B = _pack_weighted(mins_list, abunds_list)
     hi, lo, av, cnt = (to_torch(x, device) for x in (hi, lo, av, cnt))
-    rows, d = hi.shape[0], hi.shape[1]
     if block is None:
-        block = (max(1, cuda_gather.products_block_plan(rows, d, device))
-                 if device.type == "cuda" else 8)
-    outs = [
-        cuda_gather.products_block(Qhi, Qlo, av[i : i + block], cnt[i : i + block], hi, lo, av,
-                                   cnt)
-        for i, Qhi, Qlo in cuda_gather.query_row_blocks(hi, lo, block, cnt)
-    ]
-    return torch.cat(outs)[:n, :n].cpu().numpy()
+        out = cuda_pairwise.pairwise_products(hi, lo, av, cnt)
+    else:
+        out = torch.cat([
+            cuda_gather.products_block(Qhi, Qlo, av[i : i + block], cnt[i : i + block], hi, lo,
+                                       av, cnt)
+            for i, Qhi, Qlo in cuda_gather.query_row_blocks(hi, lo, block, cnt)
+        ])
+    return out[:n, :n].cpu().numpy()

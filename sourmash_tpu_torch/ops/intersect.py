@@ -9,8 +9,9 @@ package chooses per backend:
 
 - **bucketed** (`ops/bucketed.py`): dense equality compares over
   low-bit-bucketed u32 planes, the hand-written `counts_rows` kernel (with
-  per-row cutoffs) and, for the all-pairs matrix, `counts_block` with the
-  bank's own rows as the query block. The CUDA path.
+  per-row cutoffs) and, for the all-pairs matrix, the `pairwise_counts`
+  hash join of the bank's valid slots (`ops/cuda_pairwise.py`). The CUDA
+  path.
 - **sorted** (this module, X7): padded sorted `[n, L]` rows and a
   vectorised `torch.searchsorted` on sign-flipped int64 (unsigned order):
   O(L log L) work that suits the CPU.
@@ -207,8 +208,8 @@ def _host_pairwise_counts(mins_list, n):
 
 def pairwise_intersection_counts(mins_list, device=None) -> np.ndarray:
     """Host wrapper: list of sorted uint64 arrays -> [n, n] int64 count
-    matrix. Host joins below the cutoff; above it `counts_block` on CUDA,
-    the sorted engine on the CPU."""
+    matrix. Host joins below the cutoff; above it the `pairwise_counts`
+    join on CUDA, the sorted engine on the CPU."""
     from . import resolve_device
 
     n = len(mins_list)
