@@ -89,7 +89,7 @@ Phases, each raising on failure:
    written matrix and CSV the oracle's counts through compare.py's closed
    forms. Then the block routes through the library entry points
    (`pairwise_counts_bucketed` at 16 rows a `counts_block` launch,
-   `pairwise_weighted_products` at `products_block_plan`'s block), each
+   `pairwise_weighted_products` at PRODUCTS_BLOCK = 58), each
    matrix equal to the oracle, their launches counted for the kernels
    line. At n = 200: `--max-containment` and
    `--avg-containment`, each with and without `--estimate-ani`, at k = 31,
@@ -118,12 +118,14 @@ at [2048, W =
 ceil(600 k / 32)], and on edge inputs: the identity slot map of
 `membership_matrix`, buckets with cnt = 8, emptied and repeated rows, and
 a W above the block's shared memory; `round_dec` at [4096, W]. And the
-batch kernels at phase 8's shapes: `counts_block` on the same chunk against
-phase 8's block of 16 queries (4 of ~600 k hashes, 12 of 20 k-150 k) and
-a block of 32 (8 and 24; columns in shared memory, staged a sub-block of
-queries at a time), each timed beside
-`counts_rows` launched for each query of the block, and against a B = 128
-bank whose columns exceed shared memory; `membership_bits_batch` with 4
+batch kernels at phase 8's shapes: `counts_block`, the join, on the same
+chunk against phase 8's block of 16 queries (4 of ~600 k hashes, 12 of
+20 k-150 k) and a block of 32 (8 and 24), its tiles planned from the
+block's host loads as multigather plans them, each timed beside
+`counts_rows` launched for each query of the block (whose raw matches,
+less the PAD correction, its first and last rows must equal) and at
+tiles of half the entries, and 8 of them against a B = 128 bank, where the join's
+tiles exceed shared memory and work in global memory; `membership_bits_batch` with 4
 queries (~600 k, 150 k, empty, 20 k hashes) x 2,048 rows at W = ceil(600 k
 / 32), repacked at a depth above the block's own, with padded selections
 and rows with cnt = 8 and 2^64-1; `round_dec_batch` on its words. And
@@ -136,9 +138,9 @@ alone at the path's tiles, at each tile width one block holds and with no
 value shared between rows (the walk's pair atomics left out), beside its
 bound, its atomics and `torch.sparse.mm` of the whole matrix;
 `counts_block` with the bank's own rows as the query block at 16 rows,
-and `products_block` on the weighted planes at blocks of 8 and of
-`products_block_plan`'s size, each timed with its bound and beside
-`torch.sparse.mm` of the same block; the joins and the block kernels on
+and `products_block` on the weighted planes at blocks of 8 and 58, each
+bit for bit against its plain version, timed with its byte bound and its
+atomics and beside `torch.sparse.mm` of the same block; the joins and the block kernels on
 edge rows (spills and 2^64-1 in two rows, a weighted bucket 20 deep; 2,600
 sketches padded to 4,096 rows, one empty, all others sharing 8 hashes of
 one bucket: the joins' global-memory tiles); `query_intersection_counts`
@@ -1296,16 +1298,6 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
     return results
 
 
-def plain_grid(fn, n_q: int, n_rows: int, q_step: int, row_step: int):
-    "fn(query slice, row slice) [q, rows] over a grid of slices, joined."
-    import torch
-
-    return torch.cat([
-        torch.cat([fn(slice(a, min(a + q_step, n_q)), slice(r, min(r + row_step, n_rows)))
-                   for r in range(0, n_rows, row_step)], dim=1)
-        for a in range(0, n_q, q_step)])
-
-
 def search_ops(Qcnt, Scnt, d: int = 8, pad: bool = True) -> int:
     """The least integer ops of matching a chunk's slots against sorted
     query columns: each valid slot of bucket b is binary-searched in each
@@ -1328,45 +1320,116 @@ def search_ops(Qcnt, Scnt, d: int = 8, pad: bool = True) -> int:
     return ops
 
 
-def check_counts_block(label: str, qs, Shi, Slo, Scnt, reps: int, clock_hz: float, dev) -> dict:
-    """counts_block of a block of queries against one chunk, bit for bit
-    against its plain version, timed (per call, back to back) beside
-    counts_rows launched for each query, with its bound (`search_ops`)."""
+def block_join_bound(Q, S, hits: int, clock_hz: float) -> tuple:
+    """(bound ms, by, bytes, query valid slots, row valid slots) of one
+    block join (`counts_block` on Q = (Qhi, Qlo, Qcnt) against S = (Shi,
+    Slo, Scnt); `products_block` with abundances, four planes a side):
+    each side's occupancy read once, its valid slots' limbs (and
+    abundance) once, the [bq, rows] output written once; an op an entry
+    (its insertion or probe) and an add a matching slot pair (with a 64-bit
+    multiply, weighted), `hits` of them, this run's data. The adds are L2
+    atomics, whose rate the model does not hold."""
     import torch
 
+    weighted = len(Q) == 4
+    q_valid = int(Q[-1].to(torch.int64).clamp(max=Q[0].shape[1]).sum())
+    s_valid = int(S[-1].to(torch.int64).clamp(max=S[0].shape[1]).sum())
+    nbytes = (Q[-1].numel() * Q[-1].element_size() + S[-1].numel()
+              + (12 if weighted else 8) * (q_valid + s_valid)
+              + Q[0].shape[0] * S[0].shape[0] * (8 if weighted else 4))
+    imad = IMAD_PER_MUL * hits if weighted else 0
+    bms, by = bound_ms(nbytes, imad, q_valid + s_valid + (2 if weighted else 1) * hits,
+                       clock_hz)
+    return bms, by, nbytes, q_valid, s_valid
+
+
+def check_block_join(name: str, Q, S, plan, reps: int, clock_hz: float, hits=None) -> dict:
+    """One block join on `plan`'s tiles, `counts_block` on Q = (Qhi, Qlo,
+    Qcnt) against S = (Shi, Slo, Scnt) or `products_block` with abundances
+    (four planes a side): bit for bit against its plain version (one call
+    on the whole block), timed per wrapper call and back to back, the
+    kernel alone back to back at the path's tiles (the widest one block
+    holds) and at tiles of half as many entries, each held to the
+    wrapper's output; beside its
+    byte bound (`block_join_bound`), its atomics (the matching slot pairs:
+    the counts' sum, else `hits`) and the time to plan its tiles from host
+    loads."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    weighted = len(Q) == 4
+    fn, plain_fn = ((cg.products_block, cg.products_block_plain) if weighted else
+                    (cg.counts_block, cg.counts_block_plain))
+    dev = Q[0].device
+    got = fn(*Q, *S, plan)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want = plain_fn(*Q, *S)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    err = exact(name, got, want)
+    del want
+    atomics = int(got.sum(dtype=torch.int64)) if hits is None else hits
+    ms, b2b = kernel_times(lambda: fn(*Q, *S, plan), reps)
+    entries = cg.block_entries(Q[-1], Q[0].shape[1])
+    plan_ms = time_ms(lambda: cg.block_join_plan(entries, weighted, dev), reps)
+    narrow = cg.block_join_plan(entries, weighted, dev,
+                                target=cg.block_join_capacity(weighted, dev) // 2)
+    out = torch.zeros_like(got)
+    args = (Q[0], Q[1], Q[2] if weighted else None, Q[-1], S[0], S[1],
+            S[2] if weighted else None, S[-1], out)
+    variants = {}
+    for label, p in (("path", plan), (f"tiles of {1 << narrow.tile_log2}", narrow)):
+        launch = functools.partial(cg.launch_block_join, p, *args)
+        out.zero_()
+        launch()
+        exact(f"{name} ({label})", out, got)
+        variants[label] = dict(tile=1 << p.tile_log2, global_tiles=p.global_tiles,
+                               b2b_ms=back_to_back_ms(launch, reps))
+    del out
+    bq, dq, B = Q[0].shape
+    rows, d = S[0].shape[:2]
+    bms, by, nbytes, q_valid, s_valid = block_join_bound(Q, S, atomics, clock_hz)
+    kernel = variants["path"]["b2b_ms"]
+    log(f"  {name} [{bq}, {dq}, {B}] vs [{rows}, {d}, {B}] ({q_valid} + {s_valid} valid slots, "
+        f"{atomics} atomics): equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
+        f"back; kernel alone {kernel:.4f}) at tiles of {1 << plan.tile_log2} buckets "
+        f"({plan.global_tiles} in global memory); back to back by variant "
+        f"{ {k: round(v['b2b_ms'], 4) for k, v in variants.items()} }; plan from host loads "
+        f"{plan_ms:.4f} ms; plain {plain:.1f} ms; bound {bms:.4f} ms ({by}, {nbytes} bytes), "
+        f"{100 * bms / b2b:.1f} % of it back to back")
+    return dict(ms=ms, b2b_ms=b2b, kernel_b2b_ms=kernel, plain_ms=plain, bound_ms=bms,
+                bound_by=by, bytes=nbytes, max_abs_err=err, atomics=atomics, q_valid=q_valid,
+                s_valid=s_valid, bq=bq, rows=rows, dq=dq, d=d, B=B, tile=1 << plan.tile_log2,
+                global_tiles=plan.global_tiles, plan_ms=plan_ms, variants=variants)
+
+
+def check_counts_block(label: str, qs, Shi, Slo, Scnt, reps: int, clock_hz: float, dev) -> dict:
+    """counts_block of a block of queries against one chunk on the tiles
+    planned from the block's host loads, as multigather plans them
+    (`check_block_join`), each of its first and last queries' rows held to
+    counts_rows' raw matches minus the exact PAD correction, and timed
+    beside counts_rows launched for each query."""
     from sourmash_tpu_torch.ops import bucketed as bk
     from sourmash_tpu_torch.ops import cuda_gather as cg
 
-    bq, rows, B = len(qs), Shi.shape[0], Shi.shape[2]
-    Qhi, Qlo, Qcnt, dq, _raw = bk.pack_query_block_device(qs, B, device=dev)
-    got = cg.counts_block(Qhi, Qlo, Shi, Slo)
-    t0 = time.time()
-    torch.cuda.synchronize()
-    want = plain_grid(lambda a, r: cg.counts_block_plain(
-        Qhi[a].contiguous(), Qlo[a].contiguous(), Shi[r].contiguous(), Slo[r].contiguous()),
-        bq, rows, 8, 32)
-    torch.cuda.synchronize()
-    plain = (time.time() - t0) * 1e3
-    err = exact(f"counts_block, {label}", got, want)
+    bq, B = len(qs), Shi.shape[2]
+    loads = bk.query_block_loads(qs, B)
+    Qhi, Qlo, Qcnt, dq, _raw = bk.pack_query_block_device(qs, B, device=dev, loads=loads)
+    plan = cg.block_join_plan(loads.sum(axis=0), False, dev)
+    res = check_block_join(f"counts_block, {label}", (Qhi, Qlo, Qcnt), (Shi, Slo, Scnt), plan,
+                           reps, clock_hz)
+    got = cg.counts_block(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, plan)
     for i in (0, bq - 1):
-        exact(f"counts_block, {label}, query {i} vs counts_rows", got[i], cg.counts_rows(
-            Qhi[i].contiguous(), Qlo[i].contiguous(), Shi, Slo))
-    ms, b2b = kernel_times(lambda: cg.counts_block(Qhi, Qlo, Shi, Slo), reps)
-    views = [(Qhi[i].contiguous(), Qlo[i].contiguous()) for i in range(bq)]
-    rows_ms = time_ms(lambda: [cg.counts_rows(h, lo, Shi, Slo) for h, lo in views], reps)
-    qsub = cg.counts_block_plan(bq, dq, dev)
-    rereads = -(-bq // qsub) if qsub else -(-bq // 384)  # the global branch's sub-blocks
-    ops = search_ops(Qcnt, Scnt)
-    nbytes = 2 * Shi.numel() * 4 + 2 * Qhi.numel() * 4 + bq * rows * 4
-    bms, by = bound_ms(nbytes, 0, ops, clock_hz)
-    log(f"  counts_block [{bq}, {dq}, {B}] vs [{rows}, 8, {B}] ({label}): equals its plain "
-        f"version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} ms, bound "
-        f"{bms:.4f} ms ({by}, {ops} ops), {100 * bms / b2b:.1f} % of it back to back; {qsub} "
-        f"queries staged together, rows read {rereads}x; counts_rows for each of the {bq} "
-        f"queries {rows_ms:.4f} ms")
-    return dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-                bq=bq, rows=rows, dq=dq, B=B, qsub=qsub, row_reads=rereads, ops=ops,
-                counts_rows_x_bq_ms=rows_ms)
+        raw = cg.counts_rows(Qhi[i], Qlo[i], Shi, Slo)
+        exact(f"counts_block, {label}, query {i} vs counts_rows", got[i],
+              raw - bk._pad_correction(Qcnt[i], Scnt, dq, Shi.shape[1]))
+    rows_ms = time_ms(lambda: [cg.counts_rows(Qhi[i], Qlo[i], Shi, Slo) for i in range(bq)],
+                      reps)
+    log(f"  counts_block ({label}): queries 0 and {bq - 1} equal counts_rows minus the PAD "
+        f"correction; counts_rows for each of the {bq} queries {rows_ms:.4f} ms")
+    return dict(res, counts_rows_x_bq_ms=rows_ms)
 
 
 def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -> dict:
@@ -1374,9 +1437,9 @@ def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -
     bit, at phase 8's shapes, each timed with its bound: counts_block on
     phase 2's chunk against phase 8's block (MULTI_LARGE queries of ~600 k
     hashes, then MULTI_SMALL of 20 k-150 k) and a block of BLOCK_QUERIES
-    of the same mix (a quarter large; columns in shared memory, sub-blocks
-    of queries), each beside counts_rows launched for each query of the
-    block, and against a B = 128 bank whose columns exceed shared memory; membership_bits_batch with 4 queries x 2,048
+    of the same mix (a quarter large), each beside counts_rows launched for
+    each query of the block, and 8 of them against a B = 128 bank, where
+    the join's tiles exceed shared memory; membership_bits_batch with 4 queries x 2,048
     rows at W = ceil(600 k / 32) on edge inputs (padded selections, an
     empty query, the block repacked at a depth above its own, rows with
     cnt = 8 and 2^64-1); round_dec_batch on its words."""
@@ -1419,23 +1482,21 @@ def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -
     n_small = min(GLOBAL_ROWS, len(mins_list))
     small = [m[: int(n)] for m, n in zip(mins_list[:n_small], rng.integers(150, 321, size=n_small))]
     gbank = bk.pack_rows_device(small, GLOBAL_B, device=dev)
-    gq = qs[: min(8, bq)]
-    Ghi, Glo, Gcnt, gdq, _graw = bk.pack_query_block_device(gq, GLOBAL_B, device=dev)
-    if cg.counts_block_plan(len(gq), gdq, dev):
-        raise AssertionError(f"dq={gdq} at B = {GLOBAL_B} fits shared memory: not the global branch")
-    got = cg.counts_block(Ghi, Glo, gbank.hi, gbank.lo)
-    grows = gbank.hi.shape[0]
-    exact("counts_block global columns", got, plain_grid(lambda a, r: cg.counts_block_plain(
-        Ghi[a].contiguous(), Glo[a].contiguous(), gbank.hi[r].contiguous(),
-        gbank.lo[r].contiguous()), len(gq), grows, 8, 16))
-    gms, gb2b = kernel_times(lambda: cg.counts_block(Ghi, Glo, gbank.hi, gbank.lo), reps)
-    gbms, gby = bound_ms(2 * gbank.hi.numel() * 4 + 2 * Ghi.numel() * 4 + len(gq) * grows * 4,
-                         0, search_ops(Gcnt, gbank.cnt), clock_hz)
-    results["counts_block"]["global"] = dict(ms=gms, b2b_ms=gb2b, bound_ms=gbms, bound_by=gby,
-                                             bq=len(gq), rows=grows, dq=gdq, B=GLOBAL_B)
-    log(f"  counts_block [{len(gq)}, {gdq}, {GLOBAL_B}] vs [{grows}, 8, {GLOBAL_B}] (global-memory "
-        f"columns): equals its plain version; {gms:.4f} ms/launch ({gb2b:.4f} back to back), "
-        f"bound {gbms:.4f} ms ({gby})")
+    gq = qs[:n_large] + [q] * (8 - n_large)  # 8 large queries (--quick: copies of one)
+    gloads = bk.query_block_loads(gq, GLOBAL_B)
+    Ghi, Glo, Gcnt, gdq, _graw = bk.pack_query_block_device(gq, GLOBAL_B, device=dev,
+                                                            loads=gloads)
+    gplan = cg.block_join_plan(gloads.sum(axis=0), False, dev)
+    if not gplan.global_tiles:
+        raise AssertionError(f"dq={gdq} at B = {GLOBAL_B}: no tile of the join in global memory")
+    res = check_block_join("counts_block, global-memory tiles", (Ghi, Glo, Gcnt),
+                           (gbank.hi, gbank.lo, gbank.cnt), gplan, reps, clock_hz)
+    got = cg.counts_block(Ghi, Glo, Gcnt, gbank.hi, gbank.lo, gbank.cnt, gplan)
+    for i in (0, len(gq) - 1):
+        exact(f"counts_block global tiles, query {i} vs counts_rows", got[i],
+              cg.counts_rows(Ghi[i], Glo[i], gbank.hi, gbank.lo)
+              - bk._pad_correction(Gcnt[i], gbank.cnt, gdq, gbank.d))
+    results["counts_block"]["global"] = res
     del gbank, Ghi, Glo
 
     # membership_bits_batch: a block of 4 (600 k, 150 k, empty, 20 k hashes),
@@ -2835,10 +2896,10 @@ def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
     versions, each timed with its bound and beside torch.sparse.mm: the
     joins `pairwise_counts` on the bank and `pairwise_products` on
     `_pack_weighted`'s planes, one launch a matrix, each held to the
-    scipy.sparse oracle (`check_join`); the block routes' kernels,
+    scipy.sparse oracle (`check_join`); the block routes' joins,
     counts_block with the bank's own rows as the query block at
-    sourmash_tpu's block of 16, and products_block at blocks of 8 and of
-    `products_block_plan`'s size, each beside torch.sparse.mm of the same
+    sourmash_tpu's block of 16, and products_block at blocks of 8 and
+    PRODUCTS_BLOCK (`check_block_join`), each beside torch.sparse.mm of the same
     block; the edge rows (spills and 2^64-1 in two rows, a weighted bucket
     20 deep; `overloaded_rows`: a bucket past shared memory, an empty
     sketch, n not a multiple of the row padding) through the joins and the
@@ -2867,34 +2928,19 @@ def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
                                              reps, clock_hz, bank=bank)}
 
     # the block route: counts_block with the bank's own rows as the query
-    # block, at sourmash_tpu's block of 16 (the plan's block of 106, slower
-    # a matrix, is no longer timed: PERF.md keeps its numbers)
+    # block, at sourmash_tpu's block of 16, on the tiles `row_block_plans`
+    # gives the route (planned from the bank's occupancy, read back once)
     block = COMPARE_BLOCK
-    Qhi, Qlo = Shi[:block], Slo[:block]
-    got = cg.counts_block(Qhi, Qlo, Shi, Slo)
-    t0 = time.time()
-    torch.cuda.synchronize()
-    want = plain_grid(lambda a, r: cg.counts_block_plain(
-        Qhi[a].contiguous(), Qlo[a].contiguous(), Shi[r].contiguous(), Slo[r].contiguous()),
-        block, rows, 8, 256)
-    torch.cuda.synchronize()
-    plain = (time.time() - t0) * 1e3
-    err = exact(f"counts_block pairwise, block {block}", got, want)
-    ms, b2b = kernel_times(lambda: cg.counts_block(Qhi, Qlo, Shi, Slo), reps)
-    ops = search_ops(Scnt[:block].to(torch.int32), Scnt)
-    bms, by = bound_ms(2 * Shi.numel() * 4 + 2 * Qhi.numel() * 4 + block * rows * 4, 0, ops,
-                       clock_hz)
+    Q = (Shi[:block], Slo[:block], Scnt[:block].to(torch.int32))
+    plan = cg.block_join_plan(cg.block_entries(Q[2], 8), False, dev)
+    res = check_block_join(f"counts_block (compare), block {block}", Q, (Shi, Slo, Scnt), plan,
+                           reps, clock_hz)
     lib = sparse_product_ms(mins_list[:block], mins_list, reps, C[:block])
     launches = -(-rows // block)
-    results["counts_block_pairwise"] = dict(
-        ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-        library_ms=lib, bq=block, rows=rows, B=B, ops=ops, launches_per_matrix=launches,
-        matrix_kernel_ms=launches * b2b)
-    log(f"  counts_block [{block}, 8, {B}] vs [{rows}, 8, {B}] (the bank's own rows): equals "
-        f"its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} "
-        f"ms, bound {bms:.4f} ms ({by}, {ops} ops), {100 * bms / b2b:.1f} % of it back to "
-        f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
-        f"({launches * b2b:.2f} ms back to back)")
+    results["counts_block_pairwise"] = dict(res, library_ms=lib, launches_per_matrix=launches,
+                                            matrix_kernel_ms=launches * res["b2b_ms"])
+    log(f"  counts_block (compare): torch.sparse.mm of the block {lib} ms; {launches} launches "
+        f"a matrix ({launches * res['b2b_ms']:.2f} ms back to back)")
 
     t0 = time.time()
     hi, lo, av, cnt, _B = bk._pack_weighted(mins_list, abunds)
@@ -2904,47 +2950,29 @@ def check_compare_kernels(quick: bool, rng, clock_hz: float) -> dict:
     results["pairwise_products"] = dict(
         check_join("pairwise_products", S, mins_list, P, reps, clock_hz, values=abunds),
         pack_s=pack_s)
-    path_block = cg.products_block_plan(rows, d, dev)
     blocks = {}
-    for block in sorted({8, path_block}):
+    for block in sorted({8, PRODUCTS_BLOCK}):
         Q = tuple(x[:block] for x in S)
-        got = cg.products_block(*Q, *S)
-        t0 = time.time()
-        torch.cuda.synchronize()
-        want = plain_grid(lambda a, r: cg.products_block_plain(
-            *(x[a].contiguous() for x in Q), *(x[r].contiguous() for x in S)), block, rows, 4, 128)
-        torch.cuda.synchronize()
-        plain = (time.time() - t0) * 1e3
-        err = exact(f"products_block, block {block}", got, want)
+        plan = cg.block_join_plan(cg.block_entries(Q[3], d), True, dev)
+        # every shared hash a product (abundances 1-50): the count matrix's block
+        hits = int(C[: min(block, n)].sum())
+        res = check_block_join(f"products_block, block {block}", Q, S, plan, reps, clock_hz,
+                               hits=hits)
+        got = cg.products_block(*Q, *S, plan)
         if not np.array_equal(got[: min(block, n), :n].cpu().numpy(), P[: min(block, n)]):
             raise AssertionError("products_block: the block differs from the sparse oracle")
-        ms, b2b = kernel_times(lambda: cg.products_block(*Q, *S), reps)
-        # least work: each valid row slot binary-searched in each query's
-        # valid prefix of its bucket (`search_ops`, no PAD slots), and for
-        # each hit a 64-bit multiply and add; least bytes: the occupancies,
-        # the valid slots' hi, lo and abundance (12 bytes each; the slots
-        # past an occupancy need no read), and the [block, rows] int64 out
-        hits = int(C[: min(block, n)].sum())
-        ops = search_ops(Q[3], S[3], pad=False) + 2 * hits
-        nbytes = sum(c.numel() * c.element_size() + 12 * int(c.sum(dtype=torch.int64))
-                     for c in (Q[3], S[3])) + block * rows * 8
-        bms, by = bound_ms(nbytes, IMAD_PER_MUL * hits, ops, clock_hz)
         lib = sparse_product_ms(mins_list[:block], mins_list, reps, P[:block],
                                 abunds[:block], abunds)
         launches = -(-rows // block)
-        blocks[block] = dict(
-            ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=err,
-            library_ms=lib, bq=block, rows=rows, d=d, B=B, hits=hits, ops=ops,
-            launches_per_matrix=launches, matrix_kernel_ms=launches * b2b)
-        log(f"  products_block [{block}, {d}, {B}] vs [{rows}, {d}, {B}]: equals its plain "
-            f"version and the oracle; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain "
-            f"{plain:.0f} ms, bound {bms:.4f} ms ({by}), {100 * bms / b2b:.1f} % of it back to "
-            f"back; torch.sparse.mm of the block {lib} ms; {launches} launches a matrix "
-            f"({launches * b2b:.2f} ms back to back; host pack {pack_s:.2f} s)")
+        blocks[block] = dict(res, library_ms=lib, launches_per_matrix=launches,
+                             matrix_kernel_ms=launches * res["b2b_ms"])
+        log(f"  products_block, block {block}: equals the oracle; torch.sparse.mm of the block "
+            f"{lib} ms; {launches} launches a matrix ({launches * res['b2b_ms']:.2f} ms back to "
+            f"back; host pack {pack_s:.2f} s)")
     best = min(blocks, key=lambda b: blocks[b]["matrix_kernel_ms"])
     log(f"  products_block blocks: {best} is the faster a matrix; the block route takes "
-        f"{path_block}")
-    results["products_block"] = dict(blocks[path_block], blocks=blocks, faster=best)
+        f"{PRODUCTS_BLOCK}")
+    results["products_block"] = dict(blocks[PRODUCTS_BLOCK], blocks=blocks, faster=best)
     del bank, Shi, Slo, S, Q
 
     # edge rows: spills and 2^64-1 in the counts; 2^64-1 and a deep bucket
@@ -3220,6 +3248,10 @@ def compare_end_to_end(tmp: str, products_block: int, profile_cli: bool = False)
 
 COMPARE_KERNELS = ("pairwise_counts", "pairwise_products", "counts_block", "products_block")
 COMPARE_BLOCK = 16  # sourmash_tpu's rows a launch of the all-pairs counts (the block route)
+# rows a launch of the all-pairs products' block route, as phase 2 times it
+# and phase 9 drives it: the block the first products kernel staged in one
+# block's shared memory at depth 10 (PERF.md keeps its times)
+PRODUCTS_BLOCK = 58
 # phase 9's n = 200 commands, run on the card and on the CPU: all four at
 # k = 31, the last (both directions' containment and ANI) at the other k
 # (cut from all four for the time limit)
@@ -3255,15 +3287,13 @@ KERNELS = {
         replaces="sourmash_tpu/index/flat.py:354",
     ),
     "counts_block": dict(
-        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        route="cuda", source="sourmash_tpu_torch/csrc/block_join.cu",
         replaces="sourmash_tpu/ops/bucketed.py:619",
     ),
     "membership_bits_batch": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
         replaces="sourmash_tpu/ops/bucketed.py:985",
     ),
-    # compare's all-pairs counts: counts_block with the bank's own rows as
-    # the query block (dq = d = 8)
     # compare's all-pairs matrices: hash joins of a bank's valid slots, one
     # launch a matrix (the main path of compare)
     "pairwise_counts": dict(
@@ -3275,14 +3305,15 @@ KERNELS = {
         replaces="sourmash_tpu/ops/bucketed.py:1025",
     ),
     # the block routes of the all-pairs counts and products (the JAX
-    # package's design, kept behind an integer `block`): counts_block with
-    # the bank's own rows as the query block (dq = d = 8), products_block
+    # package's design, kept behind an integer `block`): the joins
+    # counts_block with the bank's own rows as the query block (dq = d =
+    # 8) and products_block
     "counts_block (compare)": dict(
-        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        route="cuda", source="sourmash_tpu_torch/csrc/block_join.cu",
         replaces="sourmash_tpu/ops/bucketed.py:619",
     ),
     "products_block": dict(
-        route="cuda", source="sourmash_tpu_torch/csrc/gather.cu",
+        route="cuda", source="sourmash_tpu_torch/csrc/block_join.cu",
         replaces="sourmash_tpu/ops/bucketed.py:1025",
     ),
     "round_dec_batch": dict(
@@ -3333,6 +3364,7 @@ def main(argv=None) -> int:
                     help="build, check compare's kernels (phase 2's part) and run phase 9, "
                          "then stop")
     args = ap.parse_args(argv)
+    t_start = time.time()
 
     import torch
 
@@ -3480,6 +3512,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
+    log(f"chip_smoke: the whole run took {time.time() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the gather hot paths: the
 // bucketed counts (T1), the membership bitsets (X4) and the greedy round
-// decrement (X5), their batch forms, and compare's abundance products (X6).
+// decrement (X5), and the batch forms of the last two.
 //
 // Layout (`sourmash_tpu_torch/ops/bucketed.py`): a sketch is bucketed by
 // the low log2(B) bits of its hashes; a bank row holds d = 8 slots per
@@ -62,22 +62,8 @@
 // sum_w popc(M[r, w] & rm[w]). One block per row; bound by reading M.
 //
 // The batch forms serve multigather, where a block of queries meets one
-// collection:
-// - counts_block (X3b) is the query-block form of counts_rows, the raw
-//   accumulator of `sourmash_tpu/ops/bucketed.py:_counts_block_impl`:
-//   out[q, r] = the raw limb-pair matches of query q's planes
-//   qhi/qlo[q] [dq, B] against row r, PAD==PAD included. Same design as
-//   counts_rows (one block per 32 buckets and a range of rows, a warp a
-//   row, the row's 8 slot pairs of the lane's bucket held in registers),
-//   but the block stages the columns of a sub-block of qsub queries in
-//   shared memory (as many as fit: qsub * dq * 32 pairs) and searches
-//   each held row slot in each of them, so a row slot is read from HBM
-//   once per sub-block of queries, not once per query: the rows are read
-//   ceil(bq / qsub) times in all (gridDim.z sub-blocks), which
-//   gm_counts_block_plan reports. Where one query's columns exceed shared
-//   memory, every query's columns are searched in global memory (L2) and
-//   the rows are read once. Each query's PAD run per bucket is found once
-//   per block and kept in shared memory.
+// collection (its block counts, X3b counts_block, are a join in
+// block_join.cu):
 // - membership_bits_batch (X4b), the hand-written form of
 //   `_membership_bits_packed_batch`: membership_bits over a query axis,
 //   one block per (selected row, query), query q's planes, occupancy,
@@ -86,29 +72,6 @@
 //   `sourmash_tpu/index/flat.py:_schedule_scan_batch`: out[q, r] =
 //   sum_w popc(M[q, r, w] & rm[q, w]), one block per (row, query), so a
 //   round of the whole query block is one launch.
-//
-// compare launches counts_block with a bank's own rows as the query block
-// (dq = d = 8), and for abundance-weighted (angular) similarity:
-// - products_block (X6) is the hand-written form of
-//   `sourmash_tpu/ops/bucketed.py:_products_block_impl`: out[q, s] = the
-//   int64 sum of Qav * Sav over the valid slot pairs of query q and row s
-//   that hold the same (hi, lo) pair, on `_pack_weighted`'s planes: depth d
-//   the largest bucket load (8-255, a run-time argument), zeros past each
-//   bucket's occupancy cnt (uint8), and 2^64-1 a valid hash, so validity
-//   comes from cnt alone. Precondition: each query column's valid prefix
-//   is ascending (the pack sorts stably by bucket over value-sorted rows).
-//   Same design as counts_block, driven by the rows' valid slots: one block
-//   per 32 buckets and a range of rows, a warp a row and a lane a bucket;
-//   the block stages the valid columns of a sub-block of queries (pairs
-//   and abundances, [qsub][dq][32]) and their occupancies in shared memory,
-//   each lane holds its bucket's first 8 valid row slots in registers
-//   (past 8, rare at a mean load of ~1, it reads them again per query) and
-//   binary-searches each in each staged query's valid prefix, walking a
-//   run of equal pairs. A hit adds (int64)qa * sa; the warp reduces its
-//   lanes' sums, then one 64-bit atomicAdd per warp and (query, row).
-//   int64 sums are exact and do not depend on the order of the atomics.
-//   Bound, like counts_block, by the searches' instructions at a mean
-//   load of ~1 slot a bucket.
 //
 // Plain C interface, loaded with ctypes (sourmash_tpu_torch/ops/_build.py).
 // Each entry launches on the caller's stream, does not synchronise, and
@@ -340,204 +303,6 @@ round_dec_batch_kernel(const uint32_t* __restrict__ M, const uint32_t* __restric
   if (threadIdx.x == 0) out[row] = v;
 }
 
-// counts_block: its staged columns take most of an SM's shared memory, so
-// one block of 32 warps (a warp a row) runs on each SM
-constexpr int kBlockThreads = 1024;
-constexpr int kBlockWarps = kBlockThreads / 32;
-
-// out[q, r] += the raw limb-pair matches of query q's planes against row r
-// (counts_rows for a block of queries): grid (bucket tiles, row ranges,
-// query sub-blocks of qsub). kShared: the sub-block's columns are staged
-// in shared memory as [qsub][dq][32] pairs; else searched in global memory.
-// Either way the sub-block's PAD runs follow as [qsub][32] ints.
-template <bool kShared>
-__global__ void __launch_bounds__(kBlockThreads)
-counts_block_kernel(const uint32_t* __restrict__ qhi,
-                    const uint32_t* __restrict__ qlo, int bq, int dq, int B, int qsub,
-                    const uint32_t* __restrict__ shi,
-                    const uint32_t* __restrict__ slo, int rows, int rows_per_block,
-                    int32_t* __restrict__ out) {
-  extern __shared__ uint64_t qcols[];
-  const int lane = threadIdx.x & 31;
-  const int tile0 = blockIdx.x * kCountBuckets;
-  const int b = tile0 + lane;
-  const bool in_b = b < B;
-  const int q0 = blockIdx.z * qsub;
-  const int nq = min(qsub, bq - q0);
-  const size_t col_len = (size_t)dq * kCountBuckets;  // one query's staged pairs
-  int* pad_runs = reinterpret_cast<int*>(qcols + (kShared ? qsub * col_len : 0));
-  if (kShared) {
-    for (size_t i = threadIdx.x; i < nq * col_len; i += kBlockThreads) {
-      const size_t qi = i / col_len;
-      const size_t rem = i - qi * col_len;
-      const int bb = tile0 + (int)(rem % kCountBuckets);
-      const size_t at = ((q0 + qi) * dq + rem / kCountBuckets) * B + bb;
-      qcols[i] = bb < B ? limb_pair(qhi[at], qlo[at]) : kPadPair;
-    }
-    __syncthreads();
-  }
-  // the column of query qi of the sub-block for bucket tile0 + l, as
-  // p -> its pair p, addressed from a base taken once (32-bit offsets: the
-  // probes' cost is their instructions)
-  const auto column = [&](int qi, int l) {
-    const uint64_t* staged = kShared ? qcols + qi * dq * kCountBuckets + l : nullptr;
-    const size_t at = (size_t)(q0 + qi) * dq * B + tile0 + l;
-    const uint32_t* h = qhi + at;
-    const uint32_t* lo = qlo + at;
-    return [=](int p) -> uint64_t {
-      if (kShared) return staged[p * kCountBuckets];
-      return limb_pair(__ldg(h + p * B), __ldg(lo + p * B));
-    };
-  };
-  for (int i = threadIdx.x; i < nq * kCountBuckets; i += kBlockThreads) {
-    const int qi = i / kCountBuckets, l = i % kCountBuckets;
-    const int n = tile0 + l < B ? dq : 0;
-    pad_runs[i] = n - lower_bound(column(qi, l), n, kPadPair);
-  }
-  __syncthreads();
-
-  const int n = in_b ? dq : 0;
-  const int row0 = static_cast<int>(blockIdx.y) * rows_per_block;
-  const int row_end = min(rows, row0 + rows_per_block);
-  for (int r = row0 + static_cast<int>(threadIdx.x >> 5); r < row_end; r += kBlockWarps) {
-    uint64_t v[kD];
-    if (in_b) {
-      const size_t base = (size_t)r * kD * B + b;
-#pragma unroll
-      for (int k = 0; k < kD; k++)
-        v[k] = limb_pair(__ldcs(shi + base + (size_t)k * B), __ldcs(slo + base + (size_t)k * B));
-    }
-    for (int qi = 0; qi < nq; qi++) {
-      int count = 0;
-      if (in_b) {
-        const auto col = column(qi, lane);
-        const int pad_run = pad_runs[qi * kCountBuckets + lane];
-#pragma unroll
-        for (int k = 0; k < kD; k++) {
-          if (v[k] == kPadPair) {
-            count += pad_run;
-          } else {
-            for (int p = lower_bound(col, n, v[k]); p < n && col(p) == v[k]; p++) count++;
-          }
-        }
-      }
-      const int c = warp_sum(count);
-      if (lane == 0 && c != 0) atomicAdd(out + (size_t)(q0 + qi) * rows + r, c);
-    }
-  }
-}
-
-// Queries of a block of bq whose columns [dq][32] pairs (and PAD runs) fit
-// the block's shared memory together, or 0 where one query's do not.
-int counts_block_qsub(int bq, int dq, size_t smem_max) {
-  const size_t per_query =
-      sizeof(uint64_t) * kCountBuckets * (size_t)dq + sizeof(int) * kCountBuckets;
-  return (int)std::min((size_t)bq, smem_max / per_query);
-}
-
-// the global-memory form keeps only PAD runs in shared memory, under the
-// default 48 KiB
-constexpr int kGlobalQsub = 384;
-
-constexpr int kProdHeld = 8;  // products_block: row slots a lane holds in registers
-
-__device__ __forceinline__ long long warp_sum64(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// out[q, s] += sum of qav * sav over the valid slot pairs of query q and
-// row s holding equal pairs: grid (bucket tiles, row ranges, query
-// sub-blocks of qsub). Shared memory: the sub-block's pairs [qsub][dq][32],
-// then its abundances [qsub][dq][32] and occupancies [qsub][32].
-__global__ void __launch_bounds__(kBlockThreads)
-products_block_kernel(const uint32_t* __restrict__ qhi, const uint32_t* __restrict__ qlo,
-                      const int32_t* __restrict__ qav, const uint8_t* __restrict__ qcnt,
-                      int bq, int dq, int B, int qsub,
-                      const uint32_t* __restrict__ shi, const uint32_t* __restrict__ slo,
-                      const int32_t* __restrict__ sav, const uint8_t* __restrict__ scnt,
-                      int rows, int d, int rows_per_block, long long* __restrict__ out) {
-  extern __shared__ uint64_t qpairs[];
-  const size_t col_len = (size_t)dq * kCountBuckets;  // one query's staged slots
-  int32_t* qabund = reinterpret_cast<int32_t*>(qpairs + qsub * col_len);
-  int* qocc = qabund + qsub * col_len;
-  const int lane = threadIdx.x & 31;
-  const int tile0 = blockIdx.x * kCountBuckets;
-  const int b = tile0 + lane;
-  const bool in_b = b < B;
-  const int q0 = blockIdx.z * qsub;
-  const int nq = min(qsub, bq - q0);
-  for (size_t i = threadIdx.x; i < nq * col_len; i += kBlockThreads) {
-    const size_t qi = i / col_len;
-    const size_t rem = i - qi * col_len;
-    const int bb = tile0 + (int)(rem % kCountBuckets);
-    const size_t at = ((q0 + qi) * dq + rem / kCountBuckets) * B + bb;
-    qpairs[i] = bb < B ? limb_pair(qhi[at], qlo[at]) : 0;
-    qabund[i] = bb < B ? qav[at] : 0;
-  }
-  for (int i = threadIdx.x; i < nq * kCountBuckets; i += kBlockThreads) {
-    const int bb = tile0 + i % kCountBuckets;
-    qocc[i] = bb < B ? min((int)qcnt[(size_t)(q0 + i / kCountBuckets) * B + bb], dq) : 0;
-  }
-  __syncthreads();
-
-  const int row0 = static_cast<int>(blockIdx.y) * rows_per_block;
-  const int row_end = min(rows, row0 + rows_per_block);
-  for (int r = row0 + static_cast<int>(threadIdx.x >> 5); r < row_end; r += kBlockWarps) {
-    const int n = in_b ? min((int)scnt[(size_t)r * B + b], d) : 0;
-    if (!__any_sync(0xffffffffu, n > 0)) continue;
-    const size_t base = (size_t)r * d * B + b;
-    uint64_t v[kProdHeld];
-    int32_t a[kProdHeld];
-#pragma unroll
-    for (int k = 0; k < kProdHeld; k++) {
-      v[k] = 0;
-      a[k] = 0;
-      if (k < n) {
-        const size_t at = base + (size_t)k * B;
-        v[k] = limb_pair(__ldcs(shi + at), __ldcs(slo + at));
-        a[k] = __ldcs(sav + at);
-      }
-    }
-    for (int qi = 0; qi < nq; qi++) {
-      const uint64_t* pairs = qpairs + qi * col_len + lane;
-      const int32_t* abund = qabund + qi * col_len + lane;
-      const auto col = [&](int p) -> uint64_t { return pairs[p * kCountBuckets]; };
-      const int m = qocc[qi * kCountBuckets + lane];
-      long long acc = 0;
-      if (m > 0) {
-#pragma unroll
-        for (int k = 0; k < kProdHeld; k++) {
-          if (k < n) {
-            for (int p = lower_bound(col, m, v[k]); p < m && col(p) == v[k]; p++)
-              acc += static_cast<long long>(abund[p * kCountBuckets]) * a[k];
-          }
-        }
-        for (int k = kProdHeld; k < n; k++) {
-          const size_t at = base + (size_t)k * B;
-          const uint64_t vk = limb_pair(__ldg(shi + at), __ldg(slo + at));
-          const int32_t ak = __ldg(sav + at);
-          for (int p = lower_bound(col, m, vk); p < m && col(p) == vk; p++)
-            acc += static_cast<long long>(abund[p * kCountBuckets]) * ak;
-        }
-      }
-      acc = warp_sum64(acc);
-      if (lane == 0 && acc != 0)
-        atomicAdd(reinterpret_cast<unsigned long long*>(out + (size_t)(q0 + qi) * rows + r),
-                  static_cast<unsigned long long>(acc));
-    }
-  }
-}
-
-// Queries of a block of bq whose valid columns (pairs, abundances and
-// occupancies) fit the block's shared memory together at depth dq.
-int products_block_qsub(int bq, int dq, size_t smem_max) {
-  const size_t per_query = (sizeof(uint64_t) + sizeof(int32_t)) * kCountBuckets * (size_t)dq +
-                           sizeof(int) * kCountBuckets;
-  return (int)std::min((size_t)bq, smem_max / per_query);
-}
-
 }  // namespace
 
 extern "C" {
@@ -629,115 +394,6 @@ int gm_round_dec(const void* M, const void* rm, int k, int W, void* out,
   round_dec_kernel<<<(unsigned)k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(M), static_cast<const uint32_t*>(rm), W,
       static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Write to *qsub the queries of a block of bq whose columns counts_block
-// stages together at dq (0: the columns are searched in global memory and
-// each launch reads the rows ceil(bq / 384) times), on the current device.
-int gm_counts_block_plan(int bq, int dq, int* qsub) {
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *qsub = counts_block_qsub(bq, dq, (size_t)smem_max);
-  return 0;
-}
-
-// out [bq, rows] i32 (zeroed by the caller) += raw limb-pair matches of
-// each query's planes [dq, B] (of qhi/qlo [bq, dq, B], each column
-// ascending) against subject planes [rows, 8, B].
-int gm_counts_block(const void* qhi, const void* qlo, int bq, int dq, int B,
-                    const void* shi, const void* slo, int rows, void* out, void* stream) {
-  if (rows <= 0 || B <= 0 || bq <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, smem_max = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int qsub = counts_block_qsub(bq, dq, (size_t)smem_max);
-  const bool shared = qsub > 0;
-  if (!shared) qsub = std::min(bq, kGlobalQsub);
-  const size_t runs = sizeof(int) * kCountBuckets * (size_t)qsub;
-  const size_t smem = shared ? sizeof(uint64_t) * kCountBuckets * (size_t)dq * qsub + runs : runs;
-  auto kernel = shared ? counts_block_kernel<true> : counts_block_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (B + kCountBuckets - 1) / kCountBuckets;
-  const int zs = (bq + qsub - 1) / qsub;
-  // rows per block: up to 512, 16 a warp (the staged columns, qsub * dq
-  // pairs a lane, then cost a fraction of the block's 8 * 512 row slots a
-  // lane), fewer where that leaves under two blocks an SM
-  int rows_per_block = 512;
-  while (rows_per_block > kBlockWarps &&
-         (long long)tiles * zs * ((rows + rows_per_block - 1) / rows_per_block) < 2LL * sms)
-    rows_per_block /= 2;
-  while ((rows + rows_per_block - 1) / rows_per_block > 65535) rows_per_block *= 2;
-  if (zs > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid(tiles, (rows + rows_per_block - 1) / rows_per_block, zs);
-  kernel<<<grid, kBlockThreads, smem, s>>>(
-      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo), bq, dq, B, qsub,
-      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo), rows,
-      rows_per_block, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Write to *qsub the queries of a block of bq whose valid columns
-// products_block stages together at depth dq (0: not one query's fit).
-int gm_products_block_plan(int bq, int dq, int* qsub) {
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *qsub = products_block_qsub(bq, dq, (size_t)smem_max);
-  return 0;
-}
-
-// out [bq, rows] i64 (zeroed by the caller) += sums of abundance products
-// over the shared valid slots of each query's planes qhi/qlo/qav [dq, B]
-// with occupancy qcnt [B] u8 (of [bq, ...], each valid prefix ascending)
-// and subject planes shi/slo/sav [rows, d, B] with occupancy scnt [rows, B].
-int gm_products_block(const void* qhi, const void* qlo, const void* qav, const void* qcnt,
-                      int bq, int dq, int B, const void* shi, const void* slo, const void* sav,
-                      const void* scnt, int rows, int d, void* out, void* stream) {
-  if (rows <= 0 || B <= 0 || bq <= 0 || dq <= 0 || d <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, smem_max = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int qsub = products_block_qsub(bq, dq, (size_t)smem_max);
-  if (qsub == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (sizeof(uint64_t) + sizeof(int32_t)) * kCountBuckets * (size_t)dq * qsub +
-                      sizeof(int) * kCountBuckets * (size_t)qsub;
-  err = cudaFuncSetAttribute(products_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (B + kCountBuckets - 1) / kCountBuckets;
-  const int zs = (bq + qsub - 1) / qsub;
-  if (zs > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // rows per block as counts_block: up to 512, fewer where that leaves
-  // under two blocks an SM
-  int rows_per_block = 512;
-  while (rows_per_block > kBlockWarps &&
-         (long long)tiles * zs * ((rows + rows_per_block - 1) / rows_per_block) < 2LL * sms)
-    rows_per_block /= 2;
-  while ((rows + rows_per_block - 1) / rows_per_block > 65535) rows_per_block *= 2;
-  dim3 grid(tiles, (rows + rows_per_block - 1) / rows_per_block, zs);
-  products_block_kernel<<<grid, kBlockThreads, smem, s>>>(
-      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
-      static_cast<const int32_t*>(qav), static_cast<const uint8_t*>(qcnt), bq, dq, B, qsub,
-      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo),
-      static_cast<const int32_t*>(sav), static_cast<const uint8_t*>(scnt), rows, d,
-      rows_per_block, static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,11 +9,11 @@
 //   it (X3b at compare's shape), PAD correction included;
 // - pairwise_products: `sourmash_tpu/ops/bucketed.py:_products_block_impl`
 //   over all rows, as `pairwise_weighted_products` drives it (X6).
-// Both broadcast each query row against every row, and the port's block
-// kernels (counts_block, products_block in gather.cu) search each row slot
-// in every staged query column: ~16 G searches a 2,000-sketch matrix. A
-// join reads each valid slot once and visits each shared hash once, as a
-// sparse product does: ~36 M pair increments for that matrix.
+// Both broadcast each query row against every row: ~16 G slot compares a
+// 2,000-sketch matrix. A join reads each valid slot once and visits each
+// shared hash once, as a sparse product does: ~36 M pair increments for
+// that matrix. (block_join.cu joins a block of queries against a chunk's
+// rows with the same table, join_common.cuh.)
 //
 // Layout: planes hi, lo [rows, d, B] of u32 limbs (int32 bit patterns from
 // torch), abundances av [rows, d, B] int32 for the products, occupancy
@@ -64,39 +64,16 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
+
+#include "join_common.cuh"
 
 namespace {
 
-constexpr int kJoinThreads = 512;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kStaticSmem = 64;  // the block's fill counter, with room to spare
+using join::kFull;
+using join::Table;
 
-// a tile's hash table (values, list heads) and entries (list links, rows
-// and, for the products, abundances), in shared or in global memory
-struct Table {
-  unsigned long long* key;
-  int* head;
-  int* next;
-  int* row;
-  int32_t* ab;
-};
-
-// table slots for n entries: a load of at most 2/3
-__host__ __device__ constexpr int table_slots(int n) { return n + (n >> 1) + 1; }
-
-__host__ __device__ constexpr size_t smem_bytes(int cap, bool weighted) {
-  return (sizeof(unsigned long long) + sizeof(int)) * (size_t)table_slots(cap) +
-         (2 * sizeof(int) + (weighted ? sizeof(int32_t) : 0)) * (size_t)cap;
-}
-
-// the table's first probe of value v: the high bits of a multiplicative
-// hash, scaled to `slots`
-__device__ __forceinline__ int first_slot(unsigned long long v, int slots) {
-  const unsigned long long h = v * 0x9E3779B97F4A7C15ull;
-  return static_cast<int>(__umulhi(static_cast<unsigned>(h >> 32), static_cast<unsigned>(slots)));
-}
+constexpr int kThreads = 512;  // a join block; two share an SM
 
 // Insert the valid slots of buckets [b0, b0 + 2^tile_log2) of every row
 // into the table; *fill counts the entries. Each slot's pair with itself
@@ -109,10 +86,9 @@ __device__ __forceinline__ void insert(const uint32_t* __restrict__ hi,
                                        const uint8_t* __restrict__ cnt_t, int rows, int d,
                                        int B, int b0, int tile_log2, Table t, int slots,
                                        unsigned long long empty, int* fill, void* out) {
-  const int lane = threadIdx.x & 31;
   const int mask = (1 << tile_log2) - 1;
   const int pairs = rows << tile_log2;  // (row, bucket) pairs of the tile
-  for (int base = 0; base < pairs; base += kJoinThreads) {
+  for (int base = 0; base < pairs; base += kThreads) {
     const int i = base + static_cast<int>(threadIdx.x);
     int r = 0, b = 0, c = 0;
     if (i < pairs) {
@@ -120,27 +96,11 @@ __device__ __forceinline__ void insert(const uint32_t* __restrict__ hi,
       b = b0 + (i & mask);
       c = min(static_cast<int>(cnt_t[(size_t)b * rows + r]), d);
     }
-    int incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += v;
-    }
-    const int total = __shfl_sync(kFull, incl, 31);
-    int at = 0;
-    if (lane == 31 && total) at = atomicAdd(fill, total);
-    at = __shfl_sync(kFull, at, 31) + incl - c;
+    const int at = join::warp_alloc(c, fill);
     long long self = kWeighted ? 0 : c;
     for (int k = 0; k < c; k++) {
       const size_t src = ((size_t)r * d + k) * B + b;
-      const unsigned long long v =
-          (static_cast<unsigned long long>(__ldg(hi + src)) << 32) | __ldg(lo + src);
-      int s = first_slot(v, slots);
-      for (;;) {
-        const unsigned long long prev = atomicCAS(t.key + s, empty, v);
-        if (prev == empty || prev == v) break;
-        s = s + 1 == slots ? 0 : s + 1;
-      }
+      const int s = join::claim(t, slots, empty, join::load_value(hi, lo, src));
       const int e = at + k;
       t.row[e] = r;
       if (kWeighted) {
@@ -148,7 +108,7 @@ __device__ __forceinline__ void insert(const uint32_t* __restrict__ hi,
         t.ab[e] = a;
         self += static_cast<long long>(a) * a;
       }
-      t.next[e] = atomicExch(t.head + s, e);
+      join::link(t, s, e);
     }
     for (int o = 1; o <= mask; o <<= 1) self += __shfl_xor_sync(kFull, self, o);
     if ((i & mask) == 0 && self != 0) {
@@ -166,7 +126,7 @@ __device__ __forceinline__ void insert(const uint32_t* __restrict__ hi,
 // value's list (the entries inserted before it).
 template <bool kWeighted>
 __device__ __forceinline__ void walk(Table t, int n, int rows, void* out) {
-  for (int i = threadIdx.x; i < n; i += kJoinThreads) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
     const int ri = t.row[i];
     const long long a = kWeighted ? t.ab[i] : 0;
     for (int j = t.next[i]; j >= 0; j = t.next[j]) {
@@ -184,36 +144,11 @@ __device__ __forceinline__ void walk(Table t, int n, int rows, void* out) {
   }
 }
 
-template <bool kWeighted>
-__device__ __forceinline__ void join_tile(const uint32_t* __restrict__ hi,
-                                          const uint32_t* __restrict__ lo,
-                                          const int32_t* __restrict__ av,
-                                          const uint8_t* __restrict__ cnt_t, int rows, int d,
-                                          int B, int tile_log2, int n, Table t, int* fill,
-                                          void* out) {
-  const int b0 = blockIdx.x << tile_log2;
-  const int slots = table_slots(n);
-  // a value of the bucket past the tile's (B >= 2 tiles), which no valid
-  // slot of the tile holds
-  const unsigned long long empty =
-      static_cast<unsigned long long>((b0 + (1 << tile_log2)) & (B - 1));
-  for (int s = threadIdx.x; s < slots; s += kJoinThreads) {
-    t.key[s] = empty;
-    t.head[s] = -1;
-  }
-  __syncthreads();
-  insert<kWeighted>(hi, lo, av, cnt_t, rows, d, B, b0, tile_log2, t, slots, empty, fill, out);
-  __syncthreads();
-  walk<kWeighted>(t, *fill, rows, out);
-}
-
 // out [rows, rows] (int32, or int64 weighted; zeroed by the caller) +=
-// the upper triangle of the tiles' joins: grid (B >> tile_log2 tiles).
-// Dynamic shared memory for a tile of up to cap entries: the table's
-// values and heads (table_slots(cap) each), then cap links, rows and
-// (weighted) abundances.
+// the upper triangle of the tiles' joins: grid (B >> tile_log2 tiles),
+// tables as join_common.cuh lays them out.
 template <bool kWeighted>
-__global__ void __launch_bounds__(kJoinThreads, 2)
+__global__ void __launch_bounds__(kThreads, 2)
 pairwise_join_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
                      const int32_t* __restrict__ av, const uint8_t* __restrict__ cnt_t,
                      int rows, int d, int B, int tile_log2,
@@ -222,24 +157,17 @@ pairwise_join_kernel(const uint32_t* __restrict__ hi, const uint32_t* __restrict
   extern __shared__ unsigned long long smem[];
   __shared__ int fill;
   if (threadIdx.x == 0) fill = 0;
-  const int n = static_cast<int>(meta[3 * blockIdx.x]);
-  const long long off = meta[3 * blockIdx.x + 1];
-  const long long toff = meta[3 * blockIdx.x + 2];
-  // two inlined copies, so the shared one addresses shared memory directly
-  if (off < 0) {
-    const int slots = table_slots(cap);
-    int* head = reinterpret_cast<int*>(smem + slots);
-    int* next = head + slots;
-    int* row = next + cap;
-    join_tile<kWeighted>(hi, lo, av, cnt_t, rows, d, B, tile_log2, n,
-                         Table{smem, head, next, row, kWeighted ? row + cap : nullptr}, &fill,
-                         out);
-  } else {
-    join_tile<kWeighted>(hi, lo, av, cnt_t, rows, d, B, tile_log2, n,
-                         Table{g_key + toff, g_head + toff, g_next + off, g_row + off,
-                               kWeighted ? g_ab + off : nullptr},
-                         &fill, out);
-  }
+  join::with_tile_table<kWeighted>(meta, smem, cap, g_key, g_head, g_next, g_row, g_ab,
+                                   [&](int n, Table t) {
+    const int b0 = blockIdx.x << tile_log2;
+    const int slots = join::table_slots(n);
+    const unsigned long long empty = join::empty_mark(b0, tile_log2, B);
+    join::clear(t, slots, empty);
+    __syncthreads();
+    insert<kWeighted>(hi, lo, av, cnt_t, rows, d, B, b0, tile_log2, t, slots, empty, &fill, out);
+    __syncthreads();
+    walk<kWeighted>(t, fill, rows, out);
+  });
 }
 
 }  // namespace
@@ -253,28 +181,7 @@ const char* pw_error_string(int code) {
 // The most entries a tile may hold in shared memory when `blocks` blocks
 // share an SM (1: the opt-in maximum of one block).
 int pw_join_capacity(int weighted, int blocks, int* cap) {
-  int dev = 0, optin = 0, per_sm = 0, reserved = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long limit =
-      std::min<long long>(optin, per_sm / blocks - reserved) - kStaticSmem;
-  int lo = 0, hi = 1 << 20;  // the largest c with smem_bytes(c) <= limit
-  while (lo < hi) {
-    const int mid = lo + (hi - lo + 1) / 2;
-    if ((long long)smem_bytes(mid, weighted != 0) <= limit)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  *cap = lo;
-  return 0;
+  return join::capacity(weighted != 0, blocks, 0, cap);
 }
 
 // out [rows, rows] (int32; int64 where av is given; zeroed by the caller)
@@ -292,13 +199,13 @@ int pw_join(const void* hi, const void* lo, const void* av, const void* cnt_t, i
   if (tile_log2 < 0 || tile_log2 > 4 || B < (2 << tile_log2) || (B & (B - 1)) || cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool weighted = av != nullptr;
-  const size_t smem = smem_bytes(cap, weighted);
+  const size_t smem = join::smem_bytes(cap, weighted);
   auto kernel = weighted ? pairwise_join_kernel<true> : pairwise_join_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = B >> tile_log2;
-  kernel<<<tiles, kJoinThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<tiles, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
       static_cast<const int32_t*>(av), static_cast<const uint8_t*>(cnt_t), rows, d, B, tile_log2,
       static_cast<const long long*>(meta), static_cast<unsigned long long*>(g_key),

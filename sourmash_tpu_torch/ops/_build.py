@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each source in `csrc/` (`sketch.cu`: K1, K2, K3; `gather.cu`: counts_rows,
-membership_bits, round_dec, their batch forms counts_block,
-membership_bits_batch, round_dec_batch, and compare's products_block;
-`pairwise.cu`: compare's all-pairs joins pairwise_counts and
-pairwise_products; `sketch_parts.cu`: the sketch-kernel instruments T2,
-T3, T4) has a plain C interface with an error-string
+membership_bits, round_dec, and the batch forms membership_bits_batch and
+round_dec_batch; `block_join.cu`: the join of a query block against a
+chunk's rows, counts_block and products_block; `pairwise.cu`: compare's
+all-pairs joins pairwise_counts and pairwise_products; `sketch_parts.cu`:
+the sketch-kernel instruments T2, T3, T4) has a plain C interface with an
+error-string
 entry, and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
 `build/kernels/<name>_<hash>.so` at first use, then loaded with ctypes.
 The hash covers the source, the shared headers (`csrc/*.cuh`) and the
@@ -30,7 +31,7 @@ from ..buildpaths import build_dir, sources_tag
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = {
     name: os.path.join(_CSRC, f"{name}.cu")
-    for name in ("sketch", "gather", "pairwise", "sketch_parts")
+    for name in ("sketch", "gather", "block_join", "pairwise", "sketch_parts")
 }
 HEADERS = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
 NVCC_FLAGS = (
@@ -58,18 +59,18 @@ _LIBRARIES = {
         "gm_membership_bits": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
         # M, rm, k, W, out, stream
         "gm_round_dec": [_P, _P, _I, _I, _P, _P],
-        # bq, dq, qsub (out); called directly, no stream
-        "gm_counts_block_plan": [_I, _I, _P],
-        # qhi, qlo, bq, dq, B, shi, slo, rows, out, stream
-        "gm_counts_block": [_P, _P, _I, _I, _I, _P, _P, _I, _P, _P],
         # qhi, qlo, qcnt, bq, dq, B, shi, slo, scnt, sel, cap, inv, W, out, stream
         "gm_membership_bits_batch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
         # M, rm, Q, k, W, out, stream
         "gm_round_dec_batch": [_P, _P, _I, _I, _I, _P, _P],
-        # bq, dq, qsub (out); called directly, no stream
-        "gm_products_block_plan": [_I, _I, _P],
-        # qhi, qlo, qav, qcnt, bq, dq, B, shi, slo, sav, scnt, rows, d, out, stream
-        "gm_products_block": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    }),
+    "block_join": ("bj_error_string", {
+        # weighted, cap (out); called directly, no stream
+        "bj_join_capacity": [_I, _P],
+        # qhi, qlo, qav, qcnt, bq, dq, shi, slo, sav, scnt, rows, d, B, tile_log2, meta,
+        # g_key, g_head, g_next, g_row, g_ab, cap, out, stream
+        "bj_join": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _P, _P, _P, _P, _P, _P, _I, _P, _P],
     }),
     "pairwise": ("pw_error_string", {
         # weighted, blocks, cap (out); called directly, no stream

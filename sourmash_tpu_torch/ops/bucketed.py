@@ -7,19 +7,22 @@ a sketch of l hashes over B = next_pow2(l_max * 0.4) buckets with
 Poisson(<= 2.5) occupancy. A sketch becomes two u32 limb planes hi, lo
 [d = 8, B] (bucket dimension last), and intersection counting becomes a
 dense equality compare between planes: the hand-written `counts_rows`
-kernel (`ops/cuda_gather.py`, T1), and `counts_block` for a block of
-queries [bq, dq, B] (X3b); compare's all-pairs matrices are hash joins of
-a bank's valid slots (`ops/cuda_pairwise.py`).
+kernel (`ops/cuda_gather.py`, T1); a block of queries [bq, dq, B] is a
+hash join of its valid slots against a chunk's (`counts_block`, X3b), and
+compare's all-pairs matrices are hash joins of a bank's valid slots
+(`ops/cuda_pairwise.py`).
 
 Exactness is kept by construction, as in the JAX package:
 
-- slots past a bucket's occupancy hold PAD = 2**64-1 in both limbs. PAD==PAD
-  hits are counted by the kernel and subtracted exactly by the pad-count
-  correction `corr[s] = sum_b npad_s[b] * npad_q[b]`, summed in int64, so
-  counts are exact while the kernel's int32 accumulator is (d * dq * B <
-  2^31). The JAX package sums it as a float32 matmul, which rounds once d
-  times the query's PAD slots (dq * B minus its hashes) reaches 2^24: the
-  port is right there and the reference is not;
+- slots past a bucket's occupancy hold PAD = 2**64-1 in both limbs. For
+  one query, PAD==PAD hits are counted by `counts_rows` and subtracted
+  exactly by the pad-count correction `corr[s] = sum_b npad_s[b] *
+  npad_q[b]`, summed in int64, so counts are exact while the kernel's
+  int32 accumulator is (d * dq * B < 2^31); the block joins read only
+  valid slots and need no correction. The JAX package sums it as a
+  float32 matmul, which rounds once d times the query's PAD slots (dq * B
+  minus its hashes) reaches 2^24: the port is right there and the
+  reference is not;
 - a real hash equal to PAD (only at scaled=1) and any element past the
   d-th slot of a full bucket go to host spill lists at pack time and are
   joined exactly on the host;
@@ -293,22 +296,31 @@ def query_raw_limbs(qs, device):
     return to_torch(Hi, device), to_torch(Lo, device)
 
 
-def pack_query_block_device(qs, B: int, raw=None, device=None):
-    """Pack a query block into [bq, dq, B] planes on the device from shared
-    raw limb rows (uploaded once, reused across every bank's B). dq is the
-    largest bucket load rounded up to a multiple of 8. Returns (Qhi, Qlo,
-    Qcnt [bq, B] int32, dq, raw)."""
-    if raw is None:
-        raw = query_raw_limbs(qs, device)
-    Hi, Lo = raw
-    max_load = 8
-    for q in qs:
+def query_block_loads(qs, B: int) -> np.ndarray:
+    """[bq, B] int64 host array: each query's hashes in each of B buckets
+    (a 2^64-1 tail left out, as the packs leave it out of the planes)."""
+    loads = np.zeros((len(qs), B), dtype=np.int64)
+    for i, q in enumerate(qs):
         q = np.asarray(q, dtype=np.uint64)
         if len(q) and q[-1] == MAX_U64:
             q = q[:-1]
         if len(q):
-            loads = np.bincount((q & np.uint64(B - 1)).astype(np.int64), minlength=B)
-            max_load = max(max_load, int(loads.max()))
+            loads[i] = np.bincount((q & np.uint64(B - 1)).astype(np.int64), minlength=B)
+    return loads
+
+
+def pack_query_block_device(qs, B: int, raw=None, device=None, loads=None):
+    """Pack a query block into [bq, dq, B] planes on the device from shared
+    raw limb rows (uploaded once, reused across every bank's B). dq is the
+    largest bucket load rounded up to a multiple of 8; `loads`, if given,
+    is the block's `query_block_loads` at B. Returns (Qhi, Qlo, Qcnt [bq,
+    B] int32, dq, raw)."""
+    if raw is None:
+        raw = query_raw_limbs(qs, device)
+    Hi, Lo = raw
+    if loads is None:
+        loads = query_block_loads(qs, B)
+    max_load = max(8, int(loads.max(initial=0)))
     dq = max(8, -(-max_load // 8) * 8)
     Qhi, Qlo, Qcnt = _device_pack(Hi, Lo, B, dq, torch.int32)
     return Qhi, Qlo, Qcnt, dq, raw
@@ -416,42 +428,32 @@ def _counts_qvm_impl(qhi, qlo, qcnt, Shi, Slo, Scnt):
     return acc - _pad_correction(qcnt, Scnt, qhi.shape[0], Shi.shape[1])
 
 
-def _pad_correction_block(Qcnt, Scnt, dq: int, d: int):
-    """[bq, ns] int32 PAD==PAD hits of a query block: `_pad_correction` of
-    each query at once, as one [bq, B] x [B, ns] product of PAD counts.
-    float64, because torch has no integer matmul on CUDA: exact while
-    d * dq * B < 2^31, far inside 2^53, so it equals the int64 sum."""
-    npad_q = (dq - Qcnt.to(torch.int32)).to(torch.float64)  # [bq, B]
-    npad_s = (d - Scnt.to(torch.int32)).to(torch.float64)  # [ns, B]
-    return (npad_q @ npad_s.T).to(torch.int32)
-
-
-def _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt):
+def _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, plan=None):
     """[bq, dq, B] query planes vs [ns, d, B] subjects -> [bq, ns] int32
-    exact stored-element counts: the raw counts of `counts_block` (X3b)
-    minus the block's exact PAD==PAD correction (`_pad_correction_block`)."""
-    acc = cuda_gather.counts_block(Qhi, Qlo, Shi, Slo)
-    return acc - _pad_correction_block(Qcnt, Scnt, Qhi.shape[1], Shi.shape[1])
+    exact stored-element counts: the `counts_block` join (X3b) of the
+    block's valid slots against the rows', on `plan`'s tiles if given."""
+    return cuda_gather.counts_block(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, plan)
 
 
-def _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, B: int, d: int):
+def _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, B: int, d: int, plan=None):
     """Block counts against a host-streamed chunk: pack its uploaded raw
     limb rows into planes on the device, count, and drop the planes."""
     Shi, Slo, Scnt = _device_pack_kernel(Hi, Lo, B, d)
-    return _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt)
+    return _counts_block_impl(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, plan)
 
 
-def counts_block_dispatch(Qhi, Qlo, Qcnt, chunk: BucketedRows):
+def counts_block_dispatch(Qhi, Qlo, Qcnt, chunk: BucketedRows, plan=None):
     """[bq, padded rows] device counts of one query block against one chunk
-    (no spill correction, no readback). Host-streamed chunks upload their
+    (no spill correction, no readback), on `plan`'s tiles if given (one
+    plan serves every chunk of a bank). Host-streamed chunks upload their
     raw limb rows and pack on the device, as `query_counts_device` does."""
     if not chunk.resident:
         if chunk.raw is not None:
             Hi, Lo = (to_torch(x, Qhi.device) for x in chunk.raw)
-            return _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, chunk.B, chunk.d)
+            return _counts_block_from_raw(Qhi, Qlo, Qcnt, Hi, Lo, chunk.B, chunk.d, plan)
         planes = _to_device(chunk.hi, chunk.lo, chunk.cnt, Qhi.device)
-        return _counts_block_impl(Qhi, Qlo, Qcnt, *planes)
-    return _counts_block_impl(Qhi, Qlo, Qcnt, chunk.hi, chunk.lo, chunk.cnt)
+        return _counts_block_impl(Qhi, Qlo, Qcnt, *planes, plan)
+    return _counts_block_impl(Qhi, Qlo, Qcnt, chunk.hi, chunk.lo, chunk.cnt, plan)
 
 
 def _counts_qvm_cutoff_impl(qhi, qlo, qcnt, Shi, Slo, Scnt, cut_hi, cut_lo):
@@ -705,9 +707,8 @@ def pairwise_counts_bucketed(mins_list, block=None, device=None):
     default) one `pairwise_counts` launch joins the bank's valid slots
     bucket by bucket. An integer `block` keeps the JAX package's design:
     the bank's own rows as the query block (dq = d = 8) of `counts_block`
-    (X3b), `block` rows a launch, minus the PAD correction; the bank's
-    columns are ascending, PAD last (a stable sort by bucket of sorted
-    rows), which `counts_block` needs and checks once for the whole bank."""
+    (X3b), `block` rows a launch, each launch's tiles planned from one
+    readback of the bank's occupancy."""
     from . import resolve_device
 
     n = len(mins_list)
@@ -721,10 +722,11 @@ def pairwise_counts_bucketed(mins_list, block=None, device=None):
     if block is None:
         out = cuda_pairwise.pairwise_counts(bank.hi, bank.lo, bank.cnt)
     else:
-        Qcnt = bank.cnt.to(torch.int32)  # the pad correction's query occupancy
+        Qcnt = bank.cnt.to(torch.int32)
         out = torch.cat([
-            _counts_block_impl(Qhi, Qlo, Qcnt[i : i + block], bank.hi, bank.lo, bank.cnt)
-            for i, Qhi, Qlo in cuda_gather.query_row_blocks(bank.hi, bank.lo, block)
+            _counts_block_impl(bank.hi[i : i + block], bank.lo[i : i + block],
+                               Qcnt[i : i + block], bank.hi, bank.lo, bank.cnt, plan)
+            for i, plan in cuda_gather.row_block_plans(bank.cnt, bank.d, block, False)
         ])
     out = out[:n, :n].cpu().numpy().astype(np.int64)
     _pairwise_spill_correction(out, mins_list, bank)
@@ -868,8 +870,8 @@ def pairwise_weighted_products(mins_list, abunds_list, block=None, device=None):
         out = cuda_pairwise.pairwise_products(hi, lo, av, cnt)
     else:
         out = torch.cat([
-            cuda_gather.products_block(Qhi, Qlo, av[i : i + block], cnt[i : i + block], hi, lo,
-                                       av, cnt)
-            for i, Qhi, Qlo in cuda_gather.query_row_blocks(hi, lo, block, cnt)
+            cuda_gather.products_block(hi[i : i + block], lo[i : i + block], av[i : i + block],
+                                       cnt[i : i + block], hi, lo, av, cnt, plan)
+            for i, plan in cuda_gather.row_block_plans(cnt, hi.shape[1], block, True)
         ])
     return out[:n, :n].cpu().numpy()

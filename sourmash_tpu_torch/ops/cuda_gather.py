@@ -20,10 +20,13 @@ code of `sourmash_tpu` (see `csrc/gather.cu` for what each replaces).
 Their batch forms, for a block of queries against one collection
 (multigather):
 
-- `counts_block` (X3b, `ops/bucketed.py:_counts_block_impl`): `counts_rows`
-  for each query of `Qhi/Qlo [bq, dq, B]`, `[bq, rows]` int32; the kernel
-  reads each subject slot once per sub-block of queries whose columns fit
-  its shared memory (`counts_block_plan`).
+- `counts_block` (X3b, `ops/bucketed.py:_counts_block_impl`): `[bq, rows]`
+  int32 exact stored-element counts of each query of `Qhi/Qlo [bq, dq, B]`
+  (occupancy `Qcnt [bq, B]` int32) against each row of `Shi/Slo [rows, d,
+  B]` (occupancy `Scnt [rows, B]` uint8): a hash join of the block's valid
+  slots against the rows' per tile of adjacent buckets
+  (`csrc/block_join.cu`), planned from the block's per-bucket loads
+  (`block_join_plan`).
 - `membership_bits_batch` (X4b, `ops/bucketed.py:
   _membership_bits_packed_batch`): `membership_bits` for each query, with
   per-query occupancy `Qcnt [bq, B]`, selections `sel [bq, cap]`, slot
@@ -32,15 +35,17 @@ Their batch forms, for a block of queries against one collection
 - `round_dec_batch` (X5b, the decrement of `index/flat.py:
   _schedule_scan_batch`): `[Q, k]` int32 `sum_w popc(M[q, r, w] & rm[q, w])`.
 
-`compare` launches `counts_block` with a bank's own rows as the query block
-(dq = d = 8), and for abundance-weighted similarity:
+`compare`'s block route launches `counts_block` with a bank's own rows as
+the query block, and for abundance-weighted similarity:
 
 - `products_block` (X6, `sourmash_tpu/ops/bucketed.py:
   _products_block_impl`): `[bq, ns]` int64 sums of `Qav * Sav` over the
   hashes query q and row s share, on `_pack_weighted`'s planes: zeros past
   each bucket's occupancy (`Qcnt`, `Scnt` uint8), any depth, and 2^64-1 a
-  valid hash. Each query column's valid prefix must be ascending in
-  unsigned (hi, lo) order.
+  valid hash; the same join, weighted.
+
+The joins need no column order. Their precondition, as every pack gives
+it: a valid value sits in bucket value & (B - 1).
 
 Limbs and words are int32 bit patterns of u32 values (PAD = -1). Each
 wrapper checks its inputs (a wrong dtype, shape or layout raises
@@ -52,6 +57,7 @@ CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # kernel launches since the last reset_launch_counts(); only the CUDA
@@ -110,54 +116,31 @@ def _check_counts(qhi, qlo, Shi, Slo, cut_hi, cut_lo):
             raise TypeError("one cut per subject row")
 
 
-def _columns_ascending(qhi, qlo, qcnt=None) -> bool:
-    """Is every column of the [..., dq, B] query planes ascending in
-    unsigned (hi, lo) order (with the occupancy qcnt [..., B], every
-    column's valid prefix, its first qcnt slots)?"""
+def _columns_ascending(qhi, qlo) -> bool:
+    "Is every column of the [..., dq, B] query planes ascending in unsigned (hi, lo) order?"
     h0, h1 = _flip(qhi[..., :-1, :]), _flip(qhi[..., 1:, :])
     ok = (h0 < h1) | ((h0 == h1) & (_flip(qlo[..., :-1, :]) <= _flip(qlo[..., 1:, :])))
-    if qcnt is not None:
-        second = torch.arange(1, qhi.shape[-2], device=qhi.device)[:, None]  # slot p + 1
-        ok |= second >= qcnt[..., None, :]
     return bool(ok.all())
 
 
-def _order_stamp(qhi, qlo, qcnt=None) -> tuple:
-    "The planes' addresses and version counters (and the occupancy's, if given)."
-    planes = (qhi, qlo) if qcnt is None else (qhi, qlo, qcnt)
-    return tuple(t.data_ptr() for t in planes) + tuple(t._version for t in planes)
+def _order_stamp(qhi, qlo) -> tuple:
+    "The planes' addresses and version counters."
+    return (qhi.data_ptr(), qlo.data_ptr(), qhi._version, qlo._version)
 
 
-def _check_query_order(qhi, qlo, name="counts_rows", qcnt=None):
-    """Raise TypeError unless every query column is ascending, PAD last
-    (with `qcnt`: unless each column's valid prefix is). The check reads
-    the planes back once; a pass is recorded on `qhi` with the planes'
-    addresses and version counters, so the same unmodified planes (a cached
-    query pack, launched against every chunk) are not read again."""
-    attr = "_ascending_at" if qcnt is None else "_prefix_ascending_at"
-    stamp = _order_stamp(qhi, qlo, qcnt)
-    if getattr(qhi, attr, None) == stamp:
+def _check_query_order(qhi, qlo):
+    """Raise TypeError unless every query column is ascending, PAD last.
+    The check reads the planes back once; a pass is recorded on `qhi` with
+    the planes' addresses and version counters, so the same unmodified
+    planes (a cached query pack, launched against every chunk) are not
+    read again."""
+    stamp = _order_stamp(qhi, qlo)
+    if getattr(qhi, "_ascending_at", None) == stamp:
         return
-    if not _columns_ascending(qhi, qlo, qcnt):
-        raise TypeError(f"{name}: a query column is not ascending in unsigned (hi, lo) "
-                        + ("order, PAD last" if qcnt is None else "order in its valid prefix"))
-    setattr(qhi, attr, stamp)
-
-
-def query_row_blocks(hi, lo, block: int, cnt=None):
-    """(i, hi[i : i + block], lo[i : i + block]) for i in steps of block:
-    row blocks of query planes as `counts_block` (or, with the occupancy
-    `cnt`, `products_block`) takes them. The order is checked once for the
-    whole planes, and each block carries the pass, so the kernels' own
-    check does not read every block back again."""
-    _check_query_order(hi, lo, "counts_block" if cnt is None else "products_block", cnt)
-    for i in range(0, hi.shape[0], block):
-        bh, bl = hi[i : i + block], lo[i : i + block]
-        if cnt is None:
-            bh._ascending_at = _order_stamp(bh, bl)
-        else:
-            bh._prefix_ascending_at = _order_stamp(bh, bl, cnt[i : i + block])
-        yield i, bh, bl
+    if not _columns_ascending(qhi, qlo):
+        raise TypeError("counts_rows: a query column is not ascending in unsigned (hi, lo) "
+                        "order, PAD last")
+    qhi._ascending_at = stamp
 
 
 def counts_rows(qhi, qlo, Shi, Slo, cut_hi=None, cut_lo=None):
@@ -301,72 +284,147 @@ def round_dec_plain(M, rm):
     return popcount_u32(M & rm[None]).sum(dim=1, dtype=torch.int32)
 
 
-# -- counts_block: X3b -------------------------------------------------------
+# -- the block joins: counts_block (X3b) and products_block (X6) ----------------
 
 
-def _check_counts_block(Qhi, Qlo, Shi, Slo):
-    dev = Qhi.device if torch.is_tensor(Qhi) else None
-    _check("Qhi", Qhi, torch.int32, 3)
-    _check("Qlo", Qlo, torch.int32, 3, dev)
-    _check("Shi", Shi, torch.int32, 3, dev)
-    _check("Slo", Slo, torch.int32, 3, dev)
-    if Qhi.shape != Qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != Qhi.shape[2]:
-        raise TypeError(f"planes {tuple(Qhi.shape)} vs {tuple(Shi.shape)} do not match")
+def block_entries(Qcnt, dq: int) -> np.ndarray:
+    """[B] int64 host array: the valid slots of each bucket over a query
+    block, from its occupancy Qcnt [bq, B] (read back once)."""
+    return Qcnt.to(torch.int64).clamp(max=dq).sum(dim=0).cpu().numpy()
 
 
-def counts_block(Qhi, Qlo, Shi, Slo):
-    """Raw count of each query's limb pairs equal to a subject slot's,
-    PAD==PAD included: `counts_rows` for every query of the block at once.
-    Returns [bq, rows] int32.
+def block_join_capacity(weighted: bool, device) -> int:
+    """The query entries of one tile that a block of the join holds in
+    shared memory on `device`, beside its filter (one block an SM)."""
+    from .cuda_pairwise import library_capacity
 
-    Precondition: every query column `Qhi/Qlo[q, :, b]` is ascending in
-    unsigned (hi, lo) order, PAD last, as `pack_query_block_device` gives
-    it; a column out of order raises TypeError, on CPU tensors too."""
-    _check_counts_block(Qhi, Qlo, Shi, Slo)
-    _check_query_order(Qhi, Qlo, "counts_block")
-    if Qhi.device.type == "cpu":
-        return counts_block_plain(Qhi, Qlo, Shi, Slo)
+    return library_capacity("block_join", "bj_join_capacity", device, int(weighted))
+
+
+def block_join_plan(entries, weighted: bool, device, target=None):
+    """The tiles of one `counts_block` (or, weighted, `products_block`)
+    launch on `device` from the query block's per-bucket valid slots
+    `entries` [B] (host integers: `block_entries`, or the host's own loads,
+    which need no readback): the widest tiles of at most `target` entries
+    (default: what one block holds). One plan serves every chunk of a
+    bank."""
+    from . import cuda_pairwise
+
+    cap = block_join_capacity(weighted, device)
+    return cuda_pairwise.tile_plan(entries, weighted, device, cap,
+                                   cap if target is None else target)
+
+
+def row_block_plans(cnt, depth: int, block: int, weighted: bool) -> list:
+    """[(i, plan)] for the blocks of `block` rows of a bank that serves as
+    its own query block (compare's block routes), rows [i, i + block) a
+    launch: one readback of the occupancy cnt [rows, B] for all of them;
+    plans None on the CPU, where the plain versions need none."""
+    starts = range(0, cnt.shape[0], block)
+    if cnt.device.type == "cpu":
+        return [(i, None) for i in starts]
+    loads = np.minimum(cnt.cpu().numpy().astype(np.int64), depth)
+    return [(i, block_join_plan(loads[i : i + block].sum(axis=0), weighted, cnt.device))
+            for i in starts]
+
+
+def launch_block_join(plan, Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt, out) -> None:
+    """Launch the join kernel once on `plan`'s tiles: out [bq, rows] (int32;
+    int64 with abundances Qav, Sav) += each (query, row) pair's count or
+    sum of abundance products."""
+    from . import _build
+    from .cuda_pairwise import plan_args
+
     bq, dq, B = Qhi.shape
     rows, d, _B = Shi.shape
-    if d != _D:
-        raise TypeError(f"the counts kernel takes {_D} subject slots, not {d}")
-    out = torch.zeros((bq, rows), dtype=torch.int32, device=Qhi.device)
-    _launch(
-        "gm_counts_block", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(), bq, dq, B,
-        Shi.data_ptr(), Slo.data_ptr(), rows, out.data_ptr(),
+    if plan.meta.shape[0] << plan.tile_log2 != B:
+        raise TypeError(f"the plan's tiles cover {plan.meta.shape[0] << plan.tile_log2} "
+                        f"buckets, not {B}")
+    weighted = Qav is not None
+    _build.launch(
+        "block_join", "bj_join", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(),
+        Qav.data_ptr() if weighted else None, Qcnt.data_ptr(), bq, dq, Shi.data_ptr(),
+        Slo.data_ptr(), Sav.data_ptr() if weighted else None, Scnt.data_ptr(), rows, d, B,
+        *plan_args(plan), out.data_ptr(),
     )
-    LAUNCHES["counts_block"] += 1
+    LAUNCHES["products_block" if weighted else "counts_block"] += 1
+
+
+def _block_join_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
+    """The join in torch: gather each side's valid slots (k < its bucket's
+    occupancy) as int64 values with their owner (and abundance), sort the
+    query side's, find each row slot's run of equal values by
+    searchsorted, expand the runs into (query entry, row entry) pairs and
+    add 1 (or qa * sa) into [bq, rows] with index_put_(accumulate=True)."""
+    dev = Qhi.device
+
+    def entries(hi, lo, cnt, av):
+        n, depth, B = hi.shape
+        valid = torch.arange(depth, device=dev)[None, :, None] < cnt.to(torch.int64)[:, None, :]
+        vals = ((hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF))[valid]
+        owner = torch.arange(n, device=dev)[:, None, None].expand(n, depth, B)[valid]
+        return vals, owner, None if av is None else av.to(torch.int64)[valid]
+
+    qv, qo, qa = entries(Qhi, Qlo, Qcnt, Qav)
+    sv, so, sa = entries(Shi, Slo, Scnt, Sav)
+    qv, order = torch.sort(qv)
+    qo = qo[order]
+    first = torch.searchsorted(qv, sv, side="left")
+    spans = torch.searchsorted(qv, sv, side="right") - first
+    total = int(spans.sum())
+    s_idx = torch.repeat_interleave(torch.arange(len(sv), device=dev), spans)
+    q_idx = torch.repeat_interleave(first, spans) + (
+        torch.arange(total, device=dev) - torch.repeat_interleave(torch.cumsum(spans, 0) - spans,
+                                                                  spans))
+    if Qav is None:
+        out = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int32, device=dev)
+        add = torch.ones(total, dtype=torch.int32, device=dev)
+    else:
+        out = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int64, device=dev)
+        add = qa[order][q_idx] * sa[s_idx]
+    out.index_put_((qo[q_idx], so[s_idx]), add, accumulate=True)
     return out
 
 
-def counts_block_plan(bq: int, dq: int, device) -> int:
-    """The queries of a block of bq whose columns `counts_block` stages in
-    shared memory together at dq on `device` (each launch then reads the
-    subject rows ceil(bq / that) times), or 0 where one query's columns do
-    not fit and they are searched in global memory."""
-    import ctypes
-
-    from . import _build
-
-    qsub = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = _build.load("gather").gm_counts_block_plan(bq, dq, ctypes.addressof(qsub))
-    if rc != 0:
-        raise RuntimeError(f"gm_counts_block_plan failed: CUDA error {rc}")
-    return qsub.value
+def _check_counts_block(Qhi, Qlo, Qcnt, Shi, Slo, Scnt):
+    dev = Qhi.device if torch.is_tensor(Qhi) else None
+    _check("Qhi", Qhi, torch.int32, 3)
+    _check("Qlo", Qlo, torch.int32, 3, dev)
+    _check("Qcnt", Qcnt, torch.int32, 2, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    _check("Scnt", Scnt, torch.uint8, 2, dev)
+    bq, _dq, B = Qhi.shape
+    if Qhi.shape != Qlo.shape or Shi.shape != Slo.shape or Shi.shape[2] != B:
+        raise TypeError(f"planes {tuple(Qhi.shape)} vs {tuple(Shi.shape)} do not match")
+    if tuple(Qcnt.shape) != (bq, B) or tuple(Scnt.shape) != (Shi.shape[0], B):
+        raise TypeError("Qcnt must be [bq, B] and Scnt [rows, B]")
 
 
-def counts_block_plain(Qhi, Qlo, Shi, Slo):
-    """Plain PyTorch version of `counts_block`: the d-loop broadcast compare
-    of `_counts_block_impl`, the query block broadcast inside."""
-    _check_counts_block(Qhi, Qlo, Shi, Slo)
-    qh = Qhi[:, None]  # [bq, 1, dq, B]
-    ql = Qlo[:, None]
-    acc = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int32, device=Shi.device)
-    for k2 in range(Shi.shape[1]):
-        eq = (Shi[None, :, k2, None, :] == qh) & (Slo[None, :, k2, None, :] == ql)
-        acc += eq.sum(dim=(2, 3), dtype=torch.int32)
-    return acc
+def counts_block(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, plan=None):
+    """[bq, rows] int32: for each query q and row r, how many values the
+    valid slots of q (k < Qcnt[q, b]) share with those of r (k <
+    Scnt[r, b]), bucket by bucket: the exact stored-element counts, with
+    no PAD correction. `plan`: the tiles (`block_join_plan`) from the
+    block's per-bucket loads; made here from Qcnt, one readback, if not
+    given.
+
+    Precondition: a valid value sits in bucket value & (B - 1), as every
+    pack gives it. The planes need no column order."""
+    _check_counts_block(Qhi, Qlo, Qcnt, Shi, Slo, Scnt)
+    if Qhi.device.type == "cpu":
+        return counts_block_plain(Qhi, Qlo, Qcnt, Shi, Slo, Scnt)
+    if plan is None:
+        plan = block_join_plan(block_entries(Qcnt, Qhi.shape[1]), False, Qhi.device)
+    out = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int32, device=Qhi.device)
+    launch_block_join(plan, Qhi, Qlo, None, Qcnt, Shi, Slo, None, Scnt, out)
+    return out
+
+
+def counts_block_plain(Qhi, Qlo, Qcnt, Shi, Slo, Scnt):
+    "Plain PyTorch version of `counts_block` (sort, searchsorted, pair expansion)."
+    _check_counts_block(Qhi, Qlo, Qcnt, Shi, Slo, Scnt)
+    return _block_join_plain(Qhi, Qlo, None, Qcnt, Shi, Slo, None, Scnt)
 
 
 # -- membership_bits_batch: X4b ----------------------------------------------
@@ -488,63 +546,25 @@ def _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
         raise TypeError("Qcnt must be [bq, B] and Scnt [rows, B]")
 
 
-def products_block(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
+def products_block(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt, plan=None):
     """[bq, rows] int64: for each query q and row s, the sum of
     Qav[q, p, b] * Sav[s, k, b] over the valid slot pairs (p < Qcnt[q, b],
-    k < Scnt[s, b]) that hold the same (hi, lo) pair.
+    k < Scnt[s, b]) that hold the same (hi, lo) pair: `counts_block`'s
+    join, weighted. `plan`: as `counts_block`'s (weighted tiles).
 
-    Precondition: the valid prefix of every query column is ascending in
-    unsigned (hi, lo) order, as `_pack_weighted` gives it (the slots past
-    it are zeros); out of order raises TypeError, on CPU tensors too. The
-    subject planes need no order."""
+    Precondition: a valid value sits in bucket value & (B - 1), as
+    `_pack_weighted` gives it; no column order is needed."""
     _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
-    _check_query_order(Qhi, Qlo, "products_block", Qcnt)
     if Qhi.device.type == "cpu":
         return products_block_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
-    bq, dq, B = Qhi.shape
-    rows, d, _B = Shi.shape
-    out = torch.zeros((bq, rows), dtype=torch.int64, device=Qhi.device)
-    _launch(
-        "gm_products_block", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(), Qav.data_ptr(),
-        Qcnt.data_ptr(), bq, dq, B, Shi.data_ptr(), Slo.data_ptr(), Sav.data_ptr(),
-        Scnt.data_ptr(), rows, d, out.data_ptr(),
-    )
-    LAUNCHES["products_block"] += 1
+    if plan is None:
+        plan = block_join_plan(block_entries(Qcnt, Qhi.shape[1]), True, Qhi.device)
+    out = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int64, device=Qhi.device)
+    launch_block_join(plan, Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt, out)
     return out
 
 
-def products_block_plan(bq: int, dq: int, device) -> int:
-    """The queries of a block of bq whose valid columns `products_block`
-    stages in shared memory together at depth dq on `device` (each launch
-    reads the subject rows ceil(bq / that) times); 0 where one query's do
-    not fit (dq far past the 255 a uint8 occupancy can fill)."""
-    import ctypes
-
-    from . import _build
-
-    qsub = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = _build.load("gather").gm_products_block_plan(bq, dq, ctypes.addressof(qsub))
-    if rc != 0:
-        raise RuntimeError(f"gm_products_block_plan failed: CUDA error {rc}")
-    return qsub.value
-
-
 def products_block_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
-    """Plain PyTorch version of `products_block`: the d-loop broadcast of
-    `_products_block_impl`, valid slots masked by occupancy, products in
-    int64."""
+    "Plain PyTorch version of `products_block` (sort, searchsorted, pair expansion)."
     _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
-    dq = Qhi.shape[1]
-    acc = torch.zeros((Qhi.shape[0], Shi.shape[0]), dtype=torch.int64, device=Shi.device)
-    qa64 = Qav.to(torch.int64)[:, None]  # [bq, 1, dq, B]
-    slots = torch.arange(dq, device=Qhi.device)[None, :, None]
-    qvalid = (Qcnt.to(torch.int64)[:, None, :] > slots)[:, None]  # [bq, 1, dq, B]
-    scnt = Scnt.to(torch.int64)
-    for k2 in range(Shi.shape[1]):
-        svalid = (scnt > k2)[None, :, None, :]  # [1, ns, 1, B]
-        eq = ((Shi[None, :, k2, None, :] == Qhi[:, None]) & (Slo[None, :, k2, None, :] == Qlo[:, None])
-              & qvalid & svalid)
-        prod = qa64 * Sav[None, :, k2, None, :].to(torch.int64)
-        acc += torch.where(eq, prod, 0).sum(dim=(2, 3))
-    return acc
+    return _block_join_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)

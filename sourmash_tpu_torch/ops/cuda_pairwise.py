@@ -104,8 +104,9 @@ def table_slots(n):
 
 
 class JoinPlan:
-    """One launch's tiles: the occupancy transposed, `cnt_t` [B, rows] (a
-    tile's occupancies in one run of bytes), 2^tile_log2 buckets a tile;
+    """One launch's tiles: 2^tile_log2 buckets a tile; for the all-pairs
+    joins the occupancy transposed, `cnt_t` [B, rows] (a tile's
+    occupancies in one run of bytes), else None;
     `meta` [tiles, 3] int64 on the device (a tile's entries, its entry
     offset in the global scratch or -1 for shared memory, its table
     offset); `cap` the entries a block holds in shared memory; the global
@@ -126,35 +127,37 @@ class JoinPlan:
 _capacity_cache: dict = {}
 
 
-def join_capacity(weighted: bool, device, blocks: int = 1) -> int:
-    """The entries of one tile that shared memory holds when `blocks`
-    blocks of the join share an SM of `device` (1: one block alone)."""
+def library_capacity(lib: str, fn: str, device, *args) -> int:
+    """The tile capacity that entry `fn(*args, int* cap)` of kernel library
+    `lib` reports for `device`, asked once and cached."""
     from . import _build
 
-    key = (torch.device(device).index, bool(weighted), blocks)
+    key = (lib, fn, torch.device(device).index, *args)
     if key not in _capacity_cache:
         cap = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = _build.load("pairwise").pw_join_capacity(int(weighted), blocks,
-                                                          ctypes.addressof(cap))
+            rc = getattr(_build.load(lib), fn)(*args, ctypes.addressof(cap))
         if rc != 0:
-            raise RuntimeError(f"pw_join_capacity failed: CUDA error {rc}")
+            raise RuntimeError(f"{fn} failed: CUDA error {rc}")
         _capacity_cache[key] = cap.value
     return _capacity_cache[key]
 
 
-def join_plan(cnt, d: int, weighted: bool, target=None) -> JoinPlan:
-    """The tiles of one join launch over occupancy `cnt [rows, B]` at depth
-    d: each bucket's entries (its valid slots over all rows, from cnt) and
-    the tile width from `join_tiles` at `target` entries a tile (default:
-    what each of two blocks on an SM holds); a tile past what one block
-    holds in shared memory works in a global scratch allocated here."""
-    cap = join_capacity(weighted, cnt.device)
-    if target is None:
-        target = join_capacity(weighted, cnt.device, blocks=2)
-    cnt_t = cnt.T.contiguous()
-    entries = cnt_t.clamp(max=min(d, 255)).sum(dim=1, dtype=torch.int64).cpu().numpy()
-    lg, tiles = join_tiles(entries, min(target, cap), cap)
+def join_capacity(weighted: bool, device, blocks: int = 1) -> int:
+    """The entries of one tile that shared memory holds when `blocks`
+    blocks of the join share an SM of `device` (1: one block alone)."""
+    return library_capacity("pairwise", "pw_join_capacity", device, int(weighted), blocks)
+
+
+def tile_plan(entries: np.ndarray, weighted: bool, device, cap: int, target: int,
+              cnt_t=None) -> JoinPlan:
+    """The tiles of one join launch on `device` from the per-bucket
+    entries [B] of the side its tables hold (host integers): the tile
+    width from `join_tiles` at `target` entries a tile, `cap` the most one
+    block holds in shared memory; a tile past that works in a global
+    scratch allocated here. `cnt_t` is kept for the all-pairs joins, which
+    read the occupancy transposed."""
+    lg, tiles = join_tiles(np.asarray(entries, dtype=np.int64), min(target, cap), cap)
     in_global = tiles > cap
     if int(tiles.max(initial=0)) >= 2**31 // 2:
         raise TypeError(f"a tile of {int(tiles.max())} entries is out of the kernel's range")
@@ -162,7 +165,7 @@ def join_plan(cnt, d: int, weighted: bool, target=None) -> JoinPlan:
     slots = np.where(in_global, table_slots(tiles), 0)
     meta = np.stack([tiles, np.where(in_global, np.cumsum(sizes) - sizes, -1),
                      np.cumsum(slots) - slots], axis=1).astype(np.int64)
-    dev = cnt.device
+    dev = torch.device(device)
     n_entries, n_slots = int(sizes.sum()), int(slots.sum())
     scratch = (torch.empty(n_slots, dtype=torch.int64, device=dev),
                torch.empty(n_slots, dtype=torch.int32, device=dev),
@@ -170,6 +173,26 @@ def join_plan(cnt, d: int, weighted: bool, target=None) -> JoinPlan:
                torch.empty(n_entries if weighted else 0, dtype=torch.int32, device=dev))
     return JoinPlan(cnt_t, lg, torch.from_numpy(meta).to(dev),
                     int(tiles[~in_global].max(initial=0)), scratch, int(in_global.sum()))
+
+
+def join_plan(cnt, d: int, weighted: bool, target=None) -> JoinPlan:
+    """The tiles of one all-pairs join launch over occupancy `cnt [rows, B]`
+    at depth d: each bucket's entries (its valid slots over all rows, read
+    back from cnt) through `tile_plan`, at `target` entries a tile
+    (default: what each of two blocks on an SM holds)."""
+    cap = join_capacity(weighted, cnt.device)
+    if target is None:
+        target = join_capacity(weighted, cnt.device, blocks=2)
+    cnt_t = cnt.T.contiguous()
+    entries = cnt_t.clamp(max=min(d, 255)).sum(dim=1, dtype=torch.int64).cpu().numpy()
+    return tile_plan(entries, weighted, cnt.device, cap, target, cnt_t)
+
+
+def plan_args(plan: JoinPlan) -> tuple:
+    """The kernels' tile arguments of `plan`: tile_log2, meta, the global
+    scratch (an empty array as a null pointer) and cap."""
+    return (plan.tile_log2, plan.meta.data_ptr(),
+            *(t.data_ptr() if t.numel() else None for t in plan.scratch), plan.cap)
 
 
 def launch_join(plan: JoinPlan, hi, lo, av, out) -> None:
@@ -180,14 +203,10 @@ def launch_join(plan: JoinPlan, hi, lo, av, out) -> None:
 
     rows, d, B = hi.shape
     weighted = av is not None
-
-    def ptr(t):  # an empty scratch array as a null pointer
-        return t.data_ptr() if t.numel() else None
-
     _build.launch(
         "pairwise", "pw_join", hi.device, hi.data_ptr(), lo.data_ptr(),
-        av.data_ptr() if weighted else None, plan.cnt_t.data_ptr(), rows, d, B, plan.tile_log2,
-        plan.meta.data_ptr(), *(ptr(t) for t in plan.scratch), plan.cap, out.data_ptr(),
+        av.data_ptr() if weighted else None, plan.cnt_t.data_ptr(), rows, d, B,
+        *plan_args(plan), out.data_ptr(),
     )
     LAUNCHES["pairwise_products" if weighted else "pairwise_counts"] += 1
 

@@ -18,6 +18,7 @@ import os
 import numpy as np
 import torch
 
+from . import cuda_gather
 from .bucketed import (
     _D,
     BucketedRows,
@@ -33,6 +34,7 @@ from .bucketed import (
     pack_query_bucketed,
     pack_rows_bucketed,
     pack_rows_device,
+    query_block_loads,
     query_counts_device,
     query_cutoff_counts_device,
     to_torch,
@@ -208,9 +210,10 @@ def counts_for_banks_batch(banks, queries, n_datasets: int, block: int = 8) -> n
     """Overlap counts of many sorted queries with every bank row:
     [len(queries), n_datasets] int64. One `counts_block` launch per (bank
     chunk, block of `block` queries), so the bank planes are read once per
-    query block (the kernel's sub-blocks aside), not once per query. Each
-    block uploads its raw limb rows once and packs them on the device for
-    every bank's B; resident banks read back once per block and bank,
+    query block, not once per query. Each block uploads its raw limb rows
+    once and packs them on the device for every bank's B; the join's
+    tiles are planned from the block's host bucket loads, once per bank,
+    with no readback; resident banks read back once per block and bank,
     streamed banks every _STREAM_WINDOW chunks."""
     qs = [np.asarray(q, dtype=np.uint64) for q in queries]
     out = np.zeros((len(qs), n_datasets), dtype=np.int64)
@@ -218,11 +221,15 @@ def counts_for_banks_batch(banks, queries, n_datasets: int, block: int = 8) -> n
         sub = qs[b0 : b0 + block]
         raw = None
         for bank in banks:
-            Qhi, Qlo, Qcnt, _dq, raw = pack_query_block_device(sub, bank.B, raw, bank.device)
+            loads = query_block_loads(sub, bank.B)
+            Qhi, Qlo, Qcnt, _dq, raw = pack_query_block_device(sub, bank.B, raw, bank.device,
+                                                                loads)
+            plan = (cuda_gather.block_join_plan(loads.sum(axis=0), False, Qhi.device)
+                    if Qhi.device.type == "cuda" else None)
             pairs = list(zip(bank.chunks, bank.ids))
             window = len(pairs) if bank.resident else _STREAM_WINDOW
             for g0 in range(0, len(pairs), window):
-                parts = [(counts_block_dispatch(Qhi, Qlo, Qcnt, chunk), chunk, ids)
+                parts = [(counts_block_dispatch(Qhi, Qlo, Qcnt, chunk, plan), chunk, ids)
                          for chunk, ids in pairs[g0 : g0 + window]]
                 host = torch.cat([p[0] for p in parts], dim=1).cpu().numpy()
                 off = 0

@@ -3,8 +3,7 @@
 The same seeded inputs go through `sourmash_tpu` (JAX on the CPU) and
 through `sourmash_tpu_torch`, whose kernels run their plain PyTorch
 versions on CPU tensors, and are compared exactly: the query block pack,
-`counts_block` (X3b) with and without the pad correction, against
-`_counts_block_impl`; `membership_bits_batch` (X4b) against
+the `counts_block` join (X3b) against `_counts_block_impl`; `membership_bits_batch` (X4b) against
 `_membership_bits_packed_batch`; `round_dec_batch` (X5b) and the batched
 round scan against `_schedule_scan_batch` and the per-query scan; and the
 bank-level `counts_for_banks_batch` against JAX's and against per-query
@@ -78,7 +77,7 @@ def exact_corr(Qcnt, Scnt, dq, d):
 def test_block_packs_match_jax(case):
     """pack_query_block_device gives the JAX device planes, and JAX's host
     pack_query_block's planes cut to its depth (the host pads to a power
-    of two), with every column ascending as counts_block needs."""
+    of two), with every column ascending."""
     _rows, qs, B = make_block(case)
     want = jbk.pack_query_block(qs, B)
     jhi, jlo, jcnt, jdq, _raw = jbk.pack_query_block_device(qs, B)
@@ -95,10 +94,10 @@ def test_block_packs_match_jax(case):
 @pytest.mark.parametrize("pack", ["host", "device"])
 @pytest.mark.parametrize("case", ["plain", "spills"])
 def test_counts_block_plain_equals_jax(case, pack):
-    """counts_block's raw matches equal the JAX block counts plus the exact
-    PAD==PAD count (without the correction), and _counts_block_impl equals
-    JAX's _counts_block_impl (with it); the stored-element counts of each
-    query equal counts_rows' and, past the spills, np.intersect1d."""
+    """counts_block's join equals JAX's _counts_block_impl (its raw matches
+    minus the PAD==PAD correction), and so does the port's
+    _counts_block_impl; each query's counts equal counts_rows' raw matches
+    minus the exact PAD==PAD count and, past the spills, np.intersect1d."""
     rows, qs, B = make_block(case)
     bank = jbk.pack_rows_bucketed(rows, B, device=False)
     if case == "spills":
@@ -112,15 +111,14 @@ def test_counts_block_plain_equals_jax(case, pack):
         *(jnp.asarray(x) for x in (Qhi, Qlo, Qcnt, bank.hi, bank.lo, bank.cnt))))
     tq = planes(Qhi, Qlo, Qcnt)
     ts = planes(bank.hi, bank.lo, bank.cnt)
-    raw = cg.counts_block(tq[0], tq[1], ts[0], ts[1])
-    assert raw.dtype == torch.int32 and raw.shape == (len(qs), bank.hi.shape[0])
-    corr = exact_corr(Qcnt, bank.cnt, dq, bank.d)
-    assert np.array_equal(raw.numpy().astype(np.int64), want + corr)
-    got = tbk._counts_block_impl(*tq, *ts)
+    got = cg.counts_block(*tq, *ts)
+    assert got.dtype == torch.int32 and got.shape == (len(qs), bank.hi.shape[0])
     assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(tbk._counts_block_impl(*tq, *ts).numpy(), want)
+    corr = exact_corr(Qcnt, bank.cnt, dq, bank.d)
     for i in range(len(qs)):
-        one = cg.counts_rows(tq[0][i], tq[1][i], ts[0], ts[1])
-        assert np.array_equal(one.numpy(), raw[i].numpy())
+        one = cg.counts_rows(tq[0][i], tq[1][i], ts[0], ts[1]).numpy().astype(np.int64)
+        assert np.array_equal(one - corr[i], got[i].numpy())
     counts = got.numpy()[:, : len(rows)].astype(np.int64)
     for i, q in enumerate(qs):
         tbk._spill_counts_qvm(q, tbk.pack_rows_bucketed(rows, B), counts[i])
@@ -129,20 +127,39 @@ def test_counts_block_plain_equals_jax(case, pack):
 
 
 def test_counts_block_refuses_bad_inputs():
-    "Wrong dtype, shape or a query column out of order raise TypeError."
+    "Wrong dtype or shape raise TypeError."
     rows, qs, B = make_block("plain")
     bank = tbk.pack_rows_bucketed(rows, B, device=CPU)
     Qhi, Qlo, Qcnt = tbk.pack_query_block_device(qs, B, device=CPU)[:3]
+    S = (bank.hi, bank.lo, bank.cnt)
     with pytest.raises(TypeError):
-        cg.counts_block(Qhi[0], Qlo[0], bank.hi, bank.lo)
+        cg.counts_block(Qhi[0], Qlo[0], Qcnt, *S)
     with pytest.raises(TypeError):
-        cg.counts_block(Qhi.to(torch.int64), Qlo, bank.hi, bank.lo)
+        cg.counts_block(Qhi.to(torch.int64), Qlo, Qcnt, *S)
     with pytest.raises(TypeError):
-        cg.counts_block(Qhi[:, :, :64].contiguous(), Qlo[:, :, :64].contiguous(), bank.hi, bank.lo)
-    b = int(np.flatnonzero(Qcnt[0].numpy() >= 2)[0])
-    Qhi[0, [0, 1], b] = Qhi[0, [1, 0], b].clone()
-    with pytest.raises(TypeError, match="counts_block: a query column is not ascending"):
-        cg.counts_block(Qhi, Qlo, bank.hi, bank.lo)
+        cg.counts_block(Qhi[:, :, :64].contiguous(), Qlo[:, :, :64].contiguous(), Qcnt, *S)
+    with pytest.raises(TypeError):
+        cg.counts_block(Qhi, Qlo, Qcnt.to(torch.uint8), *S)
+    with pytest.raises(TypeError):
+        cg.counts_block(Qhi, Qlo, Qcnt[:-1], *S)
+    with pytest.raises(TypeError):
+        cg.counts_block(Qhi, Qlo, Qcnt, bank.hi, bank.lo, bank.cnt.to(torch.int32))
+
+
+def test_counts_block_takes_columns_out_of_order():
+    """The join needs no column order: a query column with two valid slots
+    swapped gives JAX's counts (the JAX function needs none either)."""
+    rows, qs, B = make_block("plain")
+    bank = jbk.pack_rows_bucketed(rows, B, device=False)
+    Qhi, Qlo, Qcnt = (np.asarray(x).copy() for x in jbk.pack_query_block_device(qs, B)[:3])
+    b = int(np.flatnonzero(Qcnt[0] >= 2)[0])
+    for x in (Qhi, Qlo):
+        x[0, [0, 1], b] = x[0, [1, 0], b]
+    want = np.asarray(jbk._counts_block_impl(
+        *(jnp.asarray(x) for x in (Qhi, Qlo, Qcnt, bank.hi, bank.lo, bank.cnt))))
+    got = cg.counts_block(*planes(Qhi, Qlo, Qcnt), *planes(bank.hi, bank.lo, bank.cnt))
+    assert not cg._columns_ascending(*planes(Qhi, Qlo))
+    assert np.array_equal(got.numpy(), want) and want[0].any()
 
 
 def _membership_batch_inputs(case):
@@ -282,10 +299,11 @@ def test_counts_for_banks_batch_matches_jax(route, monkeypatch):
 
 def test_counts_block_pad_correction_exact_past_f32():
     """A block whose first query holds 8,000 hashes in one bucket (dq =
-    8,000 at B = 512) puts d times its PAD slots past 2^24: the port's
-    int64 correction keeps every count of the block equal to
-    np.intersect1d (the JAX f32 sum rounds there, as
-    test_torch_bucketed.py::test_pad_correction_exact_past_f32 shows)."""
+    8,000 at B = 512) puts d times its PAD slots past 2^24, where the JAX
+    f32 PAD correction rounds (as
+    test_torch_bucketed.py::test_pad_correction_exact_past_f32 shows): the
+    port's join reads only valid slots, and every count of the block
+    equals np.intersect1d."""
     rng = np.random.default_rng(0)
     B = 512
     one = np.unique(rng.integers(0, 2**55, size=8000, dtype=np.uint64) << np.uint64(9))

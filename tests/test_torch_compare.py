@@ -3,8 +3,8 @@ abundance-product matrices and the four `compare_serial*` matrices against
 `sourmash_tpu`'s, from the same inputs made with numpy, with no tolerance.
 
 The JAX package runs on the CPU (its XLA loops, which the port replaces by
-`counts_block` for the counts and `products_block` (X6) for the products,
-and by the sorted engine, X7); the port runs the kernels' plain versions
+the joins `counts_block` for the counts and `products_block` (X6) for the
+products, and by the sorted engine, X7); the port runs the kernels' plain versions
 (`device="cpu"`). Every matrix is also held against `np.intersect1d` or a
 numpy merge join.
 """
@@ -97,8 +97,9 @@ def test_pairwise_counts_with_spills_and_max(block):
     # the port at the same B
     bank = tbk.pack_rows_bucketed(rows, 128, device="cpu")
     Qcnt = bank.cnt.to(torch.int32)
-    out = torch.cat([tbk._counts_block_impl(Qhi, Qlo, Qcnt[i : i + 8], bank.hi, bank.lo, bank.cnt)
-                     for i, Qhi, Qlo in cg.query_row_blocks(bank.hi, bank.lo, 8)])
+    out = torch.cat([tbk._counts_block_impl(bank.hi[i : i + 8], bank.lo[i : i + 8],
+                                            Qcnt[i : i + 8], bank.hi, bank.lo, bank.cnt, plan)
+                     for i, plan in cg.row_block_plans(bank.cnt, bank.d, 8, False)])
     out = out[:9, :9].numpy().astype(np.int64)
     tbk._pairwise_spill_correction(out, rows, bank)
     assert np.array_equal(out, want)
@@ -121,42 +122,38 @@ def test_bank_columns_meet_counts_block_order(pack):
     assert bool((pad == (slots >= bank.cnt.to(torch.int64)[:, None, :])).all())
 
 
-def test_query_row_blocks_check_the_bank_once(monkeypatch):
-    """The all-pairs counts check the bank's column order once, not once
-    per row block (each block is a new view with its own address)."""
+def test_block_route_reads_no_column_order(monkeypatch):
+    """The all-pairs counts' block route checks no column order (the join
+    needs none): its row blocks come from `row_block_plans`, whose plans
+    are None on the CPU."""
     calls = []
     ascending = cg._columns_ascending
     monkeypatch.setattr(cg, "_columns_ascending", lambda *a: calls.append(1) or ascending(*a))
     rows = overlapping_rows(40, 300, np.random.default_rng(11))
     got = tbk.pairwise_counts_bucketed(rows, block=4, device="cpu")
-    assert len(calls) == 1
+    assert not calls
     assert np.array_equal(got, oracle_counts(rows))
+    cnt = torch.zeros((40, 128), dtype=torch.uint8)
+    assert cg.row_block_plans(cnt, 8, 16, False) == [(0, None), (16, None), (32, None)]
 
 
-def test_counts_block_rejects_a_bank_out_of_order():
+def test_counts_block_takes_a_bank_out_of_order():
+    """A bank with two valid slots of a column swapped, as the query block,
+    gives JAX's counts: the join needs no column order."""
     rows = overlapping_rows(8, 300, np.random.default_rng(12))
     bank = tbk.pack_rows_device(rows, 128, device="cpu")
     hi, lo = bank.hi.clone(), bank.lo.clone()
     b = int(torch.nonzero(bank.cnt[0] >= 2)[0])  # two distinct hashes, swapped
     hi[0, 0, b], hi[0, 1, b] = bank.hi[0, 1, b], bank.hi[0, 0, b]
     lo[0, 0, b], lo[0, 1, b] = bank.lo[0, 1, b], bank.lo[0, 0, b]
-    with pytest.raises(TypeError, match="not ascending"):
-        list(cg.query_row_blocks(hi, lo, 4))
-    with pytest.raises(TypeError, match="not ascending"):
-        cg.counts_block(hi[:4], lo[:4], bank.hi, bank.lo)
-
-
-@pytest.mark.parametrize("bq,dq,d,B", [(16, 8, 8, 4096), (5, 4096, 8, 4096), (3, 200, 255, 128)])
-def test_pad_correction_block_equals_each_query(bq, dq, d, B):
-    """The block's PAD==PAD correction, one float64 product, equals each
-    query's int64 `_pad_correction`, up to d * dq * B near 2^31."""
-    rng = np.random.default_rng(bq * dq + d)
-    Qcnt = torch.from_numpy(rng.integers(0, min(dq, 255) + 1, size=(bq, B)).astype(np.int32))
-    Scnt = torch.from_numpy(rng.integers(0, d + 1, size=(40, B)).astype(np.uint8))
-    got = tbk._pad_correction_block(Qcnt, Scnt, dq, d)
-    assert got.dtype == torch.int32
-    want = torch.stack([tbk._pad_correction(q, Scnt, dq, d) for q in Qcnt])
-    assert torch.equal(got, want)
+    assert not cg._columns_ascending(hi, lo)
+    Qcnt = bank.cnt[:4].to(torch.int32)
+    got = cg.counts_block(hi[:4], lo[:4], Qcnt, bank.hi, bank.lo, bank.cnt)
+    u32 = [tbk.to_numpy_u32(x) for x in (hi[:4], lo[:4], bank.hi, bank.lo)]
+    want = np.asarray(jbk._counts_block_impl(
+        jnp.asarray(u32[0]), jnp.asarray(u32[1]), jnp.asarray(Qcnt.numpy()),
+        jnp.asarray(u32[2]), jnp.asarray(u32[3]), jnp.asarray(bank.cnt.numpy())))
+    assert np.array_equal(got.numpy(), want) and want[0, 0] == len(rows[0])
 
 
 # -- the sorted engine (X7) and the host wrappers ------------------------------
@@ -273,20 +270,25 @@ def _weighted_planes():
     return [tbk.to_torch(x) for x in tbk._pack_weighted(rows, abunds)[:4]]
 
 
-def test_products_block_rejects_a_valid_prefix_out_of_order():
+def test_products_block_takes_a_valid_prefix_out_of_order():
+    """Two valid slots of a query column swapped, and a non-zero value past
+    a column's valid prefix, give JAX's products: the join needs no order
+    and reads no slot past an occupancy."""
     hi, lo, av, cnt = _weighted_planes()
     r, b = (int(x) for x in torch.nonzero(cnt >= 2)[0])
-    hi2 = hi.clone()
-    hi2[r, 0, b], hi2[r, 1, b] = hi[r, 1, b], hi[r, 0, b]
-    lo2 = lo.clone()
-    lo2[r, 0, b], lo2[r, 1, b] = lo[r, 1, b], lo[r, 0, b]
-    with pytest.raises(TypeError, match="valid prefix"):
-        cg.products_block(hi2, lo2, av, cnt, hi, lo, av, cnt)
-    # the zeros past the prefix need no order
-    r, b = (int(x) for x in torch.nonzero(cnt[:, :] == 1)[0])
-    hi3 = hi.clone()
-    hi3[r, 1, b] = 7
-    cg.products_block(hi3, lo, av, cnt, hi, lo, av, cnt)
+    hi2, lo2, av2 = hi.clone(), lo.clone(), av.clone()
+    for new, old in ((hi2, hi), (lo2, lo), (av2, av)):
+        new[r, 0, b], new[r, 1, b] = old[r, 1, b], old[r, 0, b]
+    r1, b1 = (int(x) for x in torch.nonzero(cnt == 1)[0])
+    hi2[r1, 1, b1] = 7
+    got = cg.products_block(hi2, lo2, av2, cnt, hi, lo, av, cnt)
+    u32 = [tbk.to_numpy_u32(x) for x in (hi2, lo2, hi, lo)]
+    want = np.asarray(jbk._products_block_impl(
+        jnp.asarray(u32[0]), jnp.asarray(u32[1]), jnp.asarray(av2.numpy()),
+        jnp.asarray(cnt.numpy()), jnp.asarray(u32[2]), jnp.asarray(u32[3]),
+        jnp.asarray(av.numpy()), jnp.asarray(cnt.numpy())))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), cg.products_block(hi, lo, av, cnt, hi, lo, av, cnt).numpy())
 
 
 def test_products_block_rejects_mismatched_planes():
