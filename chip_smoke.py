@@ -128,7 +128,11 @@ tiles of half the entries, and 8 of them against a B = 128 bank, where the join'
 tiles exceed shared memory and work in global memory; `membership_bits_batch` with 4
 queries (~600 k, 150 k, empty, 20 k hashes) x 2,048 rows at W = ceil(600 k
 / 32), repacked at a depth above the block's own, with padded selections
-and rows with cnt = 8 and 2^64-1; `round_dec_batch` on its words. And
+and rows with cnt = 8 and 2^64-1, its device time split by torch.profiler
+into the tables' clearing, build and probe, the lengths of its table walks
+counted from this run's data, and with 4 queries of ~600 k hashes, whose
+tables together exceed L2, and with one query at `membership_bits`'s shape
+(equal to its words); `round_dec_batch` on its words. And
 compare's kernels on phase 9's own k=31 collection (2,000 sketches with
 abundances, [2048, 8, 4096] planes): the joins `pairwise_counts` on the
 bank and `pairwise_products` on `_pack_weighted`'s planes, one launch a
@@ -1277,6 +1281,20 @@ def check_gather_kernels(quick: bool, rng, clock_hz: float) -> dict:
         f"version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.2f} ms, bound "
         f"{bms:.4f} ms ({by}), {100 * bms / ms:.1f} % of it")
 
+    # X4b at one query, on X4's inputs: its words equal X4's
+    def member1():
+        return cg.membership_bits_batch(mq[0][None], mq[1][None], mq[2][None], Shi, Slo, Scnt,
+                                        sel[None], slotmap[None], inv[None])
+
+    exact("membership_bits_batch at one query vs membership_bits", member1()[0], got)
+    ms1, b2b1 = kernel_times(member1, reps)
+    results["membership_bits"].update(batch_bq1_ms=ms1, batch_bq1_b2b_ms=b2b1,
+                                      batch_bq1_parts=membership_parts(
+                                          q_core, B, W, Shi, Slo, Scnt, sel, rng))
+    log(f"  membership_bits_batch at one query, X4's shape: equals membership_bits; {ms1:.4f} "
+        f"ms/launch ({b2b1:.4f} back to back), X4 {b2b:.4f} back to back; its probe kernel "
+        f"by input (ms): {results['membership_bits']['batch_bq1_parts']}")
+
     k = min(4096, rows)
     sel_k = torch.from_numpy(rng.choice(rows, size=k, replace=False).astype(np.int64)).to(GATHER_DEVICE)
     M = member(sel_k, slotmap, inv)
@@ -1442,7 +1460,8 @@ def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -
     the join's tiles exceed shared memory; membership_bits_batch with 4 queries x 2,048
     rows at W = ceil(600 k / 32) on edge inputs (padded selections, an
     empty query, the block repacked at a depth above its own, rows with
-    cnt = 8 and 2^64-1); round_dec_batch on its words."""
+    cnt = 8 and 2^64-1), and with 4 queries of ~600 k hashes (not
+    --quick); round_dec_batch on its words."""
     import torch
 
     from sourmash_tpu_torch.ops import bucketed as bk
@@ -1527,31 +1546,35 @@ def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -
     def member():
         return cg.membership_bits_batch(Mhi, Mlo, Mcnt, Shi, Slo, Scnt, sel, smaps, inv)
 
-    got = member()
-    t0 = time.time()
-    torch.cuda.synchronize()
-    want = torch.cat([cg.membership_bits_batch_plain(
-        Mhi, Mlo, Mcnt, Shi, Slo, Scnt, sel[:, c : c + 256].contiguous(), smaps, inv)
-        for c in range(0, nm, 256)], dim=1)
-    torch.cuda.synchronize()
-    plain = (time.time() - t0) * 1e3
-    err = exact("membership_bits_batch", got, want)
+    res, got = check_membership_batch(
+        "membership_bits_batch (an empty query, padded selections, cnt = 8, 2^64-1, a depth "
+        "above the block's own)", member, (Mhi, Mlo, Mcnt, Shi, Slo, Scnt, sel, smaps, inv),
+        cores, reps, clock_hz)
     if not bool(got[0].any()) or bool(got[2].any()):
         raise AssertionError("membership_bits_batch: the 600 k query has no bit or the empty one has")
-    ms, b2b = kernel_times(member, reps)
-    valid = [int(Scnt[sel[j]].to(torch.int64).sum()) if len(cores[j]) else 0 for j in range(len(mq))]
-    other = sum(search_ops(Mcnt[j], Scnt[sel[j]], pad=False) + 2 * v
-                for j, v in enumerate(valid) if v) + len(mq) * nm * W
-    nbytes = (sum(nm * (B + 8) + v * 8 for v in valid) + Mhi.numel() * 8 + Mcnt.numel() * 4
-              + inv.numel() * 4 + len(mq) * nm * W * 4)
-    bms, by = bound_ms(nbytes, 0, other, clock_hz)
-    results["membership_bits_batch"] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms,
-                                            bound_by=by, max_abs_err=err, bq=len(mq), nm=nm, W=W,
-                                            dq=dqm, valid_slots=sum(valid))
-    log(f"  membership_bits_batch [{len(mq)}, {nm}, {W}] (dq={dqm}, above the block's {own_dq}; "
-        f"an empty query, padded selections, cnt = 8, 2^64-1): equals its plain version; "
-        f"{ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} ms, bound {bms:.4f} ms "
-        f"({by})")
+    res.update(dq=dqm, own_dq=own_dq, split=device_split(member, 3),
+               walks=table_walks(cores[0], Shi, Slo, Scnt, sel[0],
+                                 cg.membership_table_groups(dqm, B, W)))
+    log(f"  membership_bits_batch: device time a call {res['split']} (ms); table walks of query "
+        f"0: {res['walks']}")
+    if not quick:
+        # 4 queries of ~600 k hashes (phase 8's device-membership samples),
+        # whose tables (~18 MB each) together exceed the 50 MB L2
+        big = [m[m != np.uint64(2**64 - 1)] for m in qs[:MULTI_LARGE]]
+        Bhi, Blo, Bcnt, bdq, _braw = bk.pack_query_block_device(big, B, device=dev)
+        bW = -(-max(len(m) for m in big) // 32)
+        bmaps = torch.from_numpy(np.stack([bk.query_slot_map(m, B, bdq, bW * 32)
+                                           for m in big])).to(dev)
+        binv = bk.inverse_slot_map(bmaps, bdq * B)
+        bsel = torch.from_numpy(np.stack([rng.choice(rows, size=nm, replace=False)
+                                          for _ in big]).astype(np.int64)).to(dev)
+        res["large4"], _got = check_membership_batch(
+            f"membership_bits_batch, {len(big)} queries of ~600 k",
+            lambda: cg.membership_bits_batch(Bhi, Blo, Bcnt, Shi, Slo, Scnt, bsel, bmaps, binv),
+            (Bhi, Blo, Bcnt, Shi, Slo, Scnt, bsel, bmaps, binv), big, reps, clock_hz)
+        res["large4"]["table_mb"] = len(big) * 48 * cg.membership_table_groups(bdq, B, bW) / 1e6
+        del Bhi, Blo, Bcnt, bmaps, binv, _got
+    results["membership_bits_batch"] = res
 
     M = got
     alive = torch.from_numpy(rng.integers(-2**31, 2**31, size=(len(mq), W), dtype=np.int64)
@@ -1568,6 +1591,138 @@ def check_batch_kernels(quick: bool, rng, clock_hz: float, mins_list, bank, q) -
     log(f"  round_dec_batch [{Q}, {k}, {W}]: equals its plain version; {ms:.4f} ms/launch "
         f"({b2b:.4f} back to back), plain {plain:.2f} ms, bound {bms:.4f} ms ({by})")
     return results
+
+
+def check_membership_batch(label: str, member, args, cores, reps: int, clock_hz: float):
+    """membership_bits_batch (`member()`, on `args` = Qhi, Qlo, Qcnt, Shi,
+    Slo, Scnt, sel, slotmaps, inv) against its plain version bit for bit
+    (256 selections at a time), timed with its bound: each selected row's
+    cnt bytes and its valid slots read once for each query with hashes, the
+    query planes, occupancy and inverse maps read once, every word written
+    once; an op a valid slot of either side (its one look-up) and a word.
+    The bound of the binary search's steps (`search_ops`, the model of
+    the kernel this one replaced) stands beside it. Returns (results, the
+    words)."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, smaps, inv = args
+    bq, nm, W = sel.shape[0], sel.shape[1], smaps.shape[1] // 32
+    B = Qhi.shape[2]
+    got = member()
+    t0 = time.time()
+    torch.cuda.synchronize()
+    want = torch.cat([cg.membership_bits_batch_plain(
+        Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel[:, c : c + 256].contiguous(), smaps, inv)
+        for c in range(0, nm, 256)], dim=1)
+    torch.cuda.synchronize()
+    plain = (time.time() - t0) * 1e3
+    err = exact(label, got, want)
+    del want
+    ms, b2b = kernel_times(member, reps)
+    valid = [int(Scnt[sel[j]].to(torch.int64).sum()) if len(cores[j]) else 0 for j in range(bq)]
+    qvalid = int(Qcnt.to(torch.int64).clamp(max=Qhi.shape[1]).sum())
+    nbytes = (sum(nm * (B + 8) + v * 8 for v in valid) + Qhi.numel() * 8 + Qcnt.numel() * 4
+              + inv.numel() * 4 + bq * nm * W * 4)
+    bms, by = bound_ms(nbytes, 0, sum(valid) + qvalid + bq * nm * W, clock_hz)
+    search = sum(search_ops(Qcnt[j], Scnt[sel[j]], pad=False) + 2 * v
+                 for j, v in enumerate(valid) if v) + bq * nm * W
+    bms_search, by_search = bound_ms(nbytes, 0, search, clock_hz)
+    res = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
+               bound_ms_search=bms_search, bound_by_search=by_search, max_abs_err=err, bq=bq,
+               nm=nm, W=W, valid_slots=sum(valid), query_slots=qvalid)
+    log(f"  {label} [{bq}, {nm}, {W}] (dq={Qhi.shape[1]}, {sum(valid)} valid row slots): equals "
+        f"its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to back), plain {plain:.0f} ms, "
+        f"bound {bms:.4f} ms ({by}; the search's model {bms_search:.4f}, {by_search}), "
+        f"{100 * bms / b2b:.1f} % of it back to back")
+    return res, got
+
+
+def membership_parts(core, B: int, W: int, Shi, Slo, Scnt, sel, rng) -> dict:
+    """membership_bits_batch's probe kernel (device ms a launch, torch.profiler)
+    at one query over the same [len(sel), W] words, by what its inputs let
+    it skip: the ~600 k-hash query (the path); an empty query (no row is
+    walked: the words cleared and written only); a query of 5 k of its
+    hashes (a table that stays in cache); the 600 k query against one row
+    selected len(sel) times (the rows in cache)."""
+    import torch
+
+    from sourmash_tpu_torch.ops import bucketed as bk
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    dev = Scnt.device
+    once = torch.zeros_like(sel)
+    small = np.sort(rng.choice(core, size=min(5000, len(core)), replace=False))
+    out = {}
+    for name, c, s in (("path", core, sel), ("empty", core[:0], sel), ("5 k hashes", small, sel),
+                       ("rows in cache", core, once)):
+        Qhi, Qlo, Qcnt, dq, _raw = bk.pack_query_block_device([c], B, device=dev)
+        smap = torch.from_numpy(bk.query_slot_map(c, B, dq, W * 32)[None]).to(dev)
+        inv = bk.inverse_slot_map(smap, dq * B)
+        split = device_split(lambda: cg.membership_bits_batch(
+            Qhi, Qlo, Qcnt, Shi, Slo, Scnt, s[None], smap, inv), 5)
+        out[name] = sum(v for k, v in split.items() if "membership" in k and "table" not in k)
+    return out
+
+
+def device_split(fn, n: int) -> dict:
+    """{kernel or copy name: device ms a call} of n calls of fn under
+    torch.profiler (after one call outside it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:64]: round(e.self_device_time_total / 1e3 / n, 4)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def table_walks(core: np.ndarray, Shi, Slo, Scnt, sel, groups: int) -> dict:
+    """The groups that membership_bits_batch's probes of one query read, from
+    this run's data: the table of the query's hashes (linear probing by
+    groups of 4 from `table_home`; which groups fill does not depend on the
+    order of the inserts), each valid slot of the selected rows walking
+    from its home group to the first group with a free slot (exact for a
+    miss; a hit stops there or earlier). Mean groups a look-up, and a warp's
+    rounds a slot level (the longest walk of its 32 lanes x 4 buckets,
+    kProbeThreads = 512) against the mean, over the slot levels where the
+    warp has a look-up."""
+
+    def home(keys):
+        with np.errstate(over="ignore"):
+            x = (keys * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(32)
+        return ((x * np.uint64(groups)) >> np.uint64(32)).astype(np.int64)
+
+    c = np.bincount(home(core), minlength=groups)
+    over = np.cumsum(c - 4)
+    carry = np.maximum(over - np.minimum(np.minimum.accumulate(over), 0), 0)
+    full = np.minimum(np.r_[carry[-1], carry[:-1]] + c, 4) == 4  # one wrap of the carry
+    free = np.flatnonzero(~full)
+    at = np.searchsorted(free, np.arange(groups))
+    walk = np.where(at < len(free), free[np.minimum(at, len(free) - 1)],
+                    groups + free[0]) - np.arange(groups) + 1
+    cnt = Scnt[sel].cpu().numpy().astype(np.int64)  # [nm, B]
+    nm, (d, B) = sel.shape[0], tuple(Shi.shape[1:])
+    valid = np.arange(d)[None, :, None] < cnt[:, None, :]
+    hi = Shi[sel].cpu().numpy().view(np.uint32)[valid].astype(np.uint64)
+    lo = Slo[sel].cpu().numpy().view(np.uint32)[valid].astype(np.uint64)
+    lengths = np.zeros((nm, d, B), dtype=np.int64)
+    lengths[valid] = walk[home((hi << np.uint64(32)) | lo)]
+    out = dict(groups=groups, load=round(len(core) / (4 * groups), 4),
+               mean=round(float(lengths[valid].mean()), 4), rows=nm)
+    if B % 2048 == 0:  # b = it * 2048 + u * 512 + warp * 32 + lane
+        per = lengths.reshape(nm, d, B // 2048, 4, 16, 32)
+        live = (per > 0).any(axis=(3, 5))
+        out["warp_rounds"] = round(float(per.max(axis=(3, 5))[live].mean()), 4)
+        out["warp_mean"] = round(float((per.sum(axis=(3, 5)) / np.maximum(
+            (per > 0).sum(axis=(3, 5)), 1))[live].mean()), 4)
+    return out
 
 
 GLOBAL_B = 128  # a bank of small genomes (choose_buckets of <= 320 hashes)

@@ -66,8 +66,37 @@
 // block_join.cu):
 // - membership_bits_batch (X4b), the hand-written form of
 //   `_membership_bits_packed_batch`: membership_bits over a query axis,
-//   one block per (selected row, query), query q's planes, occupancy,
-//   selection and inverse slot map taken at its offsets.
+//   with each valid bank slot's test one probe of a hash table of its
+//   query in place of a binary search. The search's ~8 steps along a
+//   column strided by B were each a dependent load of a 32-byte L2 sector
+//   of its own, then a lo-limb load and an inv load. membership_table_kernel
+//   builds, once a launch, one table a query from what the planes and inv
+//   encode: each valid query slot (k2 < qcnt[q, b]) whose inverse-map
+//   entry j is a bit of the words (0 <= j < 32 W) inserts its (hi, lo)
+//   value as a 64-bit key, j as its payload. Open addressing, linear
+//   probing by groups of four keys (one 32-byte sector), at most 2/5 full,
+//   the home group from the high bits of the key times a 64-bit odd
+//   constant (a scaled sketch's hashes have zero top bits, and the bucket
+//   took the low ones); the payloads sit in an array of their own, read
+//   only on a hit, so the hot part of a ~600 k-hash query's table is 12 MB
+//   and fits the 50 MB L2 while that query's blocks run (blockIdx.y = q is
+//   the slow grid axis). membership_probe_kernel keeps X4's row side and
+//   output side: one block per (selected row, query), adjacent threads on
+//   adjacent buckets (cnt bytes and slot limbs read streaming, so they do
+//   not push the table out of L2), the row's words built in shared memory
+//   and written once. A thread owns eight buckets and takes their valid
+//   slots four at a time, level-major, four look-ups in flight. A query
+//   with no entry skips its rows' walk. Past the block's shared memory the
+//   bits go to the zeroed output by atomicOr, as X4's do. What bounds it
+//   on the H100 (chip_smoke phase 2 times the probe kernel by input;
+//   PERF.md): the walk itself (its instructions and dependent loads, a
+//   warp waiting on its lane with the longest list), then the row reads
+//   and the output write; the table's size moves it little while its hot
+//   part fits L2, and 16-byte key-and-payload slots (24 MB tables) made it
+//   slower. Walking level by level, groups of two keys, three blocks an
+//   SM, a software-pipelined walk, rows staged in shared memory by
+//   cp.async, a warp queue in shared memory and four buckets a list were
+//   each no faster.
 // - round_dec_batch (X5b), the decrement inside
 //   `sourmash_tpu/index/flat.py:_schedule_scan_batch`: out[q, r] =
 //   sum_w popc(M[q, r, w] & rm[q, w]), one block per (row, query), so a
@@ -169,8 +198,8 @@ counts_rows_kernel(const uint32_t* __restrict__ qhi,
 }
 
 // Set, in the row's W words `bits` (shared memory or the zeroed output),
-// the bit of every query hash that sits in a valid slot of the row; the
-// body of membership_bits and, query by query, of membership_bits_batch.
+// the bit of every query hash that sits in a valid slot of the row: the
+// body of membership_bits.
 __device__ __forceinline__ void row_membership(const uint32_t* __restrict__ qhi,
                                                const uint32_t* __restrict__ qlo,
                                                const int32_t* __restrict__ qcnt, int B,
@@ -236,35 +265,169 @@ membership_bits_kernel(const uint32_t* __restrict__ qhi,
   }
 }
 
-// membership_bits over a query axis: block (x, y) builds the words of
-// selection x of query y, out [bq, cap, W].
+// membership_bits_batch's table of query q: keys [groups, kGroup] (the PAD
+// pair, never a valid bank slot's value, where no entry is), payloads
+// [groups, kGroup] alongside; filled[q] != 0 once an entry went in.
+constexpr int kGroup = 4;              // keys a group: one 32-byte sector
+constexpr int kBuildThreads = 256;
+constexpr int kProbeThreads = 512;     // membership_bits_batch: threads per (row, query)
+constexpr int kProbeUnroll = 4;        // look-ups a thread has in flight
+constexpr int kChunk = 8;              // buckets a thread owns at a time
+constexpr uint64_t kLevels = 0x0101010101010101ULL;  // bit 8 k at every level k < kD
+
+__device__ __forceinline__ uint32_t table_home(uint64_t key, uint32_t groups) {
+  return __umulhi(static_cast<uint32_t>((key * 0x9E3779B97F4A7C15ULL) >> 32), groups);
+}
+
+__device__ __forceinline__ uint32_t next_group(uint32_t g, uint32_t groups) {
+  return g + 1 == groups ? 0u : g + 1;
+}
+
+// key `half` (0 or 1) of two packed in a 16-byte load of a group
+__device__ __forceinline__ uint64_t key_at(const uint4& v, int half) {
+  return half ? limb_pair(v.w, v.z) : limb_pair(v.y, v.x);
+}
+
+// One thread per query slot position i = k2 * B + b of query blockIdx.y:
+// a valid slot whose inverse-map entry is a bit of the words inserts its
+// value with that bit as payload. A group fills slot by slot (a CAS moves
+// on only past a taken slot), so its taken slots are a prefix; a repeated
+// value keeps its first entry.
+__global__ void __launch_bounds__(kBuildThreads)
+membership_table_kernel(const uint32_t* __restrict__ qhi, const uint32_t* __restrict__ qlo,
+                        const int32_t* __restrict__ qcnt, int dq, int B,
+                        const int32_t* __restrict__ inv, long long nbits, uint32_t groups,
+                        unsigned long long* __restrict__ keys, int32_t* __restrict__ payload,
+                        int32_t* __restrict__ filled) {
+  const size_t q = blockIdx.y;
+  const int n = dq * B;
+  const int i = blockIdx.x * kBuildThreads + threadIdx.x;
+  bool inserted = false;
+  if (i < n && i / B < qcnt[q * B + i % B]) {
+    const size_t at = q * n + i;
+    const int j = inv[at];
+    const uint64_t key = limb_pair(qhi[at], qlo[at]);
+    if (j >= 0 && j < nbits && key != kPadPair) {
+      unsigned long long* kq = keys + q * groups * kGroup;
+      for (uint32_t g = table_home(key, groups); !inserted; g = next_group(g, groups)) {
+        // the group as L2 holds it now; a CAS only on a slot seen free
+        const uint4 a = __ldcg(reinterpret_cast<const uint4*>(kq) + 2 * (size_t)g);
+        const uint4 c = __ldcg(reinterpret_cast<const uint4*>(kq) + 2 * (size_t)g + 1);
+        uint64_t seen[kGroup] = {key_at(a, 0), key_at(a, 1), key_at(c, 0), key_at(c, 1)};
+        for (int s = 0; s < kGroup && !inserted; s++) {
+          const size_t slot = (size_t)g * kGroup + s;
+          if (seen[s] == kPadPair) seen[s] = atomicCAS(kq + slot, kPadPair, key);
+          if (seen[s] == kPadPair) payload[q * groups * kGroup + slot] = j;
+          inserted = seen[s] == kPadPair || seen[s] == key;
+        }
+      }
+    }
+  }
+  if (__syncthreads_or(inserted) && threadIdx.x == 0) filled[q] = 1;
+}
+
+// Block (x, y) builds the words of selection x of query y, out [bq, cap,
+// W]: every valid slot of the row probes query y's table; a hit's payload
+// is its bit. A thread owns kChunk buckets b0 + u * kProbeThreads and takes
+// their valid slots kProbeUnroll at a time, level-major (slot level k of
+// every owned bucket before level k + 1).
 template <bool kShared>
-__global__ void __launch_bounds__(kMemThreads)
-membership_bits_batch_kernel(const uint32_t* __restrict__ qhi,
-                             const uint32_t* __restrict__ qlo,
-                             const int32_t* __restrict__ qcnt, int dq, int B,
-                             const uint32_t* __restrict__ shi,
-                             const uint32_t* __restrict__ slo,
-                             const uint8_t* __restrict__ scnt,
-                             const int64_t* __restrict__ sel, int cap,
-                             const int32_t* __restrict__ inv, int W,
-                             uint32_t* __restrict__ out) {
+__global__ void __launch_bounds__(kProbeThreads, 2)
+membership_probe_kernel(const unsigned long long* __restrict__ keys,
+                        const int32_t* __restrict__ payload,
+                        const int32_t* __restrict__ filled, uint32_t groups, int B,
+                        const uint32_t* __restrict__ shi, const uint32_t* __restrict__ slo,
+                        const uint8_t* __restrict__ scnt, const int64_t* __restrict__ sel,
+                        int cap, int W, uint32_t* __restrict__ out) {
   extern __shared__ uint32_t row_bits[];  // kShared: the row's W words
   const int t = threadIdx.x;
   const size_t q = blockIdx.y;
-  const size_t plane = q * dq * (size_t)B;
   uint32_t* dst = out + (q * cap + blockIdx.x) * (size_t)W;
   uint32_t* bits = kShared ? row_bits : dst;
   if (kShared) {
-    for (int w = t; w < W; w += kMemThreads) row_bits[w] = 0u;
+    for (int w = t; w < W; w += kProbeThreads) row_bits[w] = 0u;
     __syncthreads();
   }
-  const size_t s = (size_t)sel[q * cap + blockIdx.x];
-  row_membership(qhi + plane, qlo + plane, qcnt + q * B, B, scnt + s * B, shi + s * kD * B,
-                 slo + s * kD * B, inv + plane, W, bits);
+  if (filled[q]) {
+    const size_t s = (size_t)sel[q * cap + blockIdx.x];
+    const uint8_t* cnt = scnt + s * B;
+    const uint32_t* rh = shi + s * kD * B;
+    const uint32_t* rl = slo + s * kD * B;
+    const uint4* kq = reinterpret_cast<const uint4*>(keys + q * groups * kGroup);
+    const int32_t* pq = payload + q * groups * kGroup;
+    constexpr int U = kProbeUnroll;
+    for (int b0 = t; b0 < B; b0 += kProbeThreads * kChunk) {
+      // bit 8 k + u: bucket u of the chunk holds a valid slot at level k
+      uint64_t slots = 0;
+#pragma unroll
+      for (int u = 0; u < kChunk; u++) {
+        const int b = b0 + u * kProbeThreads;
+        const int c = b < B ? min(static_cast<int>(__ldcs(cnt + b)), kD) : 0;
+        slots |= (c ? kLevels >> (8 * (kD - c)) : 0ULL) << u;
+      }
+      while (slots) {
+        uint64_t key[U];
+        uint32_t g[U];
+        uint4 lo[U], hi[U];  // the group's keys 0-1 and 2-3
+        bool live[U];
+        int hit[U];
+#pragma unroll
+        for (int v = 0; v < U; v++) {
+          hit[v] = -1;
+          key[v] = kPadPair;
+          if (slots) {
+            const int at = __ffsll(static_cast<long long>(slots)) - 1;
+            slots &= slots - 1;
+            const size_t i = (size_t)(at >> 3) * B + b0 + (at & 7) * kProbeThreads;
+            key[v] = limb_pair(__ldcs(rh + i), __ldcs(rl + i));
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < U; v++) {
+          live[v] = key[v] != kPadPair;
+          if (live[v]) {
+            g[v] = table_home(key[v], groups);
+            lo[v] = __ldg(kq + 2 * (size_t)g[v]);
+            hi[v] = __ldg(kq + 2 * (size_t)g[v] + 1);
+          }
+        }
+        // walk on where a group is full without the key; a group with a
+        // free slot ends the walk
+        for (bool more = true; more;) {
+          more = false;
+#pragma unroll
+          for (int v = 0; v < U; v++) {
+            if (!live[v]) continue;
+            const int at = key_at(lo[v], 0) == key[v]   ? 0
+                           : key_at(lo[v], 1) == key[v] ? 1
+                           : key_at(hi[v], 0) == key[v] ? 2
+                           : key_at(hi[v], 1) == key[v] ? 3
+                                                        : -1;
+            if (at >= 0) {
+              hit[v] = static_cast<int>(g[v]) * kGroup + at;
+              live[v] = false;
+            } else if (key_at(hi[v], 1) == kPadPair) {
+              live[v] = false;
+            } else {
+              g[v] = next_group(g[v], groups);
+              lo[v] = __ldg(kq + 2 * (size_t)g[v]);
+              hi[v] = __ldg(kq + 2 * (size_t)g[v] + 1);
+              more = true;
+            }
+          }
+        }
+        int j[U];
+#pragma unroll
+        for (int v = 0; v < U; v++) j[v] = hit[v] >= 0 ? __ldg(pq + hit[v]) : -1;
+#pragma unroll
+        for (int v = 0; v < U; v++)
+          if (j[v] >= 0) atomicOr(bits + (j[v] >> 5), 1u << (j[v] & 31));
+      }
+    }
+  }
   if (kShared) {
     __syncthreads();
-    for (int w = t; w < W; w += kMemThreads) dst[w] = row_bits[w];
+    for (int w = t; w < W; w += kProbeThreads) __stcs(dst + w, row_bits[w]);
   }
 }
 
@@ -400,13 +563,18 @@ int gm_round_dec(const void* M, const void* rm, int k, int W, void* out,
 // out [bq, cap, W] u32 membership words: for each query q, rows sel[q]
 // [cap] (i64) of one chunk's planes [rows, 8, B] / cnt [rows, B] u8,
 // against query planes qhi/qlo[q] [dq, B] with occupancy qcnt[q] [B] i32
-// and inverse slot map inv[q] [dq * B] i32.
+// and inverse slot map inv[q] [dq * B] i32 (dq * B < 2^31). `table`:
+// scratch for bq tables of `groups` groups each (4 * groups > the entries
+// of any query; groups < 2^29): keys [bq, groups, 4] u64, then payloads
+// [bq, groups, 4] i32, then filled flags [bq] i32, bq * (48 * groups + 4)
+// bytes. Three steps on the stream: the tables cleared, built, probed.
 int gm_membership_bits_batch(const void* qhi, const void* qlo, const void* qcnt, int bq,
                              int dq, int B, const void* shi, const void* slo,
                              const void* scnt, const void* sel, int cap, const void* inv,
-                             int W, void* out, void* stream) {
+                             int W, void* table, int groups, void* out, void* stream) {
   if (bq <= 0 || cap <= 0 || W <= 0) return 0;
-  if (bq > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (bq > 65535 || groups <= 0 || groups >= (1 << 29))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -416,19 +584,34 @@ int gm_membership_bits_batch(const void* qhi, const void* qlo, const void* qcnt,
   const size_t smem = sizeof(uint32_t) * (size_t)W;
   const bool shared = smem <= (size_t)smem_max;
   if (shared) {
-    err = cudaFuncSetAttribute(membership_bits_batch_kernel<true>,
+    err = cudaFuncSetAttribute(membership_probe_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   } else {
     err = cudaMemsetAsync(out, 0, smem * (size_t)cap * bq, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = shared ? membership_bits_batch_kernel<true> : membership_bits_batch_kernel<false>;
-  kernel<<<dim3((unsigned)cap, (unsigned)bq), kMemThreads, shared ? smem : 0, st>>>(
-      static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
-      static_cast<const int32_t*>(qcnt), dq, B,
-      static_cast<const uint32_t*>(shi), static_cast<const uint32_t*>(slo),
-      static_cast<const uint8_t*>(scnt), static_cast<const int64_t*>(sel), cap,
-      static_cast<const int32_t*>(inv), W, static_cast<uint32_t*>(out));
+  const size_t entries = (size_t)bq * groups * kGroup;
+  auto* keys = static_cast<unsigned long long*>(table);
+  auto* payload = reinterpret_cast<int32_t*>(keys + entries);
+  int32_t* filled = payload + entries;
+  err = cudaMemsetAsync(keys, 0xFF, sizeof(unsigned long long) * entries, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(filled, 0, sizeof(int32_t) * bq, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n = dq * B;
+  if (n > 0) {
+    membership_table_kernel<<<dim3((unsigned)((n + kBuildThreads - 1) / kBuildThreads),
+                                   (unsigned)bq), kBuildThreads, 0, st>>>(
+        static_cast<const uint32_t*>(qhi), static_cast<const uint32_t*>(qlo),
+        static_cast<const int32_t*>(qcnt), dq, B, static_cast<const int32_t*>(inv),
+        32LL * W, (uint32_t)groups, keys, payload, filled);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = shared ? membership_probe_kernel<true> : membership_probe_kernel<false>;
+  kernel<<<dim3((unsigned)cap, (unsigned)bq), kProbeThreads, shared ? smem : 0, st>>>(
+      keys, payload, filled, (uint32_t)groups, B, static_cast<const uint32_t*>(shi),
+      static_cast<const uint32_t*>(slo), static_cast<const uint8_t*>(scnt),
+      static_cast<const int64_t*>(sel), cap, W, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

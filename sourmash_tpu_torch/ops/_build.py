@@ -59,8 +59,10 @@ _LIBRARIES = {
         "gm_membership_bits": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
         # M, rm, k, W, out, stream
         "gm_round_dec": [_P, _P, _I, _I, _P, _P],
-        # qhi, qlo, qcnt, bq, dq, B, shi, slo, scnt, sel, cap, inv, W, out, stream
-        "gm_membership_bits_batch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P],
+        # qhi, qlo, qcnt, bq, dq, B, shi, slo, scnt, sel, cap, inv, W, table, groups,
+        # out, stream
+        "gm_membership_bits_batch": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P,
+                                     _I, _P, _P],
         # M, rm, Q, k, W, out, stream
         "gm_round_dec_batch": [_P, _P, _I, _I, _I, _P, _P],
     }),

@@ -31,7 +31,9 @@ Their batch forms, for a block of queries against one collection
   _membership_bits_packed_batch`): `membership_bits` for each query, with
   per-query occupancy `Qcnt [bq, B]`, selections `sel [bq, cap]`, slot
   maps `slotmaps [bq, W * 32]` and inverse maps `inv [bq, dq * B]`;
-  `[bq, cap, W]` int32.
+  `[bq, cap, W]` int32. The kernel builds a hash table of each query's
+  valid slots (value -> bit, from `inv`) in a scratch buffer and probes it
+  once for each valid slot of the selected rows.
 - `round_dec_batch` (X5b, the decrement of `index/flat.py:
   _schedule_scan_batch`): `[Q, k]` int32 `sum_w popc(M[q, r, w] & rm[q, w])`.
 
@@ -470,14 +472,26 @@ def membership_bits_batch(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv):
     cap, W = sel.shape[1], slotmaps.shape[1] // 32
     if sel.numel() and not (0 <= int(sel.min()) and int(sel.max()) < rows):
         raise IndexError(f"sel holds rows outside [0, {rows})")
+    groups = membership_table_groups(dq, B, W)
+    if groups >= 2**29:
+        raise TypeError(f"a table of {groups} groups is out of the kernel's range")
     out = torch.empty((bq, cap, W), dtype=torch.int32, device=Qhi.device)
+    table = torch.empty(bq * (48 * groups + 4), dtype=torch.uint8, device=Qhi.device)
     _launch(
         "gm_membership_bits_batch", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(),
         Qcnt.data_ptr(), bq, dq, B, Shi.data_ptr(), Slo.data_ptr(), Scnt.data_ptr(),
-        sel.data_ptr(), cap, inv.data_ptr(), W, out.data_ptr(),
+        sel.data_ptr(), cap, inv.data_ptr(), W, table.data_ptr(), groups, out.data_ptr(),
     )
     LAUNCHES["membership_bits_batch"] += 1
     return out
+
+
+def membership_table_groups(dq: int, B: int, W: int) -> int:
+    """Groups of four keys in each query's table of `membership_bits_batch`:
+    room for 5/2 entries a query hash, so a table is at most 2/5 full. A
+    query's entries are at most its valid slots (dq * B) and its distinct
+    bits (32 W)."""
+    return max(1, -(-5 * min(32 * W, dq * B) // 8))
 
 
 def membership_bits_batch_plain(Qhi, Qlo, Qcnt, Shi, Slo, Scnt, sel, slotmaps, inv):

@@ -212,6 +212,125 @@ def test_membership_bits_batch_plain_equals_jax(case):
         assert torch.equal(tbk.inverse_slot_map(tmaps[q], dqm * bank.B), inv[q])
 
 
+def _membership_edge_case(case):
+    """(rows, queries, sel, B) of one edge of membership_bits_batch: query
+    hashes sharing hi limbs but not lo limbs in one bucket's column; a query
+    crowded into two buckets (columns of ~600 slots); a selection repeating
+    rows; a query whose W's last word is part padding, with rows holding
+    its last hashes."""
+    rng = np.random.default_rng(41)
+    B = 128
+    base = [rand_set(rng, 3000), rand_set(rng, 800)]
+    if case == "shared_hi":
+        his = rng.integers(0, 2**32, size=6, dtype=np.uint64)
+        los = rng.integers(0, 2**25, size=(6, 40), dtype=np.uint64) << np.uint64(7) | np.uint64(9)
+        special = np.unique((his[:, None] << np.uint64(32)) | los)
+        qs = [np.unique(np.concatenate([base[0], special])), base[1]]
+        rows = [special[::3], special[1::4], base[0][:100], np.unique(np.concatenate(
+            [special[:20], base[1][:50]]))]
+    elif case == "crowded":
+        crowd = np.unique(rng.integers(0, 2**57, size=1200, dtype=np.uint64) << np.uint64(7)
+                          | rng.choice(np.array([3, 77], dtype=np.uint64), size=1200))
+        qs = [np.unique(np.concatenate([base[0][:500], crowd])), crowd[::5]]
+        rows = [np.unique(np.concatenate([crowd[i::9][:8], base[0][i * 50 : i * 50 + 60]]))
+                for i in range(5)]
+    elif case == "repeated_rows":
+        qs = base
+        rows = [np.unique(np.concatenate([base[0][i::7][:60], base[1][i::9][:20],
+                                          rand_set(rng, 40)])) for i in range(6)]
+    else:  # tail_word
+        q = base[0][: 32 * 50 + 13]
+        qs = [q, base[1]]
+        rows = [np.unique(np.concatenate([q[-3:], rand_set(rng, 30)])), q[-40:-1], q[::11],
+                base[1][:77]]
+    n = 6
+    sel = np.stack([rng.integers(0, len(rows), size=n) for _ in qs]).astype(np.int64)
+    if case == "repeated_rows":
+        sel[0] = [4, 4, 1, 4, 0, 1]
+        sel[1] = [2, 2, 2, 2, 2, 2]
+    if case == "tail_word":
+        sel[0, :3] = [0, 1, 2]
+    return rows, qs, sel, B
+
+
+@pytest.mark.parametrize("case", ["shared_hi", "crowded", "repeated_rows", "tail_word"])
+def test_membership_bits_batch_edges_equal_jax(case):
+    """membership_bits_batch equals JAX's _membership_bits_packed_batch (and
+    the per-query membership_bits) on each edge of `_membership_edge_case`,
+    and the edge is what the case says it is."""
+    rows, qs, sel, B = _membership_edge_case(case)
+    bank = jbk.pack_rows_bucketed(rows, B, device=False)
+    Qhi, Qlo, Qcnt, dq, _raw = tbk.pack_query_block_device(qs, B, device=CPU)
+    W = -(-max(len(q) for q in qs) // 32)
+    smaps = np.stack([tbk.query_slot_map(q, B, dq, W * 32) for q in qs])
+    want = np.asarray(jbk._membership_bits_packed_batch(
+        jnp.asarray(tbk.to_numpy_u32(Qhi)), jnp.asarray(tbk.to_numpy_u32(Qlo)),
+        jnp.asarray(bank.hi), jnp.asarray(bank.lo), jnp.asarray(bank.cnt),
+        jnp.asarray(sel.astype(np.int32)), jnp.asarray(smaps)))
+    tmaps = torch.from_numpy(smaps)
+    inv = tbk.inverse_slot_map(tmaps, dq * B)
+    S = planes(bank.hi, bank.lo, bank.cnt)
+    got = cg.membership_bits_batch(Qhi, Qlo, Qcnt, *S, torch.from_numpy(sel), tmaps, inv)
+    assert np.array_equal(want, tbk.to_numpy_u32(got)) and got.any()
+    for q in range(len(qs)):
+        assert torch.equal(got[q], cg.membership_bits(Qhi[q], Qlo[q], Qcnt[q], *S,
+                                                      torch.from_numpy(sel[q]), tmaps[q], inv[q]))
+    bits = np.unpackbits(tbk.to_numpy_u32(got).view(np.uint8), axis=-1, bitorder="little")
+    for q, x in np.ndindex(sel.shape):  # bit j: query hash j is in the row
+        shared = np.isin(qs[q], rows[sel[q, x]])
+        j = np.flatnonzero(bits[q, x])
+        assert (j < len(qs[q])).all() and shared[j].all()
+        assert len(j) == shared.sum() or bank.n_spilled  # spilled hashes are the host's
+    if case == "shared_hi":
+        hi = qs[0] >> np.uint64(32)
+        assert len(np.unique(hi)) < len(hi) - 200 and bits[0].any()
+    elif case == "crowded":
+        assert int(Qcnt.max()) >= 400 and bits[1].any()
+    elif case == "repeated_rows":
+        assert torch.equal(got[0, 0], got[0, 1]) and torch.equal(got[0, 0], got[0, 3])
+        assert (got[1] == got[1, 0]).all() and got[1, 0].any()
+    else:
+        assert 0 < W * 32 - len(qs[0]) < 32
+        last = bits[0, 0, (W - 1) * 32 :]
+        assert last[len(qs[0]) - (W - 1) * 32 - 1] and not last[len(qs[0]) - (W - 1) * 32 :].any()
+
+
+def test_membership_bits_batch_refuses_bad_inputs():
+    """Wrong dtypes or shapes raise TypeError, a selection outside the
+    chunk's rows IndexError, as they did before the table."""
+    bank, (Qhi, Qlo, Qcnt), smaps, sel, dqm, W = _membership_batch_inputs("plain")
+    tmaps = torch.from_numpy(smaps)
+    inv = tbk.inverse_slot_map(tmaps, dqm * bank.B)
+    S = planes(bank.hi, bank.lo, bank.cnt)
+    tsel = torch.from_numpy(sel)
+    good = [Qhi, Qlo, Qcnt, *S, tsel, tmaps, inv]
+    bad = [
+        (0, Qhi.to(torch.int64)), (2, Qcnt.to(torch.uint8)), (5, S[2].to(torch.int32)),
+        (6, tsel.to(torch.int32)), (8, inv[:, :-1].contiguous()), (7, tmaps[:, :-5].contiguous()),
+        (2, Qcnt[:-1]), (6, tsel[0]), (0, Qhi[:, :, :64].contiguous()),
+    ]
+    for at, x in bad:
+        args = list(good)
+        args[at] = x
+        with pytest.raises(TypeError):
+            cg.membership_bits_batch(*args)
+    for rowsel in (len(bank.cnt), -len(bank.cnt) - 1):
+        out = tsel.clone()
+        out[2, 3] = rowsel
+        with pytest.raises(IndexError):
+            cg.membership_bits_batch(Qhi, Qlo, Qcnt, *S, out, tmaps, inv)
+
+
+@pytest.mark.parametrize("dq, B, W", [(0, 128, 1), (200, 4096, 18750), (3, 128, 18750),
+                                      (1, 1, 1)])
+def test_membership_table_groups(dq, B, W):
+    """The kernel's per-query table holds every entry at most 2/5 full: its
+    entries are at most the valid slots (dq * B) and the bits (32 W)."""
+    groups = cg.membership_table_groups(dq, B, W)
+    entries = min(dq * B, 32 * W)
+    assert 5 * entries <= 2 * 4 * groups and (groups == 1 or 2 * 4 * (groups - 1) < 5 * entries)
+
+
 def test_round_dec_batch_and_scan_batch_match_jax():
     """round_dec_batch equals JAX's popcount decrement and per-query
     round_dec; the batched scan equals JAX's _schedule_scan_batch with and
