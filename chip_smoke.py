@@ -159,9 +159,14 @@ against their plain versions on the card, bit for bit: T2's passes
 `split_words` / `split_slots` and T3 `survivor_slots_v2` also against K1
 for every k above at max_hash for scaled=1000 and 2^64-1 on the rows with
 the overflowing tandem repeat, timed at [4, 2^21 + 30], and T2/T3 against
-their plain versions on the tools' own batch [8, 2^21 + 30]; T4's
-`murmur_only`, `assembly_only` and `mulchain` (0, 1, 16 and 64 rounds) at
-the tool's blocks of random bytes, timed. The mul-chain's 16 rounds must
+their plain versions on the tools' own batch [8, 2^21 + 30] (`split_words`
+also on K1's edge rows, in `check_k1_edges`); T4's `murmur_only`,
+`assembly_only` and `mulchain` (0, 1, 16 and 64 rounds) at the tool's
+blocks of random bytes, timed, and `assembly_only` on blocks of random
+bytes, of ACGT, and of ACGT with N runs and palindromes at the tool's 512
+rows and at 9 (a block ending mid-tile), timed on ACGT: with
+`murmur_only` and K1 that gives one line of K1's time per window split
+into assembly and murmur. The mul-chain's 16 rounds must
 take at least half again the 0-round kernel's time, and 64 rounds >= 3x
 the time of 16, both net of 0 rounds (else its work was optimised away);
 where `cuobjdump` is at hand its SASS must hold an IMAD.WIDE.U32 for each
@@ -603,16 +608,21 @@ def check_k1_edges(rng, thresholds):
     """K1 and K2 against their plain versions, bit for bit, on the edge
     inputs of k1_edge_rows: K1 at every threshold, K2 on every window's
     hash and validity, invalid windows' garbage hashes and the pad windows
-    past n (rows of 2^20 bytes end in a partial segment) included; fails
-    otherwise."""
+    past n (rows of 2^20 bytes end in a partial segment) included; T2's
+    split_words (K2's tile, the eight-byte strand compare) on every
+    window's words and validity; fails otherwise."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_sketch as cs
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
     from sourmash_tpu_torch.ops.sketch import _pick_slots
 
     for kind, ks in K1_EDGES:
         for k in ks:
             rows = torch.from_numpy(k1_edge_rows(kind, k, rng)).cuda()
+            for name, a, b in zip(("words", "valid"), csp.split_words(rows, ksize=k),
+                                  csp.split_words_plain(rows, ksize=k)):
+                exact(f"split_words {kind} {name} k={k}", a, b)
             hp, vp = cs.window_hashes_plain(rows, ksize=k)
             h, v = cs.window_hashes(rows, ksize=k)
             exact(f"K2 {kind} hashes k={k}", h, hp)
@@ -629,9 +639,9 @@ def check_k1_edges(rng, thresholds):
                 for name, a, b in zip(("hi", "lo", "counts"), got, want):
                     exact(f"K1 {kind} {name} k={k} max_hash={mh}", a, b)
                 survivors = max(survivors, int(want[2].sum()))
-            log(f"  K1 and K2 on {kind} at k={k:3d}: equal their plain versions (K1 at "
-                f"{len(thresholds)} thresholds; {int(vp.sum())} valid windows of {vp.numel()}, "
-                f"{n_pad - n} pad windows a row; up to {survivors} survivors)")
+            log(f"  K1, K2 and split_words on {kind} at k={k:3d}: equal their plain versions "
+                f"(K1 at {len(thresholds)} thresholds; {int(vp.sum())} valid windows of "
+                f"{vp.numel()}, {n_pad - n} pad windows a row; up to {survivors} survivors)")
             del rows, hp, vp
     torch.cuda.empty_cache()
 
@@ -2017,8 +2027,9 @@ def time_other_k3(so: str, other_root: str) -> dict:
 
 def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
     """The six instrument kernels of csrc/sketch_parts.cu against their
-    plain versions on the card, bit for bit. T2's two passes and T3 are also
-    held to K1 (`survivor_slots`) for every k of KS at max_hash for
+    plain versions on the card, bit for bit (split_words at every k of KS).
+    T2's two passes and T3 are also held to K1 (`survivor_slots`) for every
+    k of KS at max_hash for
     scaled=1000 and 2^64-1 on phase 2's rows, whose tandem repeat overflows
     the slots; they are timed at K1's timed shape [4, 2^21 + 30] and held
     to their plain versions there and on the tools' own batch; T4 at the
@@ -2036,6 +2047,9 @@ def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
     for k in ((TIMED_K,) if quick else KS):
         rows = torch.from_numpy(dna_rows(4, k, rng, tandem_unit(k, thresholds[0], rng))).cuda()
         words, valid = csp.split_words(rows, ksize=k)
+        for name, a, b in zip(("words", "valid"), (words, valid),
+                              csp.split_words_plain(rows, ksize=k)):
+            exact(f"split_words {name} k={k}", a, b)
         for mh in thresholds:
             slots = _pick_slots(mh)
             want = cs.survivor_slots(rows, mh, ksize=k, slots=slots)
@@ -2045,8 +2059,9 @@ def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
                               ("v2", csp.survivor_slots_v2(rows, mh, ksize=k, slots=slots))):
                 for name, a, b in zip(("hi", "lo", "counts"), got, want):
                     exact(f"{what} {name} k={k} max_hash={mh}", a, b)
-        log(f"  k={k:3d}: split_slots(split_words) and survivor_slots_v2 equal K1 at "
-            f"{len(thresholds)} thresholds, with overflowing segments")
+        log(f"  k={k:3d}: split_words equals its plain version; split_slots(split_words) and "
+            f"survivor_slots_v2 equal K1 at {len(thresholds)} thresholds, with overflowing "
+            "segments")
         if k == TIMED_K:
             results.update(time_split_and_v2(rows, words, valid, k, reps, clock_hz))
         del rows, words, valid
@@ -2136,9 +2151,11 @@ def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) ->
         plain = time_ms(plain_fn, 3, warmup=1)
         results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
                              bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
+        if name == "split_words":
+            results[name]["graph_ms"] = graph_ms(fn)
         log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
-            f"back), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a "
-            f"multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
+            f"back{graph_note(results[name])}), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; "
+            f"{b3:.4f} at 3 IMAD a multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
     return results
 
 
@@ -2188,9 +2205,12 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
         plain = time_ms(plain_fn, 3, warmup=1)
         results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
                              bound_ms_3imad=b3, max_abs_err=err, windows=n_out)
+        if name == "assembly_only":
+            results[name]["graph_ms"] = graph_ms(fn)
         log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
-            f"back), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a "
-            f"multiply), {n_out / ms / 1e6:.2f} Gwindows/s")
+            f"back{graph_note(results[name])}), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; "
+            f"{b3:.4f} at 3 IMAD a multiply), {n_out / ms / 1e6:.2f} Gwindows/s")
+    results["assembly_only_acgt"] = check_assembly_edges(rng, nblk, reps)
     t0, t16, t64 = (results[f"mulchain-{n}"]["ms"] for n in (0, 16, 64))
     # the rounds' own time grows with their number: net of the same kernel
     # with no rounds (its reads, writes and launch: ~a third of 16 rounds).
@@ -2221,6 +2241,78 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
     del blocks
     torch.cuda.empty_cache()
     return results
+
+
+def graph_note(r: dict) -> str:
+    return f"; {r['graph_ms']:.4f} in a CUDA graph" if "graph_ms" in r else ""
+
+
+T4_KINDS = ("random bytes", "ACGT", "ACGT with N runs and palindromes")
+
+
+def complement_bytes(c: np.ndarray) -> np.ndarray:
+    "The kernels' complement of any bytes: c ^ 4 when bit 1 of c is set, else c ^ 21."
+    return c ^ np.where(c & 2, 4, 21).astype(c.dtype)
+
+
+def t4_blocks(kind: str, rows: int, nblk: int, rng) -> np.ndarray:
+    """[nblk * (rows + 8), 128] int32 blocks of T4's layout, of one kind:
+    random bytes 0..255 (the tool's input); ACGT; or ACGT with N runs of 1
+    to k + 2 bases across every 128- and 1,024-window boundary of each
+    block and palindromes under the kernels' complement, 30, 31 (a k-mer
+    Q x comp(Q) reversed, equal to its reverse complement but for x) and
+    32 long, of ACGT and of random bytes."""
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+
+    V, k = (rows + csp.EXTRA_ROWS) * csp.LANES, csp.T4_KSIZE
+    if kind == "random bytes":
+        return rng.integers(0, 256, size=(nblk * V // csp.LANES, csp.LANES), dtype=np.int32)
+    seq = ACGT[rng.integers(0, 4, size=(nblk, V))].astype(np.int32)
+    if kind != "ACGT":
+        blk = np.arange(nblk)[:, None, None]
+        at = np.arange(SEGMENT, rows * csp.LANES, SEGMENT)  # the 1,024s among them
+        length = rng.integers(1, k + 3, size=(nblk, at.size))
+        start = at - rng.integers(0, length + k)
+        off = np.arange(k + 2)
+        pos = start[..., None] + off
+        hit = (off < length[..., None]) & (pos >= 0)
+        seq[np.broadcast_to(blk, pos.shape)[hit], pos[hit]] = ord("N")
+        for plen in (30, 31, 32):
+            start = rng.integers(0, V - plen, size=(nblk, V // 400))
+            alphabet = np.where(rng.random((nblk, V // 400, 1)) < 0.5, 256, 4)
+            draw = rng.integers(0, 256, size=(nblk, V // 400, plen // 2 + plen % 2))
+            draw = np.where(alphabet == 4, ACGT[draw % 4], draw).astype(np.int32)
+            half, mid = draw[..., : plen // 2], draw[..., plen // 2 :]
+            pal = np.concatenate([half, mid, complement_bytes(half)[..., ::-1]], axis=-1)
+            seq[blk, start[..., None] + np.arange(plen)] = pal
+    return seq.reshape(-1, csp.LANES)
+
+
+def check_assembly_edges(rng, nblk: int, reps: int) -> dict:
+    """assembly_only against its plain version, bit for bit, on T4_KINDS
+    blocks at the tool's rows and at rows = 9 (a block ends mid-tile); timed
+    on the ACGT blocks at the tool's shape, the assembly K1 runs on its
+    path. Returns that timing."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+
+    timed = None
+    for kind in T4_KINDS:
+        for rows, nb in ((T4_ROWS, nblk), (9, 64)):
+            blocks = torch.from_numpy(t4_blocks(kind, rows, nb, rng)).cuda()
+            exact(f"assembly_only {kind} rows={rows}", csp.assembly_only(blocks, rows=rows),
+                  csp.assembly_only_plain(blocks, rows=rows))
+            if kind == "ACGT" and rows == T4_ROWS:
+                fn = lambda blocks=blocks: csp.assembly_only(blocks, rows=T4_ROWS)  # noqa: E731
+                ms, b2b = kernel_times(fn, reps)
+                timed = dict(ms=ms, b2b_ms=b2b, graph_ms=graph_ms(fn),
+                             windows=nblk * T4_ROWS * csp.LANES)
+            del blocks
+        log(f"    assembly_only on {kind}: equals its plain version at rows {T4_ROWS} and 9")
+    log(f"    assembly_only on ACGT: {timed['ms']:.4f} ms/launch ({timed['b2b_ms']:.4f} back to "
+        f"back{graph_note(timed)})")
+    return timed
 
 
 def instruments_path() -> dict:
@@ -3586,6 +3678,14 @@ def main(argv=None) -> int:
         f"({k1['bound_by']}), measured floor {k1['murmur_floor_ms']:.4f} ms (murmur_only "
         f"per window x {k1['windows']} windows); T3 survivor_slots_v2 {v2:.4f} ms, "
         f"K1 {k1['ms'] / v2:.2f}x of it")
+    # K1 split by the instruments, per window, back to back
+    asm = timings["assembly_only_acgt"]
+    split = {name: r["b2b_ms"] * 1e6 / r["windows"]
+             for name, r in (("assembly_only on ACGT", asm), ("murmur_only", t4), ("K1", k1))}
+    k1["ns_per_window"] = split
+    log("  ns per window back to back: " + ", ".join(f"{n} {v:.5f}" for n, v in split.items())
+        + f"; assembly_only on ACGT + murmur_only "
+        f"{split['assembly_only on ACGT'] + split['murmur_only']:.5f}")
     if args.quick:
         log("--quick: stopped before the main path; no kernels line and no result")
         return 0

@@ -159,18 +159,6 @@ survivor_slots_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, int 
                                counts);
 }
 
-// f(std::integral_constant<int, K>) with K = k for sourmash's usual 21, 31
-// and 51, else K = 0 (the kernel reads k at run time).
-template <typename F>
-cudaError_t with_template_k(int k, F f) {
-  switch (k) {
-    case 21: return f(std::integral_constant<int, 21>{});
-    case 31: return f(std::integral_constant<int, 31>{});
-    case 51: return f(std::integral_constant<int, 51>{});
-    default: return f(std::integral_constant<int, 0>{});
-  }
-}
-
 // f(std::integral_constant<int, K>) with K = k for sourmash's protein 10,
 // dayhoff 16 and hp 42, else K = 0 (the kernel reads k at run time).
 template <typename F>

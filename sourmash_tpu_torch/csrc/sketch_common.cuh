@@ -21,6 +21,8 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,27 +56,6 @@ __device__ __forceinline__ bool is_acgt(uint32_t c) {
 
 __device__ __forceinline__ uint32_t complement(uint32_t c) {
   return c ^ ((c & 2u) ? 4u : 21u);
-}
-
-// Byte i of the canonical window starting at s: s[i] on the forward
-// strand, complement(s[k-1-i]) on the reverse. Branch-free in `rev`, so a
-// warp whose windows pick different strands does not diverge.
-__device__ __forceinline__ uint32_t canon_byte(const uint8_t* s, int k, bool rev, int i) {
-  uint32_t c = s[rev ? k - 1 - i : i];
-  return rev ? complement(c) : c;
-}
-
-// Little-endian word of `len` (1..8) canonical bytes of the DNA window at
-// s from position `start`; clears `ok` if one of them is not ACGT.
-__device__ __forceinline__ uint64_t window_word(const uint8_t* s, int k, bool rev,
-                                                int start, int len, bool& ok) {
-  uint64_t w = 0;
-  for (int i = 0; i < len; ++i) {
-    uint32_t c = canon_byte(s, k, rev, start + i);
-    ok = ok && is_acgt(c);
-    w |= static_cast<uint64_t>(c) << (8 * i);
-  }
-  return w;
 }
 
 // MurmurHash3 x64_128, first 64-bit word, of k input bytes handed over as
@@ -122,16 +103,6 @@ __device__ __forceinline__ bool reverse_is_less(const uint8_t* s, int k) {
     if (f != r) return r < f;
   }
   return false;
-}
-
-// Stage bytes [w0, w0 + span) of one row into shared memory with coalesced
-// loads; bytes past the row's end read as 0 (never valid).
-__device__ __forceinline__ void stage_row(const uint8_t* row, int S, int64_t w0,
-                                          int span, uint8_t* smem) {
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    int64_t p = w0 + i;
-    smem[i] = p < S ? row[p] : 0;
-  }
 }
 
 // K1's per-segment compaction, run by every thread of a kTile block once
@@ -412,6 +383,19 @@ __device__ __forceinline__ uint32_t aa_valid_word(const AaTile& tile, int s, int
   return v;
 }
 
+// f(std::integral_constant<int, K>) with K = k for sourmash's usual 21, 31
+// and 51, else K = 0 (the kernel reads k at run time): the DNA
+// kernels' instantiations (K1, K2, T2 pass A).
+template <typename F>
+cudaError_t with_template_k(int k, F f) {
+  switch (k) {
+    case 21: return f(std::integral_constant<int, 21>{});
+    case 31: return f(std::integral_constant<int, 31>{});
+    case 51: return f(std::integral_constant<int, 51>{});
+    default: return f(std::integral_constant<int, 0>{});
+  }
+}
+
 // Opt a kernel in to `bytes` of dynamic shared memory where that exceeds
 // the 48 KB default (less the kernels' small static arrays); beyond the
 // card's per-block maximum the launch is refused and the error returned.
@@ -420,14 +404,6 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
   if (bytes + 1024 <= kStaticSmemLimit) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-// Dynamic shared memory for one block of the instruments' one-window-a-
-// thread kernels: the tile's bytes plus the k-1 halo.
-template <typename Kernel>
-cudaError_t prepare_smem(Kernel kernel, int k, size_t* bytes) {
-  *bytes = static_cast<size_t>(kTile) + static_cast<size_t>(k) - 1;
-  return opt_in_smem(kernel, *bytes);
 }
 
 }  // namespace

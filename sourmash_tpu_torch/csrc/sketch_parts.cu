@@ -10,6 +10,11 @@
 //    128] u32 out, element (r, lane) of block b computed from the block's
 //    values at r * 128 + lane onwards.
 //
+// T2 pass A and T4 assembly-only stage K2's DNA tile (sketch_common.cuh)
+// and take each window's canonical words as eight-byte loads of the
+// forward or the reverse-complement run; a window holding a byte other
+// than ACGT takes its strand from strand8, eight bytes at a time.
+//
 // Plain C interface, loaded with ctypes (sourmash_tpu_torch/ops/_build.py).
 // Each entry launches on the caller's stream, does not synchronise, and
 // returns cudaGetLastError() so a refused launch is reported.
@@ -20,51 +25,127 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kExtraRows = 8;  // T4 blocks: rows + 8 lookahead rows of 128 values
-// T4's k and seed, the JAX tool's KSIZE and SEED. The kernels take k as an
-// argument, not a template constant, so murmur and the canonical gather
-// compile as they do in K1, whose k is a runtime value.
+// T4's k and seed, the JAX tool's KSIZE and SEED. murmur_only takes k as an
+// argument, not a template constant, so its murmur compiles as K1's does
+// at a k read at run time; assembly_only stages its tile at this k.
 constexpr int kT4K = 31;
 constexpr uint64_t kT4Seed = 42;
 
-// Word `start / 8` of the canonical window at s: its len = min(8, k -
-// start) canonical bytes, or 0 past the window.
-__device__ __forceinline__ uint64_t canonical_word(const uint8_t* s, int k, bool rev,
-                                                   int start, bool& ok) {
-  if (start >= k) return 0;
-  return window_word(s, k, rev, start, min(8, k - start), ok);
+// -- eight bytes at a time over a staged tile ---------------------------------
+
+// Eight bytes of shared memory from any byte offset, little-endian, from
+// three aligned 32-bit loads and two funnel shifts.
+__device__ __forceinline__ uint64_t load8(const uint8_t* smem, int pos) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(smem) + (pos >> 2);
+  const int sh = 8 * (pos & 3);
+  const uint32_t lo = __funnelshift_r(w[0], w[1], sh);
+  const uint32_t hi = __funnelshift_r(w[1], w[2], sh);
+  return static_cast<uint64_t>(hi) << 32 | lo;
+}
+
+__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
+  return static_cast<uint64_t>(__byte_perm(static_cast<uint32_t>(x), 0, 0x0123)) << 32 |
+         __byte_perm(static_cast<uint32_t>(x >> 32), 0, 0x0123);
+}
+
+// The low `len` (1..8) bytes of x.
+__device__ __forceinline__ uint64_t low_bytes(uint64_t x, int len) {
+  return len >= 8 ? x : x & ((1ULL << (8 * len)) - 1);
+}
+
+// The strand of the k-window at tile position s, for any bytes: true when
+// its reverse complement is the lesser. `bytes` holds the tile's L forward
+// bytes, then their reverse complement (rc[L-1-i] = complement(fwd[i]))
+// and 16 bytes of reach, so the window's reverse complement is the run at
+// 2L - s - k. Eight bytes of each run a step, masked to the window: the
+// first step where they differ decides, by their lowest differing byte,
+// which is the highest byte where the byte-swapped words differ. A
+// palindrome takes the forward strand. Equal to reverse_is_less.
+__device__ __forceinline__ bool strand8(const uint8_t* bytes, int L, int s, int k) {
+  const int r = 2 * L - s - k;
+#pragma unroll
+  for (int c = 0; c < k; c += 8) {
+    const uint64_t x = low_bytes(load8(bytes, s + c), k - c);
+    const uint64_t y = low_bytes(load8(bytes, r + c), k - c);
+    if (x != y) return bswap64(y) < bswap64(x);
+  }
+  return false;
+}
+
+// Word c (bytes 8c..8c+7, zero past k) of the k-window whose run starts at
+// byte `off` of the staged tile: the forward run at s, or the rc run at
+// 2L - s - k. The loads reach up to 11 bytes past the window; what they
+// read there is masked off.
+__device__ __forceinline__ uint64_t run_word(const uint8_t* bytes, int off, int k, int c) {
+  return 8 * c < k ? low_bytes(load8(bytes, off + 8 * c), k - 8 * c) : 0;
+}
+
+// -- T2 pass A --------------------------------------------------------------
+
+// Words a window of split_words: ceil(k / 8), rounded up to even.
+__host__ __device__ constexpr int split_nw(int k) { return ((k + 7) / 8 + 1) / 2 * 2; }
+
+// split_words' dynamic shared memory: K2's tile, then the words of kTile
+// windows (16-byte aligned).
+__host__ __device__ constexpr int split_words_at(int k) {
+  return (dna_smem_bytes(k) + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int split_smem_bytes(int k) {
+  return split_words_at(k) + kTile * 8 * split_nw(k);
 }
 
 // T2 pass A. Replaces tools/exp_split_kernel.py:split_sketch's first call
 // (kernel _assembly_kernel): every window's canonical bytes as nw
 // little-endian 64-bit words (zero past k) and its validity.
 //
-// Bound: bytes. A window writes 8 * nw + 1 bytes (33 at k = 31) and its
-// canonical gather costs ~10 integer ops per byte. Design: K2's, one
-// thread per window over the tile's bytes plus the k-1 halo in shared
-// memory; the words go out as 16-byte stores (nw is even).
+// Bound: bytes. A window writes 8 * nw + 1 bytes (33 at k = 31) and reads
+// about one. Design: K2's DNA tile: a block stages kDnaTile windows of a
+// row with their reverse complement and the ballot planes, and each
+// thread takes kDnaWin windows kTile apart. Validity is a funnel shift of
+// the not-ACGT plane; a valid window takes its strand from the code
+// planes, one holding another byte from strand8 (a branch taken only where
+// such windows occur: N runs, the zero tail). Its words are eight-byte
+// loads of the chosen run, with no per-byte gather. So that every warp
+// store covers one contiguous run of the output, each set of kTile windows
+// (window j * kTile + t of thread t) puts its words in shared memory, and
+// the block copies the set's kTile * nw words out as 16-byte stores,
+// neighbouring threads on neighbouring addresses. k is a template constant
+// for 21, 31 and 51; kK = 0 reads k from its argument.
+template <int kK>
 __global__ void __launch_bounds__(kTile)
-split_words_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k, int nw,
+split_words_kernel(const uint8_t* __restrict__ seq, int S, int n_pad, int k_arg,
                    ulonglong2* __restrict__ words, uint8_t* __restrict__ valid) {
-  extern __shared__ __align__(16) uint8_t smem[];
+  extern __shared__ __align__(16) uint8_t dna_smem[];
+  const int k = kK > 0 ? kK : k_arg;
+  const int pairs = split_nw(k) / 2;
   const int b = blockIdx.y;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  stage_row(seq + static_cast<int64_t>(b) * S, S, w0, kTile + k - 1, smem);
+  const int t = threadIdx.x;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kDnaTile;
+  const DnaTile tile = stage_dna_tile(seq + static_cast<int64_t>(b) * S, S, w0, k, dna_smem);
+  ulonglong2* staged = reinterpret_cast<ulonglong2*>(dna_smem + split_words_at(k));
   __syncthreads();
 
-  const int64_t w = w0 + threadIdx.x;
-  if (w >= n_pad) return;
-  const uint8_t* s = smem + threadIdx.x;
-  const bool rev = reverse_is_less(s, k);
-  bool ok = true;
-  const int64_t out = static_cast<int64_t>(b) * n_pad + w;
-  ulonglong2* dst = words + out * (nw / 2);
-  for (int i = 0; i < nw; i += 2) {
-    ulonglong2 pair;
-    pair.x = canonical_word(s, k, rev, 8 * i, ok);
-    pair.y = canonical_word(s, k, rev, 8 * i + 8, ok);
-    dst[i / 2] = pair;
+#pragma unroll
+  for (int j = 0; j < kDnaWin; ++j) {
+    const int64_t first = static_cast<int64_t>(b) * n_pad + w0 + j * kTile;
+    // n_pad is a multiple of 128: the set is whole, half in or out
+    const int64_t left = n_pad - (w0 + j * kTile);
+    const int in_set = left < kTile ? static_cast<int>(left) : kTile;
+    if (in_set <= 0) break;  // block-uniform: the later sets lie further on
+    const int s = j * kTile + t;
+    bool ok, rev;
+    plane_strand(tile, s, k, ok, rev);
+    if (!ok) rev = strand8(tile.bytes, tile.L, s, k);
+    const int off = rev ? 2 * tile.L - s - k : s;
+    for (int i = 0; i < pairs; ++i)
+      staged[t * pairs + i] = make_ulonglong2(run_word(tile.bytes, off, k, 2 * i),
+                                              run_word(tile.bytes, off, k, 2 * i + 1));
+    if (t < in_set) valid[first + t] = ok ? 1 : 0;
+    __syncthreads();
+    ulonglong2* dst = words + first * pairs;
+    for (int i = t; i < in_set * pairs; i += kTile) dst[i] = staged[i];
+    __syncthreads();
   }
-  valid[out] = ok ? 1 : 0;
 }
 
 // T2 pass B. Replaces tools/exp_split_kernel.py:split_sketch's second call
@@ -102,21 +183,6 @@ split_slots_kernel(const ulonglong2* __restrict__ words, const uint8_t* __restri
 }
 
 // -- T3 helpers (its bit-plane helpers are in sketch_common.cuh) ---------------
-
-// Eight bytes of shared memory from any byte offset, little-endian, from
-// three aligned 32-bit loads.
-__device__ __forceinline__ uint64_t load8(const uint8_t* smem, int pos) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(smem) + (pos >> 2);
-  const int sh = 8 * (pos & 3);
-  const uint32_t lo = __funnelshift_r(w[0], w[1], sh);
-  const uint32_t hi = __funnelshift_r(w[1], w[2], sh);
-  return static_cast<uint64_t>(hi) << 32 | lo;
-}
-
-__device__ __forceinline__ uint64_t bswap64(uint64_t x) {
-  return static_cast<uint64_t>(__byte_perm(static_cast<uint32_t>(x), 0, 0x0123)) << 32 |
-         __byte_perm(static_cast<uint32_t>(x >> 32), 0, 0x0123);
-}
 
 // The complement of eight bytes at once (complement(), byte by byte).
 __device__ __forceinline__ uint64_t complement8(uint64_t x) {
@@ -214,9 +280,10 @@ survivor_slots_v2_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, i
 
 // -- T4: microkernels over the tool's block layout -----------------------------
 
-// T4 grids are (tiles of a block's rows * 128 windows, blocks): window w of
-// block blk reads the block's values from blk * (rows + 8) * 128 + w on and
-// writes output element blk * rows * 128 + w.
+// T4 grids are (tiles of a block's rows * 128 windows, blocks), kTile
+// windows a tile (kDnaTile for assembly-only): window w of block blk reads
+// the block's values from blk * (rows + 8) * 128 + w on and writes output
+// element blk * rows * 128 + w.
 
 // T4 murmur-only. Replaces tools/profile_sketch_parts.py:_murmur_only_kernel:
 // murmur of k bytes given as fake words (x ^ 2i) << 32 | (x ^ (2i + 1)),
@@ -237,34 +304,107 @@ murmur_only_kernel(const int32_t* __restrict__ blocks, int rows, int k, uint64_t
   out[blk * per + w] = static_cast<uint32_t>(h >> 32) ^ static_cast<uint32_t>(h);
 }
 
+// T4's tile: K2's DNA tile staged from a block's int32 values at k =
+// kT4K, with the not-ACGT plane and no code planes (strand8 orders any
+// bytes). Its dynamic shared memory: the L staged bytes, their reverse
+// complement, 16 bytes of reach, the plane (L / 32 + 1 words).
+constexpr int kT4Staged = dna_staged(kT4K);
+constexpr int kT4Smem = 2 * kT4Staged + 16 + 4 * (kT4Staged / 32 + 1);
+static_assert(kT4K > 8 && kT4K <= 32,
+              "T4's first eight bytes are a whole word; its validity one funnel shift");
+
+// The complement() of four bytes at once.
+__device__ __forceinline__ uint32_t complement4(uint32_t x) {
+  const uint32_t bit1 = (x >> 1) & 0x01010101u;
+  return x ^ (0x15151515u ^ (bit1 * 0x11u));
+}
+
+// Stage positions [w0, w0 + L) of one T4 block of `values` int32 values
+// (w0 a multiple of kDnaTile) into smem: the low byte of each value, read
+// four values at a time with 16-byte loads; positions past the block read
+// 0, never valid. Each quad of values is one 32-bit word of the forward
+// bytes, one of the reverse complement (byte-reversed, complemented) and a
+// nibble of the not-ACGT plane; the 8 lanes that hold one plane word
+// gather its nibbles by shuffles. Every thread of the kTile block calls
+// it; the caller synchronises.
+__device__ __forceinline__ void stage_value_tile(const int32_t* __restrict__ src, int values,
+                                                 int w0, uint8_t* smem) {
+  constexpr int kQuads = kT4Staged / 4;  // a multiple of 8: whole plane words
+  uint32_t* fwd = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* rc = fwd + kQuads;
+  uint32_t* bad = reinterpret_cast<uint32_t*>(smem + 2 * kT4Staged + 16);
+  const int4* in = reinterpret_cast<const int4*>(src + w0);
+  const int in_block = (values - w0) / 4;  // quads below this lie in the block
+  const int t = threadIdx.x, lane = t & 31;
+#pragma unroll
+  for (int r = 0; r < (kQuads + kTile - 1) / kTile; ++r) {
+    const int q = r * kTile + t;
+    if (r * kTile + (t & ~31) >= kQuads) break;  // warp-uniform: whole warps take part
+    const int4 v = q < in_block && q < kQuads ? in[q] : make_int4(0, 0, 0, 0);
+    const uint32_t f = __byte_perm(__byte_perm(v.x, v.y, 0x0040), __byte_perm(v.z, v.w, 0x0040),
+                                   0x5410);
+    uint32_t nb = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) nb |= static_cast<uint32_t>(!is_acgt((f >> (8 * i)) & 0xFFu)) << i;
+    uint32_t word = nb << (4 * (lane & 7));
+    word |= __shfl_xor_sync(0xffffffffu, word, 1);
+    word |= __shfl_xor_sync(0xffffffffu, word, 2);
+    word |= __shfl_xor_sync(0xffffffffu, word, 4);
+    if (q < kQuads) {
+      fwd[q] = f;
+      rc[kQuads - 1 - q] = complement4(__byte_perm(f, 0, 0x0123));
+      if ((lane & 7) == 0) bad[q >> 3] = word;
+    }
+  }
+  if (t < 4) reinterpret_cast<uint32_t*>(smem + 2 * kT4Staged)[t] = 0u;
+  if (t == 4) bad[kT4Staged / 32] = 0u;
+}
+
 // T4 assembly-only. Replaces tools/profile_sketch_parts.py:
 // _assembly_only_kernel: the XOR of the canonical window's 32-bit limbs,
 // xor its validity, for the window at each element (the low byte of each
-// value is the base). Bound: integer ALU (the canonical gather alone).
-// Design: K2's, over the block's values staged as bytes in shared memory.
+// value is the base): K1's and K2's window assembly without murmur.
+//
+// Bound: bytes (4 read and 4 written a window), but the staging and each
+// window's ~40 instructions come near the card's issue rate at that pace.
+// Design: K2's tile staged from the values (stage_value_tile); each thread
+// takes kDnaWin windows kTile apart, as K1 and K2 do, so the instrument
+// assembles words as K1 does. The tool's values are random bytes, so
+// almost every window holds a byte that is not ACGT and the code planes
+// could not order it: every window takes its strand from strand8, whose
+// first step (the first eight bytes of each run, also word 0 of the
+// chosen one) decides but for a window that shares them with its reverse
+// complement. Validity is a funnel shift of the plane; the other words are
+// eight-byte loads of the chosen run, as K1's murmur reads them. Each of a
+// thread's output stores coalesces across its warp.
 __global__ void __launch_bounds__(kTile)
-assembly_only_kernel(const int32_t* __restrict__ blocks, int rows, int k,
-                     uint32_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint8_t smem[];
+assembly_only_kernel(const int32_t* __restrict__ blocks, int rows, uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t t4_smem[];
+  constexpr int k = kT4K, L = kT4Staged;
   const int per = rows * kLanes;
   const int values = (rows + kExtraRows) * kLanes;
   const int64_t blk = blockIdx.y;
-  const int w0 = blockIdx.x * kTile;
-  const int32_t* src = blocks + blk * values;
-  for (int i = threadIdx.x; i < kTile + k - 1; i += kTile) {
-    const int p = w0 + i;
-    smem[i] = p < values ? static_cast<uint8_t>(src[p]) : 0;
-  }
+  const int w0 = blockIdx.x * kDnaTile;
+  stage_value_tile(blocks + blk * values, values, w0, t4_smem);
   __syncthreads();
 
-  const int w = w0 + threadIdx.x;
-  if (w >= per) return;
-  const uint8_t* s = smem + threadIdx.x;
-  const bool rev = reverse_is_less(s, k);
-  bool ok = true;
-  uint64_t x = 0;
-  for (int start = 0; start < k; start += 8) x ^= canonical_word(s, k, rev, start, ok);
-  out[blk * per + w] = static_cast<uint32_t>(x >> 32) ^ static_cast<uint32_t>(x) ^ (ok ? 1u : 0u);
+  const uint32_t* bad = reinterpret_cast<const uint32_t*>(t4_smem + 2 * L + 16);
+  uint32_t* orow = out + blk * per + w0;
+#pragma unroll
+  for (int j = 0; j < kDnaWin; ++j) {
+    const int s = j * kTile + threadIdx.x;
+    const bool ok = (plane_bits(bad, s) & low_mask(k)) == 0;
+    // strand8's first step, kept as word 0 of the chosen run; the rest of
+    // strand8 runs only where it does not decide
+    const int r = 2 * L - s - k;
+    const uint64_t x0 = load8(t4_smem, s), y0 = load8(t4_smem, r);
+    const bool rev = x0 != y0 ? bswap64(y0) < bswap64(x0) : strand8(t4_smem, L, s, k);
+    uint64_t x = rev ? y0 : x0;
+#pragma unroll
+    for (int c = 1; 8 * c < k; ++c) x ^= run_word(t4_smem, rev ? r : s, k, c);
+    if (w0 + s < per)
+      orow[s] = static_cast<uint32_t>(x >> 32) ^ static_cast<uint32_t>(x) ^ (ok ? 1u : 0u);
+  }
 }
 
 // T4 mul-chain. Replaces tools/profile_sketch_parts.py:_mulchain_kernel:
@@ -307,18 +447,24 @@ const char* sp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// words [B, n_pad, nw] u64 (nw even), valid [B, n_pad] u8 for rows seq [B, S] u8.
+// words [B, n_pad, nw] u64, valid [B, n_pad] u8 for rows seq [B, S] u8:
+// nw = ceil(k / 8) rounded up to even, n_pad a multiple of 128, words
+// 16-byte aligned.
 int sp_split_words(const void* seq, int B, int S, int n_pad, int ksize, int nw,
                    void* words, void* valid, void* stream) {
-  if (nw < 2 || nw % 2 || 8 * nw < ksize) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = 0;
-  cudaError_t err = prepare_smem(split_words_kernel, ksize, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((n_pad + kTile - 1) / kTile, B);
-  split_words_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), S, n_pad, ksize, nw,
-      static_cast<ulonglong2*>(words), static_cast<uint8_t*>(valid));
-  return static_cast<int>(cudaGetLastError());
+  if (nw != split_nw(ksize) || n_pad % kSeg || reinterpret_cast<uintptr_t>(words) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_template_k(ksize, [&](auto kk) {
+    constexpr int kK = decltype(kk)::value;
+    const size_t smem = split_smem_bytes(ksize);
+    cudaError_t err = opt_in_smem(split_words_kernel<kK>, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((n_pad + kDnaTile - 1) / kDnaTile, B);
+    split_words_kernel<kK><<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(seq), S, n_pad, ksize, static_cast<ulonglong2*>(words),
+        static_cast<uint8_t*>(valid));
+    return cudaGetLastError();
+  }));
 }
 
 // slots_hi, slots_lo [B, R, slots] u32 and counts [B, R] i32 from
@@ -364,12 +510,12 @@ int sp_murmur_only(const void* blocks, int nblk, int rows, void* out, void* stre
   return static_cast<int>(cudaGetLastError());
 }
 
+// blocks 16-byte aligned.
 int sp_assembly_only(const void* blocks, int nblk, int rows, void* out, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = prepare_smem(assembly_only_kernel, kT4K, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  assembly_only_kernel<<<grid_t4(nblk, rows), kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(blocks), rows, kT4K, static_cast<uint32_t*>(out));
+  if (reinterpret_cast<uintptr_t>(blocks) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((rows * kLanes + kDnaTile - 1) / kDnaTile, nblk);
+  assembly_only_kernel<<<grid, kTile, kT4Smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(blocks), rows, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

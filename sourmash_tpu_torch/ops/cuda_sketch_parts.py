@@ -253,6 +253,8 @@ def assembly_only(blocks, *, rows: int = 512):
     nblk = _check_blocks(blocks, rows)
     if blocks.device.type == "cpu":
         return assembly_only_plain(blocks, rows=rows)
+    if blocks.data_ptr() % 16:  # the kernel reads four values a load
+        raise TypeError("blocks must be 16-byte aligned")
     out = _out(blocks, rows)
     _launch("sp_assembly_only", blocks.device, blocks.data_ptr(), nblk, rows, out.data_ptr())
     LAUNCHES["assembly_only"] += 1

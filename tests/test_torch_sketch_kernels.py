@@ -153,6 +153,45 @@ def _pack_plane(bits, words):
     return np.r_[w, np.uint32(0)].astype(np.uint32)
 
 
+def _dna_tile(fwd):
+    """stage_dna_tile over the L staged bytes `fwd`: the shared-memory image
+    (the bytes, their reverse complement, 16 bytes of reach) as uint32
+    words, and the five planes (not-ACGT, the forward and the rc code bits)."""
+    L = fwd.size
+    words = L // 32
+    comp = fwd ^ np.where(fwd & 2, 4, 21).astype(np.uint32)
+    w32 = np.r_[fwd, comp[::-1], np.zeros(16, np.uint32)].astype(np.uint8).view("<u4")
+    code = ((fwd >> 1) & 3) ^ ((fwd >> 2) & 1)
+    bad = _pack_plane(~np.isin(fwd, ACGT), words)
+    f1 = _pack_plane((code & 2) != 0, words)
+    f0 = _pack_plane((code & 1) != 0, words)
+    r1 = np.r_[(~_brev32(f1[:words]))[::-1], np.uint32(0)]
+    r0 = np.r_[(~_brev32(f0[:words]))[::-1], np.uint32(0)]
+    return w32, (bad, f1, f0, r1, r0)
+
+
+def _plane_strand(planes, L, s, k):
+    """plane_strand at tile positions s: validity from the not-ACGT plane,
+    the strand from the code planes, 32 bases a step (meaningless for an
+    invalid window)."""
+    bad, f1, f0, r1, r0 = planes
+    ok = np.ones(s.size, dtype=bool)
+    rev = np.zeros(s.size, dtype=bool)
+    decided = np.zeros(s.size, dtype=bool)
+    for c in range(0, k, 32):
+        m = np.uint64((1 << min(32, k - c)) - 1)
+        ok &= (_plane_bits(bad, s + c) & m) == 0
+        a1, a0 = _plane_bits(f1, s + c) & m, _plane_bits(f0, s + c) & m
+        q = L - s - k + c
+        b1, b0 = _plane_bits(r1, q) & m, _plane_bits(r0, q) & m
+        diff = (a1 ^ b1) | (a0 ^ b0)
+        greater = (a1 & ~b1) | (~(a1 ^ b1) & a0 & ~b0)
+        lowest = diff & ((np.uint64(2**32) - diff) & np.uint64(0xFFFFFFFF))
+        rev = np.where(decided, rev, (greater & lowest) != 0)
+        decided |= diff != 0
+    return ok, rev
+
+
 def _tile_window_hashes(rows, k, seed=42):
     """K2's algorithm in numpy, tile by tile: the staged bytes, their reverse
     complement and the five planes; validity from the not-ACGT plane; the
@@ -163,7 +202,6 @@ def _tile_window_hashes(rows, k, seed=42):
     B, S = rows.shape
     _n, _R, n_pad = cuda_sketch.geometry(S, k)
     L = (TILE + k - 1 + 31) // 32 * 32
-    words = L // 32
     hashes = np.zeros((B, n_pad), dtype=np.uint64)
     valid = np.zeros((B, n_pad), dtype=np.uint8)
     for b in range(B):
@@ -172,29 +210,9 @@ def _tile_window_hashes(rows, k, seed=42):
             fwd = np.zeros(L, dtype=np.uint32)
             fwd[p < S] = rows[b, p[p < S]]
             comp = fwd ^ np.where(fwd & 2, 4, 21).astype(np.uint32)
-            staged = np.r_[fwd, comp[::-1], np.zeros(16, np.uint32)].astype(np.uint8)
-            code = ((fwd >> 1) & 3) ^ ((fwd >> 2) & 1)
-            bad = _pack_plane(~np.isin(fwd, ACGT), words)
-            f1 = _pack_plane((code & 2) != 0, words)
-            f0 = _pack_plane((code & 1) != 0, words)
-            r1 = np.r_[(~_brev32(f1[:words]))[::-1], np.uint32(0)]
-            r0 = np.r_[(~_brev32(f0[:words]))[::-1], np.uint32(0)]
-
+            w32, planes = _dna_tile(fwd)
             s = np.arange(min(TILE, n_pad - w0))
-            ok = np.ones(s.size, dtype=bool)
-            rev = np.zeros(s.size, dtype=bool)
-            decided = np.zeros(s.size, dtype=bool)
-            for c in range(0, k, 32):
-                m = np.uint64((1 << min(32, k - c)) - 1)
-                ok &= (_plane_bits(bad, s + c) & m) == 0
-                a1, a0 = _plane_bits(f1, s + c) & m, _plane_bits(f0, s + c) & m
-                q = L - s - k + c
-                b1, b0 = _plane_bits(r1, q) & m, _plane_bits(r0, q) & m
-                diff = (a1 ^ b1) | (a0 ^ b0)
-                greater = (a1 & ~b1) | (~(a1 ^ b1) & a0 & ~b0)
-                lowest = diff & ((np.uint64(2**32) - diff) & np.uint64(0xFFFFFFFF))
-                rev = np.where(decided, rev, (greater & lowest) != 0)
-                decided |= diff != 0
+            ok, rev = _plane_strand(planes, L, s, k)
             bytewise = np.flatnonzero(~ok)
             if bytewise.size:
                 j = np.arange(k)
@@ -205,7 +223,6 @@ def _tile_window_hashes(rows, k, seed=42):
                 rev[bytewise] = (f != r).any(axis=1) & (r[at, first] < f[at, first])
 
             off = np.where(rev, 2 * L - s - k, s)
-            w32 = staged.view("<u4")
             sh = 8 * (off & 3)
 
             def word(i):

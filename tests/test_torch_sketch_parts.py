@@ -24,6 +24,13 @@ own layout code builds.
 - T4: murmur-only, assembly-only and the mul-chain (n = 0, 1, 2, 16; zeros
   for n >= 1, as in JAX) on the tool's random bytes 0..255.
 - T5: the chained step's first call equals `survivor_slots_plain`.
+- The CUDA designs of `split_words` and `assembly_only`, modelled in numpy
+  tile by tile (K2's tile, or T4's staged from int32 quads; the eight-byte
+  strand compare `strand8`; eight-byte words of the chosen run; T2's
+  staging area), equal the JAX bodies and the plain versions on random
+  bytes, ACGT with 2 % random bytes, N runs across the 128- and
+  1,024-window boundaries, palindromes and zero tails (T4 also at rows = 9
+  and 16 against the plain version).
 """
 
 import functools
@@ -43,6 +50,7 @@ from sourmash_tpu.ops.pallas_sketch import sketch_survivor_slots_pallas
 from sourmash_tpu_torch.ops import cuda_sketch as cs
 from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
 from sourmash_tpu_torch.ops import u64
+from test_torch_sketch_kernels import _dna_tile, _funnel_r, _plane_bits, _plane_strand
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS, EXTRA, LANES = 8, 8, 128
@@ -307,3 +315,261 @@ def test_wrappers_check_their_inputs():
     meta = torch.zeros((1, 200), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         csp.survivor_slots_v2(meta, MH1000, ksize=31)
+
+
+# -- the tile designs of split_words and assembly_only, emulated --------------
+
+TILE, KTILE = 1024, 256  # windows a block stages, threads a block (sketch_common.cuh)
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+M32 = np.uint64(0xFFFFFFFF)
+
+
+def _comp(c):
+    "The kernels' complement of any bytes: c ^ 4 when bit 1 of c is set, else c ^ 21."
+    c = np.asarray(c, dtype=np.uint32)
+    return c ^ np.where(c & 2, 4, 21).astype(np.uint32)
+
+
+def _staged_len(k):
+    return (TILE + k - 1 + 31) // 32 * 32
+
+
+def _low_bytes(x, n):
+    return x if n >= 8 else x & np.uint64((1 << (8 * n)) - 1)
+
+
+def _load8(w32, pos):
+    "load8: eight bytes from any offset, three aligned 32-bit loads and two funnel shifts."
+    p, sh = pos >> 2, 8 * (pos & 3)
+    return (_funnel_r(w32[p + 1], w32[p + 2], sh) << np.uint64(32)) | _funnel_r(
+        w32[p], w32[p + 1], sh)
+
+
+def _strand8(w32, L, s, k):
+    """strand8: eight bytes of the forward run (at s) and of the rc run (at
+    2L - s - k) a step, the first differing step decides by its byte-swapped
+    words. Returns (rev, the step that decided; for a palindrome, which
+    takes the forward strand, the number of steps)."""
+    r = 2 * L - s - k
+    rev = np.zeros(s.size, dtype=bool)
+    step = np.full(s.size, -(-k // 8))
+    for c in range(0, k, 8):
+        x = _low_bytes(_load8(w32, s + c), k - c)
+        y = _low_bytes(_load8(w32, r + c), k - c)
+        now = (step > c // 8) & (x != y)
+        rev = np.where(now, y.byteswap() < x.byteswap(), rev)
+        step[now] = c // 8
+    return rev, step
+
+
+def _run_words(w32, off, k, nw):
+    "run_word for c < nw: eight-byte loads of the chosen run, masked to k bytes; 0 past it."
+    return [_low_bytes(_load8(w32, off + 8 * c), k - 8 * c) if 8 * c < k
+            else np.zeros(off.size, np.uint64) for c in range(nw)]
+
+
+def _split_words_tiles(rows, k):
+    """split_words_kernel in numpy, tile by tile: K2's tile; plane_strand for
+    every window, strand8 for one holding a byte that is not ACGT; the words
+    eight-byte loads of the chosen run; each set of 256 windows (window
+    j * 256 + t of thread t) put in the staging area at t * nw and copied
+    out as one contiguous run of the output. An index past the staged
+    bytes' reach raises. Returns (words [B, n_pad, nw] uint64, valid,
+    the deepest strand8 step taken)."""
+    B, S = rows.shape
+    _n, _R, n_pad = cs.geometry(S, k)
+    nw = csp.n_words(k)
+    L = _staged_len(k)
+    out = np.zeros(B * n_pad * nw, dtype=np.uint64)
+    valid = np.zeros(B * n_pad, dtype=np.uint8)
+    deepest = -1
+    for b in range(B):
+        for w0 in range(0, n_pad, TILE):
+            p = w0 + np.arange(L)
+            fwd = np.zeros(L, dtype=np.uint32)
+            fwd[p < S] = rows[b, p[p < S]]
+            w32, planes = _dna_tile(fwd)
+            for j in range(TILE // KTILE):
+                first = b * n_pad + w0 + j * KTILE
+                in_set = min(KTILE, n_pad - (w0 + j * KTILE))
+                if in_set <= 0:
+                    break
+                s = j * KTILE + np.arange(KTILE)
+                ok, rev = _plane_strand(planes, L, s, k)
+                byte_rev, step = _strand8(w32, L, s[~ok], k)
+                rev[~ok] = byte_rev
+                deepest = max(deepest, int(step.max(initial=-1)))
+                off = np.where(rev, 2 * L - s - k, s)
+                staged = np.stack(_run_words(w32, off, k, nw), axis=1).ravel()
+                valid[first : first + in_set] = ok[:in_set]
+                out[first * nw : (first + in_set) * nw] = staged[: in_set * nw]
+    return out.reshape(B, n_pad, nw), valid.reshape(B, n_pad), deepest
+
+
+def _value_tile(vals, w0, k):
+    """stage_value_tile over one block's int32 values: quads of four values
+    (16-byte loads, zero past the block), each the forward word of their
+    low bytes, the rc word (byte-reversed, complemented, at quads - 1 - q)
+    and a nibble of the not-ACGT plane, eight nibbles a plane word."""
+    L = _staged_len(k)
+    quads = L // 4
+    q = np.arange(quads)
+    idx = w0 + 4 * q[:, None] + np.arange(4)
+    inside = (w0 + 4 * q < vals.size)[:, None]
+    b = np.where(inside, vals[np.minimum(idx, vals.size - 1)], 0).astype(np.uint32) & 0xFF
+    f = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    rc = _comp(np.stack([b[:, 3], b[:, 2], b[:, 1], b[:, 0]], axis=1))
+    rcw = (rc[:, 0] | (rc[:, 1] << 8) | (rc[:, 2] << 16) | (rc[:, 3] << 24))[::-1]
+    nb = (~np.isin(b, ACGT)).astype(np.uint32) << np.arange(4, dtype=np.uint32)
+    nib = nb.sum(axis=1, dtype=np.uint32).reshape(-1, 8) << (4 * np.arange(8, dtype=np.uint32))
+    bad = np.r_[nib.sum(axis=1, dtype=np.uint32), np.uint32(0)].astype(np.uint32)
+    w32 = np.r_[f, rcw, np.zeros(4, np.uint32)].astype(np.uint32)
+    return w32, bad
+
+
+def _assembly_only_tiles(blocks, rows):
+    """assembly_only_kernel in numpy, tile by tile: T4's tile staged from the
+    values; validity a funnel shift of the plane; every window's strand
+    from strand8; its words eight-byte loads of the chosen run, XORed and
+    folded to 32 bits, xor validity. Returns (out [nblk * rows, 128]
+    uint32, the deepest strand8 step taken)."""
+    k = csp.T4_KSIZE
+    per, V = rows * LANES, (rows + EXTRA) * LANES
+    L = _staged_len(k)
+    vals = blocks.reshape(-1, V)
+    out = np.zeros((vals.shape[0], per), dtype=np.uint32)
+    deepest = -1
+    for blk, v in enumerate(vals):
+        for w0 in range(0, per, TILE):
+            w32, bad = _value_tile(v, w0, k)
+            s = np.arange(TILE)
+            ok = (_plane_bits(bad, s) & np.uint64((1 << k) - 1)) == 0
+            rev, step = _strand8(w32, L, s, k)
+            deepest = max(deepest, int(step.max()))
+            off = np.where(rev, 2 * L - s - k, s)
+            x = np.bitwise_xor.reduce(np.stack(_run_words(w32, off, k, csp.n_words(k))), axis=0)
+            res = ((x >> np.uint64(32)) ^ (x & M32) ^ ok).astype(np.uint32)
+            keep = w0 + s < per
+            out[blk, w0 + s[keep]] = res[keep]
+    return out.reshape(-1, LANES), deepest
+
+
+def _palindromes(seq, rng, k, count, alphabet):
+    """Write `count` palindromes of bytes from `alphabet` (under the kernels'
+    complement, which takes any byte) into seq: k-long at even k; at odd k
+    a k-mer Q x comp(Q)[::-1], equal to its reverse complement but for x."""
+    for start in rng.integers(0, seq.size - k, size=count):
+        half = rng.choice(alphabet, size=k // 2)
+        mirror = _comp(half)[::-1].astype(np.uint8)
+        mid = rng.choice(alphabet, size=k % 2)
+        seq[start : start + k] = np.r_[half, mid, mirror]
+
+
+def _n_runs(seq, rng, k, bounds):
+    "N runs of 1 to k + 2 bases that start, end or sit across each position of `bounds`."
+    for at in bounds:
+        length = int(rng.integers(1, k + 3))
+        start = int(at) - int(rng.integers(0, length + k))
+        seq[max(start, 0) : max(start + length, 0)] = ord("N")
+
+
+def _edge_seq(kind, size, k, rng, windows):
+    """size bytes of one kind: random bytes (all 256 values); ACGT with 2 %
+    random bytes; ACGT with N runs across the 128- and 1,024-window
+    boundaries of `windows` windows; ACGT and random-byte palindromes (k
+    and k +- 1 long); ACGT ending in a zero tail that reaches the windows."""
+    seq = rng.choice(ACGT, size=size)
+    if kind == "random bytes":
+        return rng.integers(0, 256, size=size, dtype=np.uint8)
+    if kind == "acgt 2%":
+        hit = rng.random(size) < 0.02
+        seq[hit] = rng.integers(0, 256, size=int(hit.sum()), dtype=np.uint8)
+    elif kind == "N runs":
+        _n_runs(seq, rng, k, [*range(128, windows, 128), *range(TILE, windows, TILE)])
+    elif kind == "palindromes":
+        for kk in (k - 1, k, k + 1):
+            _palindromes(seq, rng, kk, size // 200, ACGT)
+            _palindromes(seq, rng, kk, size // 400, np.arange(256, dtype=np.uint8))
+    elif kind == "zero tail":
+        seq[windows - 150 :] = 0
+    return seq
+
+
+T4_KINDS = ["random bytes", "acgt 2%", "N runs", "palindromes", "zero tail"]
+
+
+def _t4_edge_blocks(kind, rows, nblk, seed):
+    rng = np.random.default_rng(seed)
+    V = (rows + EXTRA) * LANES
+    seqs = [_edge_seq(kind, V, csp.T4_KSIZE, rng, rows * LANES) for _ in range(nblk)]
+    return np.concatenate(seqs).astype(np.int32).reshape(-1, LANES)
+
+
+@pytest.mark.parametrize("kind", T4_KINDS)
+def test_assembly_only_tile_design_matches_pallas_body(kind, t4):
+    """assembly_only's tile design (int32 staging in quads, the rc run, the
+    not-ACGT plane, strand8 for every window, eight-byte words of the
+    chosen run) equals the JAX tool's `_assembly_only_kernel` in interpret
+    mode and the plain version at rows = 8, on every kind of edge input."""
+    pp, _ = t4
+    blocks = _t4_edge_blocks(kind, ROWS, 3, seed=T4_KINDS.index(kind))
+    got, deepest = _assembly_only_tiles(blocks, ROWS)
+    want = _t4_jax(functools.partial(pp._assembly_only_kernel, interpret=True), blocks)
+    assert np.array_equal(got, want)
+    plain = csp.assembly_only(torch.from_numpy(blocks), rows=ROWS).numpy().view(np.uint32)
+    assert np.array_equal(got, plain)
+    if kind == "palindromes":  # windows that share 8 bytes with their reverse complement
+        assert deepest >= 1
+
+
+@pytest.mark.parametrize("kind,rows", [(kind, r) for r in (9, 16) for kind in T4_KINDS])
+def test_assembly_only_tile_design_matches_plain(kind, rows):
+    """The same at rows = 9 (a block ends mid-tile: its second tile's 128
+    windows are the only ones stored) and rows = 16 (two whole tiles)."""
+    blocks = _t4_edge_blocks(kind, rows, 2, seed=10 * rows + T4_KINDS.index(kind))
+    got, _ = _assembly_only_tiles(blocks, rows)
+    plain = csp.assembly_only(torch.from_numpy(blocks), rows=rows).numpy().view(np.uint32)
+    assert got.shape == plain.shape and np.array_equal(got, plain)
+
+
+def _t2_edge_rows(kind, k, rng):
+    """[4, S] rows over three 1,024-window tiles: "edges" are random bytes,
+    ACGT with 2 % random bytes, ACGT with N runs across the 128- and
+    1,024-window boundaries, and the same ending in a zero tail;
+    "palindromes" ACGT and random-byte palindromes, and a zero tail."""
+    S = 2 * TILE + 300 + k
+    n = S - k + 1
+    kinds = (["random bytes", "acgt 2%", "N runs", "N runs"] if kind == "edges"
+             else ["palindromes"] * 4)
+    rows = np.stack([_edge_seq(kd, S, k, rng, n) for kd in kinds])
+    rows[3, S - 200 :] = 0
+    return rows
+
+
+@pytest.mark.parametrize("kind,k", [("edges", 21), ("edges", 31), ("edges", 33),
+                                    ("palindromes", 32)])
+def test_split_words_tile_design_matches_pallas_body(kind, k, tools):
+    """split_words' tile design (K2's tile and plane strand, strand8 for a
+    window holding a byte that is not ACGT, eight-byte words of the chosen
+    run, each set of 256 windows copied out through the staging area)
+    equals the JAX tool's `_assembly_kernel` in interpret mode and the
+    plain version on every window, invalid and pad windows included."""
+    sp = tools["exp_split_kernel"]
+    rows = _t2_edge_rows(kind, k, np.random.default_rng(2000 + k))
+    B = rows.shape[0]
+    words, valid, deepest = _split_words_tiles(rows, k)
+    pw, pv = csp.split_words(torch.from_numpy(rows), ksize=k)
+    assert np.array_equal(words, u64.to_numpy(pw)) and np.array_equal(valid, pv.numpy())
+    blocks, nblocks = _tool_blocks(rows, k)
+    nw = csp.n_words(k)
+    outs = _call(functools.partial(sp._assembly_kernel, ksize=k, rows=ROWS, interpret=True),
+                 2 * nw + 1, [jnp.asarray(blocks)], [_in_spec()], B * nblocks)
+    n_pad = words.shape[1]
+    for w in range(nw):
+        lo_w = _flat(outs[2 * w], B)[:, :n_pad].astype(np.uint64)
+        hi_w = _flat(outs[2 * w + 1], B)[:, :n_pad].astype(np.uint64)
+        assert np.array_equal(words[:, :, w], (hi_w << np.uint64(32)) | lo_w), w
+    assert np.array_equal(valid, _flat(outs[-1], B)[:, :n_pad].astype(np.uint8))
+    assert valid.any() and not valid.all()
+    if kind == "palindromes":  # an invalid palindrome runs strand8 to its end
+        assert deepest == -(-k // 8)
