@@ -160,7 +160,9 @@ against their plain versions on the card, bit for bit: T2's passes
 for every k above at max_hash for scaled=1000 and 2^64-1 on the rows with
 the overflowing tandem repeat, timed at [4, 2^21 + 30], and T2/T3 against
 their plain versions on the tools' own batch [8, 2^21 + 30] (`split_words`
-also on K1's edge rows, in `check_k1_edges`); T4's `murmur_only`,
+and T3 also on K1's edge rows, in `check_k1_edges`); T3's and K1's
+registers a thread and theoretical occupancy (`resource_usage`, from
+`cuobjdump --dump-resource-usage`); T4's `murmur_only`,
 `assembly_only` and `mulchain` (0, 1, 16 and 64 rounds) at the tool's
 blocks of random bytes, timed, and `assembly_only` on blocks of random
 bytes, of ACGT, and of ACGT with N runs and palindromes at the tool's 512
@@ -170,7 +172,9 @@ into assembly and murmur. The mul-chain's 16 rounds must
 take at least half again the 0-round kernel's time, and 64 rounds >= 3x
 the time of 16, both net of 0 rounds (else its work was optimised away);
 where `cuobjdump` is at hand its SASS must hold an IMAD.WIDE.U32 for each
-of the 8 unrolled rounds, and its opcode counts are printed.
+of the 4 chains of the 8 unrolled rounds; its opcode counts, its IMAD-pipe
+instructions a chain's round and its rounds/SM/clock between 16 and 64
+rounds are printed.
 
 The last two lines are a JSON object with every kernel's numbers and then
 `{"ok": true, "device": {...}}`. --quick stops after checking each kernel
@@ -610,7 +614,8 @@ def check_k1_edges(rng, thresholds):
     hash and validity, invalid windows' garbage hashes and the pad windows
     past n (rows of 2^20 bytes end in a partial segment) included; T2's
     split_words (K2's tile, the eight-byte strand compare) on every
-    window's words and validity; fails otherwise."""
+    window's words and validity; T3 (survivor_slots_v2) as K1; fails
+    otherwise."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_sketch as cs
@@ -634,13 +639,14 @@ def check_k1_edges(rng, thresholds):
             survivors = 0
             for mh in thresholds:
                 slots = _pick_slots(mh)
-                got = cs.survivor_slots(rows, mh, ksize=k, slots=slots)
                 want = cs.slots_from_hashes(hp, vp, mh, slots=slots)
-                for name, a, b in zip(("hi", "lo", "counts"), got, want):
-                    exact(f"K1 {kind} {name} k={k} max_hash={mh}", a, b)
+                for what, got in (("K1", cs.survivor_slots(rows, mh, ksize=k, slots=slots)),
+                                  ("T3", csp.survivor_slots_v2(rows, mh, ksize=k, slots=slots))):
+                    for name, a, b in zip(("hi", "lo", "counts"), got, want):
+                        exact(f"{what} {kind} {name} k={k} max_hash={mh}", a, b)
                 survivors = max(survivors, int(want[2].sum()))
-            log(f"  K1, K2 and split_words on {kind} at k={k:3d}: equal their plain versions "
-                f"(K1 at {len(thresholds)} thresholds; {int(vp.sum())} valid windows of "
+            log(f"  K1, K2, split_words and T3 on {kind} at k={k:3d}: equal their plain versions "
+                f"(K1 and T3 at {len(thresholds)} thresholds; {int(vp.sum())} valid windows of "
                 f"{vp.numel()}, {n_pad - n} pad windows a row; up to {survivors} survivors)")
             del rows, hp, vp
     torch.cuda.empty_cache()
@@ -1835,23 +1841,32 @@ def check_membership_edges(rng, member, member_plain, slotmap, inv, q_core, B: i
 T4_ROWS = 512  # the tools' T4 block rows (sourmash_tpu_torch/tools/_common.py)
 # the mul-chain's work is real only if, net of the 0-round kernel, 16 rounds
 # take >= half its time and 64 rounds >= 3x the time of 16; its SASS must
-# hold an IMAD.WIDE.U32 (the multiply's low product) per unrolled round
+# hold an IMAD.WIDE.U32 (the multiply's low product) per chain of each
+# unrolled round
 MULCHAIN_OWN = 0.5
 MULCHAIN_GROWTH = 3.0
 MULCHAIN_UNROLL = 8  # `#pragma unroll 8` in mulchain_kernel
+MULCHAIN_CHAINS = 4  # kMulChains: independent chains a thread
+
+
+def cuobjdump(*args: str):
+    "cuobjdump's standard output for `args`; None where there is no cuobjdump."
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, *args], check=True, capture_output=True, text=True).stdout
 
 
 def sass_functions(path: str):
     """{mangled function name: [SASS instruction lines]} of the built
     library or cubin at `path`, by cuobjdump; None where there is none."""
     import re
-    import shutil
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    sass = cuobjdump("-sass", path)
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", path], check=True, capture_output=True,
-                          text=True).stdout
     functions = {}
     for section in sass.split("Function : ")[1:]:
         header, body = section.split("\n", 1)
@@ -1884,6 +1899,49 @@ def sass_opcodes(lib: str, kernel: str):
     ops = [re.match(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
            for line in lines]
     return dict(collections.Counter(m.group(1) for m in ops if m).most_common())
+
+
+SM_WARPS, SM_BLOCKS, SM_REGS, SM_SMEM, BLOCK_SMEM_RESERVED = 64, 32, 65536, 233472, 1024
+
+
+def dna_smem_bytes(k: int) -> int:
+    "csrc/sketch_common.cuh dna_smem_bytes: the DNA tile's dynamic shared memory."
+    L = (K1_TILE + k - 1 + 31) // 32 * 32
+    return 2 * L + 16 + 5 * 4 * (L // 32 + 1)
+
+
+def resource_usage(lib: str, kernel: str, threads: int = 256) -> dict | None:
+    """{"k=21" ...: registers, stack, static shared and local bytes a
+    thread or block, and the theoretical occupancy} of the entries of
+    `kernel` in the built library `lib`, from `cuobjdump
+    --dump-resource-usage`; None where there is no cuobjdump. Occupancy is
+    resident warps over the SM's 64 for blocks of `threads` with the DNA
+    tile's dynamic shared memory at the entry's k ("k=any" at k = 129, the
+    largest of KS): the least of the SM's block, warp, register (whole
+    8-register steps a thread) and shared-memory (1 KB reserved a block)
+    limits."""
+    import re
+
+    from sourmash_tpu_torch.ops import _build
+
+    dump = cuobjdump("--dump-resource-usage", _build._so_path(lib))
+    if dump is None:
+        return None
+    found = {}
+    for name, line in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", dump):
+        found[name] = {key.lower(): int(val) for key, val in
+                       re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)", line)}
+    out = {}
+    for tk, use in by_template_k(found, kernel).items():
+        k = 129 if tk == "k=any" else int(tk[2:])
+        warps = threads // 32
+        by_regs = SM_REGS // (-(-use["reg"] // 8) * 8 * 32) // warps
+        by_smem = SM_SMEM // (use["shared"] + dna_smem_bytes(k) + BLOCK_SMEM_RESERVED)
+        blocks = min(SM_BLOCKS, SM_WARPS // warps, by_regs, by_smem)
+        out[tk] = dict(registers=use["reg"], stack=use["stack"], shared=use["shared"],
+                       local=use["local"], blocks_per_sm=blocks,
+                       occupancy=blocks * warps / SM_WARPS)
+    return out
 
 
 def ptxas_usage(build_log: str) -> dict:
@@ -2156,6 +2214,16 @@ def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) ->
         log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
             f"back{graph_note(results[name])}), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; "
             f"{b3:.4f} at 3 IMAD a multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
+    # T3's question, one murmur chain live a thread against K1's four
+    # interleaved: each kernel's registers and occupancy
+    usage = {"T3": resource_usage("sketch_parts", "survivor_slots_v2_kernel"),
+             "K1": resource_usage("sketch", "survivor_slots_kernel")}
+    results["survivor_slots_v2"]["resources"] = usage
+    for what, per_k in usage.items():
+        log(f"    {what} resources: " + ("no cuobjdump" if per_k is None else "; ".join(
+            f"{tk} {u['registers']} registers, stack {u['stack']}, local {u['local']}, "
+            f"{u['blocks_per_sm']} blocks an SM, occupancy {u['occupancy']:.2f}"
+            for tk, u in sorted(per_k.items()))))
     return results
 
 
@@ -2220,24 +2288,36 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
     growth = (t64 - t0) / (t16 - t0) if t16 > t0 else 0.0
     rounds_per_s = 48 * n_out / ((t64 - t16) / 1e3)  # the slope between 16 and 64
     per_sm_clock = rounds_per_s / (SMS * clock_hz)
+    b0, b16, b64 = (results[f"mulchain-{n}"]["b2b_ms"] for n in (0, 16, 64))
     sass = sass_opcodes("sketch_parts", "mulchain_kernel")
+    # IMAD-pipe instructions (IMAD and its forms: the multiply's wide low
+    # product and high-half terms, moves and adds nvcc puts there) a round
+    # of one chain: one IMAD.WIDE.U32 a chain a round
+    wide = (sass or {}).get("IMAD.WIDE.U32", 0)
+    imad_per_round = (sum(c for op, c in sass.items() if op.startswith("IMAD")) / wide
+                      if wide else None)
     results["mulchain"] = dict(results["mulchain-16"], growth_64_over_16=growth,
-                               own_16_over_0=own16, rounds_per_s=rounds_per_s,
-                               sass_opcodes=sass)
-    log(f"    mulchain: 16 rounds add {own16:.2f}x the 0-round kernel's {t0:.4f} ms; 64 "
-        f"rounds take {t64 / t16:.2f}x 16 rounds, {growth:.2f}x net of 0 rounds; {rounds_per_s / 1e9:.1f} G rounds/s between 16 and 64, "
+                               own_16_over_0=own16, t64_over_t0=t64 / t0,
+                               b2b_own_16_over_0=(b16 - b0) / b0, b2b_t64_over_t0=b64 / b0,
+                               rounds_per_s=rounds_per_s, rounds_per_sm_clock=per_sm_clock,
+                               imad_pipe_per_round=imad_per_round, sass_opcodes=sass)
+    log(f"    mulchain: 16 rounds add {own16:.2f}x the 0-round kernel's {t0:.4f} ms "
+        f"({(b16 - b0) / b0:.2f}x of {b0:.4f} back to back); 64 rounds take {t64 / t16:.2f}x 16 "
+        f"rounds, {growth:.2f}x net of 0 rounds, {t64 / t0:.2f}x 0 rounds ({b64 / b0:.2f}x back "
+        f"to back); {rounds_per_s / 1e9:.1f} G rounds/s between 16 and 64, "
         f"{per_sm_clock:.2f} rounds/SM/clock ({IMAD_PER_MUL * per_sm_clock:.1f} IMAD + "
-        f"{4 * per_sm_clock:.1f} other/SM/clock at {IMAD_PER_MUL} + 4 a round); SASS opcodes of "
-        f"mulchain_kernel: {sass}")
+        f"{4 * per_sm_clock:.1f} other/SM/clock at {IMAD_PER_MUL} + 4 a round); "
+        f"{imad_per_round if imad_per_round is None else round(imad_per_round, 2)} IMAD-pipe "
+        f"instructions a chain's round in its SASS; SASS opcodes of mulchain_kernel: {sass}")
     if own16 < MULCHAIN_OWN:
         raise AssertionError(f"mulchain: 16 rounds add only {own16:.2f}x the 0-round "
                              "kernel's time; the chain is not being computed")
     if growth < MULCHAIN_GROWTH:
         raise AssertionError(f"mulchain: 64 rounds take only {growth:.2f}x the time of 16 "
                              "net of 0 rounds; the chain is not being computed")
-    if sass is not None and sass.get("IMAD.WIDE.U32", 0) < MULCHAIN_UNROLL:
-        raise AssertionError(f"mulchain: {sass.get('IMAD.WIDE.U32', 0)} IMAD.WIDE.U32 in its "
-                             f"SASS, fewer than its {MULCHAIN_UNROLL} unrolled rounds")
+    if sass is not None and wide < MULCHAIN_UNROLL * MULCHAIN_CHAINS:
+        raise AssertionError(f"mulchain: {wide} IMAD.WIDE.U32 in its SASS, fewer than its "
+                             f"{MULCHAIN_UNROLL} unrolled rounds of {MULCHAIN_CHAINS} chains")
     del blocks
     torch.cuda.empty_cache()
     return results
@@ -3673,11 +3753,12 @@ def main(argv=None) -> int:
     # K1's measured floor: T4's murmur alone, per window, at K1's windows
     k1, t4 = timings["survivor_slots"][TIMED_K], timings["murmur_only"]
     k1["murmur_floor_ms"] = t4["ms"] * k1["windows"] / t4["windows"]
-    v2 = timings["survivor_slots_v2"]["ms"]
+    v2 = timings["survivor_slots_v2"]
     log(f"  K1 at k={TIMED_K}: {k1['ms']:.4f} ms/launch, bound {k1['bound_ms']:.4f} ms "
         f"({k1['bound_by']}), measured floor {k1['murmur_floor_ms']:.4f} ms (murmur_only "
-        f"per window x {k1['windows']} windows); T3 survivor_slots_v2 {v2:.4f} ms, "
-        f"K1 {k1['ms'] / v2:.2f}x of it")
+        f"per window x {k1['windows']} windows); T3 survivor_slots_v2 {v2['ms']:.4f} ms "
+        f"({v2['b2b_ms']:.4f} back to back, K1 {k1['b2b_ms']:.4f}): T3 {v2['ms'] / k1['ms']:.2f}x "
+        f"K1 a launch, {v2['b2b_ms'] / k1['b2b_ms']:.2f}x back to back")
     # K1 split by the instruments, per window, back to back
     asm = timings["assembly_only_acgt"]
     split = {name: r["b2b_ms"] * 1e6 / r["windows"]

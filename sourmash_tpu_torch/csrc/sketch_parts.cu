@@ -13,7 +13,8 @@
 // T2 pass A and T4 assembly-only stage K2's DNA tile (sketch_common.cuh)
 // and take each window's canonical words as eight-byte loads of the
 // forward or the reverse-complement run; a window holding a byte other
-// than ACGT takes its strand from strand8, eight bytes at a time.
+// than ACGT takes its strand from strand8, eight bytes at a time. T3
+// stages the same tile and hashes as K1 does, one window at a time.
 //
 // Plain C interface, loaded with ctypes (sourmash_tpu_torch/ops/_build.py).
 // Each entry launches on the caller's stream, does not synchronise, and
@@ -182,108 +183,66 @@ split_slots_kernel(const ulonglong2* __restrict__ words, const uint8_t* __restri
   write_segment_slots<1>(keeps, hs, warp_count, b, R, slots, slots_hi, slots_lo, counts);
 }
 
-// -- T3 helpers (its bit-plane helpers are in sketch_common.cuh) ---------------
-
-// The complement of eight bytes at once (complement(), byte by byte).
-__device__ __forceinline__ uint64_t complement8(uint64_t x) {
-  const uint64_t bit1 = (x >> 1) & 0x0101010101010101ULL;
-  return x ^ (0x1515151515151515ULL ^ (bit1 * 0x11));
-}
+// -- T3 ----------------------------------------------------------------------
 
 // T3. Replaces tools/exp_v2_kernel.py:v2_sketch (kernel _slots_kernel_v2
 // over _hash_streams_v2): K1's output, value-equal.
 //
-// Bound: integer ALU, as K1. Design: K1's output depends on valid windows
-// only, so the strand and the validity come first from bit planes, and the
-// per-byte canonical gather goes. Staging writes the tile's bytes and, per
-// 32 positions, three ballots: not-ACGT, and the two bits of the base code
-// (A<C<G<T as 0<1<2<3, the bytes' order). A window's forward codes are a
-// funnel shift of the planes, its reverse complement's a bit reversal of
-// them, inverted; the lowest differing base decides the strand, 32 bases
-// per step. Each murmur word is then read as eight bytes of the chosen
-// strand (three 32-bit shared loads; byte-reversed and complemented eight
-// at a time on the reverse strand) just before the round that uses it.
+// Bound: integer issue, as K1's (murmur is ~100 instructions a window).
+// The JAX experiment's one idea is a small live set: the same math in an
+// order that keeps few values live at once. Design: K1's DNA tile
+// (sketch_common.cuh), staged once per kDnaTile windows; validity and
+// strand from its planes (plane_strand), the murmur words two funnel shifts
+// of the forward or the rc run (tile_murmur), K1's segment order and
+// compaction (write_segment_slots<kDnaWin>). What keeps it an instrument
+// and not a copy of K1: each thread finishes one window before it starts
+// the next (the loop is not unrolled), so one murmur state is live at a
+// time where K1 interleaves kDnaWin; and only a valid window is hashed (an
+// invalid one can never survive), where K1 hashes every window and masks.
+// The loop index is not a constant, so a window's survivor flag and hash
+// reach the thread's kDnaWin registers by selects. k is a template
+// constant for 21, 31 and 51; kK = 0 reads k from its argument.
+template <int kK>
 __global__ void __launch_bounds__(kTile)
-survivor_slots_v2_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, int k,
-                         int staged, uint64_t seed, uint64_t max_hash, int slots,
+survivor_slots_v2_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, int k_arg,
+                         uint64_t seed, uint64_t max_hash, int slots,
                          uint32_t* __restrict__ slots_hi, uint32_t* __restrict__ slots_lo,
                          int32_t* __restrict__ counts) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int warp_count[1][kTile / 32];
-  const int plane_words = staged / 32 + 1;
-  uint32_t* bad = reinterpret_cast<uint32_t*>(smem + staged);
-  uint32_t* code1 = bad + plane_words;
-  uint32_t* code0 = code1 + plane_words;
+  extern __shared__ __align__(16) uint8_t dna_smem[];
+  __shared__ int warp_count[kDnaWin][kTile / 32];
+  const int k = kK > 0 ? kK : k_arg;
   const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const uint8_t* row = seq + static_cast<int64_t>(b) * S;
-  // staged and kTile are multiples of 32, so every lane of a warp takes
-  // part in each ballot
-  for (int i = t; i < staged; i += kTile) {
-    const int64_t p = w0 + i;
-    const uint32_t c = p < S ? row[p] : 0;
-    smem[i] = static_cast<uint8_t>(c);
-    const uint32_t code = base_code(c);
-    const unsigned nb = __ballot_sync(0xffffffffu, !is_acgt(c));
-    const unsigned c1 = __ballot_sync(0xffffffffu, (code & 2u) != 0);
-    const unsigned c0 = __ballot_sync(0xffffffffu, (code & 1u) != 0);
-    if ((t & 31) == 0) {
-      bad[i >> 5] = nb;
-      code1[i >> 5] = c1;
-      code0[i >> 5] = c0;
-    }
-  }
-  if (t == 0) bad[plane_words - 1] = code1[plane_words - 1] = code0[plane_words - 1] = 0;
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kDnaTile;
+  const DnaTile tile = stage_dna_tile(seq + static_cast<int64_t>(b) * S, S, w0, k, dna_smem);
   __syncthreads();
 
-  const int64_t w = w0 + t;
-  bool keep = false;
-  uint64_t h = 0;
-  if (w < n) {
-    bool ok = true, rev = false, decided = false;
-    for (int c = 0; c < k; c += 32) {
-      const int len = min(32, k - c);
-      const uint32_t m = low_mask(len);
-      ok = ok && (plane_bits(bad, t + c) & m) == 0;
-      if (!decided) {
-        // forward bases c.., and reverse-complement bases c.. (positions
-        // q + len - 1 down to q)
-        const uint32_t f1 = plane_bits(code1, t + c) & m;
-        const uint32_t f0 = plane_bits(code0, t + c) & m;
-        const int q = t + k - c - len;
-        const uint32_t r1 = ~(__brev(plane_bits(code1, q)) >> (32 - len)) & m;
-        const uint32_t r0 = ~(__brev(plane_bits(code0, q)) >> (32 - len)) & m;
-        const uint32_t diff = (f1 ^ r1) | (f0 ^ r0);
-        if (diff) {
-          const uint32_t f_greater = (f1 & ~r1) | (~(f1 ^ r1) & f0 & ~r0);
-          rev = (f_greater & diff & (0u - diff)) != 0;
-          decided = true;
-        }
-      }
-    }
-    if (ok) {
-      h = murmur_words(k, seed, [&](int start, int len) {
-        const int pos = rev ? t + k - start - len : t + start;
-        const uint64_t x = load8(smem, pos);
-        const uint64_t r = complement8(bswap64(x) >> (64 - 8 * len));
-        const uint64_t m = len >= 8 ? ~0ULL : (1ULL << (8 * len)) - 1;
-        return (rev ? r : x) & m;
-      });
-      keep = h <= max_hash;
+  bool keep[kDnaWin] = {};
+  uint64_t hash[kDnaWin] = {};
+#pragma unroll 1
+  for (int j = 0; j < kDnaWin; ++j) {
+    const int s = j * kTile + threadIdx.x;  // the window's position in the tile
+    bool ok, rev;
+    plane_strand(tile, s, k, ok, rev);
+    uint64_t h = 0;
+    if (ok) h = tile_murmur(tile, s, k, rev, seed);
+    const bool kept = ok && w0 + s < n && h <= max_hash;
+#pragma unroll
+    for (int i = 0; i < kDnaWin; ++i) {
+      keep[i] = i == j ? kept : keep[i];
+      hash[i] = i == j ? h : hash[i];
     }
   }
-  const bool keeps[1] = {keep};
-  const uint64_t hs[1] = {h};
-  write_segment_slots<1>(keeps, hs, warp_count, b, R, slots, slots_hi, slots_lo, counts);
+  write_segment_slots<kDnaWin>(keep, hash, warp_count, b, R, slots, slots_hi, slots_lo,
+                               counts);
 }
 
 // -- T4: microkernels over the tool's block layout -----------------------------
 
 // T4 grids are (tiles of a block's rows * 128 windows, blocks), kTile
-// windows a tile (kDnaTile for assembly-only): window w of block blk reads
-// the block's values from blk * (rows + 8) * 128 + w on and writes output
-// element blk * rows * 128 + w.
+// windows a tile (kDnaTile for assembly-only, kTile * kMulChains for the
+// mul-chain): window w of block blk reads the block's values from
+// blk * (rows + 8) * 128 + w on and writes output element
+// blk * rows * 128 + w.
 
 // T4 murmur-only. Replaces tools/profile_sketch_parts.py:_murmur_only_kernel:
 // murmur of k bytes given as fake words (x ^ 2i) << 32 | (x ^ (2i + 1)),
@@ -411,32 +370,51 @@ assembly_only_kernel(const int32_t* __restrict__ blocks, int rows, uint32_t* __r
 // n_rounds of v *= C1, v = rotl(v, 31), v ^= v with its halves swapped,
 // from v = x << 32 | (x ^ 1); then hi ^ lo. After one round the halves are
 // equal, so the output is 0 for every n_rounds >= 1 (1 for none), as the
-// JAX function's is. Bound: integer ALU, by construction: the chain
-// measures the card's 64-bit multiply-rotate rate. Design: the empty asm on
-// the high half hides that the result is 0, so the compiler must keep the
-// chain.
+// JAX function's is.
+//
+// Bound: integer issue, by construction: the chain measures the card's
+// 64-bit multiply-rotate rate (a round: the multiply's IMAD-pipe slots, two
+// funnel shifts, two xors). Each round depends on the one before, so a
+// single chain a thread waits on the multiply's latency, and a thread that
+// loads, computes and stores one value in turn adds its memory time to the
+// rounds'. Design: each thread takes kMulChains consecutive values with one
+// 16-byte load, runs their chains interleaved round by round (kMulChains
+// independent multiplies in flight a step) and writes the outputs with one
+// 16-byte store. The empty asm on each chain's high half hides that the
+// result is 0, so the compiler must keep every chain.
+constexpr int kMulChains = 4;
+static_assert(kLanes % kMulChains == 0, "a block's rows hold whole groups of values");
+
 __global__ void __launch_bounds__(kTile)
 mulchain_kernel(const int32_t* __restrict__ blocks, int rows, int n_rounds,
                 uint32_t* __restrict__ out) {
-  const int per = rows * kLanes;
-  const int w = blockIdx.x * kTile + threadIdx.x;
-  if (w >= per) return;
+  const int groups = rows * kLanes / kMulChains;
+  const int g = blockIdx.x * kTile + threadIdx.x;
+  if (g >= groups) return;
   const int64_t blk = blockIdx.y;
-  const uint32_t x = static_cast<uint32_t>(blocks[blk * (per + kExtraRows * kLanes) + w]);
-  uint64_t v = static_cast<uint64_t>(x) << 32 | (x ^ 1u);
+  const int4 x = reinterpret_cast<const int4*>(blocks + blk * (rows + kExtraRows) * kLanes)[g];
+  const uint32_t xs[kMulChains] = {static_cast<uint32_t>(x.x), static_cast<uint32_t>(x.y),
+                                   static_cast<uint32_t>(x.z), static_cast<uint32_t>(x.w)};
+  uint64_t v[kMulChains];
+#pragma unroll
+  for (int c = 0; c < kMulChains; ++c) v[c] = static_cast<uint64_t>(xs[c]) << 32 | (xs[c] ^ 1u);
 #pragma unroll 8
   for (int r = 0; r < n_rounds; ++r) {
-    v *= kC1;
-    v = rotl64(v, 31);
-    v ^= rotl64(v, 32);
+#pragma unroll
+    for (int c = 0; c < kMulChains; ++c) {
+      v[c] *= kC1;
+      v[c] = rotl64(v[c], 31);
+      v[c] ^= rotl64(v[c], 32);
+    }
   }
-  uint32_t hi = static_cast<uint32_t>(v >> 32);
-  asm volatile("" : "+r"(hi));
-  out[blk * per + w] = hi ^ static_cast<uint32_t>(v);
-}
-
-inline dim3 grid_t4(int nblk, int rows) {
-  return dim3((rows * kLanes + kTile - 1) / kTile, nblk);
+  uint32_t o[kMulChains];
+#pragma unroll
+  for (int c = 0; c < kMulChains; ++c) {
+    uint32_t hi = static_cast<uint32_t>(v[c] >> 32);
+    asm volatile("" : "+r"(hi));
+    o[c] = hi ^ static_cast<uint32_t>(v[c]);
+  }
+  reinterpret_cast<uint4*>(out + blk * rows * kLanes)[g] = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 }  // namespace
@@ -487,25 +465,26 @@ int sp_survivor_slots_v2(const void* seq, int B, int S, int n, int R, int ksize,
                          uint64_t seed, uint64_t max_hash, int slots, void* slots_hi,
                          void* slots_lo, void* counts, void* stream) {
   if (slots < 1 || slots > kSeg) return static_cast<int>(cudaErrorInvalidValue);
-  // the tile's bytes, the k-1 halo and 12 bytes for load8's reach, in
-  // whole 32-byte plane words; then three planes, one spare word each
-  const int staged = (kTile + ksize - 1 + 12 + 31) / 32 * 32;
-  const size_t smem = staged + 3 * sizeof(uint32_t) * (staged / 32 + 1);
-  cudaError_t err = opt_in_smem(survivor_slots_v2_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int segs_per_block = kTile / kSeg;
-  dim3 grid((R + segs_per_block - 1) / segs_per_block, B);
-  survivor_slots_v2_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(seq), S, n, R, ksize, staged, seed, max_hash, slots,
-      static_cast<uint32_t*>(slots_hi), static_cast<uint32_t*>(slots_lo),
-      static_cast<int32_t*>(counts));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_template_k(ksize, [&](auto kk) {
+    constexpr int kK = decltype(kk)::value;
+    const size_t smem = dna_smem_bytes(ksize);
+    cudaError_t err = opt_in_smem(survivor_slots_v2_kernel<kK>, smem);
+    if (err != cudaSuccess) return err;
+    constexpr int segs_per_block = kDnaTile / kSeg;
+    dim3 grid((R + segs_per_block - 1) / segs_per_block, B);
+    survivor_slots_v2_kernel<kK><<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(seq), S, n, R, ksize, seed, max_hash, slots,
+        static_cast<uint32_t*>(slots_hi), static_cast<uint32_t*>(slots_lo),
+        static_cast<int32_t*>(counts));
+    return cudaGetLastError();
+  }));
 }
 
 // out [nblk * rows, 128] u32 from blocks [nblk * (rows + 8), 128] i32,
 // at k = kT4K (and seed kT4Seed).
 int sp_murmur_only(const void* blocks, int nblk, int rows, void* out, void* stream) {
-  murmur_only_kernel<<<grid_t4(nblk, rows), kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid((rows * kLanes + kTile - 1) / kTile, nblk);
+  murmur_only_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(blocks), rows, kT4K, kT4Seed, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -519,9 +498,13 @@ int sp_assembly_only(const void* blocks, int nblk, int rows, void* out, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
+// blocks and out 16-byte aligned.
 int sp_mulchain(const void* blocks, int nblk, int rows, int n_rounds, void* out,
                 void* stream) {
-  mulchain_kernel<<<grid_t4(nblk, rows), kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (reinterpret_cast<uintptr_t>(blocks) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((rows * kLanes / kMulChains + kTile - 1) / kTile, nblk);
+  mulchain_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(blocks), rows, n_rounds, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,9 @@ PyTorch versions of the kernels in `csrc/sketch_parts.cu`, which take K1
   `split_slots`, murmur, the threshold and K1's segment compaction from
   those words. `split_slots(*split_words(x), ...)` is K1's output.
 - T3 (`tools/exp_v2_kernel.py:v2_sketch`): `survivor_slots_v2`, K1's
-  output from a kernel that decides the strand first and builds each word
-  as murmur needs it.
+  output from a kernel on K1's tile that finishes one window before it
+  starts the next (one murmur chain live a thread) and hashes only valid
+  windows.
 - T4 (`tools/profile_sketch_parts.py`): `murmur_only`, `assembly_only` and
   `mulchain` over the tool's block layout: blocks
   `[nblk * (rows + EXTRA_ROWS), 128]` int32 in, `[nblk * rows, 128]` int32
@@ -160,7 +161,7 @@ def split_slots_plain(words, valid, max_hash: int, *, ksize: int, seed: int = 42
 def survivor_slots_v2(squ: torch.Tensor, max_hash: int, *, ksize: int, seed: int = 42,
                       slots: int = 8):
     """`cuda_sketch.survivor_slots`' function, value for value, from the
-    strand-first kernel. Returns (slots_hi, slots_lo, counts) as it does."""
+    small-live-set kernel. Returns (slots_hi, slots_lo, counts) as it does."""
     _check_rows(squ, ksize)
     check_slots(slots)
     if squ.device.type == "cpu":
@@ -285,6 +286,8 @@ def mulchain(blocks, n_rounds: int, *, rows: int = 512):
         raise ValueError(f"n_rounds must be >= 0, not {n_rounds}")
     if blocks.device.type == "cpu":
         return mulchain_plain(blocks, n_rounds, rows=rows)
+    if blocks.data_ptr() % 16:  # the kernel reads four values a load
+        raise TypeError("blocks must be 16-byte aligned")
     out = _out(blocks, rows)
     _launch("sp_mulchain", blocks.device, blocks.data_ptr(), nblk, rows, int(n_rounds),
             out.data_ptr())

@@ -1,8 +1,9 @@
-"""T3: K1 with a small live set (`survivor_slots_v2`). The strand and the
-validity come first, from bit planes of the bases' 2-bit codes, and each
-murmur word of the chosen strand is read eight bytes at a time just before
-its round. Counterpart of `tools/exp_v2_kernel.py`; a candidate redesign
-of K1, held to it value for value.
+"""T3: K1 with a small live set (`survivor_slots_v2`). On K1's DNA tile,
+each thread finishes one window (strand and validity from the tile's bit
+planes, then murmur of a valid window) before it starts the next, so one
+murmur chain is live where K1 interleaves four. Counterpart of
+`tools/exp_v2_kernel.py`; a candidate redesign of K1, held to it value
+for value.
 
     python -m sourmash_tpu_torch.tools.exp_v2_kernel [check|time]
 

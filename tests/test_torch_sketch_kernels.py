@@ -223,21 +223,28 @@ def _tile_window_hashes(rows, k, seed=42):
                 rev[bytewise] = (f != r).any(axis=1) & (r[at, first] < f[at, first])
 
             off = np.where(rev, 2 * L - s - k, s)
-            sh = 8 * (off & 3)
-
-            def word(i):
-                p0 = (off >> 2) + 2 * i
-                x = (_funnel_r(w32[p0 + 1], w32[p0 + 2], sh) << np.uint64(32)) | _funnel_r(
-                    w32[p0], w32[p0 + 1], sh)
-                n_bytes = min(8, k - 8 * i)
-                if n_bytes < 8:
-                    x &= np.uint64((1 << (8 * n_bytes)) - 1)
-                return torch.from_numpy(x.view(np.int64))
-
-            h = cuda_sketch.murmur_words(word, k, seed, torch.zeros(s.size, dtype=torch.int64))
-            hashes[b, w0 + s] = u64.to_numpy(h)
+            hashes[b, w0 + s] = _funnel_murmur(w32, off, k, seed)
             valid[b, w0 + s] = ok
     return hashes, valid
+
+
+def _funnel_murmur(w32, off, k, seed=42):
+    """tile_murmur at run offsets `off` of a staged tile's image (uint32
+    words): each murmur word two funnel shifts of aligned 32-bit loads,
+    masked past k. Returns the uint64 hashes."""
+    sh = 8 * (off & 3)
+
+    def word(i):
+        p0 = (off >> 2) + 2 * i
+        x = (_funnel_r(w32[p0 + 1], w32[p0 + 2], sh) << np.uint64(32)) | _funnel_r(
+            w32[p0], w32[p0 + 1], sh)
+        n_bytes = min(8, k - 8 * i)
+        if n_bytes < 8:
+            x &= np.uint64((1 << (8 * n_bytes)) - 1)
+        return torch.from_numpy(x.view(np.int64))
+
+    h = cuda_sketch.murmur_words(word, k, seed, torch.zeros(off.size, dtype=torch.int64))
+    return u64.to_numpy(h)
 
 
 def _edge_rows(kind, k, rng, S):

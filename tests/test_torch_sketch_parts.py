@@ -31,6 +31,14 @@ own layout code builds.
   bytes, ACGT with 2 % random bytes, N runs across the 128- and
   1,024-window boundaries, palindromes and zero tails (T4 also at rows = 9
   and 16 against the plain version).
+- T3's design (`_v2_tiles`: K2's tile and plane strand, each thread's
+  windows finished one at a time, only valid windows hashed, K1's segment
+  order) equals `_slots_kernel_v2`, K1's plain version and the port's
+  `survivor_slots_v2` at k = 21, 31, 33, 51 on such rows with an
+  overflowing tandem repeat (at k = 7, 63, 129 against K1's plain
+  version); the mul-chain's mapping (`_mulchain_groups`: four consecutive
+  values a thread, the chains interleaved) equals `_mulchain_kernel` and
+  the plain version at rows = 9 and 16 and 0, 1, 16 rounds.
 """
 
 import functools
@@ -50,7 +58,9 @@ from sourmash_tpu.ops.pallas_sketch import sketch_survivor_slots_pallas
 from sourmash_tpu_torch.ops import cuda_sketch as cs
 from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
 from sourmash_tpu_torch.ops import u64
-from test_torch_sketch_kernels import _dna_tile, _funnel_r, _plane_bits, _plane_strand
+from sourmash_tpu_torch.ops.murmur import C1
+from test_torch_sketch_kernels import (
+    _dna_tile, _funnel_murmur, _funnel_r, _plane_bits, _plane_strand)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS, EXTRA, LANES = 8, 8, 128
@@ -77,16 +87,20 @@ def _rows(k, rng):
     S = 1900 + k - 1
     alphabet = np.frombuffer(b"ACGTNa\xc7", dtype=np.uint8)
     rows = rng.choice(alphabet, size=(2, S), p=[0.235] * 4 + [0.02, 0.02, 0.02])
+    rows[0, 300:700] = _tandem_repeat(k, rng)
+    rows[1, S - 250 :] = 0
+    return rows
+
+
+def _tandem_repeat(k, rng):
+    "400 bytes of a tandem repeat of an ACGT unit one of whose k-mers survives max_hash / 1000."
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     while True:
         unit = rng.choice(acgt, size=int(rng.integers(6, 15)))
         h, valid = dna_hashes(np.tile(unit, (k + 30) // len(unit) + 1), k, 42)
         if (valid & (h <= np.uint64(MH1000))).any():
             break
-    rep = np.tile(unit, 400 // len(unit) + 1)[:400]
-    rows[0, 300:700] = rep
-    rows[1, S - 250 :] = 0
-    return rows
+    return np.tile(unit, 400 // len(unit) + 1)[:400]
 
 
 def _tool_blocks(rows, k):
@@ -573,3 +587,183 @@ def test_split_words_tile_design_matches_pallas_body(kind, k, tools):
     assert valid.any() and not valid.all()
     if kind == "palindromes":  # an invalid palindrome runs strand8 to its end
         assert deepest == -(-k // 8)
+
+
+# -- T3's tile design and the mul-chain's mapping, emulated -------------------
+
+
+def _v2_tiles(rows, k, max_hash, slots):
+    """survivor_slots_v2_kernel in numpy, block by block: K2's tile; each
+    thread's four windows (window j of thread t at tile position
+    j * 256 + t) finished one at a time: validity and strand from the
+    planes, murmur of a valid window only (an invalid one keeps hash 0),
+    the threshold; then write_segment_slots<4>: window j of thread t in
+    segment 8 * block + 2j + t // 128, ranked by lane among the segment's
+    survivors, the first `slots` written, the rest of the slots 0, the TRUE
+    count; a segment >= R is not written. An index past the staged bytes'
+    reach raises, as does an output written other than once. Returns
+    (hi, lo, counts) as K1's int32 tensors and the number of windows
+    hashed."""
+    B, S = rows.shape
+    n, R, _ = cs.geometry(S, k)
+    L = _staged_len(k)
+    hi = np.zeros((B, R, slots), dtype=np.uint32)
+    lo = np.zeros((B, R, slots), dtype=np.uint32)
+    counts = np.zeros((B, R), dtype=np.int32)
+    written = np.zeros((B, R, slots + 1), dtype=np.int32)
+    hashed = 0
+    for b in range(B):
+        for blk in range(-(-R // 8)):
+            w0 = blk * TILE
+            p = w0 + np.arange(L)
+            fwd = np.zeros(L, dtype=np.uint32)
+            fwd[p < S] = rows[b, p[p < S]]
+            w32, planes = _dna_tile(fwd)
+            keep = np.zeros((TILE // KTILE, KTILE), dtype=bool)
+            hash_ = np.zeros((TILE // KTILE, KTILE), dtype=np.uint64)
+            for j in range(TILE // KTILE):  # one window a thread at a time
+                s = j * KTILE + np.arange(KTILE)
+                ok, rev = _plane_strand(planes, L, s, k)
+                off = np.where(rev, 2 * L - s - k, s)
+                if ok.any():
+                    hash_[j, ok] = _funnel_murmur(w32, off[ok], k)
+                hashed += int(ok.sum())
+                keep[j] = ok & (w0 + s < n) & (hash_[j] <= np.uint64(max_hash))
+            for j in range(TILE // KTILE):
+                for half in range(KTILE // cs.SEG):
+                    seg = blk * 8 + 2 * j + half
+                    if seg >= R:
+                        continue
+                    kp = keep[j, half * cs.SEG : (half + 1) * cs.SEG]
+                    h = hash_[j, half * cs.SEG : (half + 1) * cs.SEG]
+                    rank = np.cumsum(kp) - kp
+                    total = int(kp.sum())
+                    for r in np.flatnonzero(kp & (rank < slots)):
+                        hi[b, seg, rank[r]] = h[r] >> np.uint64(32)
+                        lo[b, seg, rank[r]] = h[r] & M32
+                        written[b, seg, rank[r]] += 1
+                    written[b, seg, total:slots] += 1  # zeros
+                    counts[b, seg] = total
+                    written[b, seg, slots] += 1
+    assert (written == 1).all()
+    return (torch.from_numpy(hi.view(np.int32)), torch.from_numpy(lo.view(np.int32)),
+            torch.from_numpy(counts)), hashed
+
+
+def _t3_edge_rows(k, rng):
+    """[4, S] rows over three 1,024-window tiles: ACGT with 2 % random
+    bytes, N runs across the 128- and 1,024-window boundaries, ACGT and
+    random-byte palindromes, and N runs ending in a zero tail; rows 0 and 2
+    hold a tandem repeat whose k-mer survives max_hash / 1000, across
+    segment boundaries and (row 2) the first tile boundary, which
+    overflows the slots."""
+    S = 2 * TILE + 300 + k
+    n = S - k + 1
+    rows = np.stack([_edge_seq(kind, S, k, rng, n)
+                     for kind in ("acgt 2%", "N runs", "palindromes", "N runs")])
+    rows[3, S - 200 :] = 0
+    rep = _tandem_repeat(k, rng)
+    rows[0, 300:700] = rep
+    rows[2, 900:1300] = rep
+    return rows
+
+
+@pytest.mark.parametrize("k", [21, 31, 33, 51])
+def test_v2_tile_design_matches_pallas_body_and_k1(k, tools):
+    """T3's design (K2's tile and plane strand, each thread's windows
+    finished one at a time, only valid windows hashed, K1's segment order)
+    equals the JAX tool's `_slots_kernel_v2` in interpret mode (counts and
+    used slots; its unused slots hold the segment's sum of hash halves),
+    K1's plain version and the port's survivor_slots_v2, at max_hash / 1000
+    and 2^64 - 1, with overflowing segments."""
+    v2 = tools["exp_v2_kernel"]
+    rows = _t3_edge_rows(k, np.random.default_rng(3000 + k))
+    B = rows.shape[0]
+    t = torch.from_numpy(rows)
+    hashes, valid = cs.window_hashes(t, ksize=k)
+    hashes, valid = u64.to_numpy(hashes), valid.numpy()
+    blocks, nblocks = _tool_blocks(rows, k)
+    for mh in (MH1000, MAX_U64):
+        slots = 4 if mh == MH1000 else 8
+        got, hashed = _v2_tiles(rows, k, mh, slots)
+        assert hashed == int(valid.sum()) and hashed < valid.size
+        packed = _call(
+            functools.partial(v2._slots_kernel_v2, ksize=k, rows=ROWS, slots=slots,
+                              interpret=True), 1,
+            [_mh_pair(mh), jnp.asarray(blocks)], [_smem_spec(), _in_spec()], B * nblocks)
+        _check_packed(np.asarray(packed), got, hashes, slots)
+        for g, w, p in zip(got, cs.survivor_slots_plain(t, mh, ksize=k, slots=slots),
+                           csp.survivor_slots_v2(t, mh, ksize=k, slots=slots)):
+            assert torch.equal(g, w) and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("k", [7, 63, 129])
+def test_v2_tile_design_matches_plain(k):
+    """The same at run-time k (the kernel's kK = 0): 7, and 63 and 129,
+    whose strand takes two and five 32-base plane steps, with a row of
+    uniformly random bytes in place of the N runs ending in a zero tail."""
+    rows = _t3_edge_rows(k, np.random.default_rng(4000 + k))
+    rows[3] = np.random.default_rng(k).integers(0, 256, size=rows.shape[1], dtype=np.uint8)
+    t = torch.from_numpy(rows)
+    for mh in (MH1000, MAX_U64):
+        slots = 4 if mh == MH1000 else 8
+        got, _ = _v2_tiles(rows, k, mh, slots)
+        for g, w in zip(got, cs.survivor_slots_plain(t, mh, ksize=k, slots=slots)):
+            assert torch.equal(g, w)
+        assert (got[2] > slots).any()
+
+
+MUL_CHAINS = 4  # csrc/sketch_parts.cu kMulChains
+
+
+def _rotl(x, r):
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _mulchain_groups(blocks, rows, n_rounds):
+    """mulchain_kernel in numpy: thread g of a grid of ceil(rows * 32 / 256)
+    blocks of 256 a block of values takes the four values at 4g.. (one
+    16-byte load), runs their chains round by round and stores the four
+    outputs at 4g.. of the block's output; a thread with 4g >= rows * 128
+    exits. Raises unless every output is written once."""
+    V, per = (rows + EXTRA) * LANES, rows * LANES
+    vals = (blocks.reshape(-1, V).astype(np.int64) & 0xFFFFFFFF).astype(np.uint64)
+    out = np.zeros((vals.shape[0], per), dtype=np.uint64)
+    written = np.zeros(out.shape, dtype=np.int32)
+    groups = per // MUL_CHAINS
+    for bx in range(-(-groups // KTILE)):
+        g = bx * KTILE + np.arange(KTILE)
+        at = MUL_CHAINS * g[g < groups, None] + np.arange(MUL_CHAINS)
+        v = (vals[:, at] << np.uint64(32)) | (vals[:, at] ^ np.uint64(1))
+        for _ in range(n_rounds):
+            for c in range(MUL_CHAINS):  # the chains interleaved round by round
+                x = _rotl(v[..., c] * np.uint64(C1), 31)
+                v[..., c] = x ^ _rotl(x, 32)
+        out[:, at] = (v >> np.uint64(32)) ^ (v & M32)
+        written[:, at] += 1
+    assert (written == 1).all()
+    return out.astype(np.uint32).reshape(-1, LANES)
+
+
+@pytest.mark.parametrize("rows,n", [(r, n) for r in (9, 16) for n in (0, 1, 16)])
+def test_mulchain_groups_match_pallas_body(rows, n, t4, monkeypatch):
+    """mulchain's mapping (four consecutive values a thread, the chains
+    interleaved, one 16-byte load and store) equals the JAX tool's
+    `_mulchain_kernel` in interpret mode and the plain version at rows = 9
+    (a part grid block of threads) and 16, on values of the whole int32
+    range; 1 everywhere at 0 rounds, 0 after."""
+    pp, _ = t4
+    monkeypatch.setattr(pp, "ROWS", rows)
+    blocks = np.random.default_rng(50 + rows).integers(
+        -(2**31), 2**31, size=(3 * (rows + EXTRA), LANES)).astype(np.int32)
+    got = _mulchain_groups(blocks, rows, n)
+    want = np.asarray(pl.pallas_call(
+        functools.partial(pp._mulchain_kernel, n_rounds=n), grid=(3,),
+        in_specs=[pl.BlockSpec((rows + EXTRA, LANES), lambda b: (b, np.int32(0)))],
+        out_specs=pl.BlockSpec((rows, LANES), lambda b: (b, np.int32(0))),
+        out_shape=jax.ShapeDtypeStruct((3 * rows, LANES), jnp.uint32), interpret=True,
+    )(jnp.asarray(blocks)))
+    assert np.array_equal(got, want)
+    plain = csp.mulchain(torch.from_numpy(blocks), n, rows=rows).numpy().view(np.uint32)
+    assert np.array_equal(got, plain)
+    assert (got == (0 if n else 1)).all()
