@@ -21,10 +21,11 @@ Phases, each raising on failure:
    (k = 21, 31, 51, 63). Time each kernel (CUDA events: the median of
    single launches after warm-up, and the time per launch of a run of
    launches back to back) and its plain version, and work out the least
-   time the card could take (`bound_ms`; "operations" bounds at 4 IMAD
-   slots a 64-bit multiply, and at the 3 counted before); beside K1's
-   bound print its measured floor, T4's murmur_only time per window at
-   K1's windows.
+   time the card could take (`bound_ms`: "operations" bounds by the
+   integer-pipe probe's model on murmur's least count, and on the count
+   before its folds); beside K1's
+   bound print T4's murmur_only time per window at K1's windows (its
+   murmur_halves, not K1's murmur_words).
 3. Sketch a generated multi-record FASTA.gz of >= 256 Mbp through
    `python -m sourmash_tpu_torch sketch dna` with sourmash's usual
    parameters, with the launch counters set to 0 just before and read just
@@ -58,9 +59,9 @@ Phases, each raising on failure:
    results held).
 7. The instruments' own path: each tool under `sourmash_tpu_torch/tools/`
    run through its main() as `python -m` runs it (T2 and T3 `check` and
-   `time` at [8, 2^21 + 30], T4 `murmur assembly mul16`, T5 `full kernel
-   gatheronly`), the launch counters set to 0 just before and read just
-   after; every instrument kernel must have run.
+   `time` at [8, 2^21 + 30], T4 `murmur assembly mul16 probe-mul64-16`,
+   T5 `full kernel gatheronly`), the launch counters set to 0 just before
+   and read just after; every instrument kernel must have run.
 8. `search`, `prefetch` and `multigather` against phase 6's zip, each
    command with the launch counters set to 0 just before and read just
    after. `search` of a genome of a clade of >= 5 (Jaccard, then
@@ -174,7 +175,15 @@ the time of 16, both net of 0 rounds (else its work was optimised away);
 where `cuobjdump` is at hand its SASS must hold an IMAD.WIDE.U32 for each
 of the 4 chains of the 8 unrolled rounds; its opcode counts, its IMAD-pipe
 instructions a chain's round and its rounds/SM/clock between 16 and 64
-rounds are printed.
+rounds are printed. `murmur_only` runs K1's k = 31 body: its SASS must have
+no loop and an IMAD.WIDE.U32 for each of the 12 multiplies of its 4
+elements; its instructions an element by pipe are printed beside the
+least. The integer-pipe probe (`int_probe`: mul64, mul32, alu and mix
+chains) is held bit for bit at 0, 1, 16 and 64 rounds and timed at 16, 64
+and 256; from its slopes and its SASS loops the IMAD.WIDE.U32, IMAD and
+ALU rates an SM a clock, and whether the mix's round fits the two pipes
+side by side or one shared budget, are printed: they set the
+"operations" model (IMAD_PER_MUL, the pipes side by side).
 
 The last two lines are a JSON object with every kernel's numbers and then
 `{"ok": true, "device": {...}}`. --quick stops after checking each kernel
@@ -212,20 +221,25 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit). The card has no
-# published integer rate. Per SM and clock it issues 64 IMADs (on the FMA
-# pipe) and 64 other 32-bit integer ops (shifts, LOP3, IADD3 on the INT
-# pipe), 128 of the two together; `int_bound_s` applies all three limits at
-# the card's maximum SM clock.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit). The card's
+# integer rate is published per SM and clock only: 64 32-bit integer ops
+# on each of two pipes (IMAD on the FMA pipe; shifts, LOP3, IADD3 on the
+# INT pipe). The "operations" bounds take that rate at the card's maximum
+# SM clock. How many of those slots a 64-bit multiply by a constant takes
+# (IMAD_PER_MUL) and whether the two pipes' work overlaps follow from the
+# integer-pipe probe (`check_int_probe`; PERF.md keeps its numbers): an
+# IMAD issues at the published rate, an IMAD.WIDE.U32 takes about two
+# slots, so a multiply (one wide and two plain IMADs) about 4; the ALU
+# issues at the published rate beside the IMAD pipe, and work on both
+# costs the larger pipe's time, not the sum. Murmur's ops are counted at
+# least (`int_ops_murmur`: three-input LOP3s, xors of zero halves left
+# out, constant addends folded into the multiply-adds, adds on either
+# pipe); the count before those folds gives the bound kept beside each
+# (`bound_ms_before`).
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
 LANES_PER_PIPE = 64
-# IMAD-pipe slots of one 64-bit multiply (by a constant) as nvcc emits it,
-# ~4 in the mul-chain's SASS (PERF.md). The "operations" bounds counted 3
-# before; each kernel's bound at 3 is kept beside the new one
-# (`bound_ms_3imad`) while the yardstick changes.
 IMAD_PER_MUL = 4
-IMAD_PER_MUL_BEFORE = 3
 
 KS = (7, 21, 31, 33, 51, 63, 129)
 SCALEDS = (100, 512, 768, 1000, 2000)
@@ -308,55 +322,76 @@ def max_hash_for(scaled: int) -> int:
 # -- the least time the card could take -------------------------------------
 
 
-def int_ops_murmur(k: int, mul: int = IMAD_PER_MUL) -> tuple:
-    """(IMAD, other) 32-bit integer operations of murmur over k bytes at
-    least: a 64-bit multiply as `mul` IMAD slots, a multiply by 5 as 2; a
-    64-bit add, xor, rotate or shift-xor as 2 other ops."""
-    tail = k & 15
-    halves = 2 * (k // 16) + (tail > 0) + (tail > 8)
-    # per 8-byte half: k *= c, rotl, k *= c, h ^= k (and per full block,
-    # per half: rotl h, h += h', h = h * 5 + c)
-    imad = 2 * mul * halves + 2 * 2 * (k // 16)
-    other = 4 * halves + 6 * 2 * (k // 16)
-    # finish: two xors with len and two adds; two fmix64 (two multiplies
-    # and three shift-xors each); the final add
-    imad += 2 * 2 * mul
-    other += 4 * 2 + 2 * 3 * 2 + 2
-    return imad, other
+def int_ops_murmur(k: int, mul: int = IMAD_PER_MUL, before: bool = False) -> tuple:
+    """(IMAD, other, either) 32-bit integer operations of murmur (seed 42)
+    over k bytes at least: IMAD-pipe slots (a 64-bit multiply by a constant
+    as `mul`, h * 5 + c as 2 with its addend folded in), ALU-only ops (a
+    64-bit rotate as two funnel shifts, a 64-bit xor as two LOP3s, fmix64's
+    h ^= h >> 33 as one shift and one LOP3 on the low half) and 64-bit adds
+    (2 each), which either pipe can take. before=True gives the count
+    before the folds (every add, xor, rotate or shift-xor 2 other ops,
+    h * 5 + c's addend 2 more, nothing on either pipe)."""
+    blocks, tail = divmod(k, 16)
+    halves = 2 * blocks + (tail > 0) + (tail > 8)
+    # k *= c twice per 8-byte half, h = h * 5 + c per block and half, two
+    # multiplies in each fmix64
+    imad = 2 * mul * halves + 2 * 2 * blocks + 2 * 2 * mul
+    if before:
+        return imad, 4 * halves + 6 * 2 * blocks + 4 * 2 + 2 * 3 * 2 + 2, 0
+    # rotl k and h ^= k per half, rotl h per block and half, three
+    # shift-xors per fmix64
+    other = 4 * halves + 2 * 2 * blocks + 2 * 3 * 2
+    # the seed's high half is 0, so the first h ^= k of h1 and of h2 is one
+    # LOP3 on the low half; h ^= len (len < 2^32) is a third input of the
+    # tail's LOP3 where h has a tail half, else one LOP3 (none where h was
+    # never xored: a constant)
+    h1_xored, h2_xored = blocks > 0 or tail > 0, blocks > 0 or tail > 8
+    other += -h1_xored - h2_xored + (blocks > 0 and tail == 0) + (blocks > 0 and tail <= 8)
+    # h1 += h2 and h2 += h1 per block (the first block's h1 + seed folds
+    # into h * 5 + c's addend), two at the finish, the final h1 += h2
+    either = 2 * (2 * blocks - (blocks > 0)) + 2 * 2 + 2
+    return imad, other, either
 
 
-def int_ops_per_window(k: int, mul: int = IMAD_PER_MUL) -> tuple:
-    """(IMAD, other) integer operations one canonical DNA window hash needs
-    at least: murmur, the canonical bytes assembled four to an op for each
-    strand, validity tested four bytes to an op, and the strand choice."""
-    imad, other = int_ops_murmur(k, mul)
-    return imad, other + 3 * -(-k // 4) + 2
+def int_ops_per_window(k: int, before: bool = False) -> tuple:
+    """(IMAD, other, either) integer operations one canonical DNA window
+    hash needs at least: murmur, the canonical bytes assembled four to an
+    op for each strand, validity tested four bytes to an op, and the strand
+    choice."""
+    imad, other, either = int_ops_murmur(k, before=before)
+    return imad, other + 3 * -(-k // 4) + 2, either
 
 
-def int_ops_per_aa_window(k: int, mul: int = IMAD_PER_MUL) -> tuple:
-    """(IMAD, other) integer operations one amino-acid window hash (K3)
-    needs at least: murmur, the bytes of one strand assembled four to an
-    op, and the zero-byte validity test four bytes to an op."""
-    imad, other = int_ops_murmur(k, mul)
-    return imad, other + 2 * -(-k // 4)
+def int_ops_per_aa_window(k: int, before: bool = False) -> tuple:
+    """(IMAD, other, either) integer operations one amino-acid window hash
+    (K3) needs at least: murmur, the bytes of one strand assembled four to
+    an op, and the zero-byte validity test four bytes to an op."""
+    imad, other, either = int_ops_murmur(k, before=before)
+    return imad, other + 2 * -(-k // 4), either
 
 
-def bound_ms(nbytes: int, imad: int, other: int, clock_hz: float):
+def bound_ms(nbytes: int, imad: int, other: int, clock_hz: float, either: int = 0):
     """The least time for the work: bytes over the memory rate, or integer
-    ops over the rate of each pipe and of both together."""
+    ops over the published rate (LANES_PER_PIPE an SM a clock) of each pipe,
+    the two side by side (as the probe shows): the IMAD pipe's slots, the
+    ALU-only ops, or all of them with the ops either pipe can take spread
+    over both."""
     pipe = SMS * LANES_PER_PIPE * clock_hz
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(imad / pipe, other / pipe, (imad + other) / (2 * pipe))
+    t_ops = max(imad, other, (imad + other + either) / 2) / pipe
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def mul_bounds(nbytes: int, ops, clock_hz: float) -> tuple:
-    """(bound_ms, bound_by, bound_ms_3imad) of work whose (IMAD, other)
-    operations are ops(IMAD slots per 64-bit multiply): the bound at
-    IMAD_PER_MUL and, beside it, at the IMAD_PER_MUL_BEFORE counted
-    before."""
-    bms, by = bound_ms(nbytes, *ops(IMAD_PER_MUL), clock_hz)
-    return bms, by, bound_ms(nbytes, *ops(IMAD_PER_MUL_BEFORE), clock_hz)[0]
+    """(bound_ms, bound_by, bound_ms_before) of work whose integer
+    operations are ops(before), (IMAD, other[, either]): the bound of the
+    least count and, beside it, of the count before int_ops_murmur's folds."""
+    def at(before):
+        imad, other, *either = ops(before)
+        return bound_ms(nbytes, imad, other, clock_hz, *either)
+
+    bms, by = at(False)
+    return bms, by, at(True)[0]
 
 
 # -- inputs ------------------------------------------------------------------
@@ -532,22 +567,22 @@ def check_kernels(quick: bool, rng, clock_hz: float) -> dict:
                 p2 = time_ms(lambda: cs.window_hashes_plain(rows, ksize=k), 3, warmup=1)
                 p1 = time_ms(lambda: cs.survivor_slots_plain(rows, mh, ksize=k, slots=slots), 3, warmup=1)
 
-                def ops(mul, extra=0):
-                    imad, other = int_ops_per_window(k, mul)
-                    return B * n_pad * imad, B * n_pad * (other + extra)
+                def ops(before, extra=0):
+                    imad, other, either = int_ops_per_window(k, before)
+                    return B * n_pad * imad, B * n_pad * (other + extra), B * n_pad * either
 
                 b2 = mul_bounds(B * S + B * n_pad * 9, ops, clock_hz)
                 # K1 adds the threshold, the ballot and the rank per window
-                b1 = mul_bounds(B * S + B * R * (8 * slots + 4), lambda m: ops(m, 4), clock_hz)
-                for name, (ms, b2b), plain, (bms, by, b3) in (
+                b1 = mul_bounds(B * S + B * R * (8 * slots + 4), lambda b: ops(b, 4), clock_hz)
+                for name, (ms, b2b), plain, (bms, by, bo) in (
                     ("window_hashes", t2, p2, b2), ("survivor_slots", t1, p1, b1)
                 ):
                     results[name][k] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms,
-                                            bound_by=by, bound_ms_3imad=b3, max_abs_err=err,
+                                            bound_by=by, bound_ms_before=bo, max_abs_err=err,
                                             windows=B * n)
                     log(f"    {name}: {ms:.4f} ms/launch ({b2b:.4f} back to back), plain "
-                        f"{plain:.3f} ms, bound {bms:.4f} ms ({by}; {b3:.4f} at 3 IMAD a "
-                        f"multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
+                        f"{plain:.3f} ms, bound {bms:.4f} ms ({by}; {bo:.4f} by the "
+                        f"unfolded count), {B * n / ms / 1e6:.2f} Gwindows/s")
             del rows
             torch.cuda.empty_cache()
     check_k1_edges(rng, thresholds)
@@ -741,20 +776,21 @@ def check_aa_kernel(quick: bool, rng, clock_hz: float) -> dict:
                                            3 if quick else 20)
                     g3 = graph_ms(lambda: cs.aa_window_hashes(rows, ksize=k))
                     p3 = time_ms(lambda: cs.aa_window_hashes_plain(rows, ksize=k), 3, warmup=1)
-                    bms, by, b3 = mul_bounds(
+                    bms, by, bo = mul_bounds(
                         B * S + B * n_pad * 9,
-                        lambda m: tuple(B * n_pad * x for x in int_ops_per_aa_window(k, m)),
+                        lambda b: tuple(B * n_pad * x for x in int_ops_per_aa_window(k, b)),
                         clock_hz)
                     at = dict(ms=t3, b2b_ms=b2b, graph_ms=g3, plain_ms=p3, bound_ms=bms,
-                              bound_by=by, bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
+                              bound_by=by, bound_ms_before=bo, max_abs_err=err, windows=B * n)
                     if B == 4:
                         results[k] = at
                     else:
                         results[k]["path"] = dict(at, B=B)
                     log(f"    aa_window_hashes B={B}: {t3:.4f} ms/launch ({b2b:.4f} back to "
                         f"back, {g3:.4f} in a CUDA graph), plain {p3:.3f} ms, bound {bms:.4f} "
-                        f"ms ({by}; {b3:.4f} at 3 IMAD a multiply), {B * n / g3 / 1e6:.2f} "
-                        f"Gwindows/s in the graph, {100 * bms / g3:.1f} % of the bound")
+                        f"ms ({by}; {bo:.4f} by the unfolded count), "
+                        f"{B * n / g3 / 1e6:.2f} Gwindows/s in the graph, "
+                        f"{100 * bms / g3:.1f} % of the bound")
                 del rows
                 torch.cuda.empty_cache()
     return results
@@ -1885,20 +1921,101 @@ def sass_of(functions, kernel: str):
     return None
 
 
+def sass_lines(lib: str, kernel: str, template_k: str | None = None):
+    """The SASS lines of `kernel` in the built library `lib` (of its entry
+    for `template_k`, "k=31" say, where it is a template), by cuobjdump;
+    None where there is no cuobjdump."""
+    from sourmash_tpu_torch.ops import _build
+
+    functions = sass_functions(_build._so_path(lib))
+    if functions is None:
+        return None
+    if template_k is None:
+        return sass_of(functions, kernel)
+    return by_template_k(functions, kernel).get(template_k)
+
+
+SASS_INSTRUCTION = r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)(.*)"
+
+
+def sass_instructions(lines) -> list:
+    "[(address, opcode, operands)] of SASS lines (predicates dropped)."
+    import re
+
+    found = (re.match(SASS_INSTRUCTION, line) for line in lines)
+    return [(int(m.group(1), 16), m.group(2), m.group(3)) for m in found if m]
+
+
+def opcode_counts(instructions) -> dict:
+    "{opcode: count} of SASS instructions, the most common first."
+    import collections
+
+    return dict(collections.Counter(op for _, op, _ in instructions).most_common())
+
+
 def sass_opcodes(lib: str, kernel: str):
     """{opcode: count} of `kernel` in the built library `lib`'s SASS, by
     cuobjdump; None where there is no cuobjdump."""
-    import collections
+    lines = sass_lines(lib, kernel)
+    return None if lines is None else opcode_counts(sass_instructions(lines))
+
+
+def backward_branches(instructions) -> list:
+    """[(target, address)] of the branches to an earlier address: the
+    loops (a kernel's closing self-branch after EXIT is not one)."""
     import re
 
-    from sourmash_tpu_torch.ops import _build
+    out = []
+    for addr, op, operands in instructions:
+        if op.startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", operands)
+            if m is None:
+                raise AssertionError(f"cannot read the target of {op}{operands}")
+            if int(m.group(1), 16) < addr:
+                out.append((int(m.group(1), 16), addr))
+    return out
 
-    lines = sass_of(sass_functions(_build._so_path(lib)), kernel)
+
+def loop_opcodes(instructions) -> dict:
+    """{opcode: count} of the longest loop's body (from a backward branch's
+    target to the branch): a kernel's unrolled main loop."""
+    loops = backward_branches(instructions)
+    if not loops:
+        return {}
+    first, last = max(loops, key=lambda loop: loop[1] - loop[0])
+    return opcode_counts(i for i in instructions if first <= i[0] <= last)
+
+
+# SASS opcodes by pipe: the IMAD pipe (IMAD in all its forms: the wide and
+# high products, and the moves, adds and shifts nvcc puts there for
+# balance) and the other integer pipe (its base opcodes)
+IMAD_PIPE_OPS = ("IMAD", "IMUL")
+ALU_OPS = frozenset(("LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "IADD", "VIADD", "LEA", "ISETP",
+                     "ICMP", "SEL", "PRMT", "MOV", "IMNMX", "VIMNMX", "SGXT", "BMSK", "PLOP3",
+                     "IABS", "BREV", "FLO", "POPC", "P2R", "R2P"))
+
+
+def chain_round(lines) -> dict | None:
+    """A chain's round by pipe (`pipe_counts`) in the unrolled loop of a
+    chain kernel's SASS lines (MULCHAIN_UNROLL rounds of MULCHAIN_CHAINS
+    chains: the mul-chain, the probe); None without SASS."""
     if lines is None:
         return None
-    ops = [re.match(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", line)
-           for line in lines]
-    return dict(collections.Counter(m.group(1) for m in ops if m).most_common())
+    counts = pipe_counts(loop_opcodes(sass_instructions(lines)))
+    return {pipe: n / (MULCHAIN_UNROLL * MULCHAIN_CHAINS) for pipe, n in counts.items()}
+
+
+def pipe_counts(opcodes: dict) -> dict:
+    """{"wide": IMAD.WIDE.U32 and IMAD.WIDE, "imad": the other IMAD-pipe
+    instructions, "alu": the other integer instructions} of opcode counts."""
+    out = dict(wide=0, imad=0, alu=0)
+    for op, n in opcodes.items():
+        base = op.split(".")[0]
+        if base in IMAD_PIPE_OPS:
+            out["wide" if op.startswith("IMAD.WIDE") else "imad"] += n
+        elif base in ALU_OPS:
+            out["alu"] += n
+    return out
 
 
 SM_WARPS, SM_BLOCKS, SM_REGS, SM_SMEM, BLOCK_SMEM_RESERVED = 64, 32, 65536, 233472, 1024
@@ -2084,15 +2201,18 @@ def time_other_k3(so: str, other_root: str) -> dict:
 
 
 def check_instruments(quick: bool, rng, clock_hz: float) -> dict:
-    """The six instrument kernels of csrc/sketch_parts.cu against their
-    plain versions on the card, bit for bit (split_words at every k of KS).
+    """The instrument kernels of csrc/sketch_parts.cu and the integer-pipe
+    probe against their plain versions on the card, bit for bit
+    (split_words at every k of KS).
     T2's two passes and T3 are also held to K1 (`survivor_slots`) for every
     k of KS at max_hash for
     scaled=1000 and 2^64-1 on phase 2's rows, whose tandem repeat overflows
     the slots; they are timed at K1's timed shape [4, 2^21 + 30] and held
     to their plain versions there and on the tools' own batch; T4 at the
-    tool's blocks [8 * 32 * 520, 128] of random bytes. The mul-chain must
-    show its rounds' work (MULCHAIN_*), or the phase fails."""
+    tool's blocks [8 * 32 * 520, 128] of random bytes, with the probe
+    (`check_int_probe`). The mul-chain must show its rounds' work
+    (MULCHAIN_*) and murmur_only's SASS its folded k = 31 body
+    (`murmur_sass`), or the phase fails."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_sketch as cs
@@ -2186,15 +2306,15 @@ def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) ->
     slot_bytes = B * R * (8 * slots + 4)
 
     def ops(extra):
-        def at(mul):
-            imad, other = int_ops_murmur(k, mul)
-            return B * n_pad * imad, B * n_pad * (other + 4) + extra
+        def at(before):
+            imad, other, either = int_ops_murmur(k, before=before)
+            return B * n_pad * imad, B * n_pad * (other + 4) + extra, B * n_pad * either
         return at
 
     timed = {
         "split_words": (lambda: csp.split_words(rows, ksize=k),
                         lambda: csp.split_words_plain(rows, ksize=k),
-                        mul_bounds(B * S + word_bytes, lambda m: (0, gather_ops), clock_hz)),
+                        mul_bounds(B * S + word_bytes, lambda b: (0, gather_ops), clock_hz)),
         "split_slots": (lambda: csp.split_slots(words, valid, mh, ksize=k, slots=slots),
                         lambda: csp.split_slots_plain(words, valid, mh, ksize=k, slots=slots),
                         mul_bounds(word_bytes + slot_bytes, ops(0), clock_hz)),
@@ -2204,16 +2324,16 @@ def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) ->
             mul_bounds(B * S + slot_bytes, ops(gather_ops), clock_hz)),
     }
     results = {}
-    for name, (fn, plain_fn, (bms, by, b3)) in timed.items():
+    for name, (fn, plain_fn, (bms, by, bo)) in timed.items():
         ms, b2b = kernel_times(fn, reps)
         plain = time_ms(plain_fn, 3, warmup=1)
         results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
-                             bound_ms_3imad=b3, max_abs_err=err, windows=B * n)
+                             bound_ms_before=bo, max_abs_err=err, windows=B * n)
         if name == "split_words":
             results[name]["graph_ms"] = graph_ms(fn)
         log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
             f"back{graph_note(results[name])}), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; "
-            f"{b3:.4f} at 3 IMAD a multiply), {B * n / ms / 1e6:.2f} Gwindows/s")
+            f"{bo:.4f} by the unfolded count), {B * n / ms / 1e6:.2f} Gwindows/s")
     # T3's question, one murmur chain live a thread against K1's four
     # interleaved: each kernel's registers and occupancy
     usage = {"T3": resource_usage("sketch_parts", "survivor_slots_v2_kernel"),
@@ -2228,8 +2348,10 @@ def time_split_and_v2(rows, words, valid, k: int, reps: int, clock_hz: float) ->
 
 
 def check_t4(rng, reps: int, clock_hz: float) -> dict:
-    """murmur_only, assembly_only and mulchain against their plain versions at
-    the tool's blocks, timed; the mul-chain's time must grow with its rounds."""
+    """murmur_only, assembly_only, mulchain and the integer-pipe probe against
+    their plain versions at the tool's blocks, timed; murmur_only's SASS
+    must be its folded k = 31 body, the mul-chain's time must grow with its
+    rounds."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
@@ -2240,9 +2362,11 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
     n_out = nblk * T4_ROWS * csp.LANES
     k = csp.T4_KSIZE
 
-    def murmur_ops(mul):
-        imad, other = int_ops_murmur(k, mul)
-        return n_out * imad, n_out * (other + 2 * -(-k // 8))
+    def murmur_ops(before):
+        # and the fake words' xors (counted before: two a word; at least:
+        # the first word's high half is x itself) and the output's hi ^ lo
+        imad, other, either = int_ops_murmur(k, before=before)
+        return n_out * imad, n_out * (other + 2 * -(-k // 8)), n_out * either
 
     cases = {
         "murmur_only": (lambda: csp.murmur_only(blocks, rows=T4_ROWS),
@@ -2251,7 +2375,7 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
         "assembly_only": (lambda: csp.assembly_only(blocks, rows=T4_ROWS),
                           lambda: csp.assembly_only_plain(blocks, rows=T4_ROWS),
                           mul_bounds(8 * n_out + 4 * nblk * (k - 1),
-                                     lambda m: (0, n_out * (3 * -(-k // 4) + 2 + -(-k // 8))),
+                                     lambda b: (0, n_out * (3 * -(-k // 4) + 2 + -(-k // 8))),
                                      clock_hz)),
     }
     for n in (0, 1, 16, 64):
@@ -2260,9 +2384,10 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
         cases[f"mulchain-{n}"] = (
             lambda n=n: csp.mulchain(blocks, n, rows=T4_ROWS),
             lambda n=n: csp.mulchain_plain(blocks, n, rows=T4_ROWS),
-            mul_bounds(8 * n_out, lambda m, n=n: (m * n * n_out, 4 * n * n_out), clock_hz))
+            mul_bounds(8 * n_out, lambda b, n=n: (IMAD_PER_MUL * n * n_out, 4 * n * n_out),
+                       clock_hz))
     results = {}
-    for name, (fn, plain_fn, (bms, by, b3)) in cases.items():
+    for name, (fn, plain_fn, (bms, by, bo)) in cases.items():
         got = fn()
         err = exact(name, got, plain_fn())
         if name.startswith("mulchain") and not bool((got == (1 if name.endswith("-0") else 0)).all()):
@@ -2272,12 +2397,13 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
         ms, b2b = kernel_times(fn, reps)
         plain = time_ms(plain_fn, 3, warmup=1)
         results[name] = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by,
-                             bound_ms_3imad=b3, max_abs_err=err, windows=n_out)
+                             bound_ms_before=bo, max_abs_err=err, windows=n_out)
         if name == "assembly_only":
             results[name]["graph_ms"] = graph_ms(fn)
         log(f"    {name}: equals its plain version; {ms:.4f} ms/launch ({b2b:.4f} back to "
             f"back{graph_note(results[name])}), plain {plain:.3f} ms, bound {bms:.4f} ms ({by}; "
-            f"{b3:.4f} at 3 IMAD a multiply), {n_out / ms / 1e6:.2f} Gwindows/s")
+            f"{bo:.4f} by the unfolded count), {n_out / ms / 1e6:.2f} Gwindows/s")
+    results["murmur_only"]["sass"] = murmur_sass(k)
     results["assembly_only_acgt"] = check_assembly_edges(rng, nblk, reps)
     t0, t16, t64 = (results[f"mulchain-{n}"]["ms"] for n in (0, 16, 64))
     # the rounds' own time grows with their number: net of the same kernel
@@ -2296,11 +2422,14 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
     wide = (sass or {}).get("IMAD.WIDE.U32", 0)
     imad_per_round = (sum(c for op, c in sass.items() if op.startswith("IMAD")) / wide
                       if wide else None)
+    # a chain's round in the unrolled loop, by pipe (the probe's models read it)
+    per_round = chain_round(sass_lines("sketch_parts", "mulchain_kernel"))
     results["mulchain"] = dict(results["mulchain-16"], growth_64_over_16=growth,
                                own_16_over_0=own16, t64_over_t0=t64 / t0,
                                b2b_own_16_over_0=(b16 - b0) / b0, b2b_t64_over_t0=b64 / b0,
                                rounds_per_s=rounds_per_s, rounds_per_sm_clock=per_sm_clock,
-                               imad_pipe_per_round=imad_per_round, sass_opcodes=sass)
+                               imad_pipe_per_round=imad_per_round, per_round=per_round,
+                               sass_opcodes=sass)
     log(f"    mulchain: 16 rounds add {own16:.2f}x the 0-round kernel's {t0:.4f} ms "
         f"({(b16 - b0) / b0:.2f}x of {b0:.4f} back to back); 64 rounds take {t64 / t16:.2f}x 16 "
         f"rounds, {growth:.2f}x net of 0 rounds, {t64 / t0:.2f}x 0 rounds ({b64 / b0:.2f}x back "
@@ -2308,7 +2437,8 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
         f"{per_sm_clock:.2f} rounds/SM/clock ({IMAD_PER_MUL * per_sm_clock:.1f} IMAD + "
         f"{4 * per_sm_clock:.1f} other/SM/clock at {IMAD_PER_MUL} + 4 a round); "
         f"{imad_per_round if imad_per_round is None else round(imad_per_round, 2)} IMAD-pipe "
-        f"instructions a chain's round in its SASS; SASS opcodes of mulchain_kernel: {sass}")
+        f"instructions a chain's round in its SASS ({per_round} in its unrolled loop); SASS "
+        f"opcodes of mulchain_kernel: {sass}")
     if own16 < MULCHAIN_OWN:
         raise AssertionError(f"mulchain: 16 rounds add only {own16:.2f}x the 0-round "
                              "kernel's time; the chain is not being computed")
@@ -2318,9 +2448,192 @@ def check_t4(rng, reps: int, clock_hz: float) -> dict:
     if sass is not None and wide < MULCHAIN_UNROLL * MULCHAIN_CHAINS:
         raise AssertionError(f"mulchain: {wide} IMAD.WIDE.U32 in its SASS, fewer than its "
                              f"{MULCHAIN_UNROLL} unrolled rounds of {MULCHAIN_CHAINS} chains")
+    results["int_probe"] = check_int_probe(blocks, n_out, reps, clock_hz, results["mulchain"])
     del blocks
     torch.cuda.empty_cache()
     return results
+
+
+# murmur_only's SASS: an IMAD.WIDE.U32 for each 64-bit multiply of each of
+# the thread's elements, at least (12 at k = 31); fewer means folded work
+MURMUR_WIDE_LEAST = 12
+
+
+def murmur_sass(k: int) -> dict | None:
+    """murmur_only_kernel<k>'s SASS opcodes, and per element by pipe
+    beside int_ops_murmur's least (3 IMAD-pipe instructions a 64-bit
+    multiply, its ALU-only ops); fails where its body has a loop (the block
+    loop of a k read at run time), fewer than MURMUR_WIDE_LEAST
+    IMAD.WIDE.U32 an element, or fewer instructions an element on either
+    pipe than the least (the count is then not a least). None where there
+    is no cuobjdump."""
+    lines = sass_lines("sketch_parts", "murmur_only_kernel", f"k={k}")
+    if lines is None:
+        log("    murmur_only SASS: no cuobjdump")
+        return None
+    instructions = sass_instructions(lines)
+    ops = opcode_counts(instructions)
+    per = {pipe: n / MULCHAIN_CHAINS for pipe, n in pipe_counts(ops).items()}
+    imad, other, either = int_ops_murmur(k, 3)
+    # and the fake words' xors and the output's hi ^ lo, as check_t4 counts them
+    least = dict(imad_pipe=imad, other=other + 2 * -(-k // 8), either=either)
+    loops = backward_branches(instructions)
+    log(f"    murmur_only<{k}> SASS, an element: {per['wide']:.2f} IMAD.WIDE + {per['imad']:.2f} "
+        f"other IMAD-pipe, {per['alu']:.2f} other integer ({sum(per.values()):.2f}; "
+        f"int_ops_murmur's least {least['imad_pipe']} IMAD-pipe + {least['other']} ALU-only + "
+        f"{least['either']} adds on either pipe); {len(instructions)} instructions, "
+        f"{len(loops)} loops; opcodes {ops}")
+    if loops:
+        raise AssertionError(f"murmur_only<{k}>: its SASS has loops {loops}: not the folded body")
+    if ops.get("IMAD.WIDE.U32", 0) < MURMUR_WIDE_LEAST * MULCHAIN_CHAINS:
+        raise AssertionError(f"murmur_only<{k}>: {ops.get('IMAD.WIDE.U32', 0)} IMAD.WIDE.U32, "
+                             f"fewer than {MURMUR_WIDE_LEAST} multiplies x {MULCHAIN_CHAINS} "
+                             "elements: work was folded away")
+    short = {pipe: (got, want) for pipe, got, want in (
+        ("IMAD pipe", per["wide"] + per["imad"], least["imad_pipe"]),
+        ("ALU", per["alu"], least["other"])) if got < want}
+    if short:
+        raise AssertionError(f"murmur_only<{k}>: fewer instructions an element than "
+                             f"int_ops_murmur's least {short}: the count is not a least")
+    return dict(per_element=per, least=least, opcodes=ops)
+
+
+# the integer-pipe probe: rounds checked against the plain version, rounds
+# timed (the rates from the slope between the last two), and the least
+# instructions of each mode's unrolled loop (MULCHAIN_UNROLL rounds of
+# MULCHAIN_CHAINS chains) by pipe, below which the compiler folded rounds
+PROBE_CHECKED = (0, 1, 16, 64)
+PROBE_TIMED = (16, 64, 256)
+PROBE_LEAST = {"mul64": dict(wide=1), "mul32": dict(imad=2), "alu": dict(alu=3),
+               "mix": dict(wide=1, alu=3)}
+PROBE_ENTRY = ("mul64", 16)  # the mode and rounds of the probe's kernels-line entry
+
+
+def check_int_probe(blocks, n_out: int, reps: int, clock_hz: float, mulchain: dict) -> dict:
+    """The integer-pipe probe (`int_probe`) in each mode against its plain
+    version at PROBE_CHECKED rounds, bit for bit, then timed back to back at
+    PROBE_TIMED rounds. A mode's rounds/SM/clock is the slope between 64
+    and 256 rounds (16 rounds of the light modes take less time than the
+    kernel's loads and stores, so the slope from 16 to 64, printed beside
+    it, reads high or low); its instructions a round are counted by pipe in
+    its SASS's unrolled loop. From mul32 the time of an IMAD, from mul64
+    (less its IMADs) that of an IMAD.WIDE.U32, from alu that of an ALU
+    instruction: each as instructions an SM a clock and as slots of the
+    published 64 an SM a clock. The mix (a mul64 round, then an alu round)
+    tells whether the two kinds share one budget (its round costs the sum
+    of theirs) or run on two pipes side by side (the max); the mul-chain's
+    measured round is set beside both models. Fails where a mode's SASS
+    lacks PROBE_LEAST's instructions for every round of every chain."""
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+
+    out = dict(modes={})
+    for mode in csp.PROBE_MODES:
+        for n in PROBE_CHECKED:
+            exact(f"int_probe {mode} n={n}", csp.int_probe(blocks, mode, n, rows=T4_ROWS),
+                  csp.int_probe_plain(blocks, mode, n, rows=T4_ROWS))
+        times = {n: kernel_times(lambda n=n: csp.int_probe(blocks, mode, n, rows=T4_ROWS), reps)
+                 for n in PROBE_TIMED}
+        b2b = {n: t[1] for n, t in times.items()}
+        per_sm_clock = {f"{a}-{b}": n_out * (b - a) / ((b2b[b] - b2b[a]) / 1e3) / (SMS * clock_hz)
+                        if b2b[b] > b2b[a] else 0.0
+                        for a, b in zip(PROBE_TIMED, PROBE_TIMED[1:])}
+        loop = chain_round(probe_sass(mode))
+        out["modes"][mode] = dict(ms={n: t[0] for n, t in times.items()}, b2b_ms=b2b,
+                                  rounds_per_sm_clock=per_sm_clock, per_round=loop)
+        log(f"    int_probe {mode}: equals its plain version at {PROBE_CHECKED} rounds; back to "
+            f"back {', '.join(f'{n} rounds {t:.4f} ms' for n, t in b2b.items())}; rounds/SM/clock "
+            + ", ".join(f"{k} {v:.2f}" for k, v in per_sm_clock.items())
+            + f"; a round in its SASS loop: {loop}")
+        if loop is not None:
+            short = {p: (loop[p], least) for p, least in PROBE_LEAST[mode].items()
+                     if loop[p] < least}
+            if short:
+                raise AssertionError(f"int_probe {mode}: its SASS loop has fewer instructions a "
+                                     f"round than it computes {short}: rounds were folded")
+    out.update(probe_model(out["modes"], mulchain))
+    mode, n = PROBE_ENTRY
+    fn = lambda: csp.int_probe(blocks, mode, n, rows=T4_ROWS)  # noqa: E731
+    bms, by, bold = mul_bounds(8 * n_out, lambda b: (IMAD_PER_MUL * n * n_out, 0), clock_hz)
+    out.update(ms=out["modes"][mode]["ms"][n], b2b_ms=out["modes"][mode]["b2b_ms"][n],
+               plain_ms=time_ms(lambda: csp.int_probe_plain(blocks, mode, n, rows=T4_ROWS), 3,
+                                warmup=1),
+               bound_ms=bms, bound_by=by, bound_ms_before=bold, max_abs_err=0.0,
+               windows=n_out, entry=f"{mode}-{n}")
+    return out
+
+
+def probe_sass(mode: str):
+    "The SASS lines of the probe's kernel in `mode`; None where there is no cuobjdump."
+    from sourmash_tpu_torch.ops import _build
+    from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
+
+    functions = sass_functions(_build._so_path("sketch_parts"))
+    if functions is None:
+        return None
+    wanted = f"ILi{csp.PROBE_MODES.index(mode)}E"  # the mangled template argument
+    for name, lines in functions.items():
+        if "16int_probe_kernel" in name and wanted in name:
+            return lines
+    raise AssertionError(f"int_probe {mode}: no int_probe_kernel<{mode}> in the library's SASS")
+
+
+def probe_model(modes: dict, mulchain: dict) -> dict:
+    """What the probe's modes say of the integer pipes. Each pure mode's
+    round is read as the time of the pipe its own instructions load: an
+    IMAD from mul32, an IMAD.WIDE.U32 from mul64 less its IMADs, an ALU
+    instruction from alu (SM clocks a thread's instruction), given as rates
+    an SM a clock and as slots of the published LANES_PER_PIPE; a 64-bit
+    multiply is mul64's IMAD.WIDE.U32 and two IMADs. The mix's round (and
+    the mul-chain's) is then set beside the two models, from its own SASS
+    loop (nvcc does not compile it into mul64's and alu's instructions):
+    two pipes side by side (the larger pipe's time) and one budget (the
+    sum); the nearer names the verdict. Each mode's integer instructions
+    an SM a clock are printed too: above LANES_PER_PIPE, one budget of the
+    published rate cannot hold them."""
+    rate = {m: r["rounds_per_sm_clock"]["64-256"] for m, r in modes.items()}
+    if any(r["per_round"] is None for r in modes.values()) or not all(rate.values()):
+        log("    int_probe: no SASS counts or no slope; the pipe rates are not read")
+        return {}
+    t = {m: 1.0 / r for m, r in rate.items()}  # SM clocks a round of one chain
+    n = {m: r["per_round"] for m, r in modes.items()}
+    c_imad = t["mul32"] / n["mul32"]["imad"]
+    c_wide = (t["mul64"] - n["mul64"]["imad"] * c_imad) / n["mul64"]["wide"]
+    c_alu = t["alu"] / n["alu"]["alu"]
+    cost = dict(wide=c_wide, imad=c_imad, alu=c_alu)
+
+    def models(per_round):  # (two pipes, one budget) SM clocks of a round
+        imad_pipe = per_round["wide"] * c_wide + per_round["imad"] * c_imad
+        return max(imad_pipe, per_round["alu"] * c_alu), imad_pipe + per_round["alu"] * c_alu
+
+    pipes, budget = models(n["mix"])
+    verdict = "two pipes" if abs(t["mix"] - pipes) <= abs(t["mix"] - budget) else "one budget"
+    per_sm_clock = {p: 1.0 / c for p, c in cost.items()}
+    slots = {p: LANES_PER_PIPE * c for p, c in cost.items()}
+    mul_slots = slots["wide"] + 2 * slots["imad"]
+    issued = {m: sum(n[m].values()) * rate[m] for m in modes}
+    log(f"    int_probe: IMAD.WIDE.U32 {per_sm_clock['wide']:.2f}, IMAD {per_sm_clock['imad']:.2f}, "
+        f"ALU {per_sm_clock['alu']:.2f} instructions an SM a clock "
+        f"({slots['wide']:.2f}, {slots['imad']:.2f}, {slots['alu']:.2f} slots of "
+        f"{LANES_PER_PIPE}); a 64-bit multiply (an IMAD.WIDE.U32 and two IMADs) "
+        f"{mul_slots:.2f} slots (IMAD_PER_MUL {IMAD_PER_MUL}); integer instructions an SM a "
+        "clock by mode " + ", ".join(f"{m} {v:.1f}" for m, v in issued.items()))
+    log(f"    int_probe: the mix's round {t['mix']:.4f} SM clocks ({n['mix']} a round) against "
+        f"{pipes:.4f} from two pipes and {budget:.4f} from one budget: {verdict} (mul64's + "
+        f"alu's rounds {t['mul64'] + t['alu']:.4f}, their max {max(t['mul64'], t['alu']):.4f}; "
+        f"the model: two pipes)")
+    if verdict != "two pipes":
+        log("    int_probe: the probe disagrees with the model's two pipes side by side")
+    out = dict(per_sm_clock=per_sm_clock, slots=slots, mul_slots=mul_slots, verdict=verdict,
+               issued_per_sm_clock=issued, mix_round=t["mix"], mix_two_pipes=pipes,
+               mix_one_budget=budget, mul64_plus_alu=t["mul64"] + t["alu"])
+    mc = mulchain.get("per_round")
+    if mc and mulchain.get("rounds_per_sm_clock"):
+        mc_pipes, mc_budget = models(mc)
+        out.update(mulchain_round=1.0 / mulchain["rounds_per_sm_clock"],
+                   mulchain_two_pipes=mc_pipes, mulchain_one_budget=mc_budget)
+        log(f"    int_probe: mulchain's round {out['mulchain_round']:.4f} SM clocks ({mc} a "
+            f"round) against {mc_pipes:.4f} from two pipes and {mc_budget:.4f} from one budget")
+    return out
 
 
 def graph_note(r: dict) -> str:
@@ -2405,7 +2718,8 @@ def instruments_path() -> dict:
 
     runs = ((exp_split_kernel, ["check"]), (exp_split_kernel, ["time"]),
             (exp_v2_kernel, ["check"]), (exp_v2_kernel, ["time"]),
-            (profile_sketch_parts, ["murmur", "assembly", "mul16"]),
+            (profile_sketch_parts, ["murmur", "assembly", "mul16",
+                                    "probe-{}-{}".format(*PROBE_ENTRY)]),
             (profile_sketch_chain, ["full", "kernel", "gatheronly"]))
     csp.reset_launch_counts()
     for tool, argv in runs:
@@ -3671,9 +3985,15 @@ KERNELS = {
         route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
         replaces="tools/profile_sketch_parts.py:77",
     ),
+    # the integer-pipe probe replaces no kernel: it answers the JAX tool's
+    # question (its docstring's line 2: what is the integer roofline?)
+    "int_probe": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
+        replaces="tools/profile_sketch_parts.py:2",
+    ),
 }
 INSTRUMENTS = ("split_words", "split_slots", "survivor_slots_v2", "murmur_only",
-               "assembly_only", "mulchain")
+               "assembly_only", "mulchain", "int_probe")
 
 
 def main(argv=None) -> int:
@@ -3750,23 +4070,27 @@ def main(argv=None) -> int:
     log("phase 2: the sketch-kernel instruments against their plain versions and K1 (exact)")
     timings.update(check_instruments(args.quick, rng, clock_hz))
     log(f"phase 2 done in {time.time() - t0:.1f} s (instruments {time.time() - t1:.1f} s)")
-    # K1's measured floor: T4's murmur alone, per window, at K1's windows
+    # murmur_halves' time at K1's windows: T4's murmur alone, per window. It
+    # is not a part of K1, whose murmur is murmur_words (sketch_common.cuh)
     k1, t4 = timings["survivor_slots"][TIMED_K], timings["murmur_only"]
-    k1["murmur_floor_ms"] = t4["ms"] * k1["windows"] / t4["windows"]
+    k1["murmur_halves_ms"] = t4["ms"] * k1["windows"] / t4["windows"]
     v2 = timings["survivor_slots_v2"]
     log(f"  K1 at k={TIMED_K}: {k1['ms']:.4f} ms/launch, bound {k1['bound_ms']:.4f} ms "
-        f"({k1['bound_by']}), measured floor {k1['murmur_floor_ms']:.4f} ms (murmur_only "
-        f"per window x {k1['windows']} windows); T3 survivor_slots_v2 {v2['ms']:.4f} ms "
+        f"({k1['bound_by']}; {k1['bound_ms_before']:.4f} by the unfolded count); murmur_halves "
+        f"at K1's windows {k1['murmur_halves_ms']:.4f} ms (murmur_only<{TIMED_K}> per window x "
+        f"{k1['windows']} windows; not K1's murmur_words); T3 survivor_slots_v2 {v2['ms']:.4f} ms "
         f"({v2['b2b_ms']:.4f} back to back, K1 {k1['b2b_ms']:.4f}): T3 {v2['ms'] / k1['ms']:.2f}x "
         f"K1 a launch, {v2['b2b_ms'] / k1['b2b_ms']:.2f}x back to back")
-    # K1 split by the instruments, per window, back to back
+    # K1 beside the instruments, per window, back to back (murmur_only runs
+    # murmur_halves, not K1's murmur_words)
     asm = timings["assembly_only_acgt"]
     split = {name: r["b2b_ms"] * 1e6 / r["windows"]
-             for name, r in (("assembly_only on ACGT", asm), ("murmur_only", t4), ("K1", k1))}
+             for name, r in (("assembly_only on ACGT", asm), ("murmur_only (murmur_halves)", t4),
+                             ("K1", k1))}
     k1["ns_per_window"] = split
     log("  ns per window back to back: " + ", ".join(f"{n} {v:.5f}" for n, v in split.items())
-        + f"; assembly_only on ACGT + murmur_only "
-        f"{split['assembly_only on ACGT'] + split['murmur_only']:.5f}")
+        + f"; assembly_only on ACGT + murmur_halves "
+        f"{split['assembly_only on ACGT'] + split['murmur_only (murmur_halves)']:.5f}")
     if args.quick:
         log("--quick: stopped before the main path; no kernels line and no result")
         return 0

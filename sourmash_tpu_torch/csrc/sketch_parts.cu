@@ -9,6 +9,11 @@
 //    block layout, [nblk * (rows + 8), 128] int32 values in, [nblk * rows,
 //    128] u32 out, element (r, lane) of block b computed from the block's
 //    values at r * 128 + lane onwards.
+// The integer-pipe probe (int_probe_kernel): chains of one kind of integer
+//    instruction over mulchain's layout, the card's IMAD.WIDE.U32, IMAD and
+//    ALU rates, which set the "operations" bounds (chip_smoke.py). It
+//    replaces no TPU kernel: it answers the JAX tool's question (what is
+//    the integer roofline?) on this card.
 //
 // T2 pass A and T4 assembly-only stage K2's DNA tile (sketch_common.cuh)
 // and take each window's canonical words as eight-byte loads of the
@@ -26,9 +31,10 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kExtraRows = 8;  // T4 blocks: rows + 8 lookahead rows of 128 values
-// T4's k and seed, the JAX tool's KSIZE and SEED. murmur_only takes k as an
-// argument, not a template constant, so its murmur compiles as K1's does
-// at a k read at run time; assembly_only stages its tile at this k.
+// T4's k and seed, the JAX tool's KSIZE and SEED. murmur_only is launched
+// at this k as a template constant, so its murmur folds the block loop and
+// the tail branches as K1's k = 31 body does; assembly_only stages its
+// tile at this k.
 constexpr int kT4K = 31;
 constexpr uint64_t kT4Seed = 42;
 
@@ -239,28 +245,151 @@ survivor_slots_v2_kernel(const uint8_t* __restrict__ seq, int S, int n, int R, i
 // -- T4: microkernels over the tool's block layout -----------------------------
 
 // T4 grids are (tiles of a block's rows * 128 windows, blocks), kTile
-// windows a tile (kDnaTile for assembly-only, kTile * kMulChains for the
-// mul-chain): window w of block blk reads the block's values from
-// blk * (rows + 8) * 128 + w on and writes output element
-// blk * rows * 128 + w.
+// windows a tile (kDnaTile for assembly-only, kTile * kMulChains for
+// murmur-only, the mul-chain and the probe): window w of block blk reads
+// the block's values from blk * (rows + 8) * 128 + w on and writes output
+// element blk * rows * 128 + w.
+
+// Elements a thread of murmur_only, the mul-chain and the probe: four
+// consecutive values, one 16-byte load and one 16-byte store.
+constexpr int kMulChains = 4;
+static_assert(kLanes % kMulChains == 0, "a block's rows hold whole groups of values");
+
+// -- murmur on 32-bit halves, for the IMAD pipe ----------------------------------
+//
+// The card's IMAD pipe issues an IMAD in one of its 64 slots an SM a clock
+// and an IMAD.WIDE.U32 in about two, beside the ALU's 64 (the integer-pipe
+// probe below). A 64-bit multiply by a constant needs one wide and two
+// plain IMADs; everything else in murmur can run on the ALU. nvcc compiles
+// murmur_words' 64-bit code with much more on the IMAD pipe: each multiply
+// as three multiplies and an add, rotl64(k * c, r) as a second multiply
+// by c << r, and 64-bit shifts and adds as IMAD.WIDE.U32, IMAD.IADD and
+// IMAD.X. Spelled out on 32-bit halves, each multiply is its three IMADs,
+// each rotate two funnel shifts (SHF), each add an IADD3 pair, each xor a
+// LOP3: the IMAD pipe carries the multiplies (and h * 5 + c, a wide and a
+// plain IMAD) and little else.
+struct Half64 {
+  uint32_t lo, hi;
+};
+
+__device__ __forceinline__ Half64 h64(uint64_t x) {
+  return {static_cast<uint32_t>(x), static_cast<uint32_t>(x >> 32)};
+}
+
+// x * c mod 2^64: IMAD.WIDE.U32 of the low halves, then two IMADs into
+// its high half. In PTX, because from C nvcc splits the high half into two
+// products and an add (an IMAD.IADD as often as not).
+__device__ __forceinline__ Half64 hmul(Half64 x, uint64_t c) {
+  Half64 r;
+  asm("{\n\t.reg .u64 w;\n\t.reg .u32 t;\n\t"
+      "mul.wide.u32 w, %2, %4;\n\t"
+      "mov.b64 {%0, t}, w;\n\t"
+      "mad.lo.u32 t, %2, %5, t;\n\t"
+      "mad.lo.u32 %1, %3, %4, t;\n\t}"
+      : "=r"(r.lo), "=r"(r.hi)
+      : "r"(x.lo), "r"(x.hi), "r"(static_cast<uint32_t>(c)), "r"(static_cast<uint32_t>(c >> 32)));
+  return r;
+}
+
+// rotl64(x, r), 0 < r < 64, r != 32: two funnel shifts.
+template <int r>
+__device__ __forceinline__ Half64 hrotl(Half64 x) {
+  static_assert(r > 0 && r < 64 && r != 32, "a rotate of two funnel shifts");
+  if (r < 32) return {__funnelshift_l(x.hi, x.lo, r), __funnelshift_l(x.lo, x.hi, r)};
+  return {__funnelshift_l(x.lo, x.hi, r - 32), __funnelshift_l(x.hi, x.lo, r - 32)};
+}
+
+__device__ __forceinline__ Half64 hadd(Half64 a, Half64 b) {
+  Half64 r;
+  asm("add.cc.u32 %0, %2, %4;\n\taddc.u32 %1, %3, %5;"
+      : "=r"(r.lo), "=r"(r.hi) : "r"(a.lo), "r"(a.hi), "r"(b.lo), "r"(b.hi));
+  return r;
+}
+
+__device__ __forceinline__ Half64 hxor(Half64 a, Half64 b) { return {a.lo ^ b.lo, a.hi ^ b.hi}; }
+
+// h * 5 + c: a wide multiply-add and a multiply-add (and an add where c
+// has a high half).
+__device__ __forceinline__ Half64 hmul5add(Half64 h, uint64_t c) {
+  const uint64_t w = static_cast<uint64_t>(h.lo) * 5u + static_cast<uint32_t>(c);
+  return {static_cast<uint32_t>(w),
+          h.hi * 5u + static_cast<uint32_t>(w >> 32) + static_cast<uint32_t>(c >> 32)};
+}
+
+// fmix64 on halves: k >> 33 touches only the low half.
+__device__ __forceinline__ Half64 hfmix(Half64 k) {
+  k.lo ^= k.hi >> 1;
+  k = hmul(k, 0xff51afd7ed558ccdULL);
+  k.lo ^= k.hi >> 1;
+  k = hmul(k, 0xc4ceb9fe1a85ec53ULL);
+  k.lo ^= k.hi >> 1;
+  return k;
+}
+
+// murmur_words' function (sketch_common.cuh) on halves: word(start, len)
+// gives the Half64 of bytes [start, start + len). With k a constant the
+// block loop and the tail branches fold. The first block's h1 + h2 adds
+// the seed: (r + seed) * 5 + c is r * 5 + (5 * seed + c), one add fewer.
+template <typename Word>
+__device__ __forceinline__ uint64_t murmur_halves(int k, uint64_t seed, Word word) {
+  constexpr uint64_t kN1 = 0x52dce729u, kN2 = 0x38495ab5u;
+  auto mix1 = [](Half64 x) { return hmul(hrotl<31>(hmul(x, kC1)), kC2); };
+  auto mix2 = [](Half64 x) { return hmul(hrotl<33>(hmul(x, kC2)), kC1); };
+  Half64 h1 = h64(seed), h2 = h1;
+  const int nblocks = k / 16;
+  for (int b = 0; b < nblocks; ++b) {
+    const Half64 r = hrotl<27>(hxor(h1, mix1(word(16 * b, 8))));
+    h1 = b == 0 ? hmul5add(r, 5 * seed + kN1) : hmul5add(hadd(r, h2), kN1);
+    h2 = hmul5add(hadd(hrotl<31>(hxor(h2, mix2(word(16 * b + 8, 8)))), h1), kN2);
+  }
+  const int tail = k & 15;
+  const int base = 16 * nblocks;
+  if (tail > 8) h2 = hxor(h2, mix2(word(base + 8, tail - 8)));
+  if (tail > 0) h1 = hxor(h1, mix1(word(base, tail < 8 ? tail : 8)));
+  h1.lo ^= static_cast<uint32_t>(k);
+  h2.lo ^= static_cast<uint32_t>(k);
+  h1 = hadd(h1, h2);
+  h2 = hadd(h2, h1);
+  const Half64 h = hadd(hfmix(h1), hfmix(h2));
+  return static_cast<uint64_t>(h.hi) << 32 | h.lo;
+}
 
 // T4 murmur-only. Replaces tools/profile_sketch_parts.py:_murmur_only_kernel:
-// murmur of k bytes given as fake words (x ^ 2i) << 32 | (x ^ (2i + 1)),
-// then hi ^ lo. Bound: integer ALU (murmur alone). Design: one thread per
-// element; the words are made as murmur asks for them.
+// per element x, murmur (seed kT4Seed) of k bytes given as the unmasked
+// fake words (x ^ 2i) << 32 | (x ^ (2i + 1)), then hi ^ lo.
+//
+// Bound: integer issue (murmur alone: at k = 31 twelve multiplies by
+// 64-bit constants and two by 5 on the IMAD pipe, 52 slots an element; six
+// 64-bit rotates, the fmix shift-xors and the xors, 38 ALU-only ops; no
+// memory to speak of): the IMAD pipe binds. Design: k is a template
+// constant (kT4K), so the block loop and the tail branches fold as in K1's
+// k = 31 body; murmur on 32-bit halves (murmur_halves) keeps the IMAD pipe
+// to the multiplies and puts rotates, adds and xors on the ALU beside it;
+// each thread takes kMulChains consecutive elements with one 16-byte load
+// and one 16-byte store, so the index math, the bounds check and the
+// memory instructions are paid once per four murmurs, and the four hashes
+// are independent work to interleave. Each fake word is two 32-bit xors of
+// x on the register halves.
+template <int kK>
 __global__ void __launch_bounds__(kTile)
-murmur_only_kernel(const int32_t* __restrict__ blocks, int rows, int k, uint64_t seed,
-                   uint32_t* __restrict__ out) {
-  const int per = rows * kLanes;
-  const int w = blockIdx.x * kTile + threadIdx.x;
-  if (w >= per) return;
+murmur_only_kernel(const int32_t* __restrict__ blocks, int rows, uint32_t* __restrict__ out) {
+  const int groups = rows * kLanes / kMulChains;
+  const int g = blockIdx.x * kTile + threadIdx.x;
+  if (g >= groups) return;
   const int64_t blk = blockIdx.y;
-  const uint32_t x = static_cast<uint32_t>(blocks[blk * (per + kExtraRows * kLanes) + w]);
-  const uint64_t h = murmur_words(k, seed, [&](int start, int) {
-    const uint32_t j = 2u * static_cast<uint32_t>(start >> 3);
-    return static_cast<uint64_t>(x ^ j) << 32 | (x ^ (j + 1u));
-  });
-  out[blk * per + w] = static_cast<uint32_t>(h >> 32) ^ static_cast<uint32_t>(h);
+  const int4 x = reinterpret_cast<const int4*>(blocks + blk * (rows + kExtraRows) * kLanes)[g];
+  const uint32_t xs[kMulChains] = {static_cast<uint32_t>(x.x), static_cast<uint32_t>(x.y),
+                                   static_cast<uint32_t>(x.z), static_cast<uint32_t>(x.w)};
+  uint32_t o[kMulChains];
+#pragma unroll
+  for (int c = 0; c < kMulChains; ++c) {
+    const uint64_t h = murmur_halves(kK, kT4Seed, [&](int start, int) {
+      const uint32_t j = 2u * static_cast<uint32_t>(start >> 3);
+      return Half64{xs[c] ^ (j + 1u), xs[c] ^ j};
+    });
+    o[c] = static_cast<uint32_t>(h >> 32) ^ static_cast<uint32_t>(h);
+  }
+  reinterpret_cast<uint4*>(out + blk * rows * kLanes)[g] = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // T4's tile: K2's DNA tile staged from a block's int32 values at k =
@@ -382,9 +511,6 @@ assembly_only_kernel(const int32_t* __restrict__ blocks, int rows, uint32_t* __r
 // independent multiplies in flight a step) and writes the outputs with one
 // 16-byte store. The empty asm on each chain's high half hides that the
 // result is 0, so the compiler must keep every chain.
-constexpr int kMulChains = 4;
-static_assert(kLanes % kMulChains == 0, "a block's rows hold whole groups of values");
-
 __global__ void __launch_bounds__(kTile)
 mulchain_kernel(const int32_t* __restrict__ blocks, int rows, int n_rounds,
                 uint32_t* __restrict__ out) {
@@ -415,6 +541,78 @@ mulchain_kernel(const int32_t* __restrict__ blocks, int rows, int n_rounds,
     o[c] = hi ^ static_cast<uint32_t>(v[c]);
   }
   reinterpret_cast<uint4*>(out + blk * rows * kLanes)[g] = make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// -- the integer-pipe probe -----------------------------------------------------
+
+// What one round of a probe chain does to v = hi << 32 | lo.
+enum IntProbeMode : int {
+  kProbeMul64 = 0,  // v *= kC1: an IMAD.WIDE.U32 and two IMADs
+  kProbeMul32 = 1,  // lo = lo * c + hi and hi = hi * c' + lo: one IMAD a half
+  kProbeAlu = 2,    // v = rotl64(v, 31), then hi ^= lo: two SHFs and a LOP3
+  kProbeMix = 3,    // a mul64 round, then an alu round
+};
+// mul32's multipliers: C1's halves, the high one made even, so that a round
+// is invertible (the determinant c * c' - 1 odd) and no chain decays to 0
+constexpr uint32_t kProbeC = static_cast<uint32_t>(kC1);
+constexpr uint32_t kProbeC2 = static_cast<uint32_t>(kC1 >> 32) ^ 1u;
+
+template <int kMode>
+__device__ __forceinline__ void probe_round(uint32_t& hi, uint32_t& lo) {
+  if (kMode == kProbeMul64 || kMode == kProbeMix) {
+    const uint64_t v = (static_cast<uint64_t>(hi) << 32 | lo) * kC1;
+    hi = static_cast<uint32_t>(v >> 32);
+    lo = static_cast<uint32_t>(v);
+  }
+  if (kMode == kProbeMul32) {
+    const uint32_t l = lo * kProbeC + hi;
+    hi = hi * kProbeC2 + lo;
+    lo = l;
+  }
+  if (kMode == kProbeAlu || kMode == kProbeMix) {
+    const uint64_t v = rotl64(static_cast<uint64_t>(hi) << 32 | lo, 31);
+    lo = static_cast<uint32_t>(v);
+    hi = static_cast<uint32_t>(v >> 32) ^ lo;
+  }
+  // the compiler may not see through a round: no two rounds fold into one
+  asm volatile("" : "+r"(hi), "+r"(lo));
+}
+
+// The integer-pipe probe. Replaces no TPU kernel: it measures what the
+// card's integer pipes give, for chip_smoke's "operations" bounds.
+// n_rounds rounds of probe_round<kMode> on v = x << 32 | (x * kProbeC),
+// then hi ^ lo, over mulchain's layout and grid: kMulChains consecutive values
+// a thread from one 16-byte load, their chains interleaved round by round,
+// one 16-byte store. Each round depends on the one before, and the empty
+// asm at its end keeps the compiler from folding rounds, so the time per
+// round (the slope over n_rounds) is the instructions' issue cost. The alu
+// round xors only the high half: mulchain's half-swap xor leaves the
+// halves equal (one LOP3), and a chain of it alone is 0 after two rounds.
+// The low half starts as a product of x, not a bit mask of it: the alu
+// round is linear over GF(2), and from x ^ 1 its hi ^ lo is one constant
+// after 64 rounds.
+// Bound: integer issue, by construction.
+template <int kMode>
+__global__ void __launch_bounds__(kTile)
+int_probe_kernel(const int32_t* __restrict__ blocks, int rows, int n_rounds,
+                 uint32_t* __restrict__ out) {
+  const int groups = rows * kLanes / kMulChains;
+  const int g = blockIdx.x * kTile + threadIdx.x;
+  if (g >= groups) return;
+  const int64_t blk = blockIdx.y;
+  const int4 x = reinterpret_cast<const int4*>(blocks + blk * (rows + kExtraRows) * kLanes)[g];
+  uint32_t hi[kMulChains] = {static_cast<uint32_t>(x.x), static_cast<uint32_t>(x.y),
+                             static_cast<uint32_t>(x.z), static_cast<uint32_t>(x.w)};
+  uint32_t lo[kMulChains];
+#pragma unroll
+  for (int c = 0; c < kMulChains; ++c) lo[c] = hi[c] * kProbeC;
+#pragma unroll 8
+  for (int r = 0; r < n_rounds; ++r) {
+#pragma unroll
+    for (int c = 0; c < kMulChains; ++c) probe_round<kMode>(hi[c], lo[c]);
+  }
+  reinterpret_cast<uint4*>(out + blk * rows * kLanes)[g] =
+      make_uint4(hi[0] ^ lo[0], hi[1] ^ lo[1], hi[2] ^ lo[2], hi[3] ^ lo[3]);
 }
 
 }  // namespace
@@ -481,11 +679,13 @@ int sp_survivor_slots_v2(const void* seq, int B, int S, int n, int R, int ksize,
 }
 
 // out [nblk * rows, 128] u32 from blocks [nblk * (rows + 8), 128] i32,
-// at k = kT4K (and seed kT4Seed).
+// at k = kT4K (and seed kT4Seed); blocks and out 16-byte aligned.
 int sp_murmur_only(const void* blocks, int nblk, int rows, void* out, void* stream) {
-  dim3 grid((rows * kLanes + kTile - 1) / kTile, nblk);
-  murmur_only_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(blocks), rows, kT4K, kT4Seed, static_cast<uint32_t*>(out));
+  if (reinterpret_cast<uintptr_t>(blocks) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((rows * kLanes / kMulChains + kTile - 1) / kTile, nblk);
+  murmur_only_kernel<kT4K><<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(blocks), rows, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,6 +707,27 @@ int sp_mulchain(const void* blocks, int nblk, int rows, int n_rounds, void* out,
   mulchain_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(blocks), rows, n_rounds, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The probe in `mode` (IntProbeMode), n_rounds rounds, mulchain's layout;
+// blocks and out 16-byte aligned.
+int sp_int_probe(const void* blocks, int nblk, int rows, int mode, int n_rounds, void* out,
+                 void* stream) {
+  if (reinterpret_cast<uintptr_t>(blocks) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((rows * kLanes / kMulChains + kTile - 1) / kTile, nblk);
+  auto run = [&](auto kernel) {
+    kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(blocks), rows, n_rounds, static_cast<uint32_t*>(out));
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (mode) {
+    case kProbeMul64: return run(int_probe_kernel<kProbeMul64>);
+    case kProbeMul32: return run(int_probe_kernel<kProbeMul32>);
+    case kProbeAlu: return run(int_probe_kernel<kProbeAlu>);
+    case kProbeMix: return run(int_probe_kernel<kProbeMix>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -5,10 +5,10 @@ membership_bits, round_dec, and the batch forms membership_bits_batch and
 round_dec_batch; `block_join.cu`: the join of a query block against a
 chunk's rows, counts_block and products_block; `pairwise.cu`: compare's
 all-pairs joins pairwise_counts and pairwise_products; `sketch_parts.cu`:
-the sketch-kernel instruments T2, T3, T4) has a plain C interface with an
-error-string
-entry, and is compiled by `nvcc` for Hopper (`sm_90a`) into its own
-`build/kernels/<name>_<hash>.so` at first use, then loaded with ctypes.
+the sketch-kernel instruments T2, T3, T4 and the integer-pipe probe) has a
+plain C interface with an error-string entry, and is compiled by `nvcc`
+for Hopper (`sm_90a`) into its own `build/kernels/<name>_<hash>.so` at
+first use, then loaded with ctypes.
 The hash covers the source, the shared headers (`csrc/*.cuh`) and the
 flags, so an edited source builds anew and the other sources keep their
 builds; an edited header builds every library anew. `build()` starts one
@@ -93,6 +93,8 @@ _LIBRARIES = {
         "sp_assembly_only": [_P, _I, _I, _P, _P],
         # blocks, nblk, rows, n_rounds, out, stream
         "sp_mulchain": [_P, _I, _I, _I, _P, _P],
+        # blocks, nblk, rows, mode, n_rounds, out, stream
+        "sp_int_probe": [_P, _I, _I, _I, _I, _P, _P],
     }),
 }
 _libs: dict = {}

@@ -16,6 +16,10 @@ PyTorch versions of the kernels in `csrc/sketch_parts.cu`, which take K1
   `[nblk * (rows + EXTRA_ROWS), 128]` int32 in, `[nblk * rows, 128]` int32
   bit patterns of u32 out, element (r, lane) of block b computed from the
   block's values at r * 128 + lane onwards.
+- The integer-pipe probe (`int_probe`): chains of one kind of integer
+  instruction over the mul-chain's layout, whose time per round gives the
+  card's IMAD.WIDE.U32, IMAD and ALU rates (`chip_smoke.py` sets its
+  "operations" bounds from them). It replaces no TPU kernel.
 
 Each wrapper checks its inputs (a wrong dtype, shape or layout raises
 TypeError), allocates its outputs, launches on the current CUDA stream and
@@ -51,8 +55,14 @@ T4_KSIZE, T4_SEED = 31, 42  # the JAX tool's fixed KSIZE and SEED (kT4K, kT4Seed
 # wrappers add to them, the plain versions never do
 LAUNCHES = {
     "split_words": 0, "split_slots": 0, "survivor_slots_v2": 0,
-    "murmur_only": 0, "assembly_only": 0, "mulchain": 0,
+    "murmur_only": 0, "assembly_only": 0, "mulchain": 0, "int_probe": 0,
 }
+# the probe's modes, in the kernel's order (IntProbeMode in sketch_parts.cu):
+# what one round does to v = hi << 32 | lo
+PROBE_MODES = ("mul64", "mul32", "alu", "mix")
+# mul32's multipliers (kProbeC, kProbeC2): C1's halves, the high one made
+# even so that a round is invertible and no chain decays to 0
+PROBE_C, PROBE_C2 = int(C1) & u64.MASK32, (int(C1) >> 32) ^ 1
 
 
 def reset_launch_counts():
@@ -221,11 +231,19 @@ def _out(blocks, rows: int):
     return torch.empty((nblk * rows, LANES), dtype=torch.int32, device=blocks.device)
 
 
+def _check_aligned(blocks):
+    "The kernels that read four values a load need the blocks 16-byte aligned."
+    if blocks.data_ptr() % 16:
+        raise TypeError("blocks must be 16-byte aligned")
+
+
 def murmur_only(blocks, *, rows: int = 512):
     """Murmur alone: per element x, murmur (seed T4_SEED) of T4_KSIZE bytes
     given as the words (x ^ 2i) << 32 | (x ^ (2i + 1)), i = 0, 1, ...,
-    unmasked; then hi ^ lo."""
+    unmasked; then hi ^ lo. The blocks must be 16-byte aligned, on the CPU
+    too (the kernel reads four values a load)."""
     nblk = _check_blocks(blocks, rows)
+    _check_aligned(blocks)
     if blocks.device.type == "cpu":
         return murmur_only_plain(blocks, rows=rows)
     out = _out(blocks, rows)
@@ -254,8 +272,7 @@ def assembly_only(blocks, *, rows: int = 512):
     nblk = _check_blocks(blocks, rows)
     if blocks.device.type == "cpu":
         return assembly_only_plain(blocks, rows=rows)
-    if blocks.data_ptr() % 16:  # the kernel reads four values a load
-        raise TypeError("blocks must be 16-byte aligned")
+    _check_aligned(blocks)
     out = _out(blocks, rows)
     _launch("sp_assembly_only", blocks.device, blocks.data_ptr(), nblk, rows, out.data_ptr())
     LAUNCHES["assembly_only"] += 1
@@ -286,8 +303,7 @@ def mulchain(blocks, n_rounds: int, *, rows: int = 512):
         raise ValueError(f"n_rounds must be >= 0, not {n_rounds}")
     if blocks.device.type == "cpu":
         return mulchain_plain(blocks, n_rounds, rows=rows)
-    if blocks.data_ptr() % 16:  # the kernel reads four values a load
-        raise TypeError("blocks must be 16-byte aligned")
+    _check_aligned(blocks)
     out = _out(blocks, rows)
     _launch("sp_mulchain", blocks.device, blocks.data_ptr(), nblk, rows, int(n_rounds),
             out.data_ptr())
@@ -304,3 +320,47 @@ def mulchain_plain(blocks, n_rounds: int, *, rows: int = 512):
         v = u64.rotl(u64.mul(v, C1), 31)
         v = v ^ u64.rotl(v, 32)
     return _as_output(u64.srl(v, 32) ^ (v & u64.MASK32))
+
+
+# -- the integer-pipe probe ---------------------------------------------------
+
+
+def int_probe(blocks, mode: str, n_rounds: int, *, rows: int = 512):
+    """n_rounds rounds of `mode` (PROBE_MODES) on v = x << 32 | (x * PROBE_C
+    mod 2^32) for each value x, then hi ^ lo. A round: mul64 v *= C1; mul32
+    lo = lo * PROBE_C + hi and hi = hi * PROBE_C2 + lo (both from the
+    round's start); alu v = rotl64(v, 31), then hi ^= lo; mix a mul64
+    round, then an alu round. The blocks must be 16-byte aligned, on the
+    CPU too."""
+    nblk = _check_blocks(blocks, rows)
+    if mode not in PROBE_MODES:
+        raise ValueError(f"unknown probe mode {mode!r}; expected one of {PROBE_MODES}")
+    if n_rounds < 0:
+        raise ValueError(f"n_rounds must be >= 0, not {n_rounds}")
+    _check_aligned(blocks)
+    if blocks.device.type == "cpu":
+        return int_probe_plain(blocks, mode, n_rounds, rows=rows)
+    out = _out(blocks, rows)
+    _launch("sp_int_probe", blocks.device, blocks.data_ptr(), nblk, rows,
+            PROBE_MODES.index(mode), int(n_rounds), out.data_ptr())
+    LAUNCHES["int_probe"] += 1
+    return out
+
+
+def int_probe_plain(blocks, mode: str, n_rounds: int, *, rows: int = 512):
+    "Plain PyTorch version of `int_probe`, on the blocks' device."
+    _check_blocks(blocks, rows)
+    hi = _block_values(blocks, rows)
+    lo = u64.mul(hi, PROBE_C) & u64.MASK32
+    for _ in range(n_rounds):
+        if mode in ("mul64", "mix"):
+            v = u64.mul((hi << 32) | lo, C1)
+            hi, lo = u64.srl(v, 32), v & u64.MASK32
+        if mode == "mul32":
+            hi, lo = ((u64.mul(hi, PROBE_C2) + lo) & u64.MASK32,
+                      (u64.mul(lo, PROBE_C) + hi) & u64.MASK32)
+        if mode in ("alu", "mix"):
+            v = u64.rotl((hi << 32) | lo, 31)
+            lo = v & u64.MASK32
+            hi = u64.srl(v, 32) ^ lo
+    return _as_output(hi ^ lo)

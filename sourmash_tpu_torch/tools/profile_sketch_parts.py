@@ -3,6 +3,7 @@ each part of K1 cost, and what is the card's 64-bit multiply rate?
 Counterpart of `tools/profile_sketch_parts.py`.
 
     python -m sourmash_tpu_torch.tools.profile_sketch_parts [murmur] [assembly] [mulN ...]
+                                                            [probe-MODE-N ...]
 
 Variants, all over the JAX tool's blocks (8 x 32 blocks of 512 + 8 rows of
 128 random values 0..255, one output per window of a block's 512 rows):
@@ -11,6 +12,10 @@ Variants, all over the JAX tool's blocks (8 x 32 blocks of 512 + 8 rows of
   mulN     - N rounds of a 64-bit multiply, rotate and half-swap xor: the
              card's multiply rate (the output is 0 for N >= 1, the work is
              the measurement)
+  probe-MODE-N - N rounds of the integer-pipe probe in MODE (mul64, mul32,
+             alu or mix; `cuda_sketch_parts.int_probe`): one instruction
+             kind's rate (chip_smoke.py reads the rates from the slope
+             between two N)
 Default: murmur assembly mul16. Each prints ms per batch and Mwindows/s.
 """
 
@@ -25,7 +30,8 @@ from ..ops import cuda_sketch_parts as csp
 from . import _common as c
 
 USAGE = ("usage: python -m sourmash_tpu_torch.tools.profile_sketch_parts "
-         "[murmur] [assembly] [mulN ...]")
+         "[murmur] [assembly] [mulN ...] [probe-MODE-N ...] (MODE: "
+         + ", ".join(csp.PROBE_MODES) + ")")
 IMAD_PER_ROUND = 3  # v * C1 on 32-bit halves: a wide multiply-add and two multiply-adds
 
 
@@ -38,6 +44,19 @@ def variant(name: str):
     if name.startswith("mul") and name[3:].isdigit():
         n = int(name[3:])
         return (lambda xb: csp.mulchain(xb, n, rows=c.ROWS), f"mulchain-{n}")
+    probe = probe_mode(name)
+    if probe is not None:
+        mode, n = probe
+        return (lambda xb: csp.int_probe(xb, mode, n, rows=c.ROWS), f"probe-{mode}-{n}")
+    return None
+
+
+def probe_mode(name: str):
+    "(mode, rounds) of a probe-MODE-N variant name; None for another name."
+    parts = name.split("-")
+    if len(parts) == 3 and parts[0] == "probe" and parts[1] in csp.PROBE_MODES \
+            and parts[2].isdigit():
+        return parts[1], int(parts[2])
     return None
 
 
@@ -74,7 +93,9 @@ def main(argv=None) -> int:
     blocks = [blocks_for(rng, dev) for _ in range(2)]
     for name in which:
         rate = run(name, dev, blocks)
-        if name.startswith("mul"):
+        if name.startswith("probe"):
+            print(f"  -> {rate * probe_mode(name)[1] / 1e9:.1f} G probe rounds/s", flush=True)
+        elif name.startswith("mul"):
             n = int(name[3:])
             print(f"  -> {rate * n / 1e9:.1f} G mul64 rounds/s, "
                   f"{rate * n * IMAD_PER_ROUND / 1e12:.2f} T IMAD/s at "

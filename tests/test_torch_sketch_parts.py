@@ -39,6 +39,11 @@ own layout code builds.
   version); the mul-chain's mapping (`_mulchain_groups`: four consecutive
   values a thread, the chains interleaved) equals `_mulchain_kernel` and
   the plain version at rows = 9 and 16 and 0, 1, 16 rounds.
+- murmur_only's design (four values a thread, K1's k = 31 body folded,
+  `_murmur31_fake`) and plain version equal `_murmur_only_kernel` at rows
+  = 9 and 16; the integer-pipe probe's plain version equals its rounds in
+  numpy uint64 arithmetic in every mode at 0, 1, 16 and 64 rounds; both
+  wrappers refuse blocks off a 16-byte boundary, on the CPU too.
 """
 
 import functools
@@ -58,7 +63,7 @@ from sourmash_tpu.ops.pallas_sketch import sketch_survivor_slots_pallas
 from sourmash_tpu_torch.ops import cuda_sketch as cs
 from sourmash_tpu_torch.ops import cuda_sketch_parts as csp
 from sourmash_tpu_torch.ops import u64
-from sourmash_tpu_torch.ops.murmur import C1
+from sourmash_tpu_torch.ops.murmur import C1, C2
 from test_torch_sketch_kernels import (
     _dna_tile, _funnel_murmur, _funnel_r, _plane_bits, _plane_strand)
 
@@ -720,12 +725,14 @@ def _rotl(x, r):
     return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
 
 
-def _mulchain_groups(blocks, rows, n_rounds):
-    """mulchain_kernel in numpy: thread g of a grid of ceil(rows * 32 / 256)
-    blocks of 256 a block of values takes the four values at 4g.. (one
-    16-byte load), runs their chains round by round and stores the four
-    outputs at 4g.. of the block's output; a thread with 4g >= rows * 128
-    exits. Raises unless every output is written once."""
+def _four_a_thread(blocks, rows, chains):
+    """A kernel of T4's layout that takes four values a thread, in numpy
+    (murmur_only, mulchain, int_probe): thread g of a grid of ceil(rows *
+    32 / 256) blocks of 256 a block of values takes the four values at 4g..
+    (one 16-byte load) and stores `chains` of them (uint64 [..., 4] ->
+    uint64 [..., 4] of u32 values) at 4g.. of the block's output (one
+    16-byte store); a thread with 4g >= rows * 128 exits. Raises unless
+    every output is written once."""
     V, per = (rows + EXTRA) * LANES, rows * LANES
     vals = (blocks.reshape(-1, V).astype(np.int64) & 0xFFFFFFFF).astype(np.uint64)
     out = np.zeros((vals.shape[0], per), dtype=np.uint64)
@@ -734,15 +741,25 @@ def _mulchain_groups(blocks, rows, n_rounds):
     for bx in range(-(-groups // KTILE)):
         g = bx * KTILE + np.arange(KTILE)
         at = MUL_CHAINS * g[g < groups, None] + np.arange(MUL_CHAINS)
-        v = (vals[:, at] << np.uint64(32)) | (vals[:, at] ^ np.uint64(1))
-        for _ in range(n_rounds):
-            for c in range(MUL_CHAINS):  # the chains interleaved round by round
-                x = _rotl(v[..., c] * np.uint64(C1), 31)
-                v[..., c] = x ^ _rotl(x, 32)
-        out[:, at] = (v >> np.uint64(32)) ^ (v & M32)
+        out[:, at] = chains(vals[:, at])
         written[:, at] += 1
     assert (written == 1).all()
     return out.astype(np.uint32).reshape(-1, LANES)
+
+
+def _mulchain_groups(blocks, rows, n_rounds):
+    """mulchain_kernel in numpy (`_four_a_thread`): the four values' chains
+    run round by round, interleaved."""
+
+    def chains(x):
+        v = (x << np.uint64(32)) | (x ^ np.uint64(1))
+        for _ in range(n_rounds):
+            for c in range(MUL_CHAINS):  # the chains interleaved round by round
+                r = _rotl(v[..., c] * np.uint64(C1), 31)
+                v[..., c] = r ^ _rotl(r, 32)
+        return (v >> np.uint64(32)) ^ (v & M32)
+
+    return _four_a_thread(blocks, rows, chains)
 
 
 @pytest.mark.parametrize("rows,n", [(r, n) for r in (9, 16) for n in (0, 1, 16)])
@@ -767,3 +784,142 @@ def test_mulchain_groups_match_pallas_body(rows, n, t4, monkeypatch):
     plain = csp.mulchain(torch.from_numpy(blocks), n, rows=rows).numpy().view(np.uint32)
     assert np.array_equal(got, plain)
     assert (got == (0 if n else 1)).all()
+
+
+# -- murmur_only on K1's k = 31 body, and the integer-pipe probe --------------
+
+
+def _fmix64(k):
+    k ^= k >> np.uint64(33)
+    k *= np.uint64(0xFF51AFD7ED558CCD)
+    k ^= k >> np.uint64(33)
+    k *= np.uint64(0xC4CEB9FE1A85EC53)
+    return k ^ (k >> np.uint64(33))
+
+
+def _murmur31_fake(x):
+    """murmur_only_kernel<31>'s body in numpy: murmur (seed 42) of 31 bytes
+    given as the fake words (x ^ 2i) << 32 | (x ^ (2i + 1)), unmasked, with
+    k = 31 folded (one 16-byte block, a 15-byte tail: word 3 into h2, word
+    2 into h1); then hi ^ lo."""
+
+    def word(i):
+        return ((x ^ np.uint64(2 * i)) << np.uint64(32)) | (x ^ np.uint64(2 * i + 1))
+
+    def mix1(k):
+        return _rotl(k * np.uint64(C1), 31) * np.uint64(C2)
+
+    def mix2(k):
+        return _rotl(k * np.uint64(C2), 33) * np.uint64(C1)
+
+    h1 = np.full_like(x, 42) ^ mix1(word(0))
+    h1 = (_rotl(h1, 27) + np.uint64(42)) * np.uint64(5) + np.uint64(0x52DCE729)
+    h2 = np.full_like(x, 42) ^ mix2(word(1))
+    h2 = (_rotl(h2, 31) + h1) * np.uint64(5) + np.uint64(0x38495AB5)
+    h2 ^= mix2(word(3))
+    h1 ^= mix1(word(2))
+    h1 ^= np.uint64(31)
+    h2 ^= np.uint64(31)
+    h1 += h2
+    h2 += h1
+    h = _fmix64(h1) + _fmix64(h2)
+    return (h >> np.uint64(32)) ^ (h & M32)
+
+
+@pytest.mark.parametrize("rows", [9, 16])
+def test_murmur_only_matches_pallas_body_at_rows(rows, t4, monkeypatch):
+    """murmur_only's design (four consecutive values a thread, the k = 31
+    body folded, `_four_a_thread` of `_murmur31_fake`) and its plain
+    version equal the JAX tool's `_murmur_only_kernel` in interpret mode at
+    rows = 9 (a part grid block of threads) and 16, on values of the whole
+    int32 range."""
+    pp, _ = t4
+    monkeypatch.setattr(pp, "ROWS", rows)
+    blocks = np.random.default_rng(60 + rows).integers(
+        -(2**31), 2**31, size=(3 * (rows + EXTRA), LANES)).astype(np.int32)
+    want = np.asarray(pl.pallas_call(
+        pp._murmur_only_kernel, grid=(3,),
+        in_specs=[pl.BlockSpec((rows + EXTRA, LANES), lambda b: (b, np.int32(0)))],
+        out_specs=pl.BlockSpec((rows, LANES), lambda b: (b, np.int32(0))),
+        out_shape=jax.ShapeDtypeStruct((3 * rows, LANES), jnp.uint32), interpret=True,
+    )(jnp.asarray(blocks)))
+    assert np.array_equal(_four_a_thread(blocks, rows, _murmur31_fake), want)
+    got = csp.murmur_only(torch.from_numpy(blocks), rows=rows)
+    assert got.shape == (3 * rows, LANES) and got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    assert len(np.unique(want)) == want.size  # no two values share a hash here
+
+
+def _probe_chains(mode, n_rounds):
+    """int_probe_kernel<mode>'s rounds in numpy on the four values of a
+    thread: v = x << 32 | (x * c mod 2^32), n_rounds rounds, then hi ^ lo."""
+    c, c2 = np.uint64(int(C1) & 0xFFFFFFFF), np.uint64((int(C1) >> 32) ^ 1)  # c2 even
+
+    def chains(x):
+        hi, lo = x.copy(), (x * c) & M32
+        for _ in range(n_rounds):
+            if mode in ("mul64", "mix"):
+                v = ((hi << np.uint64(32)) | lo) * np.uint64(C1)
+                hi, lo = v >> np.uint64(32), v & M32
+            if mode == "mul32":
+                hi, lo = (hi * c2 + lo) & M32, (lo * c + hi) & M32
+            if mode in ("alu", "mix"):
+                v = _rotl((hi << np.uint64(32)) | lo, 31)
+                lo = v & M32
+                hi = (v >> np.uint64(32)) ^ lo
+        return hi ^ lo
+
+    return chains
+
+
+@pytest.mark.parametrize("mode,n", [(m, n) for m in ("mul64", "mul32", "alu", "mix")
+                                    for n in (0, 1, 16, 64)])
+def test_int_probe_plain_matches_numpy(mode, n):
+    """The integer-pipe probe's plain version equals its rounds in numpy
+    uint64 arithmetic (`_probe_chains` over `_four_a_thread`) at rows = 9
+    (a part grid block of threads), on values of the whole int32 range; no
+    mode's output is constant after a round."""
+    rows = 9
+    blocks = np.random.default_rng(70 + n).integers(
+        -(2**31), 2**31, size=(2 * (rows + EXTRA), LANES)).astype(np.int32)
+    want = _four_a_thread(blocks, rows, _probe_chains(mode, n))
+    got = csp.int_probe(torch.from_numpy(blocks), mode, n, rows=rows)
+    assert got.shape == (2 * rows, LANES) and got.dtype == torch.int32
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+    assert len(np.unique(want)) > want.size // 2
+
+
+def test_murmur_only_and_probe_refuse_unaligned_blocks():
+    """murmur_only and int_probe read four values a load: blocks 4 bytes off
+    a 16-byte boundary raise TypeError, on a CPU tensor too (the aligned
+    ones go through); an unknown probe mode or negative rounds raise
+    ValueError."""
+    n = (ROWS + EXTRA) * LANES
+    buf = torch.zeros(n + 4, dtype=torch.int32)
+    aligned, offset = buf[:n].view(ROWS + EXTRA, LANES), buf[1 : n + 1].view(ROWS + EXTRA, LANES)
+    assert aligned.data_ptr() % 16 == 0 and offset.data_ptr() % 16 == 4
+    with pytest.raises(TypeError, match="16-byte aligned"):
+        csp.murmur_only(offset, rows=ROWS)
+    with pytest.raises(TypeError, match="16-byte aligned"):
+        csp.int_probe(offset, "mul64", 1, rows=ROWS)
+    assert csp.murmur_only(aligned, rows=ROWS).shape == (ROWS, LANES)
+    assert csp.int_probe(aligned, "mix", 2, rows=ROWS).shape == (ROWS, LANES)
+    with pytest.raises(ValueError, match="unknown probe mode"):
+        csp.int_probe(aligned, "mul16", 1, rows=ROWS)
+    with pytest.raises(ValueError, match="n_rounds"):
+        csp.int_probe(aligned, "alu", -1, rows=ROWS)
+
+
+def test_profile_tool_probe_modes(monkeypatch):
+    """The port's T4 tool names the probe's modes probe-MODE-N (mulN stays
+    the mul-chain) and refuses others."""
+    from sourmash_tpu_torch.tools import profile_sketch_parts as tool
+
+    assert tool.variant("probe-alu-16")[1] == "probe-alu-16"
+    assert tool.probe_mode("probe-mix-256") == ("mix", 256)
+    assert tool.variant("mul64")[1] == "mulchain-64"
+    for bad in ("probe-mul65-1", "probe-mul64", "probe-alu-x", "probe-alu-1-2"):
+        assert tool.variant(bad) is None
+    monkeypatch.setenv("SOURMASH_TORCH_DEVICE", "cpu")
+    with pytest.raises(SystemExit, match="unknown mode"):
+        tool.main(["probe-alu"])
