@@ -98,6 +98,27 @@ Phases, each raising on failure:
    with SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout, `.npy`, labels and CSV. Each
    command's wall, all-pairs compares a second, launches and the matrix
    and host-pack walls are printed.
+10. The persistent formats, each command with the launch counters set to 0
+   just before and read just after. `sketch fromfile` of 8 genomes of phase
+   3's kind (a .fa.gz each), 2 of them with a proteome of phase 4's kind,
+   with sourmash's DNA ksizes and its protein default into a zip: K1 and K3
+   must run and every signature (md5, mins, name, filename) must equal
+   `sketch dna|protein --name` of its file; again with --already-done,
+   --output-manifest-matching and --output-csv-info: everything matches,
+   nothing is built. `index -F revindex` over phase 6's zip, then `gather`
+   of phase 6's metagenome against the directory by both routes: the raw
+   mins packed on the card, and the mmapped disk planes streamed (the
+   device budget below the planes' bytes), the latter with the default
+   schedule and again in host rounds; each CSV must be phase 6's against
+   the zip byte for byte (the location column aside), counts_rows and
+   round_dec must run in each, membership_bits on the resident route and
+   in the host rounds. Phase 6's first
+   1,000 genomes saved to a `.sqldb` by the port's saver and to a zip:
+   gather against each through the flat view on the card, the same CSV.
+   The flat-view cache lives in the run's directory
+   (SOURMASH_TORCH_VIEW_CACHE_DIR): phase 6's first load is cold, its later
+   loads and phase 8's warm; its hits, misses and bytes are printed after
+   phases 6, 8 and 10.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -3042,6 +3063,7 @@ def read_csv(path: str) -> list:
 def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
     from sourmash_tpu_torch import minhash_from_arrays, SourmashSignature
     from sourmash_tpu_torch.__main__ import main as cli_main
+    from sourmash_tpu_torch.index import view_cache
     from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
 
     t0 = time.time()
@@ -3077,12 +3099,21 @@ def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
         out = os.path.join(tmp, f"{tag.replace(' ', '_')}.csv")
         argv = ["gather", qpath, db, "-o", out, "-q",
                 "--save-matches", os.path.join(tmp, f"{tag.replace(' ', '_')}.zip")]
+        cache_before = dict(view_cache.STATS)
         wall, launches, facts = run_gather_cli(argv, env)
-        runs[tag] = dict(wall_s=wall, launches=launches, csv=out, **facts)
+        cache = {n: view_cache.STATS[n] - cache_before[n] for n in ("hits", "misses")}
+        runs[tag] = dict(wall_s=wall, launches=launches, csv=out, view_cache=cache, **facts)
         log(f"  gather ({tag}): {wall:.2f} s wall, {len(read_csv(out))} rounds, k={facts['k']}, "
             f"route {facts['route']}, reschedules {facts['reschedules']}, launches "
             f"{ {n: launches[n] for n in ('counts_rows', 'membership_bits', 'round_dec')} }")
     first = runs["scheduled"]
+    # the view cache is empty before phase 6: its first load reads the zip
+    # (a miss that stores the entry), the second loads the entry
+    if first["view_cache"] != dict(hits=0, misses=1) or \
+            runs["host rounds"]["view_cache"] != dict(hits=1, misses=0):
+        raise AssertionError(f"view cache: {[r['view_cache'] for r in runs.values()]}, want a "
+                             f"cold first load and a warm second")
+    view_cache_line("phase 6's two gathers (cold, then warm)")
     if first["route"] != "device membership" or not first["scheduled"]:
         raise AssertionError(f"the scheduled run took {first['route']}, not device membership")
     for name in ("counts_rows", "membership_bits", "round_dec"):
@@ -3104,7 +3135,8 @@ def gather_end_to_end(rng, tmp: str, profile_cli: bool = False) -> dict:
     if profile_cli:
         argv = ["gather", qpath, db, "-o", os.path.join(tmp, "profiled.csv"), "-q"]
         profile = profiled(lambda: cli_main(argv), "gather")
-    world = dict(db=db, mins_list=mins_list, names=names, qpath=qpath, q=q, index=index)
+    world = dict(db=db, mins_list=mins_list, names=names, qpath=qpath, q=q, index=index,
+                 sigs=sigs, csv=first["csv"])
     return dict(genomes=len(sigs), hashes=n_hashes, query_hashes=len(q), zip_save_s=save_s,
                 rounds=len(got), runs={t: {k: v for k, v in r.items() if k != "csv"}
                                        for t, r in runs.items()},
@@ -3996,6 +4028,271 @@ INSTRUMENTS = ("split_words", "split_slots", "survivor_slots_v2", "murmur_only",
                "assembly_only", "mulchain", "int_probe")
 
 
+# -- phase 10: sketch fromfile, disk revindexes, sqlite and the view cache ----
+
+# `sketch fromfile` of a strain list (GTDB-style: genomes, some with
+# proteomes), sourmash's three DNA ksizes and its protein default
+FROMFILE_GENOMES = 8
+FROMFILE_PROTEOMES = 2
+FROMFILE_M_AA = 2  # M residues a proteome (E. coli K-12's: 1.35 M aa)
+FROMFILE_PARAMS = ["dna,k=21,k=31,k=51,scaled=1000", "protein,k=10,scaled=200"]
+SQLITE_GENOMES = 1000  # phase 6's first genomes, above the 512-sketch flat-view threshold
+VIEW_CACHE_ENV = "SOURMASH_TORCH_VIEW_CACHE_DIR"
+
+
+def view_cache_line(what: str) -> dict:
+    "The view cache's hits, misses and bytes so far in this process."
+    from sourmash_tpu_torch.index import view_cache
+
+    stats = dict(view_cache.STATS)
+    log(f"  view cache after {what}: {stats['hits']} hits, {stats['misses']} misses, "
+        f"{stats['bytes_read']} bytes read, {stats['bytes_written']} bytes written")
+    return stats
+
+
+def sig_facts(sig) -> tuple:
+    "What fromfile must reproduce of a signature: md5, mins, name, filename."
+    return sig.md5sum(), sig.minhash.mins_array().tobytes(), sig.name, sig.filename
+
+
+def fromfile_end_to_end(rng, tmp: str) -> dict:
+    """`sketch fromfile` of FROMFILE_GENOMES genomes of phase 3's kind (one
+    record of 4.4-4.8 Mbp each, a .fa.gz each), FROMFILE_PROTEOMES of them
+    with a proteome of phase 4's kind, into a zip: K1 and K3 must run and
+    every signature (md5, mins, name, filename) must equal `sketch dna` /
+    `sketch protein --name` of the same file. Then again with
+    --already-done, --output-manifest-matching and --output-csv-info: every
+    sketch matches, nothing is built and the command exits 0."""
+    from sourmash_tpu_torch import load_signatures_from_json
+    from sourmash_tpu_torch.__main__ import main as cli_main
+    from sourmash_tpu_torch.manifest import CollectionManifest
+    from sourmash_tpu_torch.save_load import load_file_as_index
+
+    d = os.path.join(tmp, "fromfile")
+    os.makedirs(d)
+    t0 = time.time()
+    rows, bases, residues = [], 0, 0
+    for i in range(FROMFILE_GENOMES):
+        genome = os.path.join(d, f"genome{i}.fa.gz")
+        bases += write_fasta(genome, 1, rng, [])[1]
+        proteome = ""
+        if i < FROMFILE_PROTEOMES:
+            proteome = os.path.join(d, f"proteome{i}.faa.gz")
+            residues += write_protein_fasta(proteome, FROMFILE_M_AA, rng)[1]
+        rows.append((f"strain {i}", genome, proteome))
+    csv_path = os.path.join(d, "strains.csv")
+    with open(csv_path, "w") as f:
+        f.write("name,genome_filename,protein_filename\n")
+        f.writelines(f"{n},{g},{p}\n" for n, g, p in rows)
+    log(f"  wrote {FROMFILE_GENOMES} genomes ({bases / 1e6:.2f} Mbp) and {FROMFILE_PROTEOMES} "
+        f"proteomes ({residues / 1e6:.2f} M aa) in {time.time() - t0:.1f} s")
+
+    params = [x for p in FROMFILE_PARAMS for x in ("-p", p)]
+    out = os.path.join(d, "fromfile.zip")
+    wall, launches, batches = run_cli(
+        "sketch fromfile", ["sketch", "fromfile", csv_path, "--ignore-missing", "-o", out,
+                            *params], ("survivor_slots", "aa_window_hashes"))
+    got = {}
+    for sig in load_file_as_index(out).signatures():
+        got[(sig.name, sig.minhash.moltype, sig.minhash.ksize)] = sig_facts(sig)
+    log(f"  sketch fromfile: {wall:.2f} s wall, {len(got)} signatures, launches {launches}; "
+        f"launches by rows {batches}")
+
+    t0 = time.time()
+    want = {}
+    for name, genome, proteome in rows:
+        for cmd, path, p in (("dna", genome, "k=21,k=31,k=51,scaled=1000"),
+                             ("protein", proteome, "k=10,scaled=200")):
+            if not path:
+                continue
+            sig_out = os.path.join(d, f"{os.path.basename(path)}.sig")
+            run_cli(f"sketch {cmd}", ["sketch", cmd, path, "-p", p, "--name", name, "-q",
+                                      "-o", sig_out],
+                    ("survivor_slots",) if cmd == "dna" else ("aa_window_hashes",))
+            for sig in load_signatures_from_json(open(sig_out, "rb").read()):
+                want[(sig.name, sig.minhash.moltype, sig.minhash.ksize)] = sig_facts(sig)
+    if sorted(got) != sorted(want) or len(want) != 3 * FROMFILE_GENOMES + FROMFILE_PROTEOMES:
+        raise AssertionError(f"fromfile built {sorted(got)}, sketch dna|protein {sorted(want)}")
+    for key, facts in want.items():
+        if got[key] != facts:
+            raise AssertionError(f"fromfile signature {key} differs from sketch dna|protein's")
+    log(f"  every fromfile signature (md5, mins, name, filename) equals sketch dna|protein "
+        f"--name of its file ({time.time() - t0:.1f} s for those)")
+
+    matching, info, again = (os.path.join(d, n) for n in ("matching.csv", "info.csv", "again.zip"))
+    argv = ["sketch", "fromfile", csv_path, "--ignore-missing", "--already-done", out,
+            "--output-manifest-matching", matching, "--output-csv-info", info, "-o", again,
+            *params]
+
+    def rerun():
+        try:
+            return cli_main(argv)
+        except SystemExit as exc:
+            return exc.code
+
+    rc, rerun_wall, rerun_launches = call_counted(rerun, {})
+    with open(matching) as f:
+        n_matching = len(CollectionManifest.load_from_csv(f))
+    if (rc or 0) != 0 or n_matching != len(want) or os.path.exists(again) \
+            or os.path.exists(info) or any(rerun_launches[n] for n in SKETCH_WRAPPERS):
+        raise AssertionError(f"fromfile --already-done: rc {rc}, {n_matching} matching rows, "
+                             f"launches {rerun_launches}")
+    log(f"  fromfile --already-done: {rerun_wall:.2f} s wall, all {n_matching} sketches matched, "
+        f"nothing built (no CSV info, no output, no sketch kernel launched), exit 0")
+    return dict(wall_s=wall, mbp=bases / 1e6, m_aa=residues / 1e6, signatures=len(got),
+                launches=launches, batches=batches, rerun_wall_s=rerun_wall)
+
+
+def gather_spied(argv: list, env: dict) -> tuple:
+    """run_gather_cli against a revindex, also recording the directory's
+    load (`load_revindex`: its wall and the signatures' names in order),
+    whether FlatIndex took its planes from disk (`load_banks`) and whether
+    those stayed on the host."""
+    from sourmash_tpu_torch.index import flat, revindex
+
+    loads, opened = [], []
+
+    def banks_spy(load_banks):
+        def spied(*a, **kw):
+            banks = load_banks(*a, **kw)
+            loads.append(all(b.resident for b in banks))
+            return banks
+        return spied
+
+    def load_spy(load_revindex):
+        def spied(*a, **kw):
+            t0 = time.time()
+            idx = load_revindex(*a, **kw)
+            opened.append((time.time() - t0, [s.name for s in idx.signatures()]))
+            return idx
+        return spied
+
+    with patched(flat, "load_banks", banks_spy), patched(revindex, "load_revindex", load_spy):
+        wall, launches, facts = run_gather_cli(argv, env)
+    (load_wall, names), = opened
+    return wall, launches, dict(facts, load_wall_s=load_wall, names=names,
+                                disk_plane_loads=len(loads),
+                                disk_planes_resident=all(loads) if loads else None)
+
+
+def same_csv_at(what: str, got_path: str, want_path: str, want_db: str, got_db: str):
+    """The gather CSV at got_path byte for byte the one at want_path, with
+    the database's location (the `filename` column) that of got_db."""
+    with open(want_path, "rb") as f:
+        want = f.read().replace(want_db.encode(), got_db.encode())
+    with open(got_path, "rb") as f:
+        got = f.read()
+    if got != want:
+        raise AssertionError(f"{what}: the gather CSV differs from the zip's")
+
+
+def revindex_end_to_end(tmp: str, world: dict, zip_csv: str) -> dict:
+    """`sourmash index -F revindex` over phase 6's zip, then `gather` of
+    phase 6's metagenome against the directory by each route: resident
+    (the raw mins packed on the card, the default schedule) and disk planes
+    (the budget below the planes' bytes: the mmapped planes stream per
+    pass), the latter with the default schedule, as a user whose index
+    outgrows the card runs it, and again in host rounds
+    (SOURMASH_TORCH_NO_SCHEDULE=1, whose consume reads membership from the
+    streamed chunks). Each CSV must be phase 6's against the zip byte for
+    byte (the location column aside), the directory must hold phase 6's
+    genomes in their order, counts_rows and round_dec must run in each
+    route and membership_bits in the resident one and in host rounds."""
+    from sourmash_tpu_torch.index.revindex import load_revindex
+
+    rev = os.path.join(tmp, "gtdb-like.rev")
+    index_wall, _launches = run_counted(["index", "-F", "revindex", rev, world["db"], "-q"], {})
+    files = [os.path.join(p, f) for p, _dirs, fs in os.walk(rev) for f in fs]
+    dir_bytes = sum(os.path.getsize(f) for f in files)
+    plane_bytes = sum(os.path.getsize(f) for f in files if f.endswith(".npy") and "planes" in f)
+    # the first load reads sigs.zip (a view-cache miss that stores it), so
+    # that every route's gather below loads the directory warm
+    t0 = time.time()
+    cold = load_revindex(rev)
+    load_wall = time.time() - t0
+    if [s.name for s in cold.signatures()] != world["names"]:
+        raise AssertionError("the revindex does not hold phase 6's genomes in their order")
+    del cold
+    log(f"  index -F revindex: {index_wall:.2f} s wall")
+    log(f"  revindex directory: {dir_bytes} bytes ({plane_bytes} of planes)")
+    log(f"  revindex first load (sigs.zip read, a view-cache miss): {load_wall:.2f} s")
+    routes = {}
+    disk = {BUDGET_ENV: str(plane_bytes // 2)}
+    for route, env, scheduled, membership in (
+            ("resident", {}, True, True),
+            ("disk planes", disk, True, False),
+            ("disk planes, host rounds", dict(disk, SOURMASH_TORCH_NO_SCHEDULE="1"), False, True)):
+        out = os.path.join(tmp, f"rev_{route.replace(' ', '_').replace(',', '')}.csv")
+        wall, launches, facts = gather_spied(["gather", world["qpath"], rev, "-o", out, "-q"],
+                                             env)
+        same_csv_at(f"gather against the revindex ({route})", out, zip_csv, world["db"], rev)
+        if facts.pop("names") != world["names"]:
+            raise AssertionError("the revindex does not hold phase 6's genomes in their order")
+        wanted = ("counts_rows", "round_dec") + (("membership_bits",) if membership else ())
+        missing = [n for n in wanted if launches[n] < 1]
+        streamed = facts["disk_plane_loads"] == 1 and facts["disk_planes_resident"] is False
+        if missing or streamed != (route != "resident") or facts["scheduled"] != scheduled:
+            raise AssertionError(f"revindex gather ({route}): not launched {missing}, "
+                                 f"facts {facts}")
+        routes[route] = dict(wall_s=wall, launches={n: launches[n] for n in (
+            "counts_rows", "membership_bits", "round_dec")}, **facts)
+        log(f"  gather against the revindex ({route}): {wall:.2f} s wall (the directory's warm "
+            f"load {facts['load_wall_s']:.2f} s), route {facts['route']}, "
+            f"planes from disk {facts['disk_plane_loads']}x, launches {routes[route]['launches']}; "
+            f"CSV == phase 6's against the zip")
+    return dict(index_wall_s=index_wall, dir_bytes=dir_bytes, plane_bytes=plane_bytes,
+                first_load_s=load_wall, routes=routes)
+
+
+def sqlite_end_to_end(tmp: str, world: dict) -> dict:
+    """Phase 6's first SQLITE_GENOMES genomes saved to a .sqldb by the
+    port's saver and to a zip; `gather` of phase 6's metagenome against
+    each, both through the flat view on the card (a device schedule,
+    counts_rows and round_dec launched): the same CSV, the location
+    column aside."""
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    sigs = world["sigs"][:SQLITE_GENOMES]
+    paths = dict(zip=os.path.join(tmp, "first.zip"), sqlite=os.path.join(tmp, "first.sqldb"))
+    out = {}
+    for tag, path in paths.items():
+        t0 = time.time()
+        with SaveSignaturesToLocation(path) as save:
+            for ss in sigs:
+                save.add(ss)
+        save_s = time.time() - t0
+        csv_path = os.path.join(tmp, f"first_{tag}.csv")
+        wall, launches, facts = run_gather_cli(
+            ["gather", world["qpath"], path, "-o", csv_path, "-q"], {})
+        if not facts["scheduled"] or min(launches["counts_rows"], launches["round_dec"]) < 1:
+            raise AssertionError(f"gather against the {tag} of {len(sigs)}: not the flat view "
+                                 f"on the card ({facts}, {launches})")
+        out[tag] = dict(save_s=save_s, bytes=os.path.getsize(path), wall_s=wall, csv=csv_path,
+                        launches={n: launches[n] for n in ("counts_rows", "membership_bits",
+                                                           "round_dec")}, route=facts["route"])
+        log(f"  {tag} of {len(sigs)} genomes: saved in {save_s:.2f} s ({out[tag]['bytes']} bytes), "
+            f"gather {wall:.2f} s wall, route {facts['route']}, launches {out[tag]['launches']}")
+    same_csv_at("gather against the .sqldb", out["sqlite"]["csv"], out["zip"]["csv"],
+                paths["zip"], paths["sqlite"])
+    log("  the .sqldb's gather CSV == the zip's")
+    return {tag: {k: v for k, v in r.items() if k != "csv"} for tag, r in out.items()}
+
+
+def persistent_end_to_end(rng, tmp: str, world: dict, zip_csv: str) -> dict:
+    "Phase 10: fromfile, the revindex routes, sqlite and the view cache's totals."
+    t0 = time.time()
+    out = dict(fromfile=fromfile_end_to_end(rng, tmp))
+    log(f"  fromfile part: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    out["revindex"] = revindex_end_to_end(tmp, world, zip_csv)
+    log(f"  revindex part: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    out["sqlite"] = sqlite_end_to_end(tmp, world)
+    log(f"  sqlite part: {time.time() - t0:.1f} s")
+    out["view_cache"] = view_cache_line("phase 10")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4096,6 +4393,9 @@ def main(argv=None) -> int:
         return 0
 
     with tempfile.TemporaryDirectory() as tmp:
+        # the flat-view cache lives in the run's directory: phase 6's first
+        # load of its zip is cold, every later load of it warm
+        os.environ[VIEW_CACHE_ENV] = os.path.join(tmp, "viewcache")
         t0 = time.time()
         log(f"phase 3: sketch dna end to end on {MBP} Mbp")
         e2e = sketch_end_to_end(MBP, rng, tmp, args.profile)
@@ -4120,11 +4420,16 @@ def main(argv=None) -> int:
         log(f"phase 8: search, prefetch and multigather against phase 6's {GATHER_GENOMES} genomes")
         multi = dict(search=search_end_to_end(tmp, world), prefetch=prefetch_end_to_end(tmp, world),
                      multigather=multigather_end_to_end(rng, tmp, world, args.profile))
+        multi["view_cache"] = view_cache_line("phase 8 (its loads of phase 6's zip warm)")
         log(f"phase 8 done in {time.time() - t0:.1f} s")
         t0 = time.time()
         log(f"phase 9: compare end to end on {COMPARE_GENOMES} genomes")
         cmp = compare_end_to_end(tmp, timings["products_block"]["bq"], args.profile)
         log(f"phase 9 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log("phase 10: sketch fromfile, index -F revindex, sqlite and the view cache")
+        pers = persistent_end_to_end(rng, tmp, world, world["csv"])
+        log(f"phase 10 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -4171,6 +4476,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
+                           persistent=pers,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(f"chip_smoke: the whole run took {time.time() - t_start:.1f} s")
     log(card)

@@ -1,13 +1,13 @@
 """Entry point: `python -m sourmash_tpu_torch sketch dna ...`, `... gather
 query.sig db.zip` and so on (counterpart of `sourmash_tpu/__main__.py`;
-`sketch`, `compare`, `search`, `gather`, `multigather` and `prefetch` are
-ported)."""
+`sketch`, `compare`, `search`, `gather`, `multigather`, `prefetch` and
+`index -F revindex` are ported)."""
 
 from __future__ import annotations
 
 import sys
 
-_COMMANDS = ("compare", "search", "gather", "multigather", "prefetch")
+_COMMANDS = ("compare", "search", "gather", "multigather", "prefetch", "index")
 
 
 def main(arglist=None):

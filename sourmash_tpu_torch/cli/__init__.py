@@ -1,5 +1,5 @@
 """Command-line interface of the port: the `sketch` subtree, `compare`,
-`search`, `gather`, `multigather` and `prefetch`.
+`search`, `gather`, `multigather`, `prefetch` and `index`.
 
 Parity: `sourmash_tpu/cli/__init__.py` (itself reference
 `src/sourmash/cli/__init__.py`) and `sourmash_tpu/cli/utils.py` — same
@@ -418,6 +418,37 @@ def _add_sketch(sub):
     sp.set_defaults(subfunc="sketch_fromfile", subcmd="fromfile")
 
 
+def _add_index(sub):
+    p = sub.add_parser("index", description="build an SBT index of signatures")
+    p.add_argument("sbt_name", help="name to save SBT into")
+    p.add_argument("-F", "--index-type", default="sbt",
+                   choices=["sbt", "revindex"],
+                   help="index format: 'sbt' (reference-compatible Sequence "
+                        "Bloom Tree, default; not ported yet) or 'revindex' "
+                        "(the flat index's directory of packed planes)")
+    p.add_argument("signatures", nargs="*",
+                   help="signatures to load into SBT")
+    p.add_argument("--from-file",
+                   help="a text file containing a list of files to load signatures from")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-d", "--debug", action="store_true")
+    p.add_argument("--scaled", metavar="FLOAT", type=check_scaled_bounds, default=0,
+                   help="downsample signatures to the specified scaled factor")
+    p.add_argument("-f", "--force", action="store_true",
+                   help="try loading all files with --traverse-directory")
+    p.add_argument("-x", "--bf-size", metavar="S", type=float, default=1e5,
+                   help="Bloom filter size used for internal nodes")
+    p.add_argument("--append", action="store_true", default=False,
+                   help="add signatures to an existing SBT")
+    p.add_argument("--sparseness", metavar="FLOAT", type=float, default=0.0,
+                   help="What percentage of internal nodes will not be saved; ranges from 0.0 (save all nodes) to 1.0 (no nodes saved)")
+    p.add_argument("-n", "--n_children", metavar="D", type=int, default=2,
+                   help="number of children for internal nodes; default=2")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    add_picklist_args(p)
+
+
 def get_parser():
     desc = (
         "Create, compare, and manipulate k-mer sketches of biological sequences."
@@ -441,6 +472,7 @@ def get_parser():
     _add_gather(sub)
     _add_multigather(sub)
     _add_prefetch(sub)
+    _add_index(sub)
     parser._action_groups.reverse()
     return parser
 

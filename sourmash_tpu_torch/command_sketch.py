@@ -1,10 +1,11 @@
-"""'sketch dna', 'sketch protein' and 'sketch translate': sequence files ->
-signatures.
+"""'sketch dna', 'sketch protein', 'sketch translate' and 'sketch
+fromfile': sequence files -> signatures.
 
 Counterpart of `sourmash_tpu/command_sketch.py`: the parameter-string
 parser (`_parse_params_str`), `ComputeParameters`, the signature factory,
 `_execute_sketch`, `dna`, `protein`, `translate`, `_compute_individual` /
-`_compute_merged`, `_sketch_whole_file` and `_sketch_aa_file`. Behavior
+`_compute_merged`, `_sketch_whole_file`, `_sketch_aa_file` and `fromfile`
+with its helpers (`_compute_sigs` through `_summarize_build_plan`). Behavior
 parity: reference `src/sourmash/command_sketch.py`; defaults are identical
 (dna k=31,scaled=1000,noabund; protein k=10, dayhoff k=16, hp k=42, each
 scaled=200,noabund; seed 42).
@@ -17,20 +18,25 @@ joined with zero separators and hashed on the device by K3
 (`_sketch_aa_file`). The device is the port's default
 (`ops.resolve_device()`: CUDA unless SOURMASH_TORCH_DEVICE names the CPU).
 
-`sketch fromfile` is not ported yet and raises NotImplementedError.
+`sketch fromfile` builds every (name, parameter set) that its CSVs ask for
+and `--already-done` collections lack, one file at a time through the same
+whole-file routes as `sketch dna` and `sketch protein` (K1/K2 for genomes,
+K3 for proteomes); its signatures, CSVs and console report are
+`sourmash_tpu`'s byte for byte.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import sys
-from collections import defaultdict
+from collections import Counter, defaultdict, namedtuple
 from dataclasses import dataclass
 
 import numpy as np
 
 from . import sourmash_args
-from .logging import notify, error, set_quiet
+from .logging import notify, error, set_quiet, print_results
 from .minhash import MinHash
 from .signature import MultiSketchSignature
 from .sourmash_args import check_scaled_bounds, check_num_bounds
@@ -115,6 +121,59 @@ class ComputeParameters:
         # template value is integral (reference keeps it as u64)
         self.scaled = int(self.scaled)
         self.ksizes = list(self.ksizes)
+
+    @property
+    def moltype(self):
+        if self.dna:
+            return "DNA"
+        if self.protein:
+            return "protein"
+        if self.dayhoff:
+            return "dayhoff"
+        assert self.hp, "exactly one moltype flag must be set"
+        return "hp"
+
+    def to_param_str(self):
+        "Render as a parameter string (reference `command_sketch.py:926-963`)."
+        # first moltype flag wins, in the reference's priority order
+        for flag in ("dna", "protein", "hp", "dayhoff"):
+            if getattr(self, flag):
+                tokens = [flag]
+                break
+        else:
+            assert 0
+
+        kdiv = 1 if self.dna else 3
+        tokens += [f"k={k // kdiv}" for k in self.ksizes]
+
+        if self.num_hashes != 0:
+            tokens.append(f"num={self.num_hashes}")
+        elif self.scaled != 0:
+            tokens.append(f"scaled={int(self.scaled)}")
+        if self.track_abundance:
+            tokens.append("abund")
+        if self.seed != DEFAULT_MMHASH_SEED:
+            tokens.append(f"seed={self.seed}")
+        return ",".join(tokens)
+
+    @classmethod
+    def from_manifest_row(cls, row):
+        """Convert a manifest row into a ComputeParameters object
+        (reference `command_sketch.py:893-930`)."""
+        molt = row["moltype"]
+        assert molt in ("DNA", "protein", "hp", "dayhoff")
+        is_dna = molt == "DNA"
+        return cls(
+            ksizes=[row["ksize"] if is_dna else row["ksize"] * 3],
+            seed=DEFAULT_MMHASH_SEED,
+            protein=molt == "protein",
+            dayhoff=molt == "dayhoff",
+            hp=molt == "hp",
+            dna=is_dna,
+            num_hashes=row["num"],
+            track_abundance=bool(row["with_abundance"]),
+            scaled=int(row["scaled"]),
+        )
 
     def make_minhashes(self):
         """Build minhashes per ksize. Multiple moltype flags may be set at
@@ -339,11 +398,343 @@ def translate(args):
     _run_sketch(args, _protein_family_moltype(args))
 
 
+# -- sketch fromfile --------------------------------------------------------
+
+# the port's copies of `sourmash_tpu/sig/__main__.py:_SketchInfo` and
+# `_summarize_manifest`
+_SketchInfo = namedtuple("_SketchInfo", "ksize, moltype, scaled, num, abund")
+
+
+def _summarize_manifest(manifest):
+    "Summary dict of sketch types in a manifest (reference :1283-1313)."
+    kinds = Counter()
+    kind_hashes = Counter()
+    total_size = 0
+    for row in manifest.rows:
+        ski = _SketchInfo(
+            ksize=row["ksize"],
+            moltype=row["moltype"],
+            scaled=row["scaled"],
+            num=row["num"],
+            abund=row["with_abundance"],
+        )
+        kinds[ski] += 1
+        kind_hashes[ski] += row["n_hashes"]
+        total_size += row["n_hashes"]
+
+    return dict(
+        total_hashes=total_size,
+        sketch_info=[
+            dict(ski._asdict(), count=count, n_hashes=kind_hashes[ski])
+            for ski, count in kinds.items()
+        ],
+    )
+
+
+def _compute_sigs(to_build, output, *, check_sequence=False):
+    """Build the signatures in 'to_build' and save them to 'output'
+    (reference `command_sketch.py:309-362`). Each file goes through the
+    whole-file route of `sketch dna|protein` (`_sketch_whole_file`), whose
+    sketches equal the reference's record-by-record add_seq loop."""
+    from .ops import resolve_device
+
+    resolve_device()  # no CUDA device and no SOURMASH_TORCH_DEVICE=cpu: fail now
+    save_sigs = sourmash_args.SaveSignaturesToLocation(output)
+    save_sigs.open()
+
+    for (name, filename), param_objs in to_build.items():
+        assert param_objs
+
+        sigs = []
+        is_dna = param_objs[0].dna
+        for p in param_objs:
+            if p.dna:
+                assert is_dna
+            sigs.append(signature_from_params(p))
+
+        input_is_protein = not is_dna
+
+        notify(f"... reading sequences from {filename}")
+        try:
+            n, _first = _sketch_whole_file(sigs, filename, input_is_protein, check_sequence)
+        except ValueError as exc:
+            _read_failure(filename, exc)
+        if n is None:
+            error(f"ERROR: no sequences found in '{filename}'?!")
+            sys.exit(-1)
+
+        # the reference reports the last record's index
+        notify("...{} {} sequences", filename, n - 1, end="")
+        set_sig_name(sigs, filename, name)
+        for sig in sigs:
+            save_sigs.add(sig)
+
+    _close_save_sigs(save_sigs)
+
+
+def _output_csv_info(filename, sigs_to_build):
+    "Output info needed to construct signatures, in CSV (reference :365-400)."
+    with sourmash_args.FileOutputCSV(filename) as csv_fp:
+        w = csv.DictWriter(
+            csv_fp,
+            fieldnames=["filename", "sketchtype", "output_index", "name", "param_strs"],
+        )
+        w.writeheader()
+
+        output_n = 0
+        for (name, filename_), param_objs in sigs_to_build.items():
+            param_strs = []
+
+            if param_objs[0].dna:
+                assert all(p.dna for p in param_objs)
+                sketchtype = "dna"
+            else:
+                assert not any(p.dna for p in param_objs)
+                sketchtype = "protein"
+
+            for p in param_objs:
+                param_strs.append(p.to_param_str())
+
+            w.writerow(
+                dict(
+                    filename=filename_,
+                    sketchtype=sketchtype,
+                    param_strs="-p " + " -p ".join(param_strs),
+                    name=name,
+                    output_index=output_n,
+                )
+            )
+            output_n += 1
+
+
+def _read_build_requests(csvfiles, report_duplicated):
+    """Read fromfile CSVs into {name: (genome, proteome)}; abort on blank
+    or duplicate names."""
+    all_names = {}
+    total_rows = 0
+    n_missing_name = 0
+    duplicate_names = set()
+    n_duplicate_name = 0
+
+    for csvfile in csvfiles:
+        with sourmash_args.FileInputCSV(csvfile) as r:
+            for row in r:
+                name = row["name"]
+                if not name:
+                    n_missing_name += 1
+                    continue
+
+                total_rows += 1
+                if name in all_names:
+                    n_duplicate_name += 1
+                    duplicate_names.add(name)
+                else:
+                    all_names[name] = (row["genome_filename"], row["protein_filename"])
+
+    problems = []
+    if n_duplicate_name:
+        if report_duplicated:
+            notify("duplicated:\n" + "\n".join(sorted(duplicate_names)))
+        problems.append(
+            f"** ERROR: {n_duplicate_name} entries have duplicate 'name' records. Exiting!"
+        )
+    if n_missing_name:
+        problems.append(f"** ERROR: {n_missing_name} entries have blank 'name's? Exiting!")
+    if problems:
+        _bail(*problems)
+
+    return all_names, total_rows
+
+
+def _load_already_done(locations, all_names, build_params):
+    """Index pre-built sketches by name; collect manifest rows matching a
+    requested (name, params) combination."""
+    from .manifest import CollectionManifest
+    from .save_load import load_file_as_index
+
+    already_done = defaultdict(list)
+    matching_rows = []
+    for filename in locations:
+        idx = load_file_as_index(filename)
+        manifest = idx.manifest
+        assert manifest
+
+        for row in manifest.rows:
+            name = row["name"]
+            if not name:
+                continue
+            p = ComputeParameters.from_manifest_row(row)
+            already_done[name].append(p)
+            if name in all_names and p in build_params:
+                matching_rows.append(row)
+
+    already_done_manifest = CollectionManifest(matching_rows)
+    if locations:
+        notify(f"Loaded {len(already_done)} pre-existing names from manifest(s)")
+        notify(f"collected {len(matching_rows)} rows for already-done signatures.")
+    return already_done, already_done_manifest
+
+
+def _print_sketch_type_summary(entries):
+    "One formatted line per sketch type; entries = (ski, count, n_hashes|None)."
+    for ski, count, n_hashes in entries:
+        ksize = ski["ksize"] if isinstance(ski, dict) else ski.ksize
+        moltype = ski["moltype"] if isinstance(ski, dict) else ski.moltype
+        num = ski["num"] if isinstance(ski, dict) else ski.num
+        scaled = ski["scaled"] if isinstance(ski, dict) else ski.scaled
+        abund = ski["abund"] if isinstance(ski, dict) else ski.abund
+
+        mh_type = f"num={num}" if num else f"scaled={scaled}"
+        mh_abund = ", abund" if abund else ""
+        sketch_str = f"{count} sketches with {moltype}, k={ksize}, {mh_type}{mh_abund}"
+        if n_hashes is None:
+            print_results(f"   {sketch_str: <50}")
+        else:
+            print_results(f"   {sketch_str: <50} {n_hashes} total hashes")
+
+
+def _fromfile_build_params(args):
+    "Validate fromfile preconditions and return the split-ksize param list."
+    if args.license != "CC0":
+        _bail("error: sourmash only supports CC0-licensed signatures. sorry!")
+
+    output = args.output_signatures
+    if output and os.path.exists(output) and not args.force_output_already_exists:
+        _bail(
+            f"** ERROR: output location '{output}' already exists!",
+            "** Not overwriting/appending.",
+            "** Use --force-output-already-exists if you want to overwrite/append.",
+        )
+
+    try:
+        sig_factory = _signatures_for_sketch_factory(args.param_string, None)
+    except ValueError as e:
+        _bail(f"Error creating signatures: {str(e)}")
+
+    build_params = list(sig_factory.get_compute_params(split_ksizes=True))
+    if any(p.seed != DEFAULT_MMHASH_SEED for p in build_params):
+        _bail("** ERROR: cannot set 'seed' in 'sketch fromfile'")
+    return build_params
+
+
+def _plan_builds(all_names, build_params, already_done):
+    """Plan every (name, params) combination not already built.
+
+    Returns (to_build, missing, counts dict) where counts carries
+    total/skipped/missing tallies for the console report."""
+    to_build = defaultdict(list)
+    missing = defaultdict(list)
+    tally = dict(total=0, skipped=0, missing=0)
+
+    for name, (genome, proteome) in all_names.items():
+        done_here = already_done.get(name, [])
+        for p in build_params:
+            tally["total"] += 1
+            src = genome if p.dna else proteome
+            if p in done_here:
+                tally["skipped"] += 1
+            elif src:
+                to_build[(name, src)].append(p)
+            else:
+                filetype = "genome" if p.dna else "proteome"
+                notify(f"WARNING: fromfile entry '{name}' is missing a {filetype}")
+                missing[name].append(p)
+                tally["missing"] += 1
+    return to_build, missing, tally
+
+
+def _report_already_done(args, already_done_manifest):
+    "Console block for pre-existing sketches + optional manifest output."
+    if already_done_manifest:
+        info_d = _summarize_manifest(already_done_manifest)
+        print_results("---")
+        print_results("summary of already-done sketches:")
+        _print_sketch_type_summary(
+            (ski, ski["count"], ski["n_hashes"]) for ski in info_d["sketch_info"]
+        )
+        print_results("---")
+
+    out_loc = args.output_manifest_matching
+    if out_loc:
+        already_done_manifest.write_to_filename(out_loc)
+        notify(
+            f"output {len(already_done_manifest)} already-done signatures to '{out_loc}' in manifest format."
+        )
+
+
+def _report_missing(missing, n_missing, ignore_missing):
+    "Console block for unbuildable requests; exits unless --ignore-missing."
+    error("** ERROR: we cannot build some of the requested signatures.")
+    error(
+        f"** {n_missing} total signatures (for {len(missing)} names) cannot be built."
+    )
+    if not ignore_missing:
+        sys.exit(-1)
+    error("** (continuing past this error because --ignore-missing was set)")
+
+
+def _summarize_build_plan(to_build):
+    "Console block summarizing the sketch types about to be built."
+    print_results("---")
+    print_results("summary of sketches to build:")
+
+    counter = Counter()
+    for param_objs in to_build.values():
+        for p in param_objs:
+            assert len(p.ksizes) == 1
+            counter[
+                _SketchInfo(
+                    ksize=p.ksizes[0] if p.dna else p.ksizes[0] // 3,
+                    moltype=p.moltype,
+                    scaled=p.scaled,
+                    num=p.num_hashes,
+                    abund=p.track_abundance,
+                )
+            ] += 1
+
+    _print_sketch_type_summary((ski, count, None) for ski, count in counter.items())
+    print_results("---")
+
+
 def fromfile(args):
-    "'sketch fromfile': not yet ported."
-    raise NotImplementedError(
-        "'sketch fromfile' is not yet ported to sourmash_tpu_torch; "
-        "use sourmash_tpu for it"
+    """Build sketches for many named genomes/proteomes listed in CSV(s)
+    (reference `command_sketch.py:403-633`)."""
+    build_params = _fromfile_build_params(args)
+    all_names, total_rows = _read_build_requests(args.csvs, args.report_duplicated)
+    already_done, already_done_manifest = _load_already_done(
+        args.already_done, all_names, build_params
+    )
+
+    to_build, missing, tally = _plan_builds(all_names, build_params, already_done)
+    total_sigs = tally["total"]
+    skipped_sigs = tally["skipped"]
+
+    notify(f"Read {total_rows} rows, requesting that {total_sigs} signatures be built.")
+    _report_already_done(args, already_done_manifest)
+    if missing:
+        _report_missing(missing, tally["missing"], args.ignore_missing)
+
+    n_new = total_sigs - skipped_sigs
+    notify(f"** {n_new} new signatures to build from {len(to_build)} files;")
+    if not to_build:
+        notify("** Nothing to build. Exiting!")
+        sys.exit(0)
+    if skipped_sigs:
+        notify(f"** {skipped_sigs} already exist, so skipping those.")
+    else:
+        notify("** we found no pre-existing signatures that match.")
+
+    _summarize_build_plan(to_build)
+
+    if args.output_signatures:
+        _compute_sigs(
+            to_build, args.output_signatures, check_sequence=args.check_sequence
+        )
+    if args.output_csv_info:
+        _output_csv_info(args.output_csv_info, to_build)
+
+    notify(
+        f"** {total_sigs} total requested; output {n_new}, skipped {skipped_sigs}"
     )
 
 

@@ -1,6 +1,8 @@
 """Top-level commands of the port: `compare`, `search`, `gather`,
-`multigather` and `prefetch` (the port of `sourmash_tpu/commands.py:119-354`,
-`:484-596` and `:791-1398`, reference `src/sourmash/commands.py`).
+`multigather`, `prefetch` and `index` (the port of
+`sourmash_tpu/commands.py:119-354`, `:484-596`, `:791-1398` and
+`:1442-1577`, reference `src/sourmash/commands.py`). `index` builds a disk
+revindex (`-F revindex`); an SBT, its default, waits for the SBT slice.
 
 The command is organized around reusable pipeline stages:
 
@@ -1219,3 +1221,69 @@ def prefetch(args):
         notify(_SIZE_WARN)
 
     return 0
+
+
+def _index_revindex(args):
+    """Build a revindex directory (`sourmash index -F revindex`): the flat
+    index's on-disk form, packed bucketed planes + sigs.zip, which `gather`
+    and `search` load onto the device (`index/revindex.py`). The scaling
+    analog of the reference's branchwater RocksDB revindex
+    (`disk_revindex.rs:240-274`)."""
+    from .index.flat import FlatIndex
+    from .index.revindex import save_revindex
+
+    set_quiet(args.quiet)
+    moltype = sourmash_args.calculate_moltype(args)
+    picklist = sourmash_args.load_picklist(args)
+
+    inp_files = list(args.signatures)
+    if args.from_file:
+        inp_files.extend(sourmash_args.load_pathlist_from_file(args.from_file))
+
+    if not inp_files:
+        error("ERROR: no files to index!? Supply on command line or use --from-file")
+        sys.exit(-1)
+
+    notify(f"loading {len(inp_files)} files into revindex")
+
+    progress = sourmash_args.SignatureLoadingProgress()
+    sigs = []
+    for f in inp_files:
+        for ss in sourmash_args.load_file_as_signatures(
+            f,
+            ksize=args.ksize,
+            select_moltype=moltype,
+            yield_all_files=args.force,
+            picklist=picklist,
+            progress=progress,
+        ):
+            with ss.update() as ss:
+                if args.scaled:
+                    ss.minhash = ss.minhash.downsample(scaled=int(args.scaled))
+                if ss.minhash.track_abundance:
+                    ss.minhash = ss.minhash.flatten()
+            if not ss.minhash.scaled:
+                error("ERROR: can only build revindexes from scaled signatures.")
+                sys.exit(-1)
+            sigs.append(ss)
+
+    notify("")
+    if not sigs:
+        error("no signatures found to load into tree!? failing.")
+        sys.exit(-1)
+
+    if picklist:
+        sourmash_args.report_picklist(args, picklist)
+
+    notify(f'loaded {len(sigs)} sigs; saving revindex under "{args.sbt_name}"')
+    save_revindex(FlatIndex(sigs), args.sbt_name)
+
+
+def index(args):
+    "Build an index of the given signatures: a revindex (`-F revindex`)."
+    if args.index_type == "revindex":
+        return _index_revindex(args)
+    raise NotImplementedError(
+        f"'index' builds an SBT by default ('{args.sbt_name}'), which sourmash_tpu_torch "
+        "cannot write yet; use -F revindex"
+    )

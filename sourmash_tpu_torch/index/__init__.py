@@ -8,11 +8,13 @@ them. This module provides the abstract protocol plus the in-memory family:
 * ``LazyLinearIndex`` — deferred selection over another index,
 * ``ZipFileLinearIndex`` — read-only manifest-driven zip collections,
 * ``MultiIndex`` — manifest aggregations of files and directories,
+* ``StandaloneManifestIndex`` — a manifest file (CSV or sqlite) whose
+  rows name signature files loaded lazily,
 * ``CounterGather`` — the per-database counter engine behind gather.
 
 API parity: reference ``src/sourmash/index/__init__.py`` (Index ABC :61,
 LinearIndex:397, ZipFileLinearIndex:529, CounterGather:735,
-MultiIndex:912).
+MultiIndex:912, StandaloneManifestIndex:1040).
 
 Every in-memory index funnels its subjects into ``Index._find_batched``,
 which computes all (intersection, union) counts in one batched call per
@@ -20,8 +22,11 @@ chunk (``ops/intersect.query_vs_many_cutoff_counts``: the ``counts_rows``
 kernel on CUDA), with per-pair scaled cutoffs replicating the reference's
 pairwise-downsampling numerics bit for bit. Collections of at least
 SOURMASH_TORCH_FLAT_VIEW signatures (default 512) gather through a
-``index/flat.py`` FlatIndex view on the device. Standalone manifests,
-SBT, LCA, sqlite and revindex databases are not ported yet.
+``index/flat.py`` FlatIndex view on the device; zip collections and
+standalone manifests keep that view's signatures in a sidecar cache
+(``index/view_cache.py``). Sqlite databases are in ``index/sqlite_index.py``
+and disk revindexes in ``index/revindex.py``; SBT and LCA databases are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -653,6 +658,27 @@ class ZipFileLinearIndex(Index):
                 if not criteria or select_signature(ss, **criteria):
                     yield ss
 
+    def _build_flat_view(self, threshold):
+        """Zip collections key a sidecar payload cache (view_cache.py):
+        a warm run rebuilds the device view straight from concatenated
+        hash arrays, skipping zip decompress + JSON + md5 verification."""
+        if self.manifest is None:
+            return super()._build_flat_view(threshold)
+        if len(self.manifest) < threshold:
+            return None
+        from . import view_cache
+        from .flat import FlatIndex
+
+        key = view_cache.collection_cache_key(self.location, self.manifest.rows)
+        hit = view_cache.load(key)
+        if hit is not None:
+            sigs, _locs = hit
+            return FlatIndex(sigs, self.location, locations=[self.location] * len(sigs))
+        view = super()._build_flat_view(threshold)
+        if view is not None:
+            view_cache.store(key, view._signatures)
+        return view
+
     def find(self, search_fn, query, **kwargs):
         view = self._as_flat_view()
         if view is not None:  # big uniform-scaled zip: cached device banks
@@ -935,4 +961,110 @@ class MultiIndex(Index):
             self.manifest.select_to_manifest(**kwargs),
             self.parent,
             prepend_location=self.prepend_location,
+        )
+
+
+class StandaloneManifestIndex(Index):
+    """Index over a free-standing manifest file.
+
+    Selection and enumeration work purely on manifest rows; the actual
+    signatures are loaded lazily from their recorded locations (made
+    absolute against ``prefix`` when relative) only when iterated.
+    """
+
+    is_database = True
+
+    def __init__(self, manifest, location, *, prefix=None):
+        assert manifest is not None
+        self.manifest = manifest
+        self._location = location
+        self.prefix = prefix
+
+    @classmethod
+    def load(cls, location, *, prefix=None):
+        "Load a manifest CSV/sqlite file as an index."
+        if not os.path.isfile(location):
+            raise ValueError(f"provided manifest location '{location}' is not a file")
+
+        manifest = CollectionManifest.load_from_filename(location)
+        if prefix is None:
+            prefix = os.path.dirname(location)
+        return cls(manifest, location, prefix=prefix)
+
+    @property
+    def location(self):
+        return self._location
+
+    def __len__(self):
+        return len(self.manifest)
+
+    def __bool__(self):
+        return bool(self.manifest)
+
+    def signatures(self):
+        for ss, _loc in self._signatures_with_internal():
+            yield ss
+
+    def signatures_with_location(self):
+        yield from self._signatures_with_internal()
+
+    def _member_path(self, loc):
+        "A manifest location, made absolute against the prefix when relative."
+        if not loc.startswith("/") and self.prefix:
+            return os.path.join(self.prefix, loc)
+        return loc
+
+    def _signatures_with_internal(self):
+        "Lazily load each manifest location, filtered back through a picklist."
+        from ..sourmash_args import load_file_as_index
+
+        picklist = self.manifest.to_picklist()
+        for loc in self.manifest.locations():
+            loc = self._member_path(loc)
+            idx = load_file_as_index(loc).select(picklist=picklist)
+            for ss in idx.signatures():
+                yield ss, loc
+
+    def save(self, *args):
+        raise NotImplementedError
+
+    def insert(self, *args):
+        raise NotImplementedError
+
+    def _build_flat_view(self, threshold):
+        """Standalone manifests key the sidecar payload cache like zips
+        (view_cache.py); referenced member files are pinned by
+        (size, mtime) so editing a member invalidates the entry."""
+        if len(self.manifest) < threshold:
+            return None
+        from . import view_cache
+        from .flat import FlatIndex
+
+        locs = {self._member_path(loc) for loc in self.manifest.locations()}
+        key = view_cache.collection_cache_key(
+            self.location, self.manifest.rows, extra_stat_paths=sorted(locs)
+        )
+        hit = view_cache.load(key)
+        if hit is not None and hit[1] is not None:
+            sigs, locations = hit
+            return FlatIndex(sigs, self.location, locations=locations)
+        view = super()._build_flat_view(threshold)
+        if view is not None:
+            view_cache.store(key, view._signatures, locations=view._locations)
+        return view
+
+    def find(self, search_fn, query, **kwargs):
+        view = self._as_flat_view()
+        if view is not None:  # device banks beat per-sig host scoring
+            yield from view.find(search_fn, query, **kwargs)
+            return
+        yield from super().find(search_fn, query, **kwargs)
+
+    def select(self, **kwargs):
+        "Selection applies directly to the manifest."
+        _check_select_parameters(**kwargs)
+        return StandaloneManifestIndex(
+            self.manifest.select_to_manifest(**kwargs),
+            self._location,
+            prefix=self.prefix,
         )

@@ -17,9 +17,14 @@ the round schedules of a block of queries are built and scanned together
 by `membership_bits_batch`, one `round_dec_batch` launch per round of the
 block.
 
-Not ported yet: saving and loading as a revindex and the multi-device
-branches (`DeviceGatherSchedule.compute`, the sharded query blocks of
-`compute_schedules_batch`).
+A FlatIndex saves as a disk revindex (`index/revindex.py`); one loaded
+from a revindex directory holds its raw mins and the directory of its
+packed planes. Its banks are built at first use: packed on the device from
+the raw mins when they fit the device budget, else the mmapped disk planes
+stream to the device per query pass.
+
+Not ported yet: the multi-device branches (`DeviceGatherSchedule.compute`,
+the sharded query blocks of `compute_schedules_batch`).
 """
 
 from __future__ import annotations
@@ -34,7 +39,13 @@ from . import Index, IndexSearchResult, _check_select_parameters, select_signatu
 from ..minhash import _get_max_hash_for_scaled
 from ..ops import cuda_gather
 from ..ops.bucketed import pack_bits_u32, to_torch, unpack_bits_u32
-from ..ops.index_ops import build_banks, counts_for_banks, counts_for_banks_batch
+from ..ops.index_ops import (
+    build_banks,
+    counts_for_banks,
+    counts_for_banks_batch,
+    load_banks,
+    planned_banks_resident,
+)
 from ..search import calc_threshold_from_bp
 
 SCHEDULE_CAP_ENV = "SOURMASH_TORCH_SCHEDULE_CAP"
@@ -80,6 +91,7 @@ class FlatIndex(Index):
 
     def _reset(self):
         self._banks = None  # lazy device row banks
+        self._banks_dir = None  # on-disk packed planes (revindex v3); stale after an insert
         self._ds_mins = None
         self._scaled = None
         self._cuts_cache = None  # (q_scaled, cuts, subj_sizes)
@@ -117,15 +129,17 @@ class FlatIndex(Index):
         self._reset()
 
     def save(self, path):
-        raise NotImplementedError(
-            "saving a FlatIndex as a revindex is not yet ported to sourmash_tpu_torch"
-        )
+        "Persist as a disk revindex directory (the on-disk form of this index)."
+        from .revindex import save_revindex
+
+        return save_revindex(self, path)
 
     @classmethod
     def load(cls, location):
-        raise NotImplementedError(
-            "loading a revindex is not yet ported to sourmash_tpu_torch"
-        )
+        "Load a disk revindex directory back as a device-backed index."
+        from .revindex import load_revindex
+
+        return load_revindex(location)
 
     def _as_flat_view(self):
         "A FlatIndex is the device engine: no view indirection needed."
@@ -146,24 +160,39 @@ class FlatIndex(Index):
 
     # -- device state ------------------------------------------------------
 
-    def _build(self):
+    def _build(self, resident=None):
         """Materialize the device banks from the raw (undownsampled) mins.
 
         Queries are downsampled before counting, and a downsampled query
         can only hit subject hashes below its own cutoff, so plain counts
         against raw banks equal counts against downsampled banks, while
         per-pair cutoff queries (find) still see every hash they may need
-        when the collection's scaleds are heterogeneous."""
+        when the collection's scaleds are heterogeneous.
+
+        Mins preloaded from a disk revindex skip the signatures: they are
+        packed on the device when they fit its budget, else the directory's
+        packed planes (when it has them) are mmapped and stream per query
+        pass. `resident=False` packs on the host (a revindex build that
+        writes the planes to disk)."""
         if self._banks is not None:
             return
         from ..ops import resolve_device
 
+        if self._ds_mins is not None and self._scaled is not None:
+            self._device = resolve_device(self._device)
+            if self._banks_dir is not None and not planned_banks_resident(
+                self._ds_mins, self._device
+            ):
+                self._banks = load_banks(self._banks_dir, self._device)
+            else:
+                self._banks = build_banks(self._ds_mins, self._device, resident=resident)
+            return
         scaleds = {ss.minhash.scaled for ss in self._signatures}
         if 0 in scaleds:
             raise ValueError("FlatIndex requires scaled signatures")
         self._device = resolve_device(self._device)
         mins_list = [ss.minhash.mins_array() for ss in self._signatures]
-        self._banks = build_banks(mins_list, self._device)
+        self._banks = build_banks(mins_list, self._device, resident=resident)
         self._ds_mins = mins_list
         self._scaled = max(scaleds)
 

@@ -8,14 +8,19 @@ The port's copy of `sourmash_tpu/manifest.py` (reference
 `CollectionManifest` with the index layer's selection entry points
 (`select_to_manifest`, `filter_on_columns`, `locations`, `create_manifest`).
 One column-spec table (`_COLUMNS`) drives CSV decode, encode and row
-construction. Manifests kept in sqlite come with the persistent-index
-slice.
+construction. `BaseCollectionManifest` holds what every manifest shares
+(loading by filename, CSV I/O, row construction); `CollectionManifest`
+keeps its rows in memory, `index/sqlite_index.SqliteCollectionManifest` in
+sqlite. A manifest file may be either: `load_from_filename` probes sqlite
+first, then (gzipped) CSV.
 """
 
 from __future__ import annotations
 
 import ast
 import csv
+import gzip
+import os
 
 from . import picklist as picklist_mod
 
@@ -110,14 +115,31 @@ def _selector_predicates(
     return tests
 
 
-class CollectionManifest:
-    "In-memory manifest: ordered row dicts plus an md5 membership set."
+class BaseCollectionManifest:
+    """What every manifest shares: loading by filename, CSV I/O and row
+    construction. Subclasses hold `rows` (an iterable of row dicts) and
+    the selection protocol (`select_to_manifest`, `locations`, `ss in
+    manifest`, `to_picklist`)."""
 
     required_keys = tuple(name for name, _ in _COLUMNS)
 
-    def __init__(self, rows=()):
-        self.rows = list(rows)  # `rows` may be a generator
-        self._md5_set = {row["md5"] for row in self.rows}
+    @classmethod
+    def load_from_filename(cls, filename):
+        "Load from a path: sqlite databases first, then (gzipped) CSV."
+        from_sql = cls.load_from_sql(filename)
+        if from_sql is not None:
+            return from_sql
+
+        opener = gzip.open if filename.endswith(".gz") else open
+        with opener(filename, "rt", newline="") as fp:
+            return cls.load_from_csv(fp)
+
+    @classmethod
+    def load_from_sql(cls, filename):
+        from .index.sqlite_index import load_sqlite_index
+
+        db = load_sqlite_index(filename, request_manifest=True)
+        return db.manifest if db is not None else None
 
     # -- CSV ------------------------------------------------------------
 
@@ -139,7 +161,7 @@ class CollectionManifest:
             if name not in available:
                 raise ValueError(f"missing column '{name}' in manifest.")
 
-        return cls(map(_decode_row_inplace, reader))
+        return CollectionManifest(map(_decode_row_inplace, reader))
 
     @classmethod
     def write_csv_header(cls, fp):
@@ -157,6 +179,24 @@ class CollectionManifest:
         for row in self.rows:
             row.pop("signature", None)  # never serialize the payload
             writer.writerow(row)
+
+    def write_to_filename(self, filename, *, database_format="csv", ok_if_exists=False):
+        if database_format == "sql":
+            from .index.sqlite_index import SqliteCollectionManifest
+
+            SqliteCollectionManifest.load_from_manifest(
+                self, dbfile=filename, append=ok_if_exists
+            )
+            return None
+
+        assert database_format == "csv"
+        if os.path.exists(filename) and not ok_if_exists:
+            raise Exception("output manifest already exists")
+
+        from .sourmash_args import FileOutputCSV
+
+        with FileOutputCSV(filename) as fp:
+            return self.write_to_csv(fp, write_header=True)
 
     # -- rows -----------------------------------------------------------
 
@@ -191,6 +231,14 @@ class CollectionManifest:
             cls.make_manifest_row(ss, loc, include_signature=include_signature)
             for ss, loc in locations_iter
         )
+
+
+class CollectionManifest(BaseCollectionManifest):
+    "In-memory manifest: ordered row dicts plus an md5 membership set."
+
+    def __init__(self, rows=()):
+        self.rows = list(rows)  # `rows` may be a generator
+        self._md5_set = {row["md5"] for row in self.rows}
 
     def __bool__(self):
         return bool(self.rows)

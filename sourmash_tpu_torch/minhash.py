@@ -546,6 +546,8 @@ class MinHash:
         "Add many hashes at once; ``hashes`` is an iterable or MinHash."
         if isinstance(hashes, MinHash):
             self._insert_hashes(hashes._mins)
+        elif isinstance(hashes, np.ndarray) and hashes.dtype == np.uint64:
+            self._insert_hashes(hashes)
         else:
             self._insert_hashes(np.fromiter((int(h) for h in hashes), dtype=np.uint64))
 

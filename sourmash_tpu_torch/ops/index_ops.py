@@ -8,11 +8,17 @@ the chunks' counts are concatenated on the device and read back once. A
 block of queries (multigather) is one `counts_block` launch per chunk.
 Collections whose planes exceed the device-memory budget stay on the host
 and stream to the device per query pass, a few chunks at a time.
+
+`save_banks` / `load_banks` keep a collection's packed planes on disk, in
+the JAX package's layout byte for byte (`b{bi}c{ci}_{hi,lo,cnt}.npy` with
+u32 hi/lo and u8 occupancy planes, `_spills.npz` and `banks.json`), so a
+revindex directory written by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 
 import numpy as np
@@ -37,6 +43,7 @@ from .bucketed import (
     query_block_loads,
     query_counts_device,
     query_cutoff_counts_device,
+    to_numpy_u32,
     to_torch,
 )
 
@@ -126,19 +133,22 @@ def _raw_limbs(part_mins, rows):
     return native.split_limbs(vals, offs, len(part_mins), rows, L)
 
 
-def build_banks(mins_list, device=None) -> list[Bank]:
+def build_banks(mins_list, device=None, *, resident=None) -> list[Bank]:
     """Group per-dataset sorted hash arrays by padded length class and pack
     each class into bucketed-plane chunks of at most _CHUNK_ROWS rows.
 
-    The budget decision is made up front from the planned plane sizes.
-    When the collection fits, each chunk uploads its raw limb rows and is
-    packed on the device (`pack_rows_device`); beyond the budget, planes
-    are packed on the host and stream to the device per query pass."""
+    The budget decision is made up front from the planned plane sizes
+    unless `resident` makes it (False: a host pack, as a revindex build
+    that writes the planes to disk asks for). When the collection fits,
+    each chunk uploads its raw limb rows and is packed on the device
+    (`pack_rows_device`); beyond the budget, planes are packed on the host
+    and stream to the device per query pass."""
     from . import resolve_device
 
     device = resolve_device(device)
     buckets = _length_class_buckets(mins_list)
-    resident = _planned_bytes(buckets) <= _budget_bytes(device)
+    if resident is None:
+        resident = _planned_bytes(buckets) <= _budget_bytes(device)
     banks = []
     for L, idxs in sorted(buckets.items()):
         B = choose_buckets(L)
@@ -156,6 +166,77 @@ def build_banks(mins_list, device=None) -> list[Bank]:
             chunks.append(c)
             ids.append(np.asarray(part, dtype=np.int32))
         banks.append(Bank(chunks, ids, B, device))
+    return banks
+
+
+def save_banks(banks, dirpath) -> None:
+    """Persist packed banks: per-chunk hi/lo/cnt planes as .npy plus a
+    banks.json manifest (B, dataset ids, spills), so loading skips the
+    pack. Device chunks are read back; the planes are written as u32 hi/lo
+    and u8 occupancy whatever the chunk holds."""
+    os.makedirs(dirpath, exist_ok=True)
+    meta = {"banks": []}
+    for bi, bank in enumerate(banks):
+        bmeta = {"B": bank.B, "chunks": []}
+        for ci, (chunk, ids) in enumerate(zip(bank.chunks, bank.ids)):
+            tag = f"b{bi}c{ci}"
+            cnt = chunk.cnt.cpu().numpy() if torch.is_tensor(chunk.cnt) else chunk.cnt
+            np.save(os.path.join(dirpath, f"{tag}_hi.npy"), to_numpy_u32(chunk.hi))
+            np.save(os.path.join(dirpath, f"{tag}_lo.npy"), to_numpy_u32(chunk.lo))
+            np.save(os.path.join(dirpath, f"{tag}_cnt.npy"), np.asarray(cnt, dtype=np.uint8))
+            spill_rows = [i for i, sp in enumerate(chunk.spills) if len(sp)]
+            if spill_rows:
+                np.savez(
+                    os.path.join(dirpath, f"{tag}_spills.npz"),
+                    rows=np.asarray(spill_rows, dtype=np.int64),
+                    lens=np.asarray([len(chunk.spills[i]) for i in spill_rows], dtype=np.int64),
+                    vals=np.concatenate([chunk.spills[i] for i in spill_rows]),
+                )
+            bmeta["chunks"].append(
+                {
+                    "tag": tag,
+                    "n": chunk.n,
+                    "d": chunk.d,
+                    "ids": [int(i) for i in ids],
+                    "spilled": bool(spill_rows),
+                }
+            )
+        meta["banks"].append(bmeta)
+    with open(os.path.join(dirpath, "banks.json"), "w") as fp:
+        json.dump(meta, fp)
+
+
+def load_banks(dirpath, device=None) -> list[Bank]:
+    """Load banks saved by save_banks as host-streamed chunks: the planes
+    stay mmapped and stream to `device` per query pass (chunks without raw
+    limb rows, so the planes themselves go up). A collection that fits the
+    budget never comes here: FlatIndex packs its raw mins on the device."""
+    from . import resolve_device
+
+    device = resolve_device(device)
+    with open(os.path.join(dirpath, "banks.json")) as fp:
+        meta = json.load(fp)
+    banks = []
+    for bmeta in meta["banks"]:
+        chunks, ids = [], []
+        for cm in bmeta["chunks"]:
+            tag = cm["tag"]
+            hi, lo, cnt = (np.load(os.path.join(dirpath, f"{tag}_{p}.npy"), mmap_mode="r")
+                           for p in ("hi", "lo", "cnt"))
+            rows = hi.shape[0]
+            spills = [np.zeros(0, dtype=np.uint64)] * rows
+            n_spilled = 0
+            if cm.get("spilled"):
+                z = np.load(os.path.join(dirpath, f"{tag}_spills.npz"))
+                off = 0
+                for r, ln in zip(z["rows"], z["lens"]):
+                    spills[int(r)] = z["vals"][off : off + int(ln)]
+                    off += int(ln)
+                    n_spilled += int(ln)
+            chunks.append(BucketedRows(hi, lo, cnt, spills, cm["n"], cm["d"], bmeta["B"],
+                                       n_spilled, raw=None))
+            ids.append(np.asarray(cm["ids"], dtype=np.int32))
+        banks.append(Bank(chunks, ids, bmeta["B"], device))
     return banks
 
 

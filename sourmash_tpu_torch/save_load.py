@@ -2,15 +2,15 @@
 `sourmash_tpu/save_load.py` (loader chain :45-187, savers :247-440).
 
 Loading: a priority-ordered chain of loader functions, each probing one
-on-disk shape: stdin, path (a `.sig`/`.sig.gz` file or a directory),
-pathlist, zip collection, and the trailing FASTA/FASTQ error. Sqlite
-databases, standalone manifests, SBTs, revindex directories and LCA
-databases are recognised and raise NotImplementedError naming the format:
-they are not ported yet.
+on-disk shape: stdin, sqlite database (index or manifest), standalone
+manifest (CSV or sqlite), path (a `.sig`/`.sig.gz` file or a directory),
+pathlist, revindex directory, zip collection, and the trailing FASTA/FASTQ
+error. SBTs and LCA databases (`.lca.json`, and sqlite ones) are
+recognised and raise NotImplementedError naming the format: they are not
+ported yet.
 
 Saving: `SaveSignaturesToLocation(location)` picks a saver by location
-shape: None, 'dir/', '.zip', '-' or a `.sig[.gz]` file. Sqlite databases
-(`.sqldb`) raise NotImplementedError.
+shape: None, 'dir/', '.zip', '.sqldb', '-' or a `.sig[.gz]` file.
 """
 
 from __future__ import annotations
@@ -87,25 +87,21 @@ def _load_stdin(filename, **kwargs):
 
 @add_loader("load collection from sqlitedb", 20)
 def _load_sqlite_db(filename, **kwargs):
-    if os.path.isfile(filename):
-        with open(filename, "rb") as fp:
-            if fp.read(16) == b"SQLite format 3\x00":
-                raise _not_ported("a sqlite database", filename)
-    return None
+    "A sqlite index, or a sqlite manifest as a standalone manifest."
+    from .index.sqlite_index import load_sqlite_index
+
+    return load_sqlite_index(filename)
 
 
 @add_loader("load from standalone manifest", 30)
 def _load_standalone_manifest(filename, **kwargs):
-    if os.path.isfile(filename):
-        opener = gzip.open if filename.endswith(".gz") else open
-        try:
-            with opener(filename, "rb") as fp:
-                head = fp.read(29)
-        except OSError:
-            return None
-        if head.startswith(b"# SOURMASH-MANIFEST-VERSION: "):
-            raise _not_ported("a standalone manifest", filename)
-    return None
+    "A manifest file (CSV, gzipped CSV or sqlite) naming signature files."
+    from .index import StandaloneManifestIndex
+
+    try:
+        return StandaloneManifestIndex.load(filename)
+    except gzip.BadGzipFile as exc:
+        raise IndexNotLoaded(str(exc))
 
 
 @add_loader("load from path (file or directory)", 40)
@@ -134,9 +130,11 @@ def _load_sbt(filename, **kwargs):
 
 @add_loader("load revindex", 70)
 def _load_revindex(filename, **kwargs):
-    "A disk revindex directory or an LCA database."
-    if os.path.isdir(filename) and os.path.exists(os.path.join(filename, "revindex.json")):
-        raise _not_ported("a revindex directory", filename)
+    "A disk revindex directory (an LCA database raises: not ported yet)."
+    from .index.revindex import is_revindex_dir, load_revindex
+
+    if is_revindex_dir(filename):
+        return load_revindex(filename)
     if filename.endswith((".lca.json", ".lca.json.gz")) and os.path.isfile(filename):
         raise _not_ported("an LCA database", filename)
     return None
@@ -216,6 +214,35 @@ class SaveSignatures_NoOutput(Base_SaveSignaturesToLocation):
 
     def __repr__(self):
         return "SaveSignatures_NoOutput()"
+
+
+class SaveSignatures_SqliteIndex(Base_SaveSignaturesToLocation):
+    "Save signatures into a sqlite database (.sqldb)."
+
+    _COMMIT_EVERY = 1000
+
+    def __init__(self, location):
+        super().__init__(location)
+        self.idx = None
+        self.cursor = None
+
+    def open(self):
+        from .index.sqlite_index import SqliteIndex
+
+        self.idx = SqliteIndex.create(self.location, append=True)
+        self.cursor = self.idx.cursor()
+
+    def close(self):
+        self.idx.commit()
+        self.cursor.execute("VACUUM")  # compact before handing the file over
+        self.idx.close()
+
+    def add(self, add_sig):
+        for ss in _expand_to_single_sketches([add_sig]):
+            super().add(ss)
+            self.idx.insert(ss, cursor=self.cursor, commit=False)
+            if self.count % self._COMMIT_EVERY == 0:
+                self.idx.commit()
 
 
 class SaveSignatures_SigFile(Base_SaveSignaturesToLocation):
@@ -343,8 +370,9 @@ class SaveSignatures_ZipFile(Base_SaveSignaturesToLocation):
 
 def SaveSignaturesToLocation(location):
     """Context manager that saves signatures in the output format matching
-    `location`: None (no output), 'dir/', '.zip', '-' (stdout) or any other
-    name as a .sig[.gz] file; the order of `sourmash_tpu`'s savers."""
+    `location`: None (no output), 'dir/', '.zip', '.sqldb', '-' (stdout) or
+    any other name as a .sig[.gz] file; the order of `sourmash_tpu`'s
+    savers."""
     if location is None:
         return SaveSignatures_NoOutput(location)
     if not location:
@@ -354,8 +382,5 @@ def SaveSignaturesToLocation(location):
     if location.endswith(".zip"):
         return SaveSignatures_ZipFile(location)
     if location.endswith(".sqldb"):
-        raise NotImplementedError(
-            f"saving to a sqlite database ('{location}') is not yet ported to "
-            "sourmash_tpu_torch; write a .zip, .sig or .sig.gz file instead"
-        )
+        return SaveSignatures_SqliteIndex(location)
     return SaveSignatures_SigFile(location)

@@ -85,6 +85,12 @@ def world(tmp_path_factory):
     return d
 
 
+@pytest.fixture(autouse=True)
+def _view_cache(monkeypatch, tmp_path_factory):
+    "The port's flat-view cache in a directory of the test's own, outside its tmp_path."
+    monkeypatch.setenv("SOURMASH_TORCH_VIEW_CACHE_DIR", str(tmp_path_factory.mktemp("viewcache")))
+
+
 CASES = {
     "zip above threshold": ("q_abund.sig", ["big.zip"], []),
     "zip below threshold": ("q_abund.sig", ["small.zip"], []),
@@ -134,26 +140,62 @@ def test_gather_outputs_are_byte_identical(world, case, tmp_path, capsys, monkey
 
 
 @pytest.mark.parametrize("kind", ["sqlite database", "standalone manifest", "SBT",
-                                  "revindex directory", "LCA database"])
-def test_databases_not_ported_yet_raise(kind, tmp_path):
-    "The loader chain recognises the formats that wait for later slices."
+                                  "revindex directory", "LCA database", "LCA sqlite database"])
+def test_databases_not_ported_yet_raise(kind, world, tmp_path, capsys, monkeypatch):
+    """The loader chain recognises the formats that wait for later slices
+    (SBT, LCA) and raises naming them; sqlite databases, standalone
+    manifests and revindex directories are ported: gather against each
+    writes the JAX package's CSV and stdout."""
     from sourmash_tpu_torch.save_load import load_file_as_index
 
+    if kind in ("SBT", "LCA database", "LCA sqlite database"):
+        if kind == "SBT":
+            path = tmp_path / "db.sbt.json"
+            path.write_text("{}")
+        elif kind == "LCA database":
+            path = tmp_path / "db.lca.json"
+            path.write_text('{"type": "sourmash_lca"}')
+        else:
+            import sqlite3
+
+            path = tmp_path / "lca.sqldb"
+            _save(str(path), list(load_file_as_index(str(world / "small.zip")).signatures()))
+            conn = sqlite3.connect(str(path))
+            conn.execute("INSERT INTO sourmash_internal (key, value) "
+                         "VALUES ('SqliteLineage', '1.0')")
+            conn.commit()
+            conn.close()
+        with pytest.raises(NotImplementedError, match=kind.replace(" sqlite", "")):
+            load_file_as_index(str(path))
+        return
+
+    # the small collection (150) above a lowered flat-view threshold: the device engine
+    monkeypatch.setenv("SOURMASH_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("SOURMASH_TORCH_FLAT_VIEW", "100")
+    monkeypatch.setenv("SOURMASH_TPU_FLAT_VIEW", "100")
+    monkeypatch.chdir(tmp_path)
+    small = list(load_file_as_index(str(world / "small.zip")).signatures())
     if kind == "sqlite database":
-        path = tmp_path / "db.sqldb"
-        path.write_bytes(b"SQLite format 3\x00" + bytes(100))
+        db = "db.sqldb"
+        _save(db, small)
     elif kind == "standalone manifest":
-        path = tmp_path / "mf.csv"
-        path.write_text("# SOURMASH-MANIFEST-VERSION: 1.0\ninternal_location,md5\n")
-    elif kind == "SBT":
-        path = tmp_path / "db.sbt.json"
-        path.write_text("{}")
-    elif kind == "revindex directory":
-        path = tmp_path / "rev"
-        path.mkdir()
-        (path / "revindex.json").write_text("{}")
+        from sourmash_tpu_torch.manifest import CollectionManifest
+
+        db = "mf.csv"
+        rows = [CollectionManifest.make_manifest_row(ss, str(world / "small.zip"),
+                                                     include_signature=False) for ss in small]
+        CollectionManifest(rows).write_to_filename(db)
     else:
-        path = tmp_path / "db.lca.json"
-        path.write_text('{"type": "sourmash_lca"}')
-    with pytest.raises(NotImplementedError, match=kind):
-        load_file_as_index(str(path))
+        db = "rev"
+        assert torch_main(["index", "-F", "revindex", db, str(world / "small.zip")]) in (None, 0)
+    assert type(load_file_as_index(db)).__name__ == {
+        "sqlite database": "SqliteIndex", "standalone manifest": "StandaloneManifestIndex",
+        "revindex directory": "RevIndex"}[kind]
+    capsys.readouterr()
+    outputs = {}
+    for tag, main in (("jax", jax_main), ("torch", torch_main)):
+        out = tmp_path / f"{tag}.csv"
+        assert main(["gather", str(world / "q_abund.sig"), db, "-o", str(out)]) in (None, 0)
+        outputs[tag] = (capsys.readouterr().out, out.read_bytes())
+    assert outputs["torch"] == outputs["jax"]
+    assert outputs["torch"][1].count(b"\n") > 5

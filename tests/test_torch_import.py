@@ -17,6 +17,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(sourmash_tpu_torch.__file__)
 
 
+@pytest.fixture(autouse=True)
+def _view_cache(monkeypatch, tmp_path_factory):
+    "The port's flat-view cache in a directory of the test's own, outside its tmp_path."
+    monkeypatch.setenv("SOURMASH_TORCH_VIEW_CACHE_DIR", str(tmp_path_factory.mktemp("viewcache")))
+
+
 def _port_modules():
     return sorted(
         m.name

@@ -68,6 +68,12 @@ def _mix(rng, colls, n_genomes, n_fresh):
     return np.unique(np.concatenate(pick + [fresh]))
 
 
+@pytest.fixture(autouse=True)
+def _view_cache(monkeypatch, tmp_path_factory):
+    "The port's flat-view cache in a directory of the test's own, outside its tmp_path."
+    monkeypatch.setenv("SOURMASH_TORCH_VIEW_CACHE_DIR", str(tmp_path_factory.mktemp("viewcache")))
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     rng = np.random.default_rng(2027)

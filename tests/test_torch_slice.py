@@ -55,6 +55,12 @@ def torch_cpu(monkeypatch):
     monkeypatch.setenv("SOURMASH_TORCH_DEVICE", "cpu")
 
 
+@pytest.fixture(autouse=True)
+def _view_cache(monkeypatch, tmp_path_factory):
+    "The port's flat-view cache in a directory of the test's own, outside its tmp_path."
+    monkeypatch.setenv("SOURMASH_TORCH_VIEW_CACHE_DIR", str(tmp_path_factory.mktemp("viewcache")))
+
+
 @pytest.mark.parametrize("which", ["plain", "gz"])
 @pytest.mark.parametrize("merge", [False, True])
 def test_sketch_dna_sig_files_are_byte_identical(fasta, which, merge, tmp_path, torch_cpu):
@@ -74,8 +80,8 @@ def test_sketch_dna_sig_files_are_byte_identical(fasta, which, merge, tmp_path, 
 
 def test_sketch_dna_to_stdout_and_not_ported_outputs(fasta, tmp_path, capsys, torch_cpu):
     """`-o -` prints the signature; `-o x.zip` writes the same zip as
-    sourmash_tpu and a second run appends to it through its manifest; the
-    outputs and commands not ported yet raise NotImplementedError."""
+    sourmash_tpu and a second run appends to it through its manifest;
+    `-o x.sqldb` and `sketch fromfile` write sourmash_tpu's bytes."""
     _, plain, gz = fasta
     assert torch_main(["sketch", "dna", str(plain), "-o", "-"]) in (None, 0)
     printed = capsys.readouterr().out
@@ -103,10 +109,24 @@ def test_sketch_dna_to_stdout_and_not_ported_outputs(fasta, tmp_path, capsys, to
             (s,) = sourmash_tpu_torch.load_signatures_from_json(zf.read(row["internal_location"]))
             assert s.md5sum() == row["md5"] and s in manifest
 
-    with pytest.raises(NotImplementedError, match="sqlite database"):
-        torch_main(["sketch", "dna", str(plain), "-o", str(tmp_path / "x.sqldb")])
-    with pytest.raises(NotImplementedError, match="sketch fromfile"):
-        torch_main(["sketch", "fromfile", str(tmp_path / "list.csv")])
+    # sqlite keeps scaled sketches only; fromfile names each file's sketches
+    (tmp_path / "list.csv").write_text(
+        f"name,genome_filename,protein_filename\nplain genomes,{plain},\ngz genomes,{gz},\n")
+    outs = {}
+    for tag, main in (("jax", jax_main), ("torch", torch_main)):
+        sqldb, fromfile = tmp_path / f"{tag}.sqldb", tmp_path / f"{tag}_fromfile.zip"
+        assert main(["sketch", "dna", str(plain), "-p", "k=21,k=31,scaled=1000",
+                     "-o", str(sqldb)]) in (None, 0)
+        assert main(["sketch", "fromfile", str(tmp_path / "list.csv"),
+                     "-p", "dna,k=21,k=31,scaled=1000", "-p", "dna,k=31,num=500",
+                     "-o", str(fromfile)]) in (None, 0)
+        outs[tag] = (sqldb.read_bytes(), fromfile.read_bytes())
+    assert outs["jax"] == outs["torch"]
+    from sourmash_tpu_torch.save_load import load_file_as_index
+
+    assert len(load_file_as_index(str(tmp_path / "torch.sqldb"))) == 2
+    names = [s.name for s in load_file_as_index(str(tmp_path / "torch_fromfile.zip")).signatures()]
+    assert names == ["plain genomes"] * 3 + ["gz genomes"] * 3
 
 
 @pytest.mark.parametrize("track_abundance", [False, True])
