@@ -75,7 +75,7 @@ Phases, each raising on failure:
    `membership_bits_batch` and `round_dec_batch` must run, every sample's
    counts must come from the warm cache, the first block of schedules must
    take the device-membership route and the rest host matrices, and every
-   sample's rows must equal the numpy greedy gather; then 2 of the large
+   sample's rows must equal the numpy greedy gather; then 1 of the large
    samples under SOURMASH_TORCH_SCHEDULE_CAP=512 (batched recounts) and 4
    small ones with the device budget below the planes (streamed banks)
    must write byte-identical CSVs.
@@ -113,12 +113,24 @@ Phases, each raising on failure:
    the zip byte for byte (the location column aside), counts_rows and
    round_dec must run in each, membership_bits on the resident route and
    in the host rounds. Phase 6's first
-   1,000 genomes saved to a `.sqldb` by the port's saver and to a zip:
+   600 genomes saved to a `.sqldb` by the port's saver and to a zip:
    gather against each through the flat view on the card, the same CSV.
    The flat-view cache lives in the run's directory
    (SOURMASH_TORCH_VIEW_CACHE_DIR): phase 6's first load is cold, its later
    loads and phase 8's warm; its hits, misses and bytes are printed after
    phases 6, 8 and 10.
+11. SBTs and LCA databases, each command with the launch counters set to 0
+   just before and read just after. `index` builds `db.sbt.zip` from phase
+   10's zip of 600 genomes, and `lca index` (a taxonomy generated from
+   make_collection's clades, `--scaled 1000`) builds `db.lca.json` from it.
+   `gather` of phase 6's metagenome against each: the scheduled flat view
+   on the card (counts_rows and round_dec launched), and the CSV phase
+   10's against the zip byte for byte, the location column aside.
+   `search` of a genome of a clade of >= 5 against the tree (the pruned
+   walk, on the host): the rows must be exactly the genomes whose numpy
+   Jaccard passes 0.08, with those scores. Each build's wall and bytes,
+   each command's wall, launches and route, and the phase's total are
+   printed.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -277,6 +289,7 @@ M_AA = 128  # phase 4: ~95 proteomes the size of E. coli K-12's (4,300 proteins,
 PROTEIN_PARAMS = ["k=10,scaled=200", "dayhoff,k=16,scaled=200", "hp,k=42,scaled=200",
                   "k=10,num=500"]
 HOST_MERGE_EVERY = 2000  # records per part sketch in the host loop (see host_sketches)
+HOST_WORKERS = 8  # processes of phase 4's host loop over its ~165 k records (an 8-core host)
 TRANSLATE_MBP = 64
 TRANSLATE_PARAMS = ["k=10,scaled=200", "dayhoff,k=16,scaled=200"]
 
@@ -300,7 +313,7 @@ ROUTE_REPS = 4
 MULTI_LARGE, MULTI_SMALL = 4, 12
 MULTI_SMALL_HASHES = (20_000, 150_000)
 MULTI_CAP = "512"  # the capped rerun of the large samples: converge's recounts
-MULTI_CAPPED = 2  # large samples in the capped rerun (of MULTI_LARGE; cut for the time limit)
+MULTI_CAPPED = 1  # large samples in the capped rerun (of MULTI_LARGE; cut for the time limit)
 BLOCK_QUERIES = 32  # phase 2's counts_block block: phase 8's mix, a quarter large
 # phase 9: `compare` (config 2 of BASELINE.json: Jaccard, containment and ANI
 # matrices at k = 21/31/51) at the size sourmash_tpu's docstring measures
@@ -871,14 +884,37 @@ def native_host_loop():
             os.environ["SOURMASH_TORCH_HOST_SKETCH"] = before
 
 
-def host_sketches(path: str, mhs: dict, add: str = "add_sequence") -> dict:
+def host_sketches(path: str, mhs: dict, add: str = "add_sequence", workers: int = 1) -> dict:
     """The port's native C++ host loop over the records of `path`: every
     MinHash of `mhs` gets each record through `add` (add_sequence with
     force, or add_protein). Records go into an empty copy of each sketch
     that is merged into it every HOST_MERGE_EVERY records: an insert
     re-sorts the sketch's mins, so adding 10^5 short records straight into
     one large scaled sketch would take quadratic time. Merging is exact for
-    scaled and num sketches."""
+    scaled and num sketches, so with workers > 1 the records are dealt
+    round robin to that many spawned processes, each sketching its share
+    into empty copies, and their sketches are merged here."""
+    if workers <= 1:
+        return _host_share(path, mhs, add, 0, 1)
+    import multiprocessing
+
+    from sourmash_tpu_torch import native
+
+    native.build()  # once, before the workers load it
+    empty = {key: mh.copy_and_clear() for key, mh in mhs.items()}
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        shares = pool.starmap(_host_share, [(path, empty, add, w, workers)
+                                            for w in range(workers)])
+    for share in shares:
+        for key, mh in share.items():
+            mhs[key].merge(mh)
+    return mhs
+
+
+def _host_share(path: str, mhs: dict, add: str, share: int, shares: int) -> dict:
+    "host_sketches' loop over the records i of `path` with i % shares == share."
+    import itertools
+
     from sourmash_tpu_torch.sequence_io import iter_records_bytes
 
     parts = {key: mh.copy_and_clear() for key, mh in mhs.items()}
@@ -888,8 +924,9 @@ def host_sketches(path: str, mhs: dict, add: str = "add_sequence") -> dict:
             mhs[key].merge(part)
             parts[key] = part.copy_and_clear()
 
+    records = itertools.islice(iter_records_bytes(path), share, None, shares)
     with native_host_loop():
-        for i, (_name, seq) in enumerate(iter_records_bytes(path), 1):
+        for i, (_name, seq) in enumerate(records, 1):
             for part in parts.values():
                 if add == "add_protein":
                     part.add_protein(seq)
@@ -1048,7 +1085,8 @@ def protein_host_sketches(path: str) -> dict:
 
     mhs = [MinHash(0, 10, is_protein=True, scaled=200), MinHash(0, 16, dayhoff=True, scaled=200),
            MinHash(0, 42, hp=True, scaled=200), MinHash(500, 10, is_protein=True)]
-    return host_sketches(path, {sketch_key(mh): mh for mh in mhs}, add="add_protein")
+    return host_sketches(path, {sketch_key(mh): mh for mh in mhs}, add="add_protein",
+                         workers=HOST_WORKERS)
 
 
 SKETCH_WRAPPERS = ("survivor_slots", "window_hashes", "aa_window_hashes")
@@ -4036,7 +4074,10 @@ FROMFILE_GENOMES = 8
 FROMFILE_PROTEOMES = 2
 FROMFILE_M_AA = 2  # M residues a proteome (E. coli K-12's: 1.35 M aa)
 FROMFILE_PARAMS = ["dna,k=21,k=31,k=51,scaled=1000", "protein,k=10,scaled=200"]
-SQLITE_GENOMES = 1000  # phase 6's first genomes, above the 512-sketch flat-view threshold
+# phase 6's first genomes (cut from 1,000 for the run's time limit), above
+# the 512-sketch flat-view threshold; phase 11 builds its SBT and LCA
+# database from their zip
+SQLITE_GENOMES = 600
 VIEW_CACHE_ENV = "SOURMASH_TORCH_VIEW_CACHE_DIR"
 
 
@@ -4293,6 +4334,107 @@ def persistent_end_to_end(rng, tmp: str, world: dict, zip_csv: str) -> dict:
     return out
 
 
+# -- phase 11: SBTs and LCA databases ----------------------------------------
+
+LCA_RANKS = ("superkingdom", "phylum", "class", "order", "family", "genus", "species", "strain")
+
+
+def clade_taxonomy(path: str, names: list):
+    """A taxonomy spreadsheet for make_collection's genomes ('genome_N
+    clade_C'): each clade a genus of up to 3 species, the higher ranks
+    folding clades together; the identifier is the name's first word, as
+    `lca index --split-identifiers` reads it."""
+    with open(path, "w") as f:
+        f.write(",".join(("identifiers",) + LCA_RANKS) + "\n")
+        for name in names:
+            ident, clade = name.split()
+            c, n = int(clade.split("_")[1]), int(ident.split("_")[1])
+            f.write(f"{ident},d__Bacteria,p__P{c % 7},c__C{c % 13},o__O{c % 29},f__F{c % 61},"
+                    f"g__G{c},s__G{c} sp{n % 3},\n")
+
+
+def gather_against(what: str, db: str, world: dict, first_zip: str, zip_csv: str) -> dict:
+    """`gather` of phase 6's metagenome against db, launch counters set to 0
+    just before and read just after: the scheduled flat view on the card
+    (counts_rows and round_dec launched), and the CSV phase 10's against
+    the zip of the same genomes byte for byte, the location column aside."""
+    csv_path = db + ".csv"
+    wall, launches, facts = run_gather_cli(["gather", world["qpath"], db, "-o", csv_path, "-q"],
+                                           {})
+    if not facts["scheduled"] or min(launches["counts_rows"], launches["round_dec"]) < 1:
+        raise AssertionError(f"gather against the {what}: not the flat view on the card "
+                             f"({facts}, {launches})")
+    same_csv_at(f"gather against the {what}", csv_path, zip_csv, first_zip, db)
+    kept = {n: launches[n] for n in ("counts_rows", "membership_bits", "round_dec")}
+    log(f"  gather against the {what}: {wall:.2f} s wall, route {facts['route']}, "
+        f"launches {kept}; CSV == the zip's")
+    return dict(wall_s=wall, launches=kept, route=facts["route"], rounds=len(read_csv(csv_path)))
+
+
+def sbt_search(tmp: str, world: dict, sbt: str) -> dict:
+    """`search` of one genome of a clade of >= 5 against the tree: the
+    pruned walk on the host. Its rows must be exactly the genomes of the
+    tree whose numpy Jaccard (from np.isin overlaps) passes search's 0.08
+    threshold, with those scores."""
+    mins_list = world["mins_list"][:SQLITE_GENOMES]
+    names = world["names"][:SQLITE_GENOMES]
+    clade = np.array([int(n.rsplit("clade_", 1)[1]) for n in names])
+    gi = int(np.flatnonzero(np.bincount(clade)[clade] >= 5)[0])
+    g = mins_list[gi]
+    qpath = os.path.join(tmp, "sbt_genome.sig")
+    save_sig(qpath, g, "query genome")
+    csv_path = os.path.join(tmp, "sbt_search.csv")
+    wall, launches = run_counted(["search", qpath, sbt, "-o", csv_path, "-q"], {})
+    want = {}
+    for name, m in zip(names, mins_list):
+        inter = int(np.count_nonzero(np.isin(m, g, assume_unique=True)))
+        if inter and inter / (len(g) + len(m) - inter) >= 0.08:
+            want[name] = inter / (len(g) + len(m) - inter)
+    got = {row["name"]: float(row["similarity"]) for row in read_csv(csv_path)}
+    if got != want or len(got) < 2:
+        raise AssertionError(f"search against the SBT: {len(got)} rows, numpy {len(want)}; "
+                             f"differ at {sorted(set(got.items()) ^ set(want.items()))[:4]}")
+    launched = {n: c for n, c in launches.items() if c}
+    log(f"  search of genome {gi} (clade of {int(np.sum(clade == clade[gi]))}) against the SBT: "
+        f"{wall:.2f} s wall, {len(got)} rows equal numpy's Jaccard; launches {launched}")
+    return dict(wall_s=wall, rows=len(got), launches=launched)
+
+
+def sbt_lca_end_to_end(tmp: str, world: dict) -> dict:
+    """Phase 11: `index` builds an SBT (`.sbt.zip`) and `lca index` an LCA
+    database (`.lca.json`, a taxonomy from make_collection's clades,
+    `--scaled 1000`) from phase 10's zip of SQLITE_GENOMES genomes, each
+    command with the launch counters set to 0 just before and read just
+    after; gather of phase 6's metagenome against each (gather_against) and
+    search of a genome against the tree (sbt_search)."""
+    first_zip = os.path.join(tmp, "first.zip")
+    zip_csv = os.path.join(tmp, "first_zip.csv")
+    out = {}
+    t0 = time.time()
+    sbt = os.path.join(tmp, "db.sbt.zip")
+    wall, _launches = run_counted(["index", sbt, first_zip, "-q"], {})
+    out["sbt"] = dict(index_wall_s=wall, bytes=os.path.getsize(sbt))
+    log(f"  index (SBT) of {SQLITE_GENOMES} genomes: {wall:.2f} s wall, "
+        f"{out['sbt']['bytes']} bytes")
+    out["sbt"]["gather"] = gather_against("SBT", sbt, world, first_zip, zip_csv)
+    out["sbt"]["search"] = sbt_search(tmp, world, sbt)
+    out["sbt"]["part_s"] = time.time() - t0
+    log(f"  SBT part: {out['sbt']['part_s']:.1f} s")
+
+    t0 = time.time()
+    tax = os.path.join(tmp, "taxonomy.csv")
+    clade_taxonomy(tax, world["names"][:SQLITE_GENOMES])
+    lca = os.path.join(tmp, "db.lca.json")
+    wall, _launches = run_counted(["lca", "index", tax, lca, first_zip, "--scaled",
+                                   str(GATHER_SCALED), "--split-identifiers", "-q"], {})
+    out["lca"] = dict(index_wall_s=wall, bytes=os.path.getsize(lca))
+    log(f"  lca index of {SQLITE_GENOMES} genomes: {wall:.2f} s wall, {out['lca']['bytes']} bytes")
+    out["lca"]["gather"] = gather_against("LCA database", lca, world, first_zip, zip_csv)
+    out["lca"]["part_s"] = time.time() - t0
+    log(f"  LCA part: {out['lca']['part_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4430,6 +4572,10 @@ def main(argv=None) -> int:
         log("phase 10: sketch fromfile, index -F revindex, sqlite and the view cache")
         pers = persistent_end_to_end(rng, tmp, world, world["csv"])
         log(f"phase 10 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log(f"phase 11: SBT and LCA database of phase 10's {SQLITE_GENOMES} genomes")
+        sbt_lca = sbt_lca_end_to_end(tmp, world)
+        log(f"phase 11 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -4476,7 +4622,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
-                           persistent=pers,
+                           persistent=pers, sbt_lca=sbt_lca,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(f"chip_smoke: the whole run took {time.time() - t_start:.1f} s")
     log(card)

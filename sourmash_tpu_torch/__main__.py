@@ -1,13 +1,27 @@
 """Entry point: `python -m sourmash_tpu_torch sketch dna ...`, `... gather
 query.sig db.zip` and so on (counterpart of `sourmash_tpu/__main__.py`;
-`sketch`, `compare`, `search`, `gather`, `multigather`, `prefetch` and
-`index -F revindex` are ported)."""
+`sketch`, `compare`, `search`, `gather`, `multigather`, `prefetch`,
+`index`, `sbt_combine`, `migrate`, `storage convert` and `lca` are
+ported)."""
 
 from __future__ import annotations
 
+import importlib
 import sys
 
-_COMMANDS = ("compare", "search", "gather", "multigather", "prefetch", "index")
+_COMMANDS = (
+    "compare", "search", "gather", "multigather", "prefetch", "index",
+    "sbt_combine", "migrate",
+)
+
+# `lca` subcommand -> (module under lca/, function)
+_LCA_COMMANDS = {
+    "lca_index": ("command_index", "index"),
+    "lca_classify": ("command_classify", "classify"),
+    "lca_summarize": ("command_summarize", "summarize_main"),
+    "lca_rankinfo": ("command_rankinfo", "rankinfo_main"),
+    "lca_compare_csv": ("command_compare_csv", "compare_csv"),
+}
 
 
 def main(arglist=None):
@@ -19,6 +33,17 @@ def main(arglist=None):
         from . import commands
 
         return getattr(commands, cmd)(args)
+    if cmd == "storage":
+        from .sbt import convert_cmd
+
+        return convert_cmd(args.sbt, args.backend)
+    if cmd == "lca":
+        target = _LCA_COMMANDS.get(getattr(args, "subfunc", None))
+        if target is None:
+            cli.get_parser().print_help()
+            return 1
+        module = importlib.import_module(f".lca.{target[0]}", __package__)
+        return getattr(module, target[1])(args)
     if cmd != "sketch":
         cli.get_parser().print_help()
         return 1

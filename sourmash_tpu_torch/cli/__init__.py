@@ -1,5 +1,6 @@
 """Command-line interface of the port: the `sketch` subtree, `compare`,
-`search`, `gather`, `multigather`, `prefetch` and `index`.
+`search`, `gather`, `multigather`, `prefetch`, `index`, `sbt_combine`,
+`migrate`, `storage convert` and the `lca` subtree.
 
 Parity: `sourmash_tpu/cli/__init__.py` (itself reference
 `src/sourmash/cli/__init__.py`) and `sourmash_tpu/cli/utils.py` — same
@@ -424,7 +425,7 @@ def _add_index(sub):
     p.add_argument("-F", "--index-type", default="sbt",
                    choices=["sbt", "revindex"],
                    help="index format: 'sbt' (reference-compatible Sequence "
-                        "Bloom Tree, default; not ported yet) or 'revindex' "
+                        "Bloom Tree, default) or 'revindex' "
                         "(the flat index's directory of packed planes)")
     p.add_argument("signatures", nargs="*",
                    help="signatures to load into SBT")
@@ -447,6 +448,28 @@ def _add_index(sub):
     add_ksize_arg(p)
     add_moltype_args(p)
     add_picklist_args(p)
+
+
+def _add_sbt_tools(sub):
+    "'sbt_combine', 'migrate' and 'storage convert' (`sourmash_tpu/cli/__init__.py`)."
+    p = sub.add_parser("sbt_combine", description="combine multiple SBTs into a new one")
+    p.add_argument("sbt_name", help="name to save the new SBT into")
+    p.add_argument("sbts", nargs="+", help="SBTs to combine to a new SBT")
+    p.add_argument("-x", "--bf-size", metavar="S", type=float, default=1e5)
+    p.add_argument("-q", "--quiet", action="store_true")
+
+    p = sub.add_parser("migrate", description="migrate an SBT to the latest version")
+    p.add_argument("sbt_name", help="name to save SBT into")
+    p.add_argument("-q", "--quiet", action="store_true")
+
+    p = sub.add_parser("storage", description="SBT storage-backend utilities")
+    p.set_defaults(cmd="storage")
+    ssub = p.add_subparsers(dest="subcmd", metavar="subcmd")
+    sp = ssub.add_parser("convert")
+    sp.add_argument("sbt", help="name to save SBT into")
+    sp.add_argument("-b", "--backend", type=str, help="Backend to convert to")
+    sp.add_argument("-q", "--quiet", action="store_true")
+    sp.set_defaults(subfunc="storage_convert")
 
 
 def get_parser():
@@ -473,6 +496,11 @@ def get_parser():
     _add_multigather(sub)
     _add_prefetch(sub)
     _add_index(sub)
+    _add_sbt_tools(sub)
+
+    from . import lca as _lca_cli
+
+    _lca_cli.subparser(sub)
     parser._action_groups.reverse()
     return parser
 

@@ -1,8 +1,8 @@
 """Top-level commands of the port: `compare`, `search`, `gather`,
-`multigather`, `prefetch` and `index` (the port of
-`sourmash_tpu/commands.py:119-354`, `:484-596`, `:791-1398` and
-`:1442-1577`, reference `src/sourmash/commands.py`). `index` builds a disk
-revindex (`-F revindex`); an SBT, its default, waits for the SBT slice.
+`multigather`, `prefetch`, `index`, `sbt_combine` and `migrate` (the port
+of `sourmash_tpu/commands.py:119-354`, `:484-596`, `:791-1398` and
+`:1405-1604`, reference `src/sourmash/commands.py`). `index` builds an SBT
+by default and a disk revindex with `-F revindex`.
 
 The command is organized around reusable pipeline stages:
 
@@ -1223,6 +1223,42 @@ def prefetch(args):
     return 0
 
 
+class _SketchParamTracker:
+    "Accumulates sketch params seen during an SBT build; fails on mixtures."
+
+    def __init__(self):
+        self.ksizes = set()
+        self.moltypes = set()
+        self.nums = set()
+        self.scaleds = set()
+
+    def note_pre(self, ss):
+        self.ksizes.add(ss.minhash.ksize)
+        self.moltypes.add(sourmash_args.get_moltype(ss))
+        self.nums.add(ss.minhash.num)
+
+    def note_post(self, ss):
+        self.scaleds.add(ss.minhash.scaled)
+
+    def fail_if_mixed(self):
+        if len(self.ksizes) > 1 or len(self.moltypes) > 1:
+            error("multiple k-mer sizes or molecule types present; fail.")
+            error("specify --dna/--protein and --ksize as necessary")
+            error(
+                "ksizes: {}; moltypes: {}",
+                ", ".join(map(str, self.ksizes)),
+                ", ".join(self.moltypes),
+            )
+            sys.exit(-1)
+
+        all_num = self.scaleds == {0} and len(self.nums) == 1
+        all_scaled = self.nums == {0} and len(self.scaleds) == 1
+        if not (all_num or all_scaled):
+            error("trying to build an SBT with incompatible signatures.")
+            error("nums = {}; scaleds = {}", repr(self.nums), repr(self.scaleds))
+            sys.exit(-1)
+
+
 def _index_revindex(args):
     """Build a revindex directory (`sourmash index -F revindex`): the flat
     index's on-disk form, packed bucketed planes + sigs.zip, which `gather`
@@ -1280,10 +1316,107 @@ def _index_revindex(args):
 
 
 def index(args):
-    "Build an index of the given signatures: a revindex (`-F revindex`)."
+    "Build a Sequence Bloom Tree (or, with `-F revindex`, a revindex) of the given signatures."
+    from .sbtmh import load_sbt_index, create_sbt_index
+
     if args.index_type == "revindex":
         return _index_revindex(args)
-    raise NotImplementedError(
-        f"'index' builds an SBT by default ('{args.sbt_name}'), which sourmash_tpu_torch "
-        "cannot write yet; use -F revindex"
+
+    set_quiet(args.quiet)
+    moltype = sourmash_args.calculate_moltype(args)
+    picklist = sourmash_args.load_picklist(args)
+
+    tree = (
+        load_sbt_index(args.sbt_name)
+        if args.append
+        else create_sbt_index(args.bf_size, n_children=args.n_children)
     )
+
+    if not 0.0 <= args.sparseness <= 1.0:
+        error("sparseness must be in range [0.0, 1.0].")
+
+    if args.scaled:
+        args.scaled = int(args.scaled)
+        notify(f"downsampling signatures to scaled={args.scaled}")
+
+    inp_files = list(args.signatures)
+    if args.from_file:
+        inp_files.extend(sourmash_args.load_pathlist_from_file(args.from_file))
+
+    if not inp_files:
+        error("ERROR: no files to index!? Supply on command line or use --from-file")
+        sys.exit(-1)
+
+    notify(f"loading {len(inp_files)} files into SBT")
+
+    progress = sourmash_args.SignatureLoadingProgress()
+    tracker = _SketchParamTracker()
+
+    n = 0
+    load_opts = dict(
+        ksize=args.ksize,
+        select_moltype=moltype,
+        yield_all_files=args.force,
+        picklist=picklist,
+        progress=progress,
+    )
+    for f in inp_files:
+        siglist = sourmash_args.load_file_as_signatures(f, **load_opts)
+
+        ss = None
+        for ss in siglist:
+            tracker.note_pre(ss)
+
+            with ss.update() as ss:
+                if args.scaled:
+                    ss.minhash = ss.minhash.downsample(scaled=args.scaled)
+                if ss.minhash.track_abundance:
+                    ss.minhash = ss.minhash.flatten()
+
+            tracker.note_post(ss)
+
+            tree.insert(ss)
+            n += 1
+
+        if not ss:
+            continue
+
+        tracker.fail_if_mixed()
+
+    notify("")
+
+    if not n:
+        error("no signatures found to load into tree!? failing.")
+        sys.exit(-1)
+    if picklist:
+        sourmash_args.report_picklist(args, picklist)
+
+    notify(f'loaded {n} sigs; saving SBT under "{args.sbt_name}"')
+    tree.save(args.sbt_name, sparseness=args.sparseness)
+    if tree.storage:
+        tree.storage.close()
+
+
+def sbt_combine(args):
+    "Combine multiple SBTs into one."
+    from .sbtmh import load_sbt_index
+
+    inp_files = list(args.sbts)
+    notify(f"combining {len(inp_files)} SBTs")
+
+    tree = load_sbt_index(inp_files.pop(0))
+    for f in inp_files:
+        tree.combine(load_sbt_index(f))
+
+    notify(f'saving SBT under "{args.sbt_name}".')
+    tree.save(args.sbt_name)
+
+
+def migrate(args):
+    "Migrate an SBT database to the latest version."
+    from .sbtmh import load_sbt_index
+
+    tree = load_sbt_index(args.sbt_name, print_version_warning=False)
+
+    notify(f'saving SBT under "{args.sbt_name}".')
+    tree.save(args.sbt_name, structure_only=True)

@@ -8,8 +8,8 @@ wrapped signed ints), so a `.sqldb` written by either package loads in the
 other. `search` and `prefetch` score through SQL overlap counts as the
 reference does; `gather` goes through `Index.counter_gather`, whose flat
 view puts collections of SOURMASH_TORCH_FLAT_VIEW sketches or more on the
-device engine. A sqlite LCA database (a `SqliteLineage` table beside the
-index) waits for the LCA slice and raises NotImplementedError.
+device engine. `LCA_SqliteDatabase` is a sqlite LCA database: the index
+with a `SqliteLineage` table beside it.
 
 Shared plumbing lives at module level: `_hash_window` builds the
 bounded-hashval WHERE fragment used by every reverse-index query, and
@@ -32,6 +32,7 @@ from ..index import (
     StandaloneManifestIndex,
     _check_select_parameters,
 )
+from ..lca.lca_db import cached_property
 from ..logging import debug_literal
 from ..manifest import BaseCollectionManifest
 from ..minhash import MinHash
@@ -626,6 +627,136 @@ class SqliteCollectionManifest(BaseCollectionManifest):
         return pl
 
 
+class LCA_SqliteDatabase(SqliteIndex):
+    "SqliteIndex + sqlite lineage table => on-disk LCA database."
+
+    is_database = True
+
+    def __init__(self, dbfile, *, lineage_db=None, sqlite_manifest=None):
+        super().__init__(dbfile, sqlite_manifest=sqlite_manifest)
+
+        c = self.conn.cursor()
+        c.execute("SELECT DISTINCT ksize, moltype FROM sourmash_sketches")
+        params = list(c)
+        if not params:
+            raise ValueError("cannot load an LCA_SqliteDatabase")
+        if len(params) > 1:
+            raise TypeError(
+                "can only have one ksize & moltype in an LCA_SqliteDatabase"
+            )
+        (self.ksize, self.moltype), = params
+
+        if lineage_db is not None:
+            self.lineage_db = lineage_db
+            self._build_index()
+
+    @classmethod
+    def load(cls, filename):
+        from ..tax.tax_utils import LineageDB_Sqlite
+
+        try:
+            obj = cls(filename)
+        except sqlite3.OperationalError:
+            raise ValueError(f"cannot open '{filename}' as a SQLite index.")
+
+        obj.lineage_db = LineageDB_Sqlite(obj.conn)
+        obj._build_index()
+        return obj
+
+    @classmethod
+    def create(cls, filename, idx, lineage_db):
+        "Build an LCA_SqliteDatabase in one file from an index + lineage db."
+        from ..tax.tax_utils import MultiLineageDB
+
+        sqlidx = SqliteIndex.create(filename)
+
+        for ss in idx.signatures():
+            sqlidx.insert(ss)
+
+        out_lineage_db = MultiLineageDB()
+        out_lineage_db.add(lineage_db)
+        out_lineage_db._save_sqlite(None, conn=sqlidx.conn)
+
+        return cls.load(filename)
+
+    def _build_index(self):
+        "Build identifier <-> lineage mappings from manifest + lineage db."
+        ident_to_idx, idx_to_lid = {}, {}
+        lineage_to_lid, lid_to_lineage = {}, {}
+        next_lid = 0
+
+        for row in self.manifest.rows:
+            name = row["name"]
+            if not name:
+                continue
+
+            # look up by the space-split identifier, then by version-stripped
+            ident = name.split(" ")[0]
+            lineage = self.lineage_db.get(ident)
+            if lineage is None:
+                ident = name.split(".")[0]
+                lineage = self.lineage_db.get(ident)
+
+            idx = row["_id"]
+            ident_to_idx[ident] = idx
+
+            if lineage:
+                if lineage not in lineage_to_lid:
+                    lineage_to_lid[lineage] = next_lid
+                    lid_to_lineage[next_lid] = lineage
+                    next_lid += 1
+                idx_to_lid[idx] = lineage_to_lid[lineage]
+
+        self.ident_to_idx = ident_to_idx
+        self.idx_to_lid = idx_to_lid
+        self.lid_to_lineage = lid_to_lineage
+
+    def insert(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def select(self, *args, **kwargs):
+        narrowed = self._select(*args, **kwargs)
+        return LCA_SqliteDatabase(self.dbfile, sqlite_manifest=narrowed,
+                                  lineage_db=self.lineage_db)
+
+    ### LCA_Database API/protocol.
+
+    def downsample_scaled(self, scaled):
+        if scaled < self.scaled:
+            raise ValueError(f"cannot decrease scaled from {self.scaled} to {scaled}")
+        self.scaled = scaled
+
+    def get_lineage_assignments(self, hashval, *, min_num=None):
+        idx_list = self.hashval_to_idx.get(hashval, [])
+        if min_num is not None and len(idx_list) < min_num:
+            return []
+
+        lineages = []
+        for idx in idx_list:
+            lid = self.idx_to_lid.get(idx, None)
+            if lid is not None:
+                lineages.append(self.lid_to_lineage[lid])
+        return lineages
+
+    @cached_property
+    def idx_to_ident(self):
+        inverted = {idx: ident for ident, idx in self.ident_to_idx.items()}
+        assert len(inverted) == len(self.ident_to_idx)
+        return inverted
+
+    @property
+    def hashval_to_idx(self):
+        return _SqliteIndexHashvalToIndex(self)
+
+    @property
+    def hashvals(self):
+        return iter(_SqliteIndexHashvalToIndex(self))
+
+    def get_identifiers_for_hashval(self, hashval):
+        for idx in self.hashval_to_idx[hashval]:
+            yield self.idx_to_ident[idx]
+
+
 class _SqliteIndexHashvalToIndex:
     "Dict-like view of the hashval -> [sketch ids] reverse index."
 
@@ -655,9 +786,8 @@ class _SqliteIndexHashvalToIndex:
 
 
 def load_sqlite_index(filename, *, request_manifest=False):
-    """Load a SqliteIndex or a standalone sqlite manifest from filename,
-    depending on which tables are present (an LCA database raises
-    NotImplementedError)."""
+    """Load a SqliteIndex, standalone sqlite manifest, or LCA_SqliteDatabase
+    from filename, depending on which tables are present."""
     conn = sqlite_utils.open_sqlite_db(filename)
     if conn is None:
         debug_literal("load_sqlite_index: conn is None.")
@@ -687,9 +817,8 @@ def load_sqlite_index(filename, *, request_manifest=False):
     if is_index and not request_manifest:
         conn.close()
         if is_lca_db:
-            raise NotImplementedError(
-                f"'{filename}' is an LCA database, which sourmash_tpu_torch cannot load yet"
-            )
+            debug_literal("load_sqlite_index: returning LCA_SqliteDatabase")
+            return LCA_SqliteDatabase.load(filename)
         debug_literal("load_sqlite_index: returning SqliteIndex")
         return SqliteIndex(filename)
 

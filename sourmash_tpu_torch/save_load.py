@@ -4,10 +4,9 @@
 Loading: a priority-ordered chain of loader functions, each probing one
 on-disk shape: stdin, sqlite database (index or manifest), standalone
 manifest (CSV or sqlite), path (a `.sig`/`.sig.gz` file or a directory),
-pathlist, revindex directory, zip collection, and the trailing FASTA/FASTQ
-error. SBTs and LCA databases (`.lca.json`, and sqlite ones) are
-recognised and raise NotImplementedError naming the format: they are not
-ported yet.
+pathlist, SBT (`.sbt.zip`, `.sbt.json`), revindex directory or LCA
+database (`.lca.json[.gz]`; a sqlite one loads at the sqlite step), zip
+collection, and the trailing FASTA/FASTQ error.
 
 Saving: `SaveSignaturesToLocation(location)` picks a saver by location
 shape: None, 'dir/', '.zip', '.sqldb', '-' or a `.sig[.gz]` file.
@@ -70,12 +69,6 @@ def load_file_as_index(filename, *, yield_all_files=False):
     return _load_database(filename, yield_all_files)
 
 
-def _not_ported(what, filename):
-    return NotImplementedError(
-        f"'{filename}' is {what}, which sourmash_tpu_torch cannot load yet"
-    )
-
-
 @add_loader("load from stdin", 10)
 def _load_stdin(filename, **kwargs):
     "Load collection from .sig file streamed in via stdin."
@@ -118,26 +111,28 @@ def _multiindex_load_from_pathlist(filename, **kwargs):
 
 @add_loader("load SBT", 60)
 def _load_sbt(filename, **kwargs):
-    "An SBT (.sbt.json, .sbt.zip, or a zip holding an .sbt.json)."
-    if filename.endswith((".sbt.json", ".sbt.zip")) and os.path.exists(filename):
-        raise _not_ported("an SBT", filename)
-    if filename.endswith(".zip") and zipfile.is_zipfile(filename):
-        with zipfile.ZipFile(filename) as zf:
-            if any(name.endswith(".sbt.json") for name in zf.namelist()):
-                raise _not_ported("an SBT", filename)
-    return None
+    "Load collection from an SBT (.sbt.zip / .sbt.json)."
+    from .sbtmh import load_sbt_index
+
+    try:
+        return load_sbt_index(filename, cache_size=kwargs.get("cache_size"))
+    except (FileNotFoundError, TypeError) as exc:
+        raise IndexNotLoaded(str(exc))
 
 
 @add_loader("load revindex", 70)
 def _load_revindex(filename, **kwargs):
-    "A disk revindex directory (an LCA database raises: not ported yet)."
+    """Load collection from a disk revindex directory or an LCA database
+    (`LCA_Database.load` tries a sqlite LCA database first, then refuses a
+    file that does not start with '{' after reading one character)."""
     from .index.revindex import is_revindex_dir, load_revindex
+    from .lca.lca_db import load_single_database
 
     if is_revindex_dir(filename):
         return load_revindex(filename)
-    if filename.endswith((".lca.json", ".lca.json.gz")) and os.path.isfile(filename):
-        raise _not_ported("an LCA database", filename)
-    return None
+
+    db, _ksize, _scaled = load_single_database(filename)
+    return db
 
 
 @add_loader("load collection from zipfile", 80)

@@ -1,11 +1,12 @@
-"""Storage backends for collections: `ZipStorage` for `.zip` signature
-collections.
+"""Storage backends for collections and SBTs: `.zip` (`ZipStorage`), a
+directory (`FSStorage`), memory (`MemStorage`), IPFS and Redis.
 
-The port's copy of `Storage` and `ZipStorage` from
-`sourmash_tpu/sbt_storage.py` (reference `src/sourmash/sbt_storage.py`,
-ZipStorage:96). Members are written with a fixed date, so a collection's
-bytes depend only on its contents. The filesystem, IPFS and Redis storages
-are not ported yet.
+The port's copy of `sourmash_tpu/sbt_storage.py` (reference
+`src/sourmash/sbt_storage.py`: FSStorage:46, ZipStorage:96,
+IPFSStorage:418, RedisStorage:457). Zip members are written with a fixed
+date, so a collection's bytes depend only on its contents. The IPFS and
+Redis backends need their client libraries (`ipfshttpclient`, `redis`)
+and raise NotImplementedError without them.
 """
 
 from __future__ import annotations
@@ -38,6 +39,50 @@ class Storage(ABC):
 
     def load(self, path):
         raise NotImplementedError
+
+
+class FSStorage(Storage):
+    "Filesystem storage rooted at location/subdir."
+
+    def __init__(self, location, subdir, make_dirs=True):
+        self.location = location
+        self.subdir = subdir
+
+        if make_dirs:
+            fullpath = os.path.join(location, subdir)
+            if not os.path.exists(fullpath):
+                os.makedirs(fullpath)
+
+    def init_args(self):
+        return {"path": self.subdir}
+
+    def save(self, path, content, *, overwrite=False):
+        "Save content under path; dedupe identical content, rename if not."
+        newpath = path
+        fullpath = os.path.join(self.location, self.subdir, path)
+
+        if os.path.exists(fullpath):
+            # check for content equality, else add suffix
+            with open(fullpath, "rb") as f:
+                old_content = f.read()
+            if old_content != content:
+                newpath = None
+                n = 0
+                while newpath is None:
+                    testpath = f"{fullpath}_{n}"
+                    if os.path.exists(testpath):
+                        n += 1
+                    else:
+                        fullpath = testpath
+                        newpath = f"{path}_{n}"
+        with open(fullpath, "wb") as f:
+            f.write(content)
+        return newpath
+
+    def load(self, path):
+        path = os.path.join(self.location, self.subdir, path)
+        with open(path, "rb") as f:
+            return f.read()
 
 
 class ZipStorage(Storage):
@@ -185,3 +230,90 @@ class ZipStorage(Storage):
 
     def list_sbts(self):
         return [f for f in self._filenames() if f.endswith(".sbt.json")]
+
+
+class MemStorage(Storage):
+    "In-memory storage, mostly for tests."
+
+    def __init__(self):
+        self._store = {}
+
+    def save(self, path, content, *, overwrite=False):
+        self._store[path] = content
+        return path
+
+    def load(self, path):
+        return self._store[path]
+
+    def init_args(self):
+        return {}
+
+    def _filenames(self):
+        return list(self._store)
+
+
+class IPFSStorage(Storage):
+    """Content-addressed node storage over an IPFS daemon (behavior parity:
+    reference `sbt_storage.py:418-455`). Requires the optional
+    `ipfshttpclient` package; the connection opens at construction."""
+
+    def __init__(self, pin_on_add=True, **kwargs):
+        try:
+            import ipfshttpclient
+        except ImportError as exc:
+            raise NotImplementedError(
+                "IPFS storage requires the 'ipfshttpclient' library"
+            ) from exc
+
+        self.ipfs_args = kwargs
+        self.pin_on_add = pin_on_add
+        self.api = ipfshttpclient.connect(**self.ipfs_args)
+
+    def save(self, path, content, *, overwrite=False):
+        "Add the content; the returned IPFS hash becomes the node's path."
+        new_obj = self.api.add_bytes(content)
+        if self.pin_on_add:
+            self.api.pin.add(new_obj)
+        return new_obj
+
+    def load(self, path):
+        return self.api.cat(path)
+
+    def init_args(self):
+        return self.ipfs_args
+
+    def __exit__(self, type, value, traceback):
+        # TODO: do nothing for now; can we cache any of the data transferred?
+        pass
+
+
+class RedisStorage(Storage):
+    """Key/value node storage in a Redis server (behavior parity:
+    reference `sbt_storage.py:457-478`). Requires the optional `redis`
+    package."""
+
+    def __init__(self, **kwargs):
+        try:
+            import redis
+        except ImportError as exc:
+            raise NotImplementedError(
+                "Redis storage requires the 'redis' library"
+            ) from exc
+
+        self.redis_args = kwargs
+        self.conn = redis.Redis(**self.redis_args)
+
+    def save(self, path, content, *, overwrite=False):
+        if not isinstance(content, bytes):
+            content = bytes(content)
+        self.conn.set(path, content)
+        return path
+
+    def load(self, path):
+        return self.conn.get(path)
+
+    def init_args(self):
+        return self.redis_args
+
+    def __exit__(self, type, value, traceback):
+        pass

@@ -141,40 +141,20 @@ def test_gather_outputs_are_byte_identical(world, case, tmp_path, capsys, monkey
 
 @pytest.mark.parametrize("kind", ["sqlite database", "standalone manifest", "SBT",
                                   "revindex directory", "LCA database", "LCA sqlite database"])
-def test_databases_not_ported_yet_raise(kind, world, tmp_path, capsys, monkeypatch):
-    """The loader chain recognises the formats that wait for later slices
-    (SBT, LCA) and raises naming them; sqlite databases, standalone
-    manifests and revindex directories are ported: gather against each
-    writes the JAX package's CSV and stdout."""
+def test_gather_against_each_database_format(kind, world, tmp_path, capsys, monkeypatch):
+    """Every database format the loader chain knows besides zips, `.sig`
+    files, directories and pathlists, built by the port from the small
+    collection (150 sketches, above a lowered flat-view threshold: the
+    device engine): gather against each writes the JAX package's CSV and
+    stdout."""
     from sourmash_tpu_torch.save_load import load_file_as_index
 
-    if kind in ("SBT", "LCA database", "LCA sqlite database"):
-        if kind == "SBT":
-            path = tmp_path / "db.sbt.json"
-            path.write_text("{}")
-        elif kind == "LCA database":
-            path = tmp_path / "db.lca.json"
-            path.write_text('{"type": "sourmash_lca"}')
-        else:
-            import sqlite3
-
-            path = tmp_path / "lca.sqldb"
-            _save(str(path), list(load_file_as_index(str(world / "small.zip")).signatures()))
-            conn = sqlite3.connect(str(path))
-            conn.execute("INSERT INTO sourmash_internal (key, value) "
-                         "VALUES ('SqliteLineage', '1.0')")
-            conn.commit()
-            conn.close()
-        with pytest.raises(NotImplementedError, match=kind.replace(" sqlite", "")):
-            load_file_as_index(str(path))
-        return
-
-    # the small collection (150) above a lowered flat-view threshold: the device engine
     monkeypatch.setenv("SOURMASH_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("SOURMASH_TORCH_FLAT_VIEW", "100")
     monkeypatch.setenv("SOURMASH_TPU_FLAT_VIEW", "100")
     monkeypatch.chdir(tmp_path)
-    small = list(load_file_as_index(str(world / "small.zip")).signatures())
+    small_zip = str(world / "small.zip")
+    small = list(load_file_as_index(small_zip).signatures())
     if kind == "sqlite database":
         db = "db.sqldb"
         _save(db, small)
@@ -182,15 +162,29 @@ def test_databases_not_ported_yet_raise(kind, world, tmp_path, capsys, monkeypat
         from sourmash_tpu_torch.manifest import CollectionManifest
 
         db = "mf.csv"
-        rows = [CollectionManifest.make_manifest_row(ss, str(world / "small.zip"),
+        rows = [CollectionManifest.make_manifest_row(ss, small_zip,
                                                      include_signature=False) for ss in small]
         CollectionManifest(rows).write_to_filename(db)
-    else:
+    elif kind == "SBT":
+        db = "db.sbt.zip"
+        assert torch_main(["index", db, small_zip]) in (None, 0)
+    elif kind == "revindex directory":
         db = "rev"
-        assert torch_main(["index", "-F", "revindex", db, str(world / "small.zip")]) in (None, 0)
+        assert torch_main(["index", "-F", "revindex", db, small_zip]) in (None, 0)
+    else:
+        tax = ["identifiers,superkingdom,phylum,class,order,family,genus,species"]
+        tax += [f"small_{i},d__B,p__P{i % 3},c__C{i % 5},o__O{i % 7},f__F{i % 11},"
+                f"g__G{i % 13},s__S{i}" for i in range(150)]
+        with open("tax.csv", "w") as fp:
+            fp.write("\n".join(tax) + "\n")
+        db = "db.lca.json" if kind == "LCA database" else "db.lca.sql"
+        fmt = ["-F", "sql"] if kind == "LCA sqlite database" else []
+        assert torch_main(["lca", "index", "tax.csv", db, small_zip, "--scaled", "1000",
+                           *fmt]) in (None, 0)
     assert type(load_file_as_index(db)).__name__ == {
         "sqlite database": "SqliteIndex", "standalone manifest": "StandaloneManifestIndex",
-        "revindex directory": "RevIndex"}[kind]
+        "SBT": "SBT", "revindex directory": "RevIndex", "LCA database": "LCA_Database",
+        "LCA sqlite database": "LCA_SqliteDatabase"}[kind]
     capsys.readouterr()
     outputs = {}
     for tag, main in (("jax", jax_main), ("torch", torch_main)):

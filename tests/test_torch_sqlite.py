@@ -8,11 +8,11 @@ package, on the CPU (the port with SOURMASH_TORCH_DEVICE=cpu):
   standalone manifests (CSV, gzipped CSV and sqlite) write the same CSV
   and stdout in both packages, above the flat-view threshold (the device
   engine; lowered to 100 sketches in both packages) and below it;
-- a sqlite LCA database raises NotImplementedError naming it.
+- a sqlite LCA database loads in both packages, and gather against it
+  writes the same CSV and stdout.
 """
 
 import os
-import sqlite3
 
 import numpy as np
 import pytest
@@ -162,16 +162,33 @@ def test_sqlite_index_create_insert_select_manifest(world, tmp_path):
         t.insert(sourmash_tpu_torch.SourmashSignature(coarse, name="coarse"))
 
 
-def test_lca_sqlite_database_raises(world, tmp_path):
-    "A sqlite LCA database (a lineage table beside the index) is not ported."
-    path = tmp_path / "lca.sqldb"
-    _save(path, list(load_file_as_index(str(world / "db.zip")).signatures())[:5])
-    conn = sqlite3.connect(str(path))
-    conn.execute("INSERT INTO sourmash_internal (key, value) VALUES ('SqliteLineage', '1.0')")
-    conn.commit()
-    conn.close()
-    with pytest.raises(NotImplementedError, match="an LCA database"):
-        load_file_as_index(str(path))
+def test_lca_sqlite_database_loads_and_gathers(world, tmp_path, capsys, monkeypatch):
+    """A sqlite LCA database (a lineage table beside the index) that the
+    port's `lca index -F sql` writes is the JAX package's file; both load it
+    as an LCA_SqliteDatabase, and gather against it (above the lowered
+    flat-view threshold) writes the same CSV and stdout."""
+    monkeypatch.chdir(tmp_path)
+    tax = ["identifiers,superkingdom,phylum,class,order,family,genus,species"]
+    tax += [f"genome_{i},d__B,p__P{i % 3},c__C{i % 5},o__O{i % 7},f__F{i % 11},g__G{i % 13},"
+            f"s__S{i}" for i in range(0, 200, 2)]
+    (tmp_path / "tax.csv").write_text("\n".join(tax) + "\n")
+    for tag, main in (("jax", jax_main), ("torch", torch_main)):
+        assert main(["lca", "index", "tax.csv", f"{tag}.lca.sql", str(world / "db.zip"),
+                     "-F", "sql", "--scaled", "1000", "-q"]) in (None, 0)
+    assert (tmp_path / "torch.lca.sql").read_bytes() == (tmp_path / "jax.lca.sql").read_bytes()
+    path = str(tmp_path / "torch.lca.sql")
+    db = load_file_as_index(path)
+    assert type(db).__name__ == "LCA_SqliteDatabase" and len(db) == 200
+    assert type(sourmash_tpu.save_load.load_file_as_index(path)).__name__ == "LCA_SqliteDatabase"
+    assert len(db.lid_to_lineage) == 100
+    capsys.readouterr()
+    outputs = {}
+    for tag, main in (("jax", jax_main), ("torch", torch_main)):
+        out = tmp_path / f"{tag}.csv"
+        assert main(["gather", str(world / "meta.sig"), path, "-o", str(out)]) in (None, 0)
+        outputs[tag] = (capsys.readouterr().out, out.read_bytes())
+    assert outputs["torch"] == outputs["jax"]
+    assert outputs["torch"][1].count(b"\n") > 2
 
 
 CASES = {
