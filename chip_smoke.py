@@ -289,7 +289,7 @@ M_AA = 128  # phase 4: ~95 proteomes the size of E. coli K-12's (4,300 proteins,
 PROTEIN_PARAMS = ["k=10,scaled=200", "dayhoff,k=16,scaled=200", "hp,k=42,scaled=200",
                   "k=10,num=500"]
 HOST_MERGE_EVERY = 2000  # records per part sketch in the host loop (see host_sketches)
-HOST_WORKERS = 8  # processes of phase 4's host loop over its ~165 k records (an 8-core host)
+HOST_WORKERS = 8  # processes of phases 3's and 4's host loops (an 8-core host)
 TRANSLATE_MBP = 64
 TRANSLATE_PARAMS = ["k=10,scaled=200", "dayhoff,k=16,scaled=200"]
 
@@ -942,12 +942,12 @@ def sketch_key(mh) -> tuple:
     return (mh.ksize, mh.moltype, mh.scaled, mh.num)
 
 
-def dna_host_sketches(path: str) -> dict:
+def dna_host_sketches(path: str, workers: int = 1) -> dict:
     from sourmash_tpu_torch import MinHash
 
     mhs = [MinHash(0, k, scaled=1000) for k in (21, 31, 51)]
     mhs += [MinHash(0, 31, scaled=100), MinHash(500, 31)]
-    return host_sketches(path, {sketch_key(mh): mh for mh in mhs})
+    return host_sketches(path, {sketch_key(mh): mh for mh in mhs}, workers=workers)
 
 
 def check_against_host(what: str, got: dict, want: dict):
@@ -1026,8 +1026,8 @@ def sketch_end_to_end(mbp: int, rng, tmp: str, profile_cli: bool = False) -> dic
         profile = profiled(lambda: cli_main(argv + ["-q"]), "sketch dna")
 
     t0 = time.time()
-    want = dna_host_sketches(path)
-    log(f"  native host loop: {time.time() - t0:.1f} s")
+    want = dna_host_sketches(path, HOST_WORKERS)
+    log(f"  native host loop ({HOST_WORKERS} processes): {time.time() - t0:.1f} s")
     got = {sketch_key(sig.minhash): sig.minhash for sig in load_signatures_from_json(out)}
     check_against_host("sketch dna", got, want)
 
@@ -3341,6 +3341,7 @@ def multigather_end_to_end(rng, tmp: str, world: dict, profile_cli: bool = False
         samples.append((path, q, abunds))
     log(f"  {len(samples)} samples of {[len(s[1]) for s in samples]} hashes "
         f"({time.time() - t0:.1f} s to make)")
+    world["samples"] = [q for _p, q, _a in samples]  # phase 12's queries
     t0 = time.time()
     wants = [oracle_gather(q, ab, mins_list, int(GATHER_THRESHOLD_BP // GATHER_SCALED),
                            world["index"]) for _p, q, ab in samples]
@@ -4061,6 +4062,12 @@ KERNELS = {
         route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
         replaces="tools/profile_sketch_parts.py:2",
     ),
+    # the sharded gather program's shard-local compare (`_local_counts` :146
+    # and `build_chunk` :306), timed with its words at the program's chunk
+    "shard_match": dict(
+        route="cuda", source="sourmash_tpu_torch/csrc/parallel.cu",
+        replaces="sourmash_tpu/parallel/__init__.py:146",
+    ),
 }
 INSTRUMENTS = ("split_words", "split_slots", "survivor_slots_v2", "murmur_only",
                "assembly_only", "mulchain", "int_probe")
@@ -4435,6 +4442,458 @@ def sbt_lca_end_to_end(tmp: str, world: dict) -> dict:
     return out
 
 
+# -- phase 2 (shard_match) and phase 12: the multi-device layer on one card ----
+
+# phase 12 runs the sharded paths on meshes that name the card several
+# times: logical shards on one card, run one after another (no multi-GPU
+# rate); with more than one card, (a) and (b) run over the distinct cards too
+SHARDED_SHARDS = 4  # (a): gather's sharded round scan
+DATA_DEVICES = (2, 3)  # (b): multigather's data-parallel scan
+PROGRAM_MESH = (2, 2)  # (c): the fused program's (data, shards) mesh
+SKETCH_ROWS, SKETCH_DATA = 4, 2  # (d): rows of phase 3's kind over data devices
+SCAN_ROUNDS = 64  # rounds timed for ms per round
+SHARD_MATCH_STEP = 16  # rows of a plain shard_match call on the card
+
+
+def not_launched(launches: dict, *names) -> list:
+    "Which of the kernels `names` did not launch (none, in a CPU rehearsal)."
+    return [n for n in names if launches[n] < 1 and GATHER_DEVICE == "cuda"]
+
+
+def shard_match_edge_inputs(rng):
+    """Edge planes for shard_match: 13 rows (not a multiple of the kernel's
+    4-row tile) of uneven loads, rows with empty buckets, one bucket loaded
+    past the 8 register slots, the hash 2^64-1 in a row and a query; 3
+    queries (one matching nothing) with holes in their alive masks."""
+    import torch
+
+    from sourmash_tpu_torch.ops.bucketed import pack_bits_u32, to_torch
+    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
+
+    sizes = [64, 5, 200, 0, 64, 64, 1, 64, 64, 300, 64, 2, 64]
+    mins = [np.unique(rng.integers(1, 1 << 40, size=n, dtype=np.uint64)) for n in sizes]
+    crowd = np.arange(1, 21, dtype=np.uint64) * np.uint64(1 << 20)  # one bucket, 20 deep
+    mins[0] = np.unique(np.r_[mins[0], crowd, np.uint64(2**64 - 1)])
+    queries = [np.unique(np.r_[mins[0][:40], crowd[:12], mins[9][:100], np.uint64(2**64 - 1)]),
+               np.arange(2**41, 2**41 + 32, dtype=np.uint64),
+               np.unique(np.concatenate([m[: len(m) // 2] for m in mins]))]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=256)
+    qhi, qlo, alive = pack_query_batch(queries, B)
+    alive &= rng.random(alive.shape) < 0.85
+    dev = torch.device(GATHER_DEVICE)
+    return (to_torch(qhi, dev), to_torch(qlo, dev),
+            pack_bits_u32(torch.from_numpy(alive).to(dev)), to_torch(Shi, dev),
+            to_torch(Slo, dev), torch.from_numpy(Scnt).to(dev))
+
+
+def shard_match_plain_chunks(args, bits: bool):
+    "shard_match_plain over row slices of SHARD_MATCH_STEP: (counts, M or None)."
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    Qhi, Qlo, A, Shi, Slo, Scnt = args
+    counts, words = [], []
+    for a in range(0, Shi.shape[0], SHARD_MATCH_STEP):
+        s = slice(a, min(a + SHARD_MATCH_STEP, Shi.shape[0]))
+        got = cg.shard_match_plain(Qhi, Qlo, A, Shi[s].contiguous(), Slo[s].contiguous(),
+                                   Scnt[s].contiguous(), bits=bits)
+        counts.append(got[0] if bits else got)
+        if bits:
+            words.append(got[1])
+    return torch.cat(counts, dim=1), torch.cat(words, dim=1) if bits else None
+
+
+def hold_shard_match(what: str, args):
+    "shard_match against its plain version, bit for bit: counts only, and with the words."
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    counts, M = cg.shard_match(*args, bits=True)
+    want_counts, want_M = shard_match_plain_chunks(args, True)
+    exact(f"shard_match counts ({what})", counts, want_counts)
+    exact(f"shard_match words ({what})", M, want_M)
+    exact(f"shard_match counts only ({what})", cg.shard_match(*args), want_counts)
+    return counts, M
+
+
+def check_shard_match_edges(rng) -> dict:
+    """Phase 2's shard_match: the edge planes of shard_match_edge_inputs,
+    and the builder's in-place form (two launches into one buffer at a row
+    offset), bit for bit against the plain version."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    args = shard_match_edge_inputs(rng)
+    counts, M = hold_shard_match("edge rows", args)
+    Qhi, Qlo, A, Shi, Slo, Scnt = args
+    rows = Shi.shape[0]
+    cbuf = torch.full((Qhi.shape[0], rows + 3), 7, dtype=torch.int32, device=Qhi.device)
+    Mbuf = torch.zeros((Qhi.shape[0], rows + 3) + tuple(M.shape[2:]), dtype=torch.int32,
+                       device=Qhi.device)
+    for a, b in ((0, 6), (6, rows)):
+        cg.shard_match(Qhi, Qlo, A, Shi[a:b], Slo[a:b], Scnt[a:b], out=(cbuf, Mbuf), row0=a + 3)
+    exact("shard_match in place (counts)", cbuf[:, 3:], counts)
+    exact("shard_match in place (words)", Mbuf[:, 3:], M)
+    if not bool((cbuf[:, :3] == 7).all()) or int(counts.sum()) == 0:
+        raise AssertionError("shard_match wrote outside its rows, or matched nothing")
+    log(f"  shard_match: equals its plain version on [3, {Qhi.shape[1]}, {Qhi.shape[2]}] x "
+        f"{rows} edge rows (d = {Shi.shape[1]}, 2^64-1, empty buckets, holes), counts only "
+        f"and with words, and in place at a row offset")
+    return dict(edge_rows=rows, edge_depth=Shi.shape[1], matched=int(counts.sum()))
+
+
+def time_shard_match(args, mins_rows, queries, reps: int, clock_hz: float) -> dict:
+    """shard_match at the fused program's chunk shape, bit for bit against
+    its plain version, timed with words (the builder) and counts only (the
+    counter), beside its plain version, its bound and the library call of
+    the counts (torch.sparse.mm of the incidence rows)."""
+    import torch
+
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.ops.bucketed import unpack_bits_u32
+
+    t0 = time.time()
+    counts, _M = hold_shard_match("the fused program's chunk", args)
+    hold_s = time.time() - t0
+    Qhi, Qlo, A, Shi, Slo, Scnt = args
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    W = B // 32
+    ms, b2b = kernel_times(lambda: cg.shard_match(*args, bits=True), reps)
+    ms_c, b2b_c = kernel_times(lambda: cg.shard_match(*args), reps)
+    plain = time_ms(lambda: shard_match_plain_chunks(args, True), 1, warmup=0)
+    # least work on this run's data: each pair of an alive query slot and
+    # an occupied row slot of the same bucket compared (two limb equalities
+    # and an or: 3 ops); each input read once (the query planes and alive
+    # words, the rows' planes and occupancy), the counts and words written once
+    alive_b = unpack_bits_u32(A).sum(dim=1, dtype=torch.int64).to(torch.float64)  # [bq, B]
+    occ_b = Scnt.to(torch.int64).clamp(max=d).sum(dim=0).to(torch.float64)  # [B]
+    pairs = int((alive_b @ occ_b).sum())
+    nbytes = (2 * Qhi.numel() + A.numel() + 2 * Shi.numel() + bq * rows) * 4 + Scnt.numel()
+    bms, by = bound_ms(nbytes + bq * rows * dq * W * 4, 0, 3 * pairs, clock_hz)
+    bms_c, by_c = bound_ms(nbytes, 0, 3 * pairs, clock_hz)
+    lib = sparse_product_ms(queries, mins_rows, reps, counts.cpu().numpy())
+    out = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=0.0,
+               library_ms=None, counts_only=dict(ms=ms_c, b2b_ms=b2b_c, bound_ms=bms_c,
+                                                 bound_by=by_c, library_ms=lib),
+               bq=bq, dq=dq, B=B, rows=rows, d=d, pairs=pairs, hold_s=hold_s)
+    log(f"  shard_match [{bq}, {dq}, {B}] x [{rows}, {d}, {B}] ({pairs} slot pairs): equals its "
+        f"plain version ({hold_s:.1f} s); with words {ms:.4f} ms/launch ({b2b:.4f} back to "
+        f"back), bound {bms:.4f} ms ({by}); counts only {ms_c:.4f} ({b2b_c:.4f}), bound "
+        f"{bms_c:.4f} ms ({by_c}), torch.sparse.mm of the counts {lib} ms; plain {plain:.1f} ms")
+    return out
+
+
+def sync_free(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): a host
+    synchronisation inside it raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def gather_query_sig(q: np.ndarray, name: str):
+    from sourmash_tpu_torch import SourmashSignature, minhash_from_arrays
+
+    params = dict(ksize=31, moltype="DNA", num=0, scaled=GATHER_SCALED, seed=42,
+                  track_abundance=False)
+    return SourmashSignature(minhash_from_arrays(params, q, None), name=name)
+
+
+def scan_ms_per_round(built, dev) -> dict:
+    """ms per round of the same scan inputs (phase 6's host-built matrix)
+    through `_schedule_scan` and the sharded scan at 1 and SHARDED_SHARDS
+    logical shards on one card, SCAN_ROUNDS rounds each (the same winners
+    required), and the sharded scan's host synchronisations inside its
+    rounds (set_sync_debug_mode)."""
+    import torch
+
+    from sourmash_tpu_torch.index.flat import _schedule_scan
+    from sourmash_tpu_torch.ops.bucketed import to_torch
+    from sourmash_tpu_torch.parallel import get_mesh, make_sharded_bitset_scan, shard_rows
+
+    rows, counts, alive_p, thresh, _nk, M_new = built
+    k = len(rows)
+    alive = to_torch(alive_p, dev)
+    out, ref = {}, None
+    for n in (None, 1, SHARDED_SHARDS):
+        if n is None:
+            Mj = to_torch(M_new, dev)
+            carry = (alive, torch.from_numpy(counts).to(dev))
+
+            def run():
+                return _schedule_scan(Mj, carry, thresh, SCAN_ROUNDS)
+        else:
+            mesh = get_mesh(1, n, devices=[dev] * n)
+            k_pad = -(-k // n) * n
+            M = np.zeros((k_pad, M_new.shape[1]), dtype=np.uint32)
+            M[:k] = M_new
+            c = np.zeros(k_pad, dtype=np.int32)
+            c[:k] = counts
+            Ms, cs = shard_rows(mesh, to_torch(M)), shard_rows(mesh, torch.from_numpy(c))
+            scan = make_sharded_bitset_scan(mesh, SCAN_ROUNDS)
+
+            def run():
+                return scan(Ms, alive, cs, thresh)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        (_a, _c), (bests, _bcs) = run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        tag = "_schedule_scan" if n is None else f"sharded, {n} logical shard{'s' * (n > 1)}"
+        out[tag] = dict(ms_per_round=wall * 1e3 / SCAN_ROUNDS)
+        got = bests.cpu().numpy()
+        if ref is None:
+            ref = got
+        elif not np.array_equal(got, ref):
+            raise AssertionError(f"{tag}: other winners than _schedule_scan's")
+        if n == SHARDED_SHARDS:
+            sync_free(run)  # no host synchronisation in its rounds, or this raises
+            out[tag]["host_syncs"] = 0
+    log("  ms per round (logical shards on one card, run one after another; no multi-GPU "
+        f"rate), {SCAN_ROUNDS} rounds of phase 6's [{k}, {M_new.shape[1]}] matrix: "
+        + ", ".join(f"{t} {v['ms_per_round']:.4f}" for t, v in out.items())
+        + f"; no host synchronisation in {SCAN_ROUNDS} sharded rounds (set_sync_debug_mode "
+          f"\"error\")")
+    return out
+
+
+def parallel_gather(world: dict, index, dev, meshes: dict) -> dict:
+    """(a) `DeviceGatherSchedule.compute` of phase 6's metagenome against
+    its collection on each mesh of `meshes`, and over two overlapping
+    collections (cross-database ties): every schedule equal to the
+    one-device one."""
+    from sourmash_tpu_torch.index.flat import FlatIndex, schedule_device_gather
+
+    th = GATHER_THRESHOLD_BP
+    qsig = gather_query_sig(world["q"], "metagenome")
+    sigs = world["sigs"]
+    half, span = len(sigs) // 2, len(sigs) // 10
+    # genomes [half - span, half + span) in both collections: each of their
+    # rounds is a tie across the two, which the first-listed must win
+    overlap = [FlatIndex(sigs[: half + span], device=dev),
+               FlatIndex(sigs[half - span :], device=dev)]
+    out = {}
+    for case, indexes in (("one collection", [index]), ("two collections", overlap)):
+        counters = [ix.counter_gather(qsig, th) for ix in indexes]
+
+        def compute(devices):
+            coord = schedule_device_gather(counters)
+            _r, wall, launches = call_counted(lambda: coord.compute(th, devices=devices), {})
+            return coord, dict(wall_s=wall, route=coord.route, rounds=len(coord._sched),
+                               truncated=coord.truncated,
+                               launches={n: launches[n] for n in ("round_dec", "shard_match",
+                                                                  "membership_bits")})
+
+        one, facts = compute([dev])
+        runs = {"one device": facts}
+        for tag, devices in meshes.items():
+            coord, facts = compute(devices)
+            if coord._sched != one._sched or coord.truncated != one.truncated:
+                raise AssertionError(f"(a) {case}, {tag}: the sharded schedule differs from "
+                                     f"the one-device one")
+            if coord.route != "sharded host membership" or not_launched(facts["launches"],
+                                                                        "round_dec"):
+                raise AssertionError(f"(a) {case}, {tag}: {facts}")
+            runs[tag] = facts
+        if case == "two collections":
+            ties = sum(ci == 0 and ds >= half - span for ci, ds, _c in one._sched)
+            lost = sum(ci == 1 and ds < 2 * span for ci, ds, _c in one._sched)
+            runs["cross-collection ties"] = ties
+            if {ci for ci, _ds, _c in one._sched} != {0, 1} or not ties or lost:
+                raise AssertionError(f"(a) two collections: rounds {one._sched[:8]}..., "
+                                     f"{ties} cross-collection ties")
+        out[case] = runs
+        log(f"  (a) gather's schedule, {case}, {len(one._sched)} rounds"
+            f"{' (truncated by the cap)' if one.truncated else ''}, equal on every mesh: "
+            + "; ".join(f"{t} {r['wall_s']:.2f} s ({r['route']}, launches {r['launches']})"
+                        for t, r in runs.items() if isinstance(r, dict))
+            + (f"; {runs['cross-collection ties']} rounds won by a genome of both collections"
+               if case == "two collections" else ""))
+        if case == "one collection":
+            coord = schedule_device_gather(counters)
+            built = coord._build_inputs(th, dev_cached=None, build_mats=True)
+            out["ms_per_round"] = scan_ms_per_round(built, dev)
+    return out
+
+
+def parallel_multigather(world: dict, index, dev, meshes: dict) -> tuple:
+    """(b) `compute_schedules_batch` of phase 8's samples in blocks of 4
+    (multigather's block at their size) on one device and on each data
+    mesh of `meshes`: every schedule equal to the one-device one."""
+    from sourmash_tpu_torch.index.flat import compute_schedules_batch, schedule_device_gather
+
+    th = GATHER_THRESHOLD_BP
+    counters = [index.counter_gather(gather_query_sig(q, f"sample {i}"), th)
+                for i, q in enumerate(world["samples"])]
+    runs, scheds, truncated = {}, {}, None
+    for tag, devices in {"one device": [dev], **meshes}.items():
+        coords = [schedule_device_gather([c]) for c in counters]
+        _r, wall, launches = call_counted(
+            lambda: compute_schedules_batch(coords, th, block=4, devices=devices), {})
+        scheds[tag] = [c._sched for c in coords]
+        if truncated is None:
+            truncated = [c.truncated for c in coords]
+        runs[tag] = dict(wall_s=wall, routes=sorted({c.route for c in coords if c.route}),
+                         rounds=sum(len(s) for s in scheds[tag]),
+                         launches={n: launches[n] for n in ("round_dec_batch", "shard_match",
+                                                            "membership_bits_batch")})
+        if scheds[tag] != scheds["one device"]:
+            raise AssertionError(f"(b) {tag}: the schedules differ from the one-device ones")
+        if tag != "one device" and (runs[tag]["routes"] != ["data-parallel host membership"]
+                                    or not_launched(launches, "round_dec_batch")):
+            raise AssertionError(f"(b) {tag}: {runs[tag]}")
+    log(f"  (b) multigather's schedules of {len(counters)} samples "
+        f"({runs['one device']['rounds']} rounds), equal on every mesh: "
+        + "; ".join(f"{t} {r['wall_s']:.2f} s ({r['routes']}, launches {r['launches']})"
+                    for t, r in runs.items()))
+    return runs, [dict(sched=s, truncated=t) for s, t in zip(scheds["one device"], truncated)]
+
+
+def parallel_program(world: dict, dev, want_scheds: list, reps: int, clock_hz: float) -> dict:
+    """(c) the fused program (membership build + rounds) on a PROGRAM_MESH
+    mesh of the card, phase 6's collection packed by pack_shard_planes,
+    against 2 large and 2 small of phase 8's samples: best and best_count
+    equal to the one-device schedules round for round. And (e) shard_match
+    at the program's chunk shape against its plain version, timed."""
+    import torch
+
+    from sourmash_tpu_torch.ops.bucketed import pack_bits_u32, to_torch
+    from sourmash_tpu_torch.parallel import (
+        get_mesh, make_sharded_gather_program, pack_query_batch, pack_shard_planes)
+    from sourmash_tpu_torch.search import calc_threshold_from_bp
+
+    nd, ns = PROGRAM_MESH
+    picks = (0, 1, MULTI_LARGE, MULTI_LARGE + 1)
+    queries = [world["samples"][i] for i in picks]
+    mins_list = world["mins_list"]
+    t0 = time.time()
+    Shi, Slo, Scnt, B = pack_shard_planes(mins_list, ns)
+    qhi, qlo, alive = pack_query_batch(queries, B)
+    pack_s = time.time() - t0
+    thresh = np.array([max(calc_threshold_from_bp(GATHER_THRESHOLD_BP, GATHER_SCALED, len(q))[1],
+                           1) for q in queries], dtype=np.int32)
+    planes = (to_torch(Shi, dev), to_torch(Slo, dev), torch.from_numpy(Scnt).to(dev))
+    plane_bytes = sum(p.numel() * p.element_size() for p in planes)
+    del Shi, Slo
+    qs = (to_torch(qhi, dev), to_torch(qlo, dev), torch.from_numpy(alive).to(dev))
+    per, d = planes[0].shape[0] // ns, planes[0].shape[1]
+    log(f"  (c) planes [{planes[0].shape[0]}, {d}, {B}] (pack_shard_planes, {pack_s:.1f} s), "
+        f"queries [{len(queries)}, {qhi.shape[1]}, {B}] of {[len(q) for q in queries]} hashes")
+
+    # (e) at the program's chunk: data block 0's queries against shard 0's first rows
+    chunk = min(per, 4096)
+    bq0 = -(-len(queries) // nd)
+    A = pack_bits_u32(qs[2][:bq0])
+    args = (qs[0][:bq0].contiguous(), qs[1][:bq0].contiguous(), A,
+            *(p[:chunk].contiguous() for p in planes))
+    timing = time_shard_match(args, mins_list[:chunk], queries[:bq0], reps, clock_hz)
+    del args, A
+    torch.cuda.empty_cache()
+
+    max_rounds = max(len(w["sched"]) for w in want_scheds) + 1
+    mesh = get_mesh(nd, ns, devices=[dev] * (nd * ns))
+    prog = make_sharded_gather_program(mesh, len(mins_list), max_rounds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (best, bc), wall, launches = call_counted(lambda: prog(*planes, *qs, thresh), {})
+    peak = torch.cuda.max_memory_allocated(dev)
+    best, bc = best.cpu().numpy(), bc.cpu().numpy()
+    for j, (i, w) in enumerate(zip(picks, want_scheds)):
+        sched = w["sched"]
+        got = [(int(b), int(c)) for b, c in zip(best[j], bc[j]) if b >= 0]
+        want = [(ds, cnt) for _ci, ds, cnt in sched]
+        if got[: len(want)] != want or (best[j, len(want):] >= 0).any() and not w["truncated"]:
+            raise AssertionError(f"(c) sample {i}: the program's rounds differ from the "
+                                 f"one-device schedule")
+    m_bytes = len(queries) * per * ns * qhi.shape[1] * (B // 32) * 4
+    if not_launched(launches, "shard_match", "round_dec_batch"):
+        raise AssertionError(f"(c) a kernel was not launched: {launches}")
+    log(f"  (c) fused program on a ({nd} x {ns}) mesh of the card, {max_rounds} rounds: "
+        f"{wall:.2f} s, best and best_count equal the one-device schedules round for round "
+        f"({[len(w['sched']) for w in want_scheds]} rounds); peak {peak / 2**30:.2f} GiB "
+        f"allocated, {(peak - base) / 2**30:.2f} above the {base / 2**30:.2f} allocated before "
+        f"the program (the planes' {plane_bytes / 2**30:.2f} and earlier phases' tensors); M "
+        f"{m_bytes / 2**30:.2f} GiB, about {m_bytes / len(queries) / 2**30:.2f} GiB a query at "
+        f"dq = {qhi.shape[1]}); "
+        f"launches {({n: launches[n] for n in ('shard_match', 'round_dec_batch')})}")
+    return dict(wall_s=wall, max_rounds=max_rounds, peak_bytes=peak, base_bytes=base,
+                plane_bytes=plane_bytes, m_bytes=m_bytes, dq=int(qhi.shape[1]), B=B, d=d, pack_s=pack_s,
+                launches={n: launches[n] for n in ("shard_match", "round_dec_batch")},
+                shard_match=timing)
+
+
+def parallel_sketch(rng, dev) -> dict:
+    """(d) the sharded sketch: SKETCH_ROWS rows of phase 3's kind over
+    SKETCH_DATA data devices of the card, equal to the one-device K2 path."""
+    import torch
+
+    from sourmash_tpu_torch.ops.sketch import _dense_compact
+    from sourmash_tpu_torch.parallel import get_mesh, make_sharded_sketch
+
+    k, mh = TIMED_K, max_hash_for(1000)
+    rows = dna_rows(SKETCH_ROWS, k, rng, tandem_unit(k, mh, rng))
+    cap = 8192
+    seqs = torch.from_numpy(rows).to(dev)
+    want, want_n = _dense_compact(seqs, mh, k, 42, cap)
+    mesh = get_mesh(SKETCH_DATA, 1, devices=[dev] * SKETCH_DATA)
+    (got, n), wall, launches = call_counted(lambda: make_sharded_sketch(mesh, k, cap)(rows, mh),
+                                            {})
+    exact("(d) sharded sketch survivors", got, want)
+    exact("(d) sharded sketch counts", n, want_n.to(torch.int32))
+    if launches["window_hashes"] != SKETCH_DATA and GATHER_DEVICE == "cuda":
+        raise AssertionError(f"(d) K2 launched {launches['window_hashes']} times")
+    log(f"  (d) sharded sketch of [{SKETCH_ROWS}, {rows.shape[1]}] over {SKETCH_DATA} data "
+        f"devices: equal to the one-device K2 path ({int(n.sum())} survivors), {wall:.2f} s, "
+        f"K2 launches {launches['window_hashes']}")
+    return dict(wall_s=wall, survivors=int(n.sum()), launches=launches["window_hashes"])
+
+
+def parallel_end_to_end(rng, world: dict, clock_hz: float) -> dict:
+    "Phase 12: (a)-(e) on meshes that name the card several times."
+    import torch
+
+    from sourmash_tpu_torch.index.flat import FlatIndex
+
+    dev = torch.device(GATHER_DEVICE, 0) if GATHER_DEVICE == "cuda" else torch.device("cpu")
+    n_cards = torch.cuda.device_count()
+    out, walls = {}, {}
+    index = FlatIndex(world["sigs"], device=dev)
+    index._build()
+    t0 = time.time()
+    meshes = {f"{SHARDED_SHARDS} logical shards": [dev] * SHARDED_SHARDS}
+    if n_cards > 1:
+        meshes[f"{n_cards} cards"] = [torch.device("cuda", i) for i in range(n_cards)]
+    out["gather"] = parallel_gather(world, index, dev, meshes)
+    walls["a"] = time.time() - t0
+    t0 = time.time()
+    data_meshes = {f"{n} logical data devices": [dev] * n for n in DATA_DEVICES}
+    if n_cards > 1:
+        data_meshes[f"{n_cards} cards"] = [torch.device("cuda", i) for i in range(n_cards)]
+    out["multigather"], scheds = parallel_multigather(world, index, dev, data_meshes)
+    walls["b"] = time.time() - t0
+    del index
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    picks = (0, 1, MULTI_LARGE, MULTI_LARGE + 1)
+    out["program"] = parallel_program(world, dev, [scheds[i] for i in picks], 10, clock_hz)
+    walls["c and e"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out["sketch"] = parallel_sketch(rng, dev)
+    walls["d"] = time.time() - t0
+    out["walls_s"] = walls
+    log("  phase 12 walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -4504,6 +4963,7 @@ def main(argv=None) -> int:
     log("phase 2: kernels against their plain versions on the card (exact)")
     timings = check_kernels(args.quick, rng, clock_hz)
     timings.update(check_gather_kernels(args.quick, rng, clock_hz))
+    timings["shard_match edges"] = check_shard_match_edges(rng)
     timings.update(check_compare_kernels(args.quick, rng, clock_hz))
     t1 = time.time()
     log("phase 2: the sketch-kernel instruments against their plain versions and K1 (exact)")
@@ -4576,6 +5036,10 @@ def main(argv=None) -> int:
         log(f"phase 11: SBT and LCA database of phase 10's {SQLITE_GENOMES} genomes")
         sbt_lca = sbt_lca_end_to_end(tmp, world)
         log(f"phase 11 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log("phase 12: the multi-device layer on meshes that name the card several times")
+        par = parallel_end_to_end(rng, world, clock_hz)
+        log(f"phase 12 done in {time.time() - t0:.1f} s")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -4590,7 +5054,8 @@ def main(argv=None) -> int:
                     pairwise_products=cmp["runs"]["angular"]["launches"]["pairwise_products"],
                     **{name: cmp["block_routes"][name]["launches"][name.split()[0]]
                        for name in ("counts_block (compare)", "products_block")},
-                    **{name: instr[name] for name in INSTRUMENTS})
+                    **{name: instr[name] for name in INSTRUMENTS},
+                    shard_match=par["program"]["launches"]["shard_match"])
     timed = dict(survivor_slots=timings["survivor_slots"][TIMED_K],
                  window_hashes=timings["window_hashes"][TIMED_K],
                  aa_window_hashes=timings["aa_window_hashes"][TIMED_AA_K],
@@ -4602,7 +5067,8 @@ def main(argv=None) -> int:
                  pairwise_products=timings["pairwise_products"],
                  **{"counts_block (compare)": timings["counts_block_pairwise"],
                     "products_block": timings["products_block"]},
-                 **{name: timings[name] for name in INSTRUMENTS})
+                 **{name: timings[name] for name in INSTRUMENTS},
+                 shard_match=par["program"]["shard_match"])
     # phase 2 timed compare's kernels on phase 9's planes at each route's block
     for name in ("pairwise_counts", "pairwise_products", "counts_block (compare)",
                  "products_block"):
@@ -4622,7 +5088,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
-                           persistent=pers, sbt_lca=sbt_lca,
+                           persistent=pers, sbt_lca=sbt_lca, parallel=par,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(f"chip_smoke: the whole run took {time.time() - t_start:.1f} s")
     log(card)

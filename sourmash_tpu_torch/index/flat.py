@@ -17,14 +17,26 @@ the round schedules of a block of queries are built and scanned together
 by `membership_bits_batch`, one `round_dec_batch` launch per round of the
 block.
 
+Given more than one device, the schedules run sharded over them
+(`sourmash_tpu_torch/parallel/`, one process driving every device): the
+device list is the `devices` argument of `DeviceGatherSchedule.compute`,
+`compute_schedules_batch` and `converge_schedules_batch`; without a list
+of more than one, on any machine, the one-device path runs (no
+measurement shows the sharded scan ahead of it yet). A sharded schedule
+builds its membership words on the host: `compute` splits the full
+matrix by rows across the devices and runs the sharded round scan (`make_sharded_bitset_scan`: a
+local argmax a shard, the winner agreed by a max over keys, the owner's
+row OR-ed in, `round_dec` on every shard), route "sharded host
+membership"; `compute_schedules_batch` splits each block's queries across
+the devices, each scanning its own (`make_data_parallel_schedule_scan`),
+route "data-parallel host membership". The schedules equal the
+one-device ones.
+
 A FlatIndex saves as a disk revindex (`index/revindex.py`); one loaded
 from a revindex directory holds its raw mins and the directory of its
 packed planes. Its banks are built at first use: packed on the device from
 the raw mins when they fit the device budget, else the mmapped disk planes
 stream to the device per query pass.
-
-Not ported yet: the multi-device branches (`DeviceGatherSchedule.compute`,
-the sharded query blocks of `compute_schedules_batch`).
 """
 
 from __future__ import annotations
@@ -877,6 +889,15 @@ class FlatCounterGather:
         np.maximum(self.counts, 0, out=self.counts)
 
 
+def _mesh_devices(devices=None):
+    """The devices of a sharded schedule, or None for the one-device path:
+    `devices` when the caller names more than one. The one-device path
+    stays the default on a machine with several cards: no measurement
+    shows the sharded scan ahead of it yet."""
+    devices = [torch.device(d) for d in devices or ()]
+    return devices if len(devices) > 1 else None
+
+
 class DeviceGatherSchedule:
     """Coordinator for the device-scheduled gather over one or more
     FlatCounterGather counters sharing the same query and scaled.
@@ -908,7 +929,8 @@ class DeviceGatherSchedule:
         self._dev_rows = {}  # (counter_idx, dataset_id) -> row in _dev_mat
         self._dev_mat = None  # [n_cached, W] int32 on the device
         self._dev_W = None
-        self.route = None  # "device membership" or "host membership", once computed
+        self.route = None  # "device membership", "host membership" or "sharded host membership"
+        self.devices = None  # compute's device list, kept for its reschedules
 
     def current(self):
         "The (counter_idx, dataset_id, count) of the current round, or None."
@@ -1034,18 +1056,27 @@ class DeviceGatherSchedule:
             alive[: len(q)] = True
         return rows, counts, _pack_host_bits(alive), thresh, new_keys, M_new
 
-    def compute(self, threshold_bp):
-        """Build the membership matrix on the counters' device and run the
-        round scan there, reading the winners back once per chunk of
-        rounds."""
+    def compute(self, threshold_bp, devices=None):
+        """Build the membership matrix and run the round scan, reading the
+        winners back once per chunk of rounds. On one device (the
+        counters'), the matrix comes from the bank planes on the device or
+        from host bitsets; on more than one (a `devices` list the caller
+        gives; by default the one device), the host-built matrix in row
+        order is split by rows across them and the sharded scan (`parallel.make_sharded_bitset_scan`)
+        runs its rounds. A given `devices` is kept for later computes (the
+        capped reschedules)."""
         self.ready = True
+        if devices is not None:
+            self.devices = devices
+        devices = _mesh_devices(self.devices)
+        multi = devices is not None
         # single-counter resident-bank case: membership words are computed
         # on the device from the bank planes, with no host build and no
         # matrix upload; the host build with its row cache serves the rest
-        dev_membership = len(self.counters) == 1 and self.counters[0]._device_membership_worthwhile(
-            threshold_bp
-        )
-        self.route = "device membership" if dev_membership else "host membership"
+        dev_membership = (not multi and len(self.counters) == 1
+                          and self.counters[0]._device_membership_worthwhile(threshold_bp))
+        self.route = ("sharded host membership" if multi
+                      else "device membership" if dev_membership else "host membership")
         device = self.counters[0].device
         q0 = self.counters[0]._q_mins
         W0 = -(-len(q0) // 32) if len(q0) else 0
@@ -1053,7 +1084,7 @@ class DeviceGatherSchedule:
             self._dev_rows, self._dev_mat, self._dev_W = {}, None, W0
         built = self._build_inputs(
             threshold_bp,
-            dev_cached=None if dev_membership else self._dev_rows,
+            dev_cached=None if (multi or dev_membership) else self._dev_rows,
             build_mats=not dev_membership,
         )
         if built is None:
@@ -1065,8 +1096,26 @@ class DeviceGatherSchedule:
         # fewer rounds per readback when the candidate set is huge: each
         # round costs O(k * W) whether or not the gather is already done
         chunk = int(min(k, 64 if k > 4096 else 256))
-        alive = to_torch(alive_p, device)
-        if dev_membership:
+        row_map = None
+        if multi:
+            from ..parallel import get_mesh, make_sharded_bitset_scan, shard_rows
+
+            # the full matrix in row order, padded with zero rows to a
+            # multiple of the shard count; M and counts go to the shards once
+            mesh = get_mesh(1, len(devices), devices=devices)
+            k_pad = -(-k // len(devices)) * len(devices)
+            M = np.zeros((k_pad, M_new.shape[1]), dtype=np.uint32)
+            M[:k] = M_new
+            counts_p = np.zeros(k_pad, dtype=np.int32)
+            counts_p[:k] = counts
+            scan = make_sharded_bitset_scan(mesh, chunk)
+            Ms = shard_rows(mesh, to_torch(M))
+            carry = (to_torch(alive_p), shard_rows(mesh, torch.from_numpy(counts_p)))
+
+            def run(c):
+                return scan(Ms, c[0], c[1], thresh)
+        elif dev_membership:
+            alive = to_torch(alive_p, device)
             Mj, row_src = self.counters[0]._membership_rows_device(
                 np.asarray([ds for _ci, ds in rows], dtype=np.int64), alive_p.shape[0]
             )
@@ -1075,6 +1124,9 @@ class DeviceGatherSchedule:
             carry = (alive, torch.from_numpy(counts[row_src]).to(device))
             keys = torch.from_numpy(row_src).to(device)
             row_map = row_src
+
+            def run(c):
+                return _schedule_scan(Mj, c, thresh, chunk, keys)
         else:
             # upload only rows the device has not seen; reschedules re-rank
             # mostly-overlapping candidate sets
@@ -1089,13 +1141,14 @@ class DeviceGatherSchedule:
                 Mj = self._dev_mat  # first compute: already in row order
             else:
                 Mj = self._dev_mat.index_select(0, torch.from_numpy(idxs).to(device))
-            carry = (alive, torch.from_numpy(counts).to(device))
-            keys = None
-            row_map = None
+            carry = (to_torch(alive_p, device), torch.from_numpy(counts).to(device))
+
+            def run(c):
+                return _schedule_scan(Mj, c, thresh, chunk)
 
         schedule = []
         while True:
-            carry, (bests, bcs) = _schedule_scan(Mj, carry, thresh, chunk, keys)
+            carry, (bests, bcs) = run(carry)
             b_np, c_np = bests.cpu().numpy(), bcs.cpu().numpy()
             done = False
             for b, c in zip(b_np, c_np):
@@ -1239,23 +1292,29 @@ def _schedule_scan_batch(M, alive, counts, thresh, length, keys=None):
     return (alive, cnt), (torch.stack(bests, dim=1), torch.stack(bcs, dim=1))
 
 
-def compute_schedules_batch(coords, threshold_bp, block: int = 64, extend=False):
+def compute_schedules_batch(coords, threshold_bp, block: int = 64, extend=False, devices=None):
     """Compute many coordinators' round schedules in blocks of `block`
     queries: each block pads its queries' matrices to one [Q, k, W] (k
     rounded up to 1,024, W to 128; padding rows have count 0 and key 2^40,
-    so they never win) and scans them together. A block of several
-    single-counter queries over one index whose candidates are worth the
-    device membership builds every matrix with `membership_bits_batch`;
-    any other block uploads host matrices. Each coordinator ends with the
-    schedule its own compute() would build; with `extend`, the rounds are
-    appended to the schedule it has."""
+    so they never win) and scans them together. On one device, a block of
+    several single-counter queries over one index whose candidates are
+    worth the device membership builds every matrix with
+    `membership_bits_batch`; any other block uploads host matrices. On
+    more than one (a `devices` list the caller gives; by default the one
+    device), every block takes host matrices and its queries split across the devices, each scanning its
+    own (`parallel.make_data_parallel_schedule_scan`). Each coordinator
+    ends with the schedule its own compute() would build; with `extend`,
+    the rounds are appended to the schedule it has."""
+    coords = list(coords)
+    devices = _mesh_devices(devices)
+    multi = devices is not None
     pending = []
     for coord in coords:
         coord.ready = True
         if not extend:
             coord._sched = []
-        dev_ok = len(coord.counters) == 1 and coord.counters[0]._device_membership_worthwhile(
-            threshold_bp)
+        dev_ok = not multi and len(coord.counters) == 1 and (
+            coord.counters[0]._device_membership_worthwhile(threshold_bp))
         built = coord._build_inputs(threshold_bp, build_mats=not dev_ok)
         if built is not None:
             pending.append((coord, built, dev_ok))
@@ -1289,6 +1348,8 @@ def compute_schedules_batch(coords, threshold_bp, block: int = 64, extend=False)
         Cb = np.zeros((Q, kmax), dtype=np.int32)
         Tb = np.ones(Q, dtype=np.int32)
         Kb = np.full((Q, kmax), 1 << 40, dtype=np.int64)
+        route = ("data-parallel host membership" if multi
+                 else "device membership" if on_device else "host membership")
         for qi, (coord, (_rows, counts, alive_p, thresh, _nk, _M), _d) in enumerate(sub):
             src = row_srcs[qi]
             real = src >= 0
@@ -1296,24 +1357,41 @@ def compute_schedules_batch(coords, threshold_bp, block: int = 64, extend=False)
             Kb[qi, : len(src)][real] = src[real]
             Ab[qi, : alive_p.shape[0]] = alive_p
             Tb[qi] = thresh
-            coord.route = "device membership" if on_device else "host membership"
+            coord.route = route
         if on_device:
             Mj = torch.nn.functional.pad(M, (0, 0, 0, kmax - K))
         else:
             Mb = np.zeros((Q, kmax, Wmax), dtype=np.uint32)
             for qi, Mq in enumerate(mats):
                 Mb[qi, : Mq.shape[0], : Mq.shape[1]] = Mq
-            Mj = to_torch(Mb, device)
-        carry = (to_torch(Ab, device), torch.from_numpy(Cb).to(device))
-        Tj = torch.from_numpy(Tb).to(device)
-        Kj = torch.from_numpy(Kb).to(device)
         chunk = int(min(kmax, 64 if kmax > 4096 else 256))
+        if multi:
+            from ..parallel import get_mesh, make_data_parallel_schedule_scan, split_data
+
+            # the block's queries split across the devices (Q need not
+            # divide), each block placed once
+            mesh = get_mesh(min(len(devices), Q), 1, devices=devices[: min(len(devices), Q)])
+            scan = make_data_parallel_schedule_scan(mesh, chunk)
+            Mj, Tj, Kj = (split_data(mesh, x) for x in (to_torch(Mb), Tb, Kb))
+            carry = (split_data(mesh, to_torch(Ab)), split_data(mesh, Cb))
+
+            def run(c):
+                return scan(Mj, c[0], c[1], Tj, Kj)
+        else:
+            if not on_device:
+                Mj = to_torch(Mb, device)
+            carry = (to_torch(Ab, device), torch.from_numpy(Cb).to(device))
+            Tj = torch.from_numpy(Tb).to(device)
+            Kj = torch.from_numpy(Kb).to(device)
+
+            def run(c):
+                return _schedule_scan_batch(Mj, *c, Tj, chunk, Kj)
 
         scheds = [[] for _ in range(Q)]
         open_q = np.ones(Q, dtype=bool)
         rounds_done = 0
         while open_q.any() and rounds_done < kmax:
-            carry, (bests, bcs) = _schedule_scan_batch(Mj, *carry, Tj, chunk, Kj)
+            carry, (bests, bcs) = run(carry)
             b_np, c_np = bests.cpu().numpy(), bcs.cpu().numpy()
             for qi in np.nonzero(open_q)[0]:
                 coord, rows = sub[qi][0], sub[qi][1][0]
@@ -1332,13 +1410,14 @@ def compute_schedules_batch(coords, threshold_bp, block: int = 64, extend=False)
             coord._sched = list(coord._sched) + scheds[qi] if extend else scheds[qi]
 
 
-def converge_schedules_batch(coords, threshold_bp, block: int | None = None):
+def converge_schedules_batch(coords, threshold_bp, block: int | None = None, devices=None):
     """compute_schedules_batch, then the capped reschedules of every
     truncated single-counter coordinator in batches: per iteration, one
     `counts_for_banks_batch` pass recounts all of them against what is
     left of their queries, and their schedules are extended in place, so a
     replay never restarts. At most 16 iterations; a coordinator that gains
-    no round stops there and falls back to host rounds at exhaustion."""
+    no round stops there and falls back to host rounds at exhaustion.
+    `devices`: as compute_schedules_batch's."""
     live = [c for c in coords if c is not None]
     if block is None:
         # the block's stacked [Q, k, W] scan matrix stays ~256 MiB
@@ -1351,7 +1430,7 @@ def converge_schedules_batch(coords, threshold_bp, block: int | None = None):
             w_est = max(w_est, -(-len(c0._q_mins) // 32))
         block = int(max(4, min(64, (256 << 20) // max(k_est * w_est * 4, 1))))
         block = 1 << (block.bit_length() - 1)
-    compute_schedules_batch(live, threshold_bp, block)
+    compute_schedules_batch(live, threshold_bp, block, devices=devices)
     stalled: set = set()
     for _ in range(16):
         pending = [c for c in live
@@ -1392,7 +1471,7 @@ def converge_schedules_batch(coords, threshold_bp, block: int | None = None):
             coord.reschedules += 1
             coord._alive_mins = alive
             coord.truncated = False
-        compute_schedules_batch(pending, threshold_bp, block, extend=True)
+        compute_schedules_batch(pending, threshold_bp, block, extend=True, devices=devices)
         for c in pending:
             if len(c._sched) == progress[id(c)]:
                 stalled.add(id(c))

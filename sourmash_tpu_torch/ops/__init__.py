@@ -1,8 +1,8 @@
 """Device compute ops: the sketch paths (`ops/sketch.py`, K1-K3) and the
 bucketed counts, membership and gather-round engine (`ops/bucketed.py`,
 `ops/index_ops.py`, `ops/intersect.py`: counts_rows, membership_bits,
-round_dec and their batch forms; compare's all-pairs joins in
-`ops/cuda_pairwise.py`) on a CUDA device, with hand-written kernels in `csrc/` and
+round_dec and their batch forms, and the sharded program's shard_match;
+compare's all-pairs joins in `ops/cuda_pairwise.py`) on a CUDA device, with hand-written kernels in `csrc/` and
 PyTorch around them, plus the numpy host twins.
 
 Device rule: every entry point runs on CUDA unless the caller asks for the

@@ -5,7 +5,8 @@ membership_bits, round_dec, and the batch forms membership_bits_batch and
 round_dec_batch; `block_join.cu`: the join of a query block against a
 chunk's rows, counts_block and products_block; `pairwise.cu`: compare's
 all-pairs joins pairwise_counts and pairwise_products; `sketch_parts.cu`:
-the sketch-kernel instruments T2, T3, T4 and the integer-pipe probe) has a
+the sketch-kernel instruments T2, T3, T4 and the integer-pipe probe;
+`parallel.cu`: shard_match, the sharded gather program's compare) has a
 plain C interface with an error-string entry, and is compiled by `nvcc`
 for Hopper (`sm_90a`) into its own `build/kernels/<name>_<hash>.so` at
 first use, then loaded with ctypes.
@@ -31,7 +32,7 @@ from ..buildpaths import build_dir, sources_tag
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = {
     name: os.path.join(_CSRC, f"{name}.cu")
-    for name in ("sketch", "gather", "block_join", "pairwise", "sketch_parts")
+    for name in ("sketch", "gather", "block_join", "pairwise", "sketch_parts", "parallel")
 }
 HEADERS = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
 NVCC_FLAGS = (
@@ -95,6 +96,11 @@ _LIBRARIES = {
         "sp_mulchain": [_P, _I, _I, _I, _P, _P],
         # blocks, nblk, rows, mode, n_rounds, out, stream
         "sp_int_probe": [_P, _I, _I, _I, _I, _P, _P],
+    }),
+    "parallel": ("pm_error_string", {
+        # qhi, qlo, alive, bq, dq, B, shi, slo, scnt, rows, d, out_rows, row0, counts, M,
+        # stream
+        "pm_shard_match": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     }),
 }
 _libs: dict = {}

@@ -49,6 +49,17 @@ the query block, and for abundance-weighted similarity:
 The joins need no column order. Their precondition, as every pack gives
 it: a valid value sits in bucket value & (B - 1).
 
+The sharded gather program (`sourmash_tpu_torch/parallel/`) has one kernel
+of its own (`csrc/parallel.cu`):
+
+- `shard_match` (X8, `sourmash_tpu/parallel/__init__.py:_local_counts`
+  and `build_chunk`): `[bq, rows]` int32 counts, and optionally the match
+  words `[bq, rows, dq, B/32]` int32, of each query of `Qhi/Qlo [bq, dq,
+  B]` with alive words `[bq, dq, B/32]` against each row of `Shi/Slo
+  [rows, d, B]` (occupancy `Scnt [rows, B]` uint8): bit j of word w at
+  (q, r, s) is set when the query slot (s, 32w + j) is alive and equals
+  one of the row's occupied slots in that bucket.
+
 Limbs and words are int32 bit patterns of u32 values (PAD = -1). Each
 wrapper checks its inputs (a wrong dtype, shape or layout raises
 TypeError, so no caller's ValueError handling can swallow it), allocates
@@ -66,7 +77,7 @@ import torch
 # wrappers add to them, the plain versions never do
 LAUNCHES = {"counts_rows": 0, "membership_bits": 0, "round_dec": 0,
             "counts_block": 0, "membership_bits_batch": 0, "round_dec_batch": 0,
-            "products_block": 0}
+            "products_block": 0, "shard_match": 0}
 _D = 8  # subject slots per bucket, as the CUDA kernels are built
 _INT32_MIN = -(1 << 31)
 
@@ -582,3 +593,112 @@ def products_block_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt):
     "Plain PyTorch version of `products_block` (sort, searchsorted, pair expansion)."
     _check_products(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
     return _block_join_plain(Qhi, Qlo, Qav, Qcnt, Shi, Slo, Sav, Scnt)
+
+
+# -- shard_match: X8 -----------------------------------------------------------
+
+
+def _check_shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, out, row0):
+    dev = Qhi.device if torch.is_tensor(Qhi) else None
+    _check("Qhi", Qhi, torch.int32, 3)
+    _check("Qlo", Qlo, torch.int32, 3, dev)
+    _check("alive", alive, torch.int32, 3, dev)
+    _check("Shi", Shi, torch.int32, 3, dev)
+    _check("Slo", Slo, torch.int32, 3, dev)
+    _check("Scnt", Scnt, torch.uint8, 2, dev)
+    bq, dq, B = Qhi.shape
+    rows = Shi.shape[0]
+    if B % 32:
+        raise TypeError(f"shard_match takes a multiple of 32 buckets, not {B}")
+    if Qlo.shape != Qhi.shape or Shi.shape != Slo.shape or Shi.shape[2] != B:
+        raise TypeError(f"planes {tuple(Qhi.shape)} vs {tuple(Shi.shape)} do not match")
+    if tuple(alive.shape) != (bq, dq, B // 32) or tuple(Scnt.shape) != (rows, B):
+        raise TypeError("alive must be [bq, dq, B/32] and Scnt [rows, B]")
+    if out is None:
+        return
+    counts, M = out
+    _check("counts", counts, torch.int32, 2, dev)
+    if counts.shape[0] != bq or not 0 <= row0 <= counts.shape[1] - rows:
+        raise TypeError(f"counts {tuple(counts.shape)} cannot take rows [{row0}, {row0 + rows})")
+    if M is not None:
+        _check("M", M, torch.int32, 4, dev)
+        if tuple(M.shape) != (bq, counts.shape[1], dq, B // 32):
+            raise TypeError(f"M is {tuple(M.shape)}, not {(bq, counts.shape[1], dq, B // 32)}")
+
+
+def _shard_match_out(bq, rows, dq, W, bits, device, out, row0):
+    "(counts, M or None, counts' rows, row0): the caller's buffers or new ones."
+    if out is not None:
+        return out[0], out[1], out[0].shape[1], row0
+    counts = torch.zeros((bq, rows), dtype=torch.int32, device=device)
+    M = torch.empty((bq, rows, dq, W), dtype=torch.int32, device=device) if bits else None
+    return counts, M, rows, 0
+
+
+def shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, bits: bool = False, out=None, row0: int = 0):
+    """The matches of each query of Qhi/Qlo [bq, dq, B] (alive words
+    [bq, dq, B/32] int32, bit j of word w = bucket 32w + j) against each row
+    of Shi/Slo [rows, d, B] with occupancy Scnt [rows, B] uint8: a query
+    slot matches a row when it is alive and equals one of the row's
+    occupied slots (k < Scnt) of its bucket, so every u64 value, 2^64-1
+    included, is compared exactly.
+
+    Returns counts [bq, rows] int32, the matched slots of each pair; with
+    `bits`, (counts, M [bq, rows, dq, B/32] int32), M's bits the matched
+    slots. With out=(counts [bq, R], M [bq, R, dq, B/32] or None), the
+    results of the rows go to rows [row0, row0 + rows) of those buffers
+    (their counts overwritten) and out is returned."""
+    _check_shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, out, row0)
+    if Qhi.device.type == "cpu":
+        return shard_match_plain(Qhi, Qlo, alive, Shi, Slo, Scnt, bits, out, row0)
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    want_bits = bits if out is None else out[1] is not None
+    counts, M, out_rows, at = _shard_match_out(bq, rows, dq, B // 32, want_bits, Qhi.device,
+                                               out, row0)
+    if out is not None:
+        counts[:, at : at + rows].zero_()
+    if max(bq, dq, B, rows, d, out_rows) >= 2**31 or (B // 32 + 7) // 8 > 65535:
+        raise TypeError("shard_match: a size is out of the kernel's range")
+    if bq and dq and rows:
+        from . import _build
+
+        _build.launch(
+            "parallel", "pm_shard_match", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(),
+            alive.data_ptr(), bq, dq, B, Shi.data_ptr(), Slo.data_ptr(), Scnt.data_ptr(), rows,
+            d, out_rows, at, counts.data_ptr(), None if M is None else M.data_ptr(),
+        )
+        LAUNCHES["shard_match"] += 1
+    elif M is not None and out is None:
+        M.zero_()
+    if out is not None:
+        return out
+    return (counts, M) if bits else counts
+
+
+def shard_match_plain(Qhi, Qlo, alive, Shi, Slo, Scnt, bits: bool = False, out=None,
+                      row0: int = 0):
+    """Plain PyTorch version of `shard_match`: the d-loop broadcast compare
+    of `_local_counts` / `build_chunk` over [bq, rows, dq, B] bools, the
+    alive mask, a sum and the bit pack."""
+    from .bucketed import pack_bits_u32, unpack_bits_u32
+
+    _check_shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, out, row0)
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    hit = torch.zeros((bq, rows, dq, B), dtype=torch.bool, device=Qhi.device)
+    for k2 in range(d):
+        hit |= ((Shi[None, :, k2, None, :] == Qhi[:, None])
+                & (Slo[None, :, k2, None, :] == Qlo[:, None])
+                & (Scnt[None, :, None, :] > k2))
+    hit &= unpack_bits_u32(alive)[:, None]
+    got_counts = hit.sum(dim=(2, 3), dtype=torch.int32)
+    want_bits = bits if out is None else out[1] is not None
+    got_M = pack_bits_u32(hit) if want_bits else None
+    if out is None:
+        return (got_counts, got_M) if bits else got_counts
+    counts, M = out
+    counts[:, row0 : row0 + rows] = got_counts
+    if M is not None:
+        M[:, row0 : row0 + rows] = got_M
+    return out
