@@ -2,7 +2,7 @@
 """Drive sourmash_tpu_torch on one CUDA card and hold it to its references.
 
     python3 chip_smoke.py [--quick] [--compare-only] [--json PATH] [--profile]
-                          [--sass-against DIR]
+                          [--sass-against DIR] [--shard-match-against DIR]
 
 Phases, each raising on failure:
 
@@ -92,7 +92,7 @@ Phases, each raising on failure:
    (`pairwise_counts_bucketed` at 16 rows a `counts_block` launch,
    `pairwise_weighted_products` at PRODUCTS_BLOCK = 58), each
    matrix equal to the oracle, their launches counted for the kernels
-   line. At n = 200: `--max-containment` and
+   line. At n = 100: `--max-containment` and
    `--avg-containment`, each with and without `--estimate-ani`, at k = 31,
    and `--avg-containment --estimate-ani` at k = 21 and 51, on the card and
    with SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout, `.npy`, labels and CSV. Each
@@ -131,6 +131,18 @@ Phases, each raising on failure:
    Jaccard passes 0.08, with those scores. Each build's wall and bytes,
    each command's wall, launches and route, and the phase's total are
    printed.
+12. The multi-device layer (`sourmash_tpu_torch/parallel/`) on meshes that
+   name the card several times: (a) gather's schedule sharded over 4
+   logical shards, (b) multigather's over 2 and 3 data devices, each equal
+   to the one-device schedules; (c) the fused program on a (2 x 2) mesh
+   against 4 of phase 8's samples, round for round against (b), its
+   builder first alone under set_sync_debug_mode("error") (no host
+   synchronisation in its shard_match launches); (e) shard_match at (c)'s
+   chunk, bit for bit, timed with words, counts only and at the
+   decrement's shape beside its bound and torch.sparse.mm; (d) the sharded
+   sketch; (f) `dryrun_multichip(8)` on 8 logical devices, every
+   shard_match call of its counter, gather round and program held bit for
+   bit against the plain version.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -188,6 +200,15 @@ of one sketch against the collection (the `counts_rows` engine) against
 query's or the block's incidence rows against the chunk's), held to the
 exact counts.
 
+Phase 2 holds `shard_match` on edge planes (`check_shard_match_edges`: a
+value alive in two queries, a dead query, a bucket of dq alive slots, a
+row value repeated in a bucket, 2^64-1, the in-place write at a row
+offset, the gather round's 1 x 1 winner and its decrement) and on planes
+past one launch's sizes: lines past one block's staging (two stages of
+slots; at B = 2^20, two stages of words), a metagenome-sized query at
+B = 128 (its tables built in two ranges of slots, the counts added up),
+and 65,537 queries (two launches).
+
 Phase 2 then holds the sketch-kernel instruments (`csrc/sketch_parts.cu`)
 against their plain versions on the card, bit for bit: T2's passes
 `split_words` / `split_slots` and T3 `survivor_slots_v2` also against K1
@@ -233,7 +254,14 @@ checks of compare's kernels and phase 9, and stops, printing neither line
 fails unless the SASS of K1 and K2 equals this tree's for every k they are
 built for (21, 31, 51 and run-time k); it prints K3's instruction counts
 per template k, registers and spill bytes on both sides, and times DIR's K3
-beside this tree's at k = 10, B = 4 and the path's batch. Without a CUDA
+beside this tree's at k = 10, B = 4 and the path's batch.
+--shard-match-against DIR holds this tree's shard_match on phase 2's
+planes after phase 1, then times DIR's and this tree's at the fused
+program's chunk shape (made from phase 6's generator), with words, counts
+only and at the decrement's shape, beside torch.sparse.mm: each tree in a
+process of its own that imports that tree's package (and so its own
+wrapper and kernel), in the order DIR, this, this, DIR; then it stops.
+Without a CUDA
 device, or outside a checkout of the repository, the script exits non-zero
 before any result.
 """
@@ -319,9 +347,11 @@ BLOCK_QUERIES = 32  # phase 2's counts_block block: phase 8's mix, a quarter lar
 # matrices at k = 21/31/51) at the size sourmash_tpu's docstring measures
 # ("2k x 5000", `sourmash_tpu/ops/bucketed.py:824`): make_collection's
 # clades at scaled=1000 (B = 4096) with abundances; n = 2,000 at k = 31, and
-# n = 200 at each k for the card-against-CPU byte comparison
+# n = 100 at each k for the card-against-CPU byte comparison (cut from 200
+# for the run's time limit: the CPU's sorted engine took 10-13 s a command;
+# n = 100 stays above the host-join cutoff, so both engines still run)
 COMPARE_GENOMES = 2000
-COMPARE_SMALL = 200
+COMPARE_SMALL = 100
 COMPARE_KS = (21, 31, 51)
 COMPARE_SEED = 20261017  # each collection's own, so phases 2 and 9 share it
 
@@ -3844,7 +3874,7 @@ def compare_end_to_end(tmp: str, products_block: int, profile_cli: bool = False)
     through compare.py's closed forms. Then the block routes through the
     library entry points (`pairwise_counts_bucketed` at COMPARE_BLOCK,
     `pairwise_weighted_products` at `products_block`), launches counted,
-    each matrix held to the oracle. At n = 200: COMPARE_SMALL_MODES at k=31
+    each matrix held to the oracle. At n = 100: COMPARE_SMALL_MODES at k=31
     and the last of them at each other k, on the card and with
     SOURMASH_TORCH_DEVICE=cpu (the sorted engine): byte-identical stdout
     and files."""
@@ -3964,7 +3994,7 @@ COMPARE_BLOCK = 16  # sourmash_tpu's rows a launch of the all-pairs counts (the 
 # and phase 9 drives it: the block the first products kernel staged in one
 # block's shared memory at depth 10 (PERF.md keeps its times)
 PRODUCTS_BLOCK = 58
-# phase 9's n = 200 commands, run on the card and on the CPU: all four at
+# phase 9's n = 100 commands, run on the card and on the CPU: all four at
 # k = 31, the last (both directions' containment and ANI) at the other k
 # (cut from all four for the time limit)
 COMPARE_SMALL_MODES = (["--max-containment"], ["--avg-containment"],
@@ -4062,8 +4092,9 @@ KERNELS = {
         route="cuda", source="sourmash_tpu_torch/csrc/sketch_parts.cu",
         replaces="tools/profile_sketch_parts.py:2",
     ),
-    # the sharded gather program's shard-local compare (`_local_counts` :146
-    # and `build_chunk` :306), timed with its words at the program's chunk
+    # the sharded gather program's shard-local match (`_local_counts` :146
+    # and `build_chunk` :306), timed with its words at the program's chunk:
+    # one call, two launches (the alive slots' tables, then the match)
     "shard_match": dict(
         route="cuda", source="sourmash_tpu_torch/csrc/parallel.cu",
         replaces="sourmash_tpu/parallel/__init__.py:146",
@@ -4460,30 +4491,145 @@ def not_launched(launches: dict, *names) -> list:
     return [n for n in names if launches[n] < 1 and GATHER_DEVICE == "cuda"]
 
 
-def shard_match_edge_inputs(rng):
-    """Edge planes for shard_match: 13 rows (not a multiple of the kernel's
-    4-row tile) of uneven loads, rows with empty buckets, one bucket loaded
-    past the 8 register slots, the hash 2^64-1 in a row and a query; 3
-    queries (one matching nothing) with holes in their alive masks."""
+def _as_args(qhi, qlo, alive, Shi, Slo, Scnt) -> tuple:
+    "Packed numpy planes as shard_match's arguments on GATHER_DEVICE."
     import torch
 
     from sourmash_tpu_torch.ops.bucketed import pack_bits_u32, to_torch
-    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
 
-    sizes = [64, 5, 200, 0, 64, 64, 1, 64, 64, 300, 64, 2, 64]
-    mins = [np.unique(rng.integers(1, 1 << 40, size=n, dtype=np.uint64)) for n in sizes]
-    crowd = np.arange(1, 21, dtype=np.uint64) * np.uint64(1 << 20)  # one bucket, 20 deep
-    mins[0] = np.unique(np.r_[mins[0], crowd, np.uint64(2**64 - 1)])
-    queries = [np.unique(np.r_[mins[0][:40], crowd[:12], mins[9][:100], np.uint64(2**64 - 1)]),
-               np.arange(2**41, 2**41 + 32, dtype=np.uint64),
-               np.unique(np.concatenate([m[: len(m) // 2] for m in mins]))]
-    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=256)
-    qhi, qlo, alive = pack_query_batch(queries, B)
-    alive &= rng.random(alive.shape) < 0.85
     dev = torch.device(GATHER_DEVICE)
     return (to_torch(qhi, dev), to_torch(qlo, dev),
             pack_bits_u32(torch.from_numpy(alive).to(dev)), to_torch(Shi, dev),
             to_torch(Slo, dev), torch.from_numpy(Scnt).to(dev))
+
+
+def _set_alive(qhi, qlo, alive, q: int, values):
+    "Mark query q's slots holding any of `values` alive."
+    v = (qhi[q].astype(np.uint64) << np.uint64(32)) | qlo[q]
+    alive[q] |= np.isin(v, np.asarray(values, dtype=np.uint64))
+
+
+def shard_match_edge_inputs(rng):
+    """Edge planes for shard_match (B = 256): 13 rows of uneven loads, rows
+    with empty buckets, one bucket 20 deep, the hash 2^64-1 in a row and a
+    query, a value repeated in a row's bucket (no pack gives one: the
+    kernel skips the repeat); 4 queries with holes in their alive masks:
+    query 0 with a bucket of dq = 40 slots, every one alive (the table's
+    sized capacity), query 1 matching nothing, query 2 half of every row,
+    query 3 query 2 with every slot dead; values alive in queries 0 and 2
+    both."""
+    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
+
+    B = 256
+    sizes = [64, 5, 200, 0, 64, 64, 1, 64, 64, 300, 64, 2, 64]
+    mins = [np.unique(rng.integers(1, 1 << 40, size=n, dtype=np.uint64)) for n in sizes]
+    crowd = np.arange(1, 21, dtype=np.uint64) * np.uint64(1 << 20)  # one bucket, 20 deep
+    full = np.uint64(77) + (np.arange(1, 41, dtype=np.uint64) << np.uint64(33))  # bucket 77
+    mins[0] = np.unique(np.r_[mins[0], crowd, np.uint64(2**64 - 1)])
+    mins[5] = np.unique(np.r_[mins[5], full[::3]])
+    both = mins[0][:8]
+    half = np.unique(np.concatenate([m[: len(m) // 2] for m in mins]))
+    queries = [np.unique(np.r_[mins[0][:40], crowd[:12], mins[9][:100], full,
+                              np.uint64(2**64 - 1)]),
+               np.arange(2**41, 2**41 + 32, dtype=np.uint64), half, half]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=B)
+    # row 4 repeats its first slot of one bucket whose value query 2 holds
+    v = mins[4][0]
+    b = int(v & np.uint64(B - 1))
+    k = int(Scnt[4, b])
+    Shi[4, k, b], Slo[4, k, b] = Shi[4, 0, b], Slo[4, 0, b]
+    Scnt[4, b] += 1
+    qhi, qlo, alive = pack_query_batch(queries, B)
+    occupied = alive.copy()
+    alive &= rng.random(alive.shape) < 0.85
+    alive[3] = False
+    alive[0, :, 77] = occupied[0, :, 77]
+    if int(occupied[0, :, 77].sum()) != qhi.shape[1]:
+        raise AssertionError("the full bucket does not set dq")
+    for q in (0, 2):
+        _set_alive(qhi, qlo, alive, q, np.r_[both, v])
+    alive &= occupied
+    return _as_args(qhi, qlo, alive, Shi, Slo, Scnt)
+
+
+# csrc/parallel.cu's kStageWords: the M words a match block stages at a time
+SHARD_MATCH_STAGE_WORDS = 28160
+
+
+def shard_match_stage_inputs(rng):
+    """Planes whose (query, row) lines pass one block's staging: B = 4096
+    and a query bucket 300 deep (dq = 300 past the 220 slots a block
+    stages), rows matching it in both stages of slots and only in the
+    second; 6 rows, 2 queries."""
+    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
+
+    B = 4096
+    deep = np.uint64(1234) + (np.arange(1, 301, dtype=np.uint64) << np.uint64(12))
+    mins = [np.unique(rng.integers(1, 1 << 40, size=n, dtype=np.uint64))
+            for n in (3000, 500, 0, 4000, 64, 2000)]
+    mins[0] = np.unique(np.r_[mins[0], deep[::2]])
+    mins[3] = np.unique(np.r_[mins[3], deep[250:]])
+    queries = [np.unique(np.r_[deep, mins[0][:1000], mins[3][::2]]),
+               np.unique(np.r_[mins[5], deep[:10]])]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=B)
+    qhi, qlo, alive = pack_query_batch(queries, B)
+    alive &= rng.random(alive.shape) < 0.9
+    return _as_args(qhi, qlo, alive, Shi, Slo, Scnt)
+
+
+def shard_match_deep_inputs(rng):
+    """A metagenome-sized query against small sketches at B = 128, as
+    pack_shard_planes picks B for a collection of viral genomes: 1.4 M
+    hashes (dq past the 8,192 query slots of one table, so the tables are
+    built in two ranges and the counts added up) and one of 100,000; 6
+    rows of 10-300 hashes, a third of each from the large query."""
+    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
+
+    big = np.unique(rng.integers(1, 2**63, size=1_400_000, dtype=np.uint64))
+    mins = [np.unique(np.r_[rng.choice(big, n // 3, replace=False),
+                            rng.integers(1, 2**63, size=n - n // 3, dtype=np.uint64)])
+            for n in (10, 300, 120, 45, 200, 80)]
+    queries = [big, np.unique(np.r_[big[::14], mins[1]])]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=128)
+    qhi, qlo, alive = pack_query_batch(queries, B)
+    alive &= rng.random(alive.shape) < 0.9
+    return _as_args(qhi, qlo, alive, Shi, Slo, Scnt)
+
+
+def shard_match_wide_inputs(rng):
+    """B = 2^20, where one slot's line of B/32 words passes one block's
+    staging (the words go out in two stages): a query of 300,000 hashes
+    against 3 rows of 50,000, half of two of them from the query."""
+    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
+
+    q = np.unique(rng.integers(1, 2**63, size=300_000, dtype=np.uint64))
+    mins = [np.unique(np.r_[q[i::7][:25_000], rng.integers(1, 2**63, size=25_000,
+                                                           dtype=np.uint64)])
+            for i in range(2)] + [np.unique(rng.integers(1, 2**63, size=50_000,
+                                                         dtype=np.uint64))]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=1 << 20)
+    qhi, qlo, alive = pack_query_batch([q], B)
+    alive &= rng.random(alive.shape) < 0.9
+    return _as_args(qhi, qlo, alive, Shi, Slo, Scnt)
+
+
+def shard_match_many_inputs(rng, bq: int = 65_537):
+    """bq = 65,537 one-hash queries at B = 32 (past the 65,535 queries of
+    one launch's grid), each hash drawn from 3 rows' or from elsewhere."""
+    from sourmash_tpu_torch.parallel import pack_shard_planes
+
+    mins = [np.unique(rng.integers(1, 2**63, size=40, dtype=np.uint64)) for _ in range(3)]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins, 1, B=32)
+    pool = np.r_[np.concatenate(mins), rng.integers(1, 2**63, size=120, dtype=np.uint64)]
+    v = rng.choice(pool, bq)
+    b = (v & np.uint64(B - 1)).astype(np.int64)
+    qhi = np.zeros((bq, 1, B), dtype=np.uint32)
+    qlo = np.zeros((bq, 1, B), dtype=np.uint32)
+    alive = np.zeros((bq, 1, B), dtype=bool)
+    qhi[np.arange(bq), 0, b] = (v >> np.uint64(32)).astype(np.uint32)
+    qlo[np.arange(bq), 0, b] = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    alive[np.arange(bq), 0, b] = rng.random(bq) < 0.9
+    return _as_args(qhi, qlo, alive, Shi, Slo, Scnt)
 
 
 def shard_match_plain_chunks(args, bits: bool):
@@ -4517,9 +4663,13 @@ def hold_shard_match(what: str, args):
 
 
 def check_shard_match_edges(rng) -> dict:
-    """Phase 2's shard_match: the edge planes of shard_match_edge_inputs,
-    and the builder's in-place form (two launches into one buffer at a row
-    offset), bit for bit against the plain version."""
+    """Phase 2's shard_match, bit for bit against the plain version: the
+    edge planes of shard_match_edge_inputs (counts only and with words),
+    the builder's in-place form (two launches into one buffer at a row
+    offset), the gather round's winner (1 query x 1 row, with words) and
+    its decrement (counts only, alive = the winners' words), and the sizes
+    past one launch's: lines in stages of slots and of words, tables in
+    ranges of slots, queries in two launches."""
     import torch
 
     from sourmash_tpu_torch.ops import cuda_gather as cg
@@ -4529,60 +4679,223 @@ def check_shard_match_edges(rng) -> dict:
     Qhi, Qlo, A, Shi, Slo, Scnt = args
     rows = Shi.shape[0]
     cbuf = torch.full((Qhi.shape[0], rows + 3), 7, dtype=torch.int32, device=Qhi.device)
-    Mbuf = torch.zeros((Qhi.shape[0], rows + 3) + tuple(M.shape[2:]), dtype=torch.int32,
-                       device=Qhi.device)
+    Mbuf = torch.full((Qhi.shape[0], rows + 3) + tuple(M.shape[2:]), 7, dtype=torch.int32,
+                      device=Qhi.device)
     for a, b in ((0, 6), (6, rows)):
         cg.shard_match(Qhi, Qlo, A, Shi[a:b], Slo[a:b], Scnt[a:b], out=(cbuf, Mbuf), row0=a + 3)
     exact("shard_match in place (counts)", cbuf[:, 3:], counts)
     exact("shard_match in place (words)", Mbuf[:, 3:], M)
-    if not bool((cbuf[:, :3] == 7).all()) or int(counts.sum()) == 0:
-        raise AssertionError("shard_match wrote outside its rows, or matched nothing")
-    log(f"  shard_match: equals its plain version on [3, {Qhi.shape[1]}, {Qhi.shape[2]}] x "
-        f"{rows} edge rows (d = {Shi.shape[1]}, 2^64-1, empty buckets, holes), counts only "
-        f"and with words, and in place at a row offset")
-    return dict(edge_rows=rows, edge_depth=Shi.shape[1], matched=int(counts.sum()))
+    if not bool((cbuf[:, :3] == 7).all()) or not bool((Mbuf[:, :3] == 7).all()):
+        raise AssertionError("shard_match wrote outside its rows")
+    if int(counts[0].sum()) == 0 or int(counts[2].sum()) == 0 or int(counts[1].sum()) \
+            or int(counts[3].sum()):
+        raise AssertionError(f"shard_match edge counts {counts.tolist()}")
+    # the gather round: each query's winner row, 1 x 1 with words, then the
+    # decrement of every row by the winners' words
+    best = torch.argmax(counts, dim=1).tolist()
+    for q, r in enumerate(best):
+        one = (Qhi[q : q + 1], Qlo[q : q + 1], A[q : q + 1], Shi[r : r + 1], Slo[r : r + 1],
+               Scnt[r : r + 1])
+        c1, m1 = cg.shard_match(*one, bits=True)
+        exact(f"shard_match winner of query {q} (counts)", c1, counts[q : q + 1, r : r + 1])
+        exact(f"shard_match winner of query {q} (words)", m1, M[q : q + 1, r : r + 1])
+    removed = torch.stack([M[q, r] for q, r in enumerate(best)]).contiguous()
+    dec = (Qhi, Qlo, removed, Shi, Slo, Scnt)
+    exact("shard_match decrement", cg.shard_match(*dec), shard_match_plain_chunks(dec, False)[0])
+    table_bytes = cg.shard_match_table_bytes(*Qhi.shape)
+    # past one launch's sizes: staged in stages of slots, tables in ranges of
+    # slots, words in stages of words, queries in launches
+    sizes = {}
+    for what, make, past in (
+            ("lines in stages of slots", shard_match_stage_inputs,
+             lambda dq, B, bq: dq * (B // 32) > SHARD_MATCH_STAGE_WORDS),
+            ("tables in ranges of slots", shard_match_deep_inputs,
+             lambda dq, B, bq: dq > cg.SHARD_MATCH_RANGE_SLOTS),
+            ("lines in stages of words", shard_match_wide_inputs,
+             lambda dq, B, bq: B // 32 > SHARD_MATCH_STAGE_WORDS),
+            ("queries in two launches", shard_match_many_inputs,
+             lambda dq, B, bq: bq > 65535)):
+        more = make(rng)
+        bq, dq, B = more[0].shape
+        if not past(dq, B, bq):
+            raise AssertionError(f"the inputs of {what!r}, [{bq}, {dq}, {B}], take one")
+        got, _M = hold_shard_match(what, more)
+        if int(got.sum()) == 0:
+            raise AssertionError(f"shard_match: {what} matched nothing")
+        sizes[what] = dict(shape=[bq, dq, B], rows=int(more[3].shape[0]),
+                           matched=int(got.sum()))
+        del more, got, _M
+    log(f"  shard_match: equals its plain version on [{Qhi.shape[0]}, {Qhi.shape[1]}, "
+        f"{Qhi.shape[2]}] x {rows} edge rows (d = {Shi.shape[1]}, 2^64-1, empty buckets, a "
+        f"repeated row value, holes, a dead query, a bucket of dq alive slots; tables of "
+        f"{table_bytes} bytes), counts only and with words, in place at a row offset, as the "
+        f"round's winners and decrement, and past one launch's sizes: "
+        + "; ".join(f"{w} ({v['shape']} x {v['rows']} rows, {v['matched']} matches)"
+                    for w, v in sizes.items()))
+    return dict(edge_rows=rows, edge_depth=Shi.shape[1], matched=int(counts.sum()),
+                table_bytes=table_bytes, past_one_launch=sizes)
+
+
+def shard_match_bound(args, bits: bool, clock_hz: float) -> tuple:
+    """(bound ms, by, bytes) of one shard_match on the lookup model, this
+    run's data: each side's occupancy (the query's alive words, the rows'
+    Scnt) read once, its alive or occupied slots' limbs once, the counts
+    and, with `bits`, M's words written once; an op an alive slot (its
+    insertion) and a query an occupied row slot (its probe)."""
+    import torch
+
+    from sourmash_tpu_torch.ops.bucketed import unpack_bits_u32
+
+    Qhi, _Qlo, A, Shi, _Slo, Scnt = args
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    n_alive = int(unpack_bits_u32(A).sum(dtype=torch.int64))
+    n_occ = int(Scnt.to(torch.int64).clamp(max=d).sum())
+    nbytes = A.numel() * 4 + Scnt.numel() + 8 * (n_alive + n_occ) + bq * rows * 4
+    if bits:
+        nbytes += bq * rows * dq * (B // 32) * 4
+    bms, by = bound_ms(nbytes, 0, n_alive + bq * n_occ, clock_hz)
+    return bms, by, nbytes
+
+
+def broadcast_bound(args, bits: bool, clock_hz: float) -> tuple:
+    """(bound ms, slot pairs) of shard_match on the broadcast compare's
+    model (bound_ms_before): each pair of an alive query slot and an
+    occupied row slot of the same bucket compared (3 ops), every plane read
+    once, the output written once."""
+    import torch
+
+    from sourmash_tpu_torch.ops.bucketed import unpack_bits_u32
+
+    Qhi, _Qlo, A, Shi, _Slo, Scnt = args
+    bq, dq, B = Qhi.shape
+    rows, d, _B = Shi.shape
+    alive_b = unpack_bits_u32(A).sum(dim=1, dtype=torch.int64).to(torch.float64)  # [bq, B]
+    occ_b = Scnt.to(torch.int64).clamp(max=d).sum(dim=0).to(torch.float64)  # [B]
+    pairs = int((alive_b @ occ_b).sum())
+    nbytes = (2 * Qhi.numel() + A.numel() + 2 * Shi.numel() + bq * rows) * 4 + Scnt.numel()
+    if bits:
+        nbytes += bq * rows * dq * (B // 32) * 4
+    return bound_ms(nbytes, 0, 3 * pairs, clock_hz)[0], pairs
+
+
+def decrement_args(args, counts, M) -> tuple:
+    """The gather round's decrement at args' shape: alive = the removed
+    slots, each query's winner row's words (the row of its largest count)."""
+    import torch
+
+    best = torch.argmax(counts, dim=1).tolist()
+    removed = torch.stack([M[q, r] for q, r in enumerate(best)]).contiguous()
+    return (args[0], args[1], removed, *args[3:])
 
 
 def time_shard_match(args, mins_rows, queries, reps: int, clock_hz: float) -> dict:
     """shard_match at the fused program's chunk shape, bit for bit against
     its plain version, timed with words (the builder) and counts only (the
-    counter), beside its plain version, its bound and the library call of
-    the counts (torch.sparse.mm of the incidence rows)."""
-    import torch
-
+    counter), and counts only at the decrement's shape (alive = each
+    query's winner's words), beside its plain version, its bound (the
+    lookup model; the broadcast compare's as bound_ms_before) and the
+    library call of the counts (torch.sparse.mm of the incidence rows)."""
     from sourmash_tpu_torch.ops import cuda_gather as cg
-    from sourmash_tpu_torch.ops.bucketed import unpack_bits_u32
 
     t0 = time.time()
-    counts, _M = hold_shard_match("the fused program's chunk", args)
+    counts, M = hold_shard_match("the fused program's chunk", args)
     hold_s = time.time() - t0
-    Qhi, Qlo, A, Shi, Slo, Scnt = args
+    dec = decrement_args(args, counts, M)
+    del M
+    exact("shard_match decrement (chunk)", cg.shard_match(*dec),
+          shard_match_plain_chunks(dec, False)[0])
+    Qhi, _Qlo, _A, Shi, _Slo, _Scnt = args
     bq, dq, B = Qhi.shape
     rows, d, _B = Shi.shape
-    W = B // 32
     ms, b2b = kernel_times(lambda: cg.shard_match(*args, bits=True), reps)
     ms_c, b2b_c = kernel_times(lambda: cg.shard_match(*args), reps)
+    ms_d, b2b_d = kernel_times(lambda: cg.shard_match(*dec), reps)
     plain = time_ms(lambda: shard_match_plain_chunks(args, True), 1, warmup=0)
-    # least work on this run's data: each pair of an alive query slot and
-    # an occupied row slot of the same bucket compared (two limb equalities
-    # and an or: 3 ops); each input read once (the query planes and alive
-    # words, the rows' planes and occupancy), the counts and words written once
-    alive_b = unpack_bits_u32(A).sum(dim=1, dtype=torch.int64).to(torch.float64)  # [bq, B]
-    occ_b = Scnt.to(torch.int64).clamp(max=d).sum(dim=0).to(torch.float64)  # [B]
-    pairs = int((alive_b @ occ_b).sum())
-    nbytes = (2 * Qhi.numel() + A.numel() + 2 * Shi.numel() + bq * rows) * 4 + Scnt.numel()
-    bms, by = bound_ms(nbytes + bq * rows * dq * W * 4, 0, 3 * pairs, clock_hz)
-    bms_c, by_c = bound_ms(nbytes, 0, 3 * pairs, clock_hz)
+    bms, by, nbytes = shard_match_bound(args, True, clock_hz)
+    bms_c, by_c, nbytes_c = shard_match_bound(args, False, clock_hz)
+    bms_d, by_d, _nb = shard_match_bound(dec, False, clock_hz)
+    before, pairs = broadcast_bound(args, True, clock_hz)
+    before_c, _p = broadcast_bound(args, False, clock_hz)
     lib = sparse_product_ms(queries, mins_rows, reps, counts.cpu().numpy())
-    out = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, max_abs_err=0.0,
-               library_ms=None, counts_only=dict(ms=ms_c, b2b_ms=b2b_c, bound_ms=bms_c,
-                                                 bound_by=by_c, library_ms=lib),
-               bq=bq, dq=dq, B=B, rows=rows, d=d, pairs=pairs, hold_s=hold_s)
-    log(f"  shard_match [{bq}, {dq}, {B}] x [{rows}, {d}, {B}] ({pairs} slot pairs): equals its "
-        f"plain version ({hold_s:.1f} s); with words {ms:.4f} ms/launch ({b2b:.4f} back to "
-        f"back), bound {bms:.4f} ms ({by}); counts only {ms_c:.4f} ({b2b_c:.4f}), bound "
-        f"{bms_c:.4f} ms ({by_c}), torch.sparse.mm of the counts {lib} ms; plain {plain:.1f} ms")
+    matched = int(counts.sum())
+    out = dict(ms=ms, b2b_ms=b2b, plain_ms=plain, bound_ms=bms, bound_by=by, bound_bytes=nbytes,
+               bound_ms_before=before, max_abs_err=0.0, library_ms=None,
+               counts_only=dict(ms=ms_c, b2b_ms=b2b_c, bound_ms=bms_c, bound_by=by_c,
+                                bound_bytes=nbytes_c, bound_ms_before=before_c, library_ms=lib),
+               decrement=dict(ms=ms_d, b2b_ms=b2b_d, bound_ms=bms_d, bound_by=by_d,
+                              removed=int(counts.max(dim=1).values.sum())),
+               bq=bq, dq=dq, B=B, rows=rows, d=d, pairs=pairs, matched=matched, hold_s=hold_s)
+    log(f"  shard_match [{bq}, {dq}, {B}] x [{rows}, {d}, {B}] ({pairs} slot pairs, {matched} "
+        f"matches): equals its plain version ({hold_s:.1f} s); with words {ms:.4f} ms/launch ({b2b:.4f} back to back), bound "
+        f"{bms:.4f} ms ({by}; the broadcast model's {before:.4f}); counts only {ms_c:.4f} "
+        f"({b2b_c:.4f}), bound {bms_c:.4f} ms ({by_c}; the broadcast model's {before_c:.4f}), "
+        f"torch.sparse.mm of the counts {lib} ms (its work: the matches of every query hash); "
+        f"decrement (alive = the winners' {out['decrement']['removed']} slots) "
+        f"{ms_d:.4f} ({b2b_d:.4f}), bound {bms_d:.4f} ms ({by_d}); plain {plain:.1f} ms")
     return out
+
+
+AGAINST_ROWS = 4096  # the fused program's chunk
+AGAINST_SEED = 20261018
+AGAINST_REPS = 10
+
+
+def shard_match_timing(reps: int, clock_hz: float) -> dict:
+    """time_shard_match at the fused program's chunk shape through the
+    sourmash_tpu_torch this process imports: AGAINST_ROWS genomes of phase
+    6's generator against 2 queries of GATHER_QUERY_HASHES
+    (make_gather_query), packed as phase 12 (c) packs them, from
+    AGAINST_SEED. It calls only the package's public shard_match and
+    shard_match_plain, so it times any tree's kernel through that tree's
+    own wrapper."""
+    from sourmash_tpu_torch.parallel import pack_query_batch, pack_shard_planes
+
+    rng = np.random.default_rng(AGAINST_SEED)
+    t0 = time.time()
+    _sigs, mins_list, _clades = make_collection(rng, AGAINST_ROWS)
+    queries = [make_gather_query(rng, mins_list, GATHER_QUERY_HASHES)[0] for _ in range(2)]
+    Shi, Slo, Scnt, B = pack_shard_planes(mins_list, 1)
+    args = _as_args(*pack_query_batch(queries, B), Shi, Slo, Scnt)
+    del Shi, Slo
+    log(f"  {AGAINST_ROWS} genomes and 2 queries of {[len(q) for q in queries]} hashes made and "
+        f"packed in {time.time() - t0:.1f} s")
+    return time_shard_match(args, mins_list, queries, reps, clock_hz)
+
+
+def shard_match_against(other_root: str) -> dict:
+    """shard_match_timing of `other_root`'s checkout and of this one, each in
+    a process of its own (this script with --shard-match-timing ROOT, which
+    imports ROOT's sourmash_tpu_torch and builds its kernel there), in the
+    order other, this, this, other; the back-to-back times of each case
+    averaged over a tree's two runs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate((other_root, here, here, other_root)):
+            path = os.path.join(tmp, f"run{i}.json")
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--shard-match-timing", os.path.abspath(root),
+                                   "--json", path],
+                                  capture_output=True, text=True)
+            for line in (proc.stdout + proc.stderr).splitlines():
+                log(f"  [{'other' if root == other_root else 'this'}] {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"--shard-match-timing {root} failed ({proc.returncode})")
+            with open(path) as f:
+                runs.append(json.load(f))
+    cases = {"with words": lambda r: r["b2b_ms"], "counts only": lambda r: r["counts_only"]["b2b_ms"],
+             "decrement": lambda r: r["decrement"]["b2b_ms"],
+             "torch.sparse.mm": lambda r: r["counts_only"]["library_ms"]}
+    times = {}
+    for case, get in cases.items():
+        got = [get(r) for r in runs]
+        times[case] = dict(runs=got)
+        if None not in got:
+            times[case].update(other_ms=(got[0] + got[3]) / 2, this_ms=(got[1] + got[2]) / 2)
+        log(f"  shard_match {case}, back to back (other, this, this, other): "
+            + ", ".join("none" if t is None else f"{t:.4f}" for t in got) + " ms")
+    return dict(against=times, runs=runs, other_root=other_root)
 
 
 def sync_free(fn):
@@ -4766,7 +5079,8 @@ def parallel_program(world: dict, dev, want_scheds: list, reps: int, clock_hz: f
 
     from sourmash_tpu_torch.ops.bucketed import pack_bits_u32, to_torch
     from sourmash_tpu_torch.parallel import (
-        get_mesh, make_sharded_gather_program, pack_query_batch, pack_shard_planes)
+        get_mesh, make_sharded_gather_program, make_sharded_membership_builder, pack_query_batch,
+        pack_shard_planes)
     from sourmash_tpu_torch.search import calc_threshold_from_bp
 
     nd, ns = PROGRAM_MESH
@@ -4799,6 +5113,12 @@ def parallel_program(world: dict, dev, want_scheds: list, reps: int, clock_hz: f
 
     max_rounds = max(len(w["sched"]) for w in want_scheds) + 1
     mesh = get_mesh(nd, ns, devices=[dev] * (nd * ns))
+    # the builder alone first: its launches make no host synchronisation
+    build = make_sharded_membership_builder(mesh, len(mins_list))
+    (Mb, cb), _w, build_launches = call_counted(lambda: sync_free(lambda: build(*planes, *qs)),
+                                                {})
+    del Mb, cb
+    torch.cuda.empty_cache()
     prog = make_sharded_gather_program(mesh, len(mins_list), max_rounds)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4814,8 +5134,10 @@ def parallel_program(world: dict, dev, want_scheds: list, reps: int, clock_hz: f
             raise AssertionError(f"(c) sample {i}: the program's rounds differ from the "
                                  f"one-device schedule")
     m_bytes = len(queries) * per * ns * qhi.shape[1] * (B // 32) * 4
-    if not_launched(launches, "shard_match", "round_dec_batch"):
-        raise AssertionError(f"(c) a kernel was not launched: {launches}")
+    if not_launched(launches, "shard_match", "round_dec_batch") \
+            or build_launches["shard_match"] != launches["shard_match"]:
+        raise AssertionError(f"(c) a kernel was not launched: {launches}; the builder alone "
+                             f"launched shard_match {build_launches['shard_match']} times")
     log(f"  (c) fused program on a ({nd} x {ns}) mesh of the card, {max_rounds} rounds: "
         f"{wall:.2f} s, best and best_count equal the one-device schedules round for round "
         f"({[len(w['sched']) for w in want_scheds]} rounds); peak {peak / 2**30:.2f} GiB "
@@ -4823,7 +5145,9 @@ def parallel_program(world: dict, dev, want_scheds: list, reps: int, clock_hz: f
         f"the program (the planes' {plane_bytes / 2**30:.2f} and earlier phases' tensors); M "
         f"{m_bytes / 2**30:.2f} GiB, about {m_bytes / len(queries) / 2**30:.2f} GiB a query at "
         f"dq = {qhi.shape[1]}); "
-        f"launches {({n: launches[n] for n in ('shard_match', 'round_dec_batch')})}")
+        f"launches {({n: launches[n] for n in ('shard_match', 'round_dec_batch')})}; the "
+        f"builder's {build_launches['shard_match']} shard_match launches alone made no host "
+        f"synchronisation (set_sync_debug_mode \"error\")")
     return dict(wall_s=wall, max_rounds=max_rounds, peak_bytes=peak, base_bytes=base,
                 plane_bytes=plane_bytes, m_bytes=m_bytes, dq=int(qhi.shape[1]), B=B, d=d, pack_s=pack_s,
                 launches={n: launches[n] for n in ("shard_match", "round_dec_batch")},
@@ -4856,8 +5180,60 @@ def parallel_sketch(rng, dev) -> dict:
     return dict(wall_s=wall, survivors=int(n.sum()), launches=launches["window_hashes"])
 
 
+def parallel_dryrun(dev) -> dict:
+    """(f) `parallel.dryrun.dryrun_multichip(8)` on 8 logical devices of the
+    card: the sharded counter, the gather round (its winners' words and
+    its decrement) and the fused program on the dry run's adversarial
+    inputs, each checked there against a host reference, and every
+    shard_match call held bit for bit against the plain version on host
+    copies of its inputs."""
+    from sourmash_tpu_torch import parallel
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+    from sourmash_tpu_torch.parallel import dryrun
+
+    real = parallel.shard_match
+    held = dict(counts=0, words=0, in_place=0)
+
+    def spy(Qhi, Qlo, alive, Shi, Slo, Scnt, bits=False, out=None, row0=0):
+        host = [t.cpu() for t in (Qhi, Qlo, alive, Shi, Slo, Scnt)]
+        got = real(Qhi, Qlo, alive, Shi, Slo, Scnt, bits=bits, out=out, row0=row0)
+        want = cg.shard_match_plain(*host, bits=True)
+        rows = slice(row0, row0 + Shi.shape[0])
+        if out is not None:
+            exact("(f) shard_match in place (counts)", out[0][:, rows].cpu(), want[0])
+            if out[1] is not None:
+                exact("(f) shard_match in place (words)", out[1][:, rows].cpu(), want[1])
+            held["in_place"] += 1
+        elif bits:
+            exact("(f) shard_match (counts)", got[0].cpu(), want[0])
+            exact("(f) shard_match (words)", got[1].cpu(), want[1])
+            held["words"] += 1
+        else:
+            exact("(f) shard_match counts only", got.cpu(), want[0])
+            held["counts"] += 1
+        return got
+
+    parallel.shard_match = spy
+    try:
+        facts, wall, launches = call_counted(
+            lambda: dryrun.dryrun_multichip(8, devices=[dev] * 8), {})
+    finally:
+        parallel.shard_match = real
+    if min(held.values()) < 1 or (GATHER_DEVICE == "cuda"
+                                  and launches["shard_match"] != sum(held.values())):
+        raise AssertionError(f"(f) shard_match calls held {held}, launched "
+                             f"{launches['shard_match']}")
+    log(f"  (f) dryrun_multichip(8) on 8 logical devices of the card: {facts['mesh']} mesh, "
+        f"every check held in {wall:.2f} s; {sum(held.values())} shard_match calls "
+        f"({held['counts']} counts only: the counter and the decrements; {held['words']} with "
+        f"words: the winners; {held['in_place']} in place: the builder) equal the plain "
+        f"version; launches {({n: launches[n] for n in ('shard_match', 'round_dec')})}")
+    return dict(wall_s=wall, held=held, facts={k: v for k, v in facts.items() if k != "devices"},
+                launches={n: launches[n] for n in ("shard_match", "round_dec")})
+
+
 def parallel_end_to_end(rng, world: dict, clock_hz: float) -> dict:
-    "Phase 12: (a)-(e) on meshes that name the card several times."
+    "Phase 12: (a)-(f) on meshes that name the card several times."
     import torch
 
     from sourmash_tpu_torch.index.flat import FlatIndex
@@ -4889,6 +5265,9 @@ def parallel_end_to_end(rng, world: dict, clock_hz: float) -> dict:
     t0 = time.time()
     out["sketch"] = parallel_sketch(rng, dev)
     walls["d"] = time.time() - t0
+    t0 = time.time()
+    out["dryrun"] = parallel_dryrun(dev)
+    walls["f"] = time.time() - t0
     out["walls_s"] = walls
     log("  phase 12 walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
     return out
@@ -4905,6 +5284,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="run each sketch command once more under cProfile and "
                          "torch.profiler")
+    ap.add_argument("--shard-match-against", metavar="DIR",
+                    help="check shard_match on phase 2's planes, time the checkout in DIR's "
+                         "beside this tree's at the fused program's chunk, then stop")
+    ap.add_argument("--shard-match-timing", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--compare-only", action="store_true",
                     help="build, check compare's kernels (phase 2's part) and run phase 9, "
                          "then stop")
@@ -4916,6 +5299,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.shard_match_timing:  # that checkout's package, not this one's
+        sys.path.insert(0, args.shard_match_timing)
     try:
         import sourmash_tpu_torch  # noqa: F401
     except ImportError as exc:
@@ -4930,6 +5315,13 @@ def main(argv=None) -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"max SM clock {clock_hz / 1e6:.0f} MHz")
+    if args.shard_match_timing:
+        log(f"shard_match timing through {os.path.dirname(sourmash_tpu_torch.__file__)}")
+        timing = shard_match_timing(AGAINST_REPS, clock_hz)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(timing, f, indent=1)
+        return 0
 
     t0 = time.time()
     build_logs = _build.build()
@@ -4942,6 +5334,18 @@ def main(argv=None) -> int:
     k3_against = sass_against(args.sass_against) if args.sass_against else None
 
     rng = np.random.default_rng(20261016)
+    if args.shard_match_against:
+        t0 = time.time()
+        log(f"phase 2 (shard_match only), then against {args.shard_match_against}")
+        edges = check_shard_match_edges(rng)
+        against = shard_match_against(args.shard_match_against)
+        log(f"phase 2 done in {time.time() - t0:.1f} s")
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(dict(card=card, sm_clock_hz=clock_hz, edges=edges, **against), f,
+                          indent=1)
+        log("--shard-match-against: stopped after shard_match; no kernels line and no result")
+        return 0
     if args.compare_only:
         t0 = time.time()
         log("phase 2 (compare's kernels only): against their plain versions on the card (exact)")

@@ -98,9 +98,10 @@ _LIBRARIES = {
         "sp_int_probe": [_P, _I, _I, _I, _I, _P, _P],
     }),
     "parallel": ("pm_error_string", {
-        # qhi, qlo, alive, bq, dq, B, shi, slo, scnt, rows, d, out_rows, row0, counts, M,
-        # stream
-        "pm_shard_match": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        # qhi, qlo, alive, bq, dq, B, shi, slo, scnt, rows, d, out_rows, row0, table,
+        # table_bytes, counts, M, stream
+        "pm_shard_match": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _U64, _P, _P,
+                           _P],
     }),
 }
 _libs: dict = {}

@@ -58,7 +58,10 @@ of its own (`csrc/parallel.cu`):
   B]` with alive words `[bq, dq, B/32]` against each row of `Shi/Slo
   [rows, d, B]` (occupancy `Scnt [rows, B]` uint8): bit j of word w at
   (q, r, s) is set when the query slot (s, 32w + j) is alive and equals
-  one of the row's occupied slots in that bucket.
+  one of the row's occupied slots in that bucket. The kernel builds a hash
+  table of each query's alive slots a bucket, then looks each occupied
+  row slot up in it (`shard_match_table_bytes` sizes the tables' scratch
+  from the shapes).
 
 Limbs and words are int32 bit patterns of u32 values (PAD = -1). Each
 wrapper checks its inputs (a wrong dtype, shape or layout raises
@@ -630,9 +633,26 @@ def _shard_match_out(bq, rows, dq, W, bits, device, out, row0):
     "(counts, M or None, counts' rows, row0): the caller's buffers or new ones."
     if out is not None:
         return out[0], out[1], out[0].shape[1], row0
-    counts = torch.zeros((bq, rows), dtype=torch.int32, device=device)
+    counts = torch.empty((bq, rows), dtype=torch.int32, device=device)
     M = torch.empty((bq, rows, dq, W), dtype=torch.int32, device=device) if bits else None
     return counts, M, rows, 0
+
+
+SHARD_MATCH_RANGE_SLOTS = 8192  # query slots of a table (`csrc/parallel.cu`'s kRangeSlots)
+
+
+def shard_match_table_bytes(bq: int, dq: int, B: int) -> int:
+    """The scratch of shard_match's tables, from the shapes alone (no
+    readback), as `csrc/parallel.cu`'s plan_for sizes it (the kernel
+    refuses less): for each query and bucket, a table of the alive slots of
+    a range of at most SHARD_MATCH_RANGE_SLOTS query slots (dq past it:
+    ranges of equal size, the tables rebuilt for each), of the least power
+    of two (>= 16) of entries above 1.5 slots (a load of at most 2/3), of 2
+    bytes below 255 slots a range, else 4."""
+    ranges = -(-dq // SHARD_MATCH_RANGE_SLOTS)
+    slots = -(-dq // ranges)
+    entries = 1 << max(4, (slots + slots // 2).bit_length())
+    return bq * B * entries * (2 if slots < 255 else 4)
 
 
 def shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, bits: bool = False, out=None, row0: int = 0):
@@ -647,30 +667,38 @@ def shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, bits: bool = False, out=None, r
     `bits`, (counts, M [bq, rows, dq, B/32] int32), M's bits the matched
     slots. With out=(counts [bq, R], M [bq, R, dq, B/32] or None), the
     results of the rows go to rows [row0, row0 + rows) of those buffers
-    (their counts overwritten) and out is returned."""
+    (overwritten) and out is returned.
+
+    On CUDA a call is two launches, the alive slots' per-bucket tables
+    (`shard_match_table_bytes` of scratch, from torch.empty) and the
+    match, which writes every word of its rows once; two more for each
+    further range of 8,192 query slots, and of 65,535 queries."""
     _check_shard_match(Qhi, Qlo, alive, Shi, Slo, Scnt, out, row0)
     if Qhi.device.type == "cpu":
         return shard_match_plain(Qhi, Qlo, alive, Shi, Slo, Scnt, bits, out, row0)
     bq, dq, B = Qhi.shape
     rows, d, _B = Shi.shape
     want_bits = bits if out is None else out[1] is not None
+    if max(bq, dq, B, rows, d, rows if out is None else out[0].shape[1]) >= 2**31:
+        raise TypeError("shard_match: a size is out of the kernel's range")
     counts, M, out_rows, at = _shard_match_out(bq, rows, dq, B // 32, want_bits, Qhi.device,
                                                out, row0)
-    if out is not None:
+    if not (bq and dq and B and rows):
         counts[:, at : at + rows].zero_()
-    if max(bq, dq, B, rows, d, out_rows) >= 2**31 or (B // 32 + 7) // 8 > 65535:
-        raise TypeError("shard_match: a size is out of the kernel's range")
-    if bq and dq and rows:
+        if M is not None:
+            M[:, at : at + rows].zero_()
+    else:
         from . import _build
 
+        nbytes = shard_match_table_bytes(bq, dq, B)
+        table = torch.empty(nbytes // 4, dtype=torch.int32, device=Qhi.device)
         _build.launch(
             "parallel", "pm_shard_match", Qhi.device, Qhi.data_ptr(), Qlo.data_ptr(),
             alive.data_ptr(), bq, dq, B, Shi.data_ptr(), Slo.data_ptr(), Scnt.data_ptr(), rows,
-            d, out_rows, at, counts.data_ptr(), None if M is None else M.data_ptr(),
+            d, out_rows, at, table.data_ptr(), nbytes, counts.data_ptr(),
+            None if M is None else M.data_ptr(),
         )
         LAUNCHES["shard_match"] += 1
-    elif M is not None and out is None:
-        M.zero_()
     if out is not None:
         return out
     return (counts, M) if bits else counts

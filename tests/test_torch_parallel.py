@@ -175,6 +175,167 @@ def test_shard_match_checks_its_inputs(world):
                                              None))
 
 
+# -- shard_match's table sizes and phase 2's edge planes ------------------------------
+
+
+@pytest.mark.parametrize("shape,entries,entry_bytes", [
+    ((2, 199, 4096), 512, 2),  # the fused program's chunk: tables of 8 MiB
+    ((1, 199, 4096), 512, 2),  # the gather round's winner
+    ((4, 40, 256), 64, 2),  # phase 2's edge planes
+    ((2, 300, 4096), 512, 4),  # a line past one block's staging
+    ((1, 254, 32), 512, 2),
+    ((1, 255, 32), 512, 4),
+    ((40, 1, 64), 16, 2),
+    ((65537, 1, 32), 16, 2),  # past the queries of one launch
+    ((1, 8192, 128), 16384, 4),  # one range of slots at its largest
+    ((1, 8193, 128), 8192, 4),  # two ranges of 4,097 slots
+    ((2, 11300, 128), 16384, 4),  # a metagenome against small sketches: two ranges of 5,650
+    ((1, 8, 1 << 20), 16, 2),  # a line of B/32 words past one block's staging
+])
+def test_shard_match_table_bytes(shape, entries, entry_bytes):
+    """The tables' scratch from the shapes alone: a table of each query
+    and bucket of the least power of two (>= 16) of entries above 1.5 slots
+    of a range of at most SHARD_MATCH_RANGE_SLOTS, of 2 bytes an entry
+    below 255 slots, else 4; no shape the parent kernel took is refused."""
+    bq, dq, B = shape
+    assert cg.shard_match_table_bytes(bq, dq, B) == bq * B * entries * entry_bytes
+    ranges = -(-dq // cg.SHARD_MATCH_RANGE_SLOTS)
+    slots = -(-dq // ranges)
+    assert 2 * entries > 3 * slots and (entries == 16 or entries <= 3 * slots)
+    assert entries * entry_bytes <= 65536  # one table fits a build block
+
+
+@pytest.mark.parametrize("make,past", [
+    ("shard_match_stage_inputs", lambda bq, dq, W, stage, rng_: dq * W > stage),
+    ("shard_match_deep_inputs", lambda bq, dq, W, stage, rng_: dq > rng_),
+    ("shard_match_wide_inputs", lambda bq, dq, W, stage, rng_: W > stage),
+    ("shard_match_many_inputs", lambda bq, dq, W, stage, rng_: bq > 65535),
+], ids=["stages of slots", "ranges of slots", "stages of words", "two launches"])
+def test_shard_match_inputs_past_one_launch(make, past):
+    """chip_smoke's planes past one launch's sizes (staged lines of slots
+    and of words, tables in ranges of slots, queries in two launches) pass
+    their limit, and the plain version's counts on them equal the alive
+    query values found among each row's occupied values."""
+    import chip_smoke
+
+    device = chip_smoke.GATHER_DEVICE
+    chip_smoke.GATHER_DEVICE = "cpu"
+    try:
+        args = getattr(chip_smoke, make)(np.random.default_rng(20261016))
+    finally:
+        chip_smoke.GATHER_DEVICE = device
+    Qhi, Qlo, A, Shi, Slo, Scnt = args
+    bq, dq, B = Qhi.shape
+    assert past(bq, dq, B // 32, chip_smoke.SHARD_MATCH_STAGE_WORDS, cg.SHARD_MATCH_RANGE_SLOTS)
+    qv = (u32(Qhi).astype(np.uint64) << np.uint64(32)) | u32(Qlo)
+    alive = tpar.unpack_bits_u32(A).numpy()
+    sv = (u32(Shi).astype(np.uint64) << np.uint64(32)) | u32(Slo)
+    occupied = np.arange(sv.shape[1])[None, :, None] < Scnt.numpy()[:, None, :]
+    qidx = np.nonzero(alive)[0]
+    want = np.stack([np.bincount(qidx[np.isin(qv[alive], sv[r][occupied[r]])], minlength=bq)
+                     for r in range(sv.shape[0])], axis=1)
+    got = cg.shard_match(*args)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
+
+
+@pytest.fixture(scope="module")
+def edge_planes():
+    """chip_smoke's phase 2 edge planes for shard_match, on the CPU."""
+    import chip_smoke
+
+    device = chip_smoke.GATHER_DEVICE
+    chip_smoke.GATHER_DEVICE = "cpu"
+    try:
+        args = chip_smoke.shard_match_edge_inputs(np.random.default_rng(20261016))
+    finally:
+        chip_smoke.GATHER_DEVICE = device
+    Qhi, Qlo, A, Shi, Slo, Scnt = args
+    planes = dict(qhi=u32(Qhi), qlo=u32(Qlo), alive=tpar.unpack_bits_u32(A).numpy(),
+                  Shi=u32(Shi), Slo=u32(Slo), Scnt=Scnt.numpy())
+    jM, jcounts = jpar.make_sharded_membership_builder(jax_mesh(1, 1), Shi.shape[0])(
+        *(jnp.asarray(planes[k]) for k in ("Shi", "Slo", "Scnt", "qhi", "qlo", "alive")))
+    return dict(args=args, planes=planes, jM=np.asarray(jM), jcounts=np.asarray(jcounts),
+                plain=cg.shard_match_plain(*args, bits=True))
+
+
+def _multiplicity(p):
+    "[bq, rows, dq, B]: the occupied slots of each row's bucket equal to each query slot."
+    qv = (p["qhi"].astype(np.uint64) << np.uint64(32)) | p["qlo"]
+    sv = (p["Shi"].astype(np.uint64) << np.uint64(32)) | p["Slo"]
+    occupied = np.arange(sv.shape[1])[None, :, None] < p["Scnt"][:, None, :]
+    return sum((sv[None, :, k, None, :] == qv[:, None]) & occupied[None, :, k, None, :]
+               for k in range(sv.shape[1])).astype(np.int64)
+
+
+def test_shard_match_edge_planes_are_the_edges(edge_planes):
+    p = edge_planes["planes"]
+    counts = edge_planes["plain"][0].numpy()
+    dq = p["qhi"].shape[1]
+    # query 0's bucket 77 sets dq, every slot alive: the table's sized capacity
+    assert p["alive"][0, :, 77].sum() == dq
+    assert counts[1].sum() == 0 and counts[3].sum() == 0 and not p["alive"][3].any()
+    assert counts[0].sum() and counts[2].sum()
+    # a value alive in queries 0 and 2 both, matched in a row
+    qv = (p["qhi"].astype(np.uint64) << np.uint64(32)) | p["qlo"]
+    both = np.intersect1d(qv[0][p["alive"][0]], qv[2][p["alive"][2]])
+    assert len(both) and np.isin(both, p["Shi"].astype(np.uint64) << np.uint64(32)
+                                 | p["Slo"]).any()
+    assert (_multiplicity(p) > 1).any()  # a value repeated in a row's bucket
+
+
+@pytest.mark.parametrize("q", range(4))
+def test_shard_match_plain_on_edge_planes_equals_jax(edge_planes, q):
+    """shard_match_plain against build_chunk (the membership builder) and
+    _local_counts on each edge query. _local_counts counts a value that a
+    row repeats in a bucket once a copy; the builder, the plain version
+    and the kernel count each matched query slot once."""
+    p = edge_planes["planes"]
+    counts, M = edge_planes["plain"]
+    np.testing.assert_array_equal(u32(M[q]), edge_planes["jM"][q])
+    np.testing.assert_array_equal(counts[q].numpy(), edge_planes["jcounts"][q])
+    local = np.asarray(jpar._local_counts(*(jnp.asarray(p[k]) for k in ("Shi", "Slo", "Scnt")),
+                                          jnp.asarray(p["qhi"][q]), jnp.asarray(p["qlo"][q]),
+                                          jnp.asarray(p["alive"][q])))
+    mult = _multiplicity(p)[q] * p["alive"][q][None]
+    np.testing.assert_array_equal(local, mult.sum(axis=(1, 2)))
+    np.testing.assert_array_equal(counts[q].numpy(), (mult > 0).sum(axis=(1, 2)))
+
+
+@pytest.mark.parametrize("form", ["in place", "winner", "decrement"])
+def test_shard_match_edge_forms(edge_planes, form):
+    """The builder's in-place form, the gather round's 1 x 1 winner and its
+    decrement (alive = the winners' words), as phase 2 holds the kernel
+    on the card, through the wrapper's CPU path against the whole call."""
+    Qhi, Qlo, A, Shi, Slo, Scnt = edge_planes["args"]
+    counts, M = edge_planes["plain"]
+    rows = Shi.shape[0]
+    if form == "in place":
+        cbuf = torch.full((Qhi.shape[0], rows + 3), 7, dtype=torch.int32)
+        Mbuf = torch.full((Qhi.shape[0], rows + 3) + tuple(M.shape[2:]), 7, dtype=torch.int32)
+        for a, b in ((0, 6), (6, rows)):
+            cg.shard_match(Qhi, Qlo, A, Shi[a:b], Slo[a:b], Scnt[a:b], out=(cbuf, Mbuf),
+                           row0=a + 3)
+        assert torch.equal(cbuf[:, 3:], counts) and torch.equal(Mbuf[:, 3:], M)
+        assert (cbuf[:, :3] == 7).all() and (Mbuf[:, :3] == 7).all()
+        return
+    best = torch.argmax(counts, dim=1).tolist()
+    if form == "winner":
+        for q, r in enumerate(best):
+            c1, m1 = cg.shard_match(Qhi[q : q + 1], Qlo[q : q + 1], A[q : q + 1],
+                                    Shi[r : r + 1], Slo[r : r + 1], Scnt[r : r + 1], bits=True)
+            assert torch.equal(c1, counts[q : q + 1, r : r + 1])
+            assert torch.equal(m1, M[q : q + 1, r : r + 1])
+        return
+    removed = torch.stack([M[q, r] for q, r in enumerate(best)])
+    dec = cg.shard_match(Qhi, Qlo, removed, Shi, Slo, Scnt)
+    # each query's winner loses all its matches; the decrement is the overlap
+    assert [int(dec[q, r]) for q, r in enumerate(best)] == [int(counts[q, r])
+                                                           for q, r in enumerate(best)]
+    bits = tpar.unpack_bits_u32(M) & tpar.unpack_bits_u32(removed)[:, None]
+    assert torch.equal(dec, bits.sum(dim=(2, 3), dtype=torch.int32))
+
+
 # -- the sharded gather program ---------------------------------------------------------
 
 
