@@ -143,6 +143,17 @@ Phases, each raising on failure:
    sketch; (f) `dryrun_multichip(8)` on 8 logical devices, every
    shard_match call of its counter, gather round and program held bit for
    bit against the plain version.
+13. `sig kmers` through `__main__.main`, each command with the launch
+   counters set to 0 just before and read just after: a query zip of three
+   k=31, scaled=1000 DNA sketches and one k=10, scaled=200 protein sketch
+   over 16 DNA records of 0.2-1 Mbp (`--dna -k 31`: K1 or K2 must run),
+   proteins of 2^16 aa or more (`--protein -k 10`: K3 must run) and DNA
+   records of 0.2-0.3 Mbp with `--translate` (K3 must run), each with
+   `--save-sequences`, and two short records with `--save-kmers` (on the
+   host). Every form runs again under SOURMASH_TORCH_HOST_SKETCH=native,
+   which must launch no sketch kernel: the stderr, the found-hash count and
+   every written file must be the same bytes. The phase prints its wall
+   beside the card's name and power limit.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -5273,6 +5284,170 @@ def parallel_end_to_end(rng, world: dict, clock_hz: float) -> dict:
     return out
 
 
+# -- phase 13: sig kmers on the card -----------------------------------------
+
+KMERS_DNA_RECORDS = 16  # records of 0.2-1 Mbp (phase 3's kind): <= 16 Mbp in all
+KMERS_AA_RECORDS = 6  # proteins of 2^16-2^17 aa: K3's device branch
+KMERS_TR_RECORDS = 4  # DNA records of 0.2-0.3 Mbp: each frame past 2^16 windows
+HOST_SKETCH_NATIVE = {"SOURMASH_TORCH_HOST_SKETCH": "native"}
+
+
+def write_records(path: str, records: list):
+    "A plain FASTA of (name, bytes) records, one line each."
+    with open(path, "wb") as f:
+        for name, seq in records:
+            f.write(b">" + name.encode() + b"\n" + seq + b"\n")
+
+
+def kmers_inputs(rng, tmp: str) -> dict:
+    """Phase 13's sequence files and its query collection: DNA records of
+    0.2-1 Mbp with N runs and lowercase stretches, proteins of 2^16 aa or
+    more, DNA records for `--translate`, and two short records (one a
+    piece of a DNA record) for `--save-kmers`. The query zip holds three
+    k=31, scaled=1000 DNA sketches of pieces of three records and one k=10,
+    scaled=200 protein sketch of pieces of two proteins and of two
+    translated records, each sketched on the native host loop."""
+    from sourmash_tpu_torch import MinHash, SourmashSignature
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    letters = np.frombuffer(AA_RESIDUES, dtype=np.uint8)
+    dna = []
+    for _ in range(KMERS_DNA_RECORDS):
+        seq = rng.choice(acgt, size=int(rng.integers(200_000, 1_000_001)))
+        for start in rng.integers(0, seq.size - 500, size=5):
+            seq[start : start + int(rng.integers(1, 300))] = ord("N")
+        for start in rng.integers(0, seq.size - 5000, size=3):
+            seq[start : start + int(rng.integers(10, 5000))] |= 32  # lowercase
+        dna.append(seq.tobytes())
+    aa = [rng.choice(letters, size=int(rng.integers((1 << 16) + 100, 1 << 17))).tobytes()
+          for _ in range(KMERS_AA_RECORDS)]
+    tr = [rng.choice(acgt, size=int(rng.integers(200_000, 300_001))).tobytes()
+          for _ in range(KMERS_TR_RECORDS)]
+    short = [dna[0][60_000:62_000], rng.choice(acgt, size=2_000).tobytes()]
+    paths = {}
+    for what, recs in (("dna", dna), ("aa", aa), ("tr", tr), ("short", short)):
+        paths[what] = os.path.join(tmp, f"kmers_{what}.fa")
+        write_records(paths[what], [(f"{what}_{i} synthetic", r) for i, r in enumerate(recs)])
+
+    sigs = []
+    with native_host_loop():
+        for i in (0, len(dna) // 3, 2 * len(dna) // 3):
+            mh = MinHash(0, 31, scaled=1000)
+            mh.add_sequence(dna[i][50_000:200_000], force=True)
+            mh.add_many(np.asarray(random_sketch(rng, 50, max_hash_for(1000)), np.uint64))
+            sigs.append(SourmashSignature(mh, name=f"dna query {i}"))
+        mh = MinHash(0, 10, is_protein=True, scaled=200)
+        mh.add_protein(aa[0][:30_000])
+        mh.add_protein(aa[-1][5_000:40_000])
+        mh.add_sequence(tr[0][3_000:60_000])
+        mh.add_sequence(tr[-1][30_000:90_000])
+        sigs.append(SourmashSignature(mh, name="protein query"))
+    paths["query"] = os.path.join(tmp, "kmers_query.zip")
+    with SaveSignaturesToLocation(paths["query"]) as save:
+        for ss in sigs:
+            save.add(ss)
+    paths["mbp"] = sum(map(len, dna)) / 1e6
+    return paths
+
+
+def kmers_forms(paths: dict) -> dict:
+    "Phase 13's `sig kmers` commands, each writing into the working directory."
+    q = ["sig", "kmers", "--signatures", paths["query"]]
+    return {
+        "dna": q + ["-k", "31", "--dna", "--sequences", paths["dna"],
+                    "--save-sequences", "matched.fa"],
+        "protein": q + ["-k", "10", "--protein", "--sequences", paths["aa"],
+                        "--save-sequences", "matched.fa"],
+        "translate": q + ["-k", "10", "--protein", "--sequences", paths["tr"], "--translate",
+                          "--save-sequences", "matched.fa"],
+        "save-kmers": q + ["-k", "31", "--dna", "--sequences", paths["short"],
+                           "--save-kmers", "kmers.csv", "--save-sequences", "matched.fa"],
+    }
+
+
+# the kernels each form must launch on the card (one of a tuple's, all of a list's)
+KMERS_KERNELS = {"dna": [("survivor_slots", "window_hashes")],
+                 "protein": [("aa_window_hashes",)], "translate": [("aa_window_hashes",)],
+                 "save-kmers": []}
+
+
+def kmers_run(argv: list, cwd: str, env: dict) -> dict:
+    """One `sig kmers` through `__main__.main` in `cwd`, launch counters set
+    to 0 just before and read just after: its stderr, output files, found
+    hashes, wall and launches."""
+    import io
+    import re
+
+    from sourmash_tpu_torch.__main__ import main as cli_main
+
+    os.makedirs(cwd)
+    here = os.getcwd()
+    err = io.StringIO()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stderr(err):
+            rc, wall, launches = call_counted(lambda: cli_main(argv), env)
+    finally:
+        os.chdir(here)
+    if rc not in (None, 0):
+        raise AssertionError(f"sig kmers returned {rc}: {err.getvalue()[-2000:]}")
+    found = re.search(r"found (\d+) distinct matching hashes", err.getvalue())
+    files = {}
+    for name in sorted(os.listdir(cwd)):
+        with open(os.path.join(cwd, name), "rb") as f:
+            files[name] = f.read()
+    return dict(stderr=err.getvalue(), files=files, found=int(found.group(1)), wall_s=wall,
+                launches=launches)
+
+
+def sig_kmers_end_to_end(rng, tmp: str) -> dict:
+    """Phase 13: `sig kmers` of a query zip (three DNA sketches, one protein
+    sketch) over DNA records (K1/K2), proteins and translated records (K3)
+    and two short records (`--save-kmers`, on the host), each form on the
+    card and again under SOURMASH_TORCH_HOST_SKETCH=native: the same
+    stderr, found hashes and files, byte for byte."""
+    from sourmash_tpu_torch.cli import SourmashParser
+    from sourmash_tpu_torch.ops.cuda_sketch import LAUNCHES as SKETCH_LAUNCHES
+
+    # the citation goes out once a process: out now, so that each run's
+    # stderr holds the command's own lines
+    SourmashParser.print_citation()
+    t0 = time.time()
+    paths = kmers_inputs(rng, tmp)
+    out = dict(inputs_s=time.time() - t0, dna_mbp=paths["mbp"], forms={})
+    log(f"  inputs ({paths['mbp']:.2f} Mbp of DNA records) in {out['inputs_s']:.1f} s")
+    for form, argv in kmers_forms(paths).items():
+        card = kmers_run(argv, os.path.join(tmp, "kmers", form, "card"), {})
+        host = kmers_run(argv, os.path.join(tmp, "kmers", form, "native"), HOST_SKETCH_NATIVE)
+        for what in ("stderr", "found", "files"):
+            if card[what] != host[what]:
+                import difflib
+
+                diff = difflib.unified_diff(str(host[what]).splitlines(),
+                                            str(card[what]).splitlines(), lineterm="")
+                raise AssertionError(f"sig kmers {form}: {what} on the card differs from the "
+                                     f"native host loop's:\n" + "\n".join(list(diff)[:40]))
+        if not card["found"] or not card["files"].get("matched.fa"):
+            raise AssertionError(f"sig kmers {form}: no matching hashes or sequences")
+        on_host = [n for n in SKETCH_LAUNCHES if host["launches"].get(n)]
+        if on_host:
+            raise AssertionError(f"sig kmers {form}: the native host loop launched {on_host}")
+        for names in KMERS_KERNELS[form]:
+            if len(not_launched(card["launches"], *names)) == len(names):
+                raise AssertionError(f"sig kmers {form}: none of {names} launched: "
+                                     f"{card['launches']}")
+        sizes = {name: len(data) for name, data in card["files"].items()}
+        card["launches"] = {name: n for name, n in card["launches"].items() if n}
+        log(f"  sig kmers {form}: {card['found']} hashes found == native host loop, files "
+            f"{sizes} byte-identical; card {card['wall_s']:.2f} s, launches "
+            f"{card['launches']}; native host loop {host['wall_s']:.2f} s")
+        out["forms"][form] = dict(found=card["found"], file_bytes=sizes,
+                                  card_wall_s=card["wall_s"], launches=card["launches"],
+                                  native_wall_s=host["wall_s"])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5444,6 +5619,11 @@ def main(argv=None) -> int:
         log("phase 12: the multi-device layer on meshes that name the card several times")
         par = parallel_end_to_end(rng, world, clock_hz)
         log(f"phase 12 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        log("phase 13: sig kmers on the card against the native host loop")
+        kmers = sig_kmers_end_to_end(rng, tmp)
+        kmers["wall_s"] = time.time() - t0
+        log(f"phase 13 done in {kmers['wall_s']:.1f} s ({card})")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -5492,7 +5672,7 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
-                           persistent=pers, sbt_lca=sbt_lca, parallel=par,
+                           persistent=pers, sbt_lca=sbt_lca, parallel=par, sig_kmers=kmers,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(f"chip_smoke: the whole run took {time.time() - t_start:.1f} s")
     log(card)

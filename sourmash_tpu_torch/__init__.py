@@ -43,4 +43,40 @@ __all__ = [
     "get_minhash_max_hash",
     "minhash_from_arrays",
     "signature_from_arrays",
+    "load_file_as_index",
+    "load_file_as_signatures",
+    "DEFAULT_LOAD_K",
 ]
+
+DEFAULT_LOAD_K = 31
+
+
+def load_file_as_index(filename, *, yield_all_files=False):
+    "Load a filename as a signature collection/index (loader chain)."
+    from .save_load import load_file_as_index as _impl
+
+    return _impl(filename, yield_all_files=yield_all_files)
+
+
+def load_file_as_signatures(
+    filename,
+    *,
+    select_moltype=None,
+    ksize=None,
+    picklist=None,
+    yield_all_files=False,
+    progress=None,
+    pattern=None,
+):
+    "Load a filename and return an iterator over signatures."
+    from .sourmash_args import load_file_as_signatures as _impl
+
+    return _impl(
+        filename,
+        select_moltype=select_moltype,
+        ksize=ksize,
+        picklist=picklist,
+        yield_all_files=yield_all_files,
+        progress=progress,
+        pattern=pattern,
+    )

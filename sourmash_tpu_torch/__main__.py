@@ -1,8 +1,8 @@
 """Entry point: `python -m sourmash_tpu_torch sketch dna ...`, `... gather
 query.sig db.zip` and so on (counterpart of `sourmash_tpu/__main__.py`;
 `sketch`, `compare`, `search`, `gather`, `multigather`, `prefetch`,
-`index`, `sbt_combine`, `migrate`, `storage convert` and `lca` are
-ported)."""
+`index`, `sbt_combine`, `migrate`, `storage convert`, `sig`, `lca` and
+`tax` are ported)."""
 
 from __future__ import annotations
 
@@ -37,6 +37,18 @@ def main(arglist=None):
         from .sbt import convert_cmd
 
         return convert_cmd(args.sbt, args.backend)
+    if cmd in ("sig", "tax"):
+        subfunc = getattr(args, "subfunc", None)
+        if subfunc is None:
+            cli.get_parser().print_help()
+            return 1
+        if cmd == "sig":
+            from .sig import __main__ as sig_main
+
+            return getattr(sig_main, subfunc)(args)
+        from .tax import __main__ as tax_main
+
+        return getattr(tax_main, subfunc[len("tax_"):])(args)
     if cmd == "lca":
         target = _LCA_COMMANDS.get(getattr(args, "subfunc", None))
         if target is None:

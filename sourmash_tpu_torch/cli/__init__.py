@@ -1,11 +1,12 @@
 """Command-line interface of the port: the `sketch` subtree, `compare`,
 `search`, `gather`, `multigather`, `prefetch`, `index`, `sbt_combine`,
-`migrate`, `storage convert` and the `lca` subtree.
+`migrate`, `storage convert` and the `sig`, `lca` and `tax` subtrees.
 
 Parity: `sourmash_tpu/cli/__init__.py` (itself reference
-`src/sourmash/cli/__init__.py`) and `sourmash_tpu/cli/utils.py` — same
-command names, flags and defaults for these commands; the other commands
-are not ported yet.
+`src/sourmash/cli/__init__.py`) — same command names, flags and defaults
+for these commands (`tests/test_torch_cli_tree.py`); `compute`, `plot`,
+`categorize`, `import_csv`, `watch`, `info`, `scripts` and `ext` are not
+ported yet. The shared flag groups are in `utils.py`.
 """
 
 from __future__ import annotations
@@ -15,6 +16,13 @@ from argparse import ArgumentParser, RawDescriptionHelpFormatter, SUPPRESS
 
 from .. import VERSION
 from ..sourmash_args import check_scaled_bounds
+from .utils import (
+    add_ksize_arg,
+    add_moltype_args,
+    add_picklist_args,
+    add_pattern_args,
+    add_scaled_arg,
+)
 
 
 class SourmashParser(ArgumentParser):
@@ -61,81 +69,9 @@ class SourmashParser(ArgumentParser):
             if ns.subcmd is None:
                 self._subparser_from_name(ns.cmd).print_help()
                 raise SystemExit(1)
+            if ns.subcmd == "import":
+                ns.subcmd = "ingest"
         return ns
-
-
-def _bool_pair(parser, names, dest, on_help, off_help, default):
-    "One on/off argparse flag pair sharing a dest (e.g. --hp / --no-hp)."
-    parser.add_argument(
-        *[f"--{n}" for n in names], dest=dest, action="store_true",
-        default=None, help=on_help,
-    )
-    parser.add_argument(
-        *[f"--no-{n}" for n in names], dest=dest, action="store_false",
-        help=off_help,
-    )
-    parser.set_defaults(**{dest: default})
-
-
-# (flag aliases, dest, on-help, off-help, default)
-_MOLTYPE_FLAGS = (
-    (("protein",), "protein",
-     "choose a protein signature; by default, a nucleotide signature is used",
-     "do not choose a protein signature", False),
-    (("dayhoff",), "dayhoff",
-     "choose Dayhoff-encoded amino acid signatures",
-     "do not choose Dayhoff-encoded amino acid signatures", False),
-    (("hp", "hydrophobic-polar"), "hp",
-     "choose hydrophobic-polar-encoded amino acid signatures",
-     "do not choose hydrophobic-polar-encoded amino acid signatures", False),
-    (("dna", "rna", "nucleotide"), "dna",
-     "choose a nucleotide signature (default: True)",
-     "do not choose a nucleotide signature", None),
-)
-
-
-def add_moltype_args(parser):
-    "--protein/--dayhoff/--hp/--dna and their --no- pairs (`sourmash_tpu/cli/utils.py:46`)."
-    for names, dest, on_h, off_h, default in _MOLTYPE_FLAGS:
-        _bool_pair(parser, names, dest, on_h, off_h, default)
-
-
-def add_ksize_arg(parser, *, default=None):
-    "-k/--ksize with the given default (`sourmash_tpu/cli/utils.py:56`)."
-    tail = f"default={default}" if default else "no default."
-    parser.add_argument(
-        "-k", "--ksize", metavar="K", default=default, type=int,
-        help=f"k-mer size to select; {tail}",
-    )
-
-
-def add_picklist_args(parser):
-    parser.add_argument(
-        "--picklist", default=None,
-        help="select signatures based on a picklist, i.e. 'file.csv:colname:coltype'",
-    )
-    parser.add_argument(
-        "--picklist-require-all", default=False, action="store_true",
-        help="require that all picklist values be found or else fail",
-    )
-
-
-def add_pattern_args(parser):
-    for flag, what in (
-        ("--include-db-pattern", "search only signatures that match"),
-        ("--exclude-db-pattern", "search only signatures that do not match"),
-    ):
-        parser.add_argument(
-            flag, default=None,
-            help=f"{what} this pattern in name, filename, or md5",
-        )
-
-
-def add_scaled_arg(parser, default=None):
-    parser.add_argument(
-        "--scaled", metavar="FLOAT", type=check_scaled_bounds,
-        help="downsample to this scaled; value should be between 100 and 1e6",
-    )
 
 
 def _add_compare(sub):
@@ -490,17 +426,21 @@ def get_parser():
     sub = parser.add_subparsers(title="Instructions", dest="cmd", metavar="cmd",
                                 help=SUPPRESS)
     _add_compare(sub)
-    _add_sketch(sub)
     _add_search(sub)
     _add_gather(sub)
     _add_multigather(sub)
     _add_prefetch(sub)
+    _add_sketch(sub)
     _add_index(sub)
     _add_sbt_tools(sub)
 
+    from . import sig as _sig_cli
     from . import lca as _lca_cli
+    from . import tax as _tax_cli
 
+    _sig_cli.subparser(sub)
     _lca_cli.subparser(sub)
+    _tax_cli.subparser(sub)
     parser._action_groups.reverse()
     return parser
 

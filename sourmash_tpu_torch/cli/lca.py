@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from . import add_ksize_arg, add_moltype_args, add_picklist_args
+from .utils import add_ksize_arg, add_moltype_args, add_picklist_args
 
 
 def subparser(subparsers):

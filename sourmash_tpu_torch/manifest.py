@@ -232,6 +232,17 @@ class BaseCollectionManifest:
             for ss, loc in locations_iter
         )
 
+    def _check_row_values(self):
+        "Validate row types and values with the selector checker."
+        for row in self.rows:
+            _check_select_parameters(
+                num=row["num"],
+                ksize=row["ksize"],
+                moltype=row["moltype"],
+                scaled=row["scaled"],
+                abund=row["with_abundance"],
+            )
+
 
 class CollectionManifest(BaseCollectionManifest):
     "In-memory manifest: ordered row dicts plus an md5 membership set."
@@ -239,6 +250,10 @@ class CollectionManifest(BaseCollectionManifest):
     def __init__(self, rows=()):
         self.rows = list(rows)  # `rows` may be a generator
         self._md5_set = {row["md5"] for row in self.rows}
+
+    def add_row(self, row):
+        self.rows.append(row)
+        self._md5_set.add(row["md5"])
 
     def __bool__(self):
         return bool(self.rows)

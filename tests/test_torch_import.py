@@ -51,6 +51,9 @@ def test_import_every_module_leaves_jax_and_sourmash_tpu_out():
     assert "sourmash_tpu_torch.ops.cuda_gather" in modules
     assert "sourmash_tpu_torch.index.flat" in modules
     assert "sourmash_tpu_torch.commands" in modules
+    assert "sourmash_tpu_torch.sig.__main__" in modules
+    assert "sourmash_tpu_torch.tax.__main__" in modules
+    assert "sourmash_tpu_torch.cli.utils" in modules
 
 
 @pytest.mark.parametrize(
