@@ -53,10 +53,10 @@ Phases, each raising on failure:
    same with SOURMASH_TORCH_NO_SCHEDULE=1 (host rounds), whose CSV must be
    byte-identical; every row must equal an independent numpy greedy gather
    (match order, intersect_bp, unique_intersect_bp, f_unique_weighted).
-   Then, for queries of ~20 k and ~150 k hashes (k * W * 4 below 24 MB),
-   time the schedule with host bitsets against `membership_bits`, and a
-   host-round consume by host sorted joins against `round_dec` (same
-   results held).
+   Then, for queries of ~20 k hashes (k * W * 4 below 24 MB) and ~600 k
+   (above it), time the schedule with host bitsets against
+   `membership_bits`, and a host-round consume by host sorted joins against
+   `round_dec` (same results held).
 7. The instruments' own path: each tool under `sourmash_tpu_torch/tools/`
    run through its main() as `python -m` runs it (T2 and T3 `check` and
    `time` at [8, 2^21 + 30], T4 `murmur assembly mul16 probe-mul64-16`,
@@ -133,7 +133,7 @@ Phases, each raising on failure:
    printed.
 12. The multi-device layer (`sourmash_tpu_torch/parallel/`) on meshes that
    name the card several times: (a) gather's schedule sharded over 4
-   logical shards, (b) multigather's over 2 and 3 data devices, each equal
+   logical shards, (b) multigather's over 2 data devices, each equal
    to the one-device schedules; (c) the fused program on a (2 x 2) mesh
    against 4 of phase 8's samples, round for round against (b), its
    builder first alone under set_sync_debug_mode("error") (no host
@@ -154,6 +154,24 @@ Phases, each raising on failure:
    which must launch no sketch kernel: the stderr, the found-hash count and
    every written file must be the same bytes. The phase prints its wall
    beside the card's name and power limit.
+14. The last slice through `__main__.main`, each command with the launch
+   counters set to 0 just before and read just after. (a) `compute` of a
+   generated ~32 Mbp FASTA.gz (records of 0.1-4 Mbp): `-k 21,31 --scaled
+   1000 --track-abundance`, `--protein --dayhoff -k 30 --scaled 100` and
+   `--merge`; every sketch's mins, abundances and md5sum must equal the
+   native host loop's, and K1 and K3 must have run. (b) `categorize` of 4
+   genomes of phase 6's collection against its zip (warm in the flat-view
+   cache): the cutoff form of `counts_rows` must run, and each CSV row's
+   best match and similarity must be numpy's Jaccard argmax without the
+   query's own md5. (c) `index` of 4 generated genomes' num=500, k=21
+   sketches into an SBT, then `watch --dna --ksize 21` of 100 kbp records
+   of genome 0: K1 or K2 must run, the FOUND line must name genome 0 at the
+   host's similarity, and `-o`'s sketch must equal the native host loop's.
+   (d) SOURMASH_TORCH_PROFILE around `sketch dna` of one 4 Mbp record in a
+   subprocess started before (a): its Chrome trace must be valid JSON and
+   name K1's survivor_slots_kernel among its kernel events. (e) `info -v`
+   must print the card's name as nvidia-smi gives it. The phase prints its
+   walls and launches on lines of their own.
 
 Phase 2 also holds K3 against its plain version, bit for bit, for k in
 {3, 7, 10, 16, 42, 64, 129} at B = 4, 32 and the batch of `sketch
@@ -341,11 +359,12 @@ GATHER_QUERY_HASHES = 600_000
 GATHER_THRESHOLD_BP = 50_000  # gather's default --threshold-bp
 GATHER_KERNEL_ROWS = 8192  # rows of one bank chunk (ops/index_ops._CHUNK_ROWS)
 GATHER_DEVICE = "cuda"  # the gather phases' tensors (a CPU rehearsal sets "cpu")
-# phase 6's route comparison: queries of a few genomes and of a small
-# metagenome, below the 24 MB (k * W * 4 bytes) threshold at which the
-# schedule builds membership on the device, and one of phase 6's size above it
-GATHER_ROUTE_QUERIES = (20_000, 150_000, 600_000)
-ROUTE_REPS = 4
+# phase 6's route comparison: a query of a few genomes, below the 24 MB
+# (k * W * 4 bytes) threshold at which the schedule builds membership on the
+# device, and one of phase 6's size above it (the 150 k-hash query between
+# them and a fourth repetition were cut for the time limit)
+GATHER_ROUTE_QUERIES = (20_000, 600_000)
+ROUTE_REPS = 3
 # phase 8: `multigather` of many samples against one collection (config 5
 # of BASELINE.json: 1000 metagenomes against full GTDB), cut to 16 samples
 # on one card for the run's time limit: 4 of ~600 k hashes, 12 of 20 k-150 k
@@ -3034,7 +3053,9 @@ def compare_membership_routes(rng, db: str, mins_list) -> list:
     t0 = time.time()
     view = load_file_as_index(db)._as_flat_view()
     log(f"  collection loaded again for the route comparison in {time.time() - t0:.1f} s")
-    return [compare_routes_at(rng, view, mins_list, n) for n in GATHER_ROUTE_QUERIES]
+    out = [compare_routes_at(rng, view, mins_list, n) for n in GATHER_ROUTE_QUERIES]
+    log(f"  the route comparison took {time.time() - t0:.1f} s")
+    return out
 
 
 def compare_routes_at(rng, view, mins_list, target: int) -> dict:
@@ -4490,7 +4511,7 @@ def sbt_lca_end_to_end(tmp: str, world: dict) -> dict:
 # times: logical shards on one card, run one after another (no multi-GPU
 # rate); with more than one card, (a) and (b) run over the distinct cards too
 SHARDED_SHARDS = 4  # (a): gather's sharded round scan
-DATA_DEVICES = (2, 3)  # (b): multigather's data-parallel scan
+DATA_DEVICES = (2,)  # (b): multigather's data-parallel scan (3 devices cut for the time limit)
 PROGRAM_MESH = (2, 2)  # (c): the fused program's (data, shards) mesh
 SKETCH_ROWS, SKETCH_DATA = 4, 2  # (d): rows of phase 3's kind over data devices
 SCAN_ROUNDS = 64  # rounds timed for ms per round
@@ -5448,6 +5469,287 @@ def sig_kmers_end_to_end(rng, tmp: str) -> dict:
     return out
 
 
+# -- phase 14: compute, categorize, watch, the profiler hook and info -------
+
+COMPUTE_MBP = 32  # phase 14 (a): records of 0.1-4 Mbp
+COMPUTE_RUNS = {
+    "dna": ["-k", "21,31", "--scaled", "1000", "--track-abundance"],
+    "protein": ["--protein", "--dayhoff", "-k", "30", "--scaled", "100"],
+    "merge": ["-k", "21,31", "--scaled", "1000", "--merge", "merged"],
+}
+CATEGORIZE_QUERIES = 4
+WATCH_GENOMES = 4
+WATCH_RECORD = 100_000  # bytes a watch record: past minhash._DEVICE_MIN_LEN (2^16)
+PROFILE_MBP = 4
+
+
+def write_compute_fasta(path: str, mbp: int, rng) -> tuple:
+    """A FASTA.gz of about `mbp` Mbp in records of 0.1-4 Mbp with N runs and
+    lowercase stretches. Returns (records, bases)."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n_rec, total = 0, 0
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        while total < mbp * 1_000_000:
+            seq = rng.choice(acgt, size=int(rng.integers(100_000, 4_000_001)))
+            for start in rng.integers(0, seq.size - 3000, size=5):
+                seq[start : start + int(rng.integers(1, 2000))] = ord("N")
+            for start in rng.integers(0, seq.size - 20_000, size=3):
+                seq[start : start + int(rng.integers(100, 20_000))] |= 32  # lowercase
+            f.write(b">compute_%d synthetic\n" % n_rec + seq.tobytes() + b"\n")
+            n_rec += 1
+            total += seq.size
+    return n_rec, total
+
+
+def same_sketch(what: str, got, want):
+    "mins, abundances and md5sum equal to the native host loop's."
+    if not np.array_equal(got.mins_array(), want.mins_array()) or got.md5sum() != want.md5sum():
+        raise AssertionError(f"{what}: differs from the native host loop")
+    if want.track_abundance and not np.array_equal(got.abunds_array(), want.abunds_array()):
+        raise AssertionError(f"{what}: abundances differ from the native host loop")
+    if len(want) == 0:
+        raise AssertionError(f"{what}: empty sketch")
+
+
+def compute_end_to_end(rng, tmp: str) -> dict:
+    """Phase 14 (a): `compute` of ~32 Mbp (DNA k=21,31 scaled=1000 with
+    abundances; DNA, protein and dayhoff at k=30 scaled=100; `--merge`),
+    each through `__main__.main` with the launch counters set to 0 just
+    before and read just after. Every sketch equal to the native host loop
+    on the same records; K1 and K3 launched."""
+    from sourmash_tpu_torch import load_signatures_from_json
+
+    path = os.path.join(tmp, "compute.fa.gz")
+    t0 = time.time()
+    n_rec, bases = write_compute_fasta(path, COMPUTE_MBP, rng)
+    out = dict(records=n_rec, mbp=bases / 1e6, inputs_s=time.time() - t0, runs={})
+    oracle = {}
+    for tag, flags in COMPUTE_RUNS.items():
+        sig_path = os.path.join(tmp, f"compute_{tag}.sig")
+        wall, launches = run_counted(["compute", path, "-o", sig_path, "-q", *flags], {})
+        sigs = list(load_signatures_from_json(sig_path))
+        got = {sketch_key(ss.minhash) + (ss.minhash.track_abundance,): ss for ss in sigs}
+        t0 = time.time()
+        missing = {k: ss.minhash.copy_and_clear() for k, ss in got.items() if k not in oracle}
+        oracle.update(host_sketches(path, missing) if missing else {})
+        host_s = time.time() - t0
+        for key, ss in got.items():
+            same_sketch(f"compute {tag} {key}", ss.minhash, oracle[key])
+        if tag == "merge" and {ss.name for ss in sigs} != {"merged"}:
+            raise AssertionError(f"compute --merge named its sketches {[ss.name for ss in sigs]}")
+        launched = {n: c for n, c in launches.items() if c}
+        out["runs"][tag] = dict(wall_s=wall, sketches=len(got), launches=launched,
+                                host_loop_s=host_s)
+        log(f"  compute {tag} ({' '.join(flags)}): {wall:.2f} s wall, {len(got)} sketches == "
+            f"native host loop ({host_s:.1f} s); launches {launched}")
+    total = {name: sum(r["launches"].get(name, 0) for r in out["runs"].values())
+             for name in ("survivor_slots", "aa_window_hashes")}
+    if not_launched(total, *total):
+        raise AssertionError(f"compute: {not_launched(total, *total)} not launched")
+    return out
+
+
+def categorize_end_to_end(tmp: str, world: dict) -> dict:
+    """Phase 14 (b): `categorize` of 4 genomes of phase 6's collection (each
+    from a clade of >= 5, saved as a query `.sig`) against its zip, warm in
+    the flat-view cache: the cutoff form of counts_rows must run, and each
+    CSV row's best match and similarity must be numpy's Jaccard argmax over
+    the collection without the query itself (its own md5)."""
+    from sourmash_tpu_torch.ops import cuda_gather as cg
+
+    mins_list, names = world["mins_list"], world["names"]
+    clade = np.array([int(n.rsplit("clade_", 1)[1]) for n in names])
+    picks = [int(i) for i in np.flatnonzero(np.bincount(clade)[clade] >= 5)[:CATEGORIZE_QUERIES]]
+    lens = np.fromiter((len(m) for m in mins_list), dtype=np.int64)
+    queries, want = [], {}
+    for gi in picks:
+        qpath = os.path.join(tmp, f"categorize_{gi}.sig")
+        save_sig(qpath, mins_list[gi], names[gi])
+        queries.append(qpath)
+        inter = overlap_counts(mins_list[gi], mins_list, world["index"])
+        jac = inter / (len(mins_list[gi]) + lens - inter)
+        jac[gi] = -1.0  # the query's own md5
+        best = float(jac.max())
+        want[qpath] = (best, {names[i] for i in np.flatnonzero(jac == best)})
+    csv_path = os.path.join(tmp, "categorize.csv")
+    cut_calls = []
+
+    def spy(counts_rows):
+        def spied(*a, **kw):
+            cut_calls.append(len(a) > 4 and a[4] is not None or kw.get("cut_hi") is not None)
+            return counts_rows(*a, **kw)
+        return spied
+
+    with patched(cg, "counts_rows", spy):
+        wall, launches = run_counted(["categorize", world["db"], *queries, "--ksize", "31",
+                                      "--csv", csv_path, "-q"], {})
+    if not any(cut_calls) or not_launched(launches, "counts_rows"):
+        raise AssertionError(f"categorize: counts_rows with cuts did not run: {launches}")
+    import csv as csvmod
+
+    with open(csv_path, newline="") as f:
+        rows = list(csvmod.reader(f))
+    if [row[0] for row in rows] != queries:
+        raise AssertionError(f"categorize: rows for {[row[0] for row in rows]}, want {queries}")
+    for loc, _query, match, sim in rows:
+        best, best_names = want[loc]
+        if float(sim) != best or match not in best_names:
+            raise AssertionError(f"categorize {loc}: {match} at {sim}, numpy {best_names} at "
+                                 f"{best}")
+    log(f"  categorize of {len(queries)} genomes against {len(names)}: {wall:.2f} s wall, best "
+        f"matches and Jaccard == numpy's argmax; counts_rows with cuts "
+        f"{launches['counts_rows']} launches")
+    return dict(wall_s=wall, queries=len(queries), counts_rows=launches["counts_rows"],
+                best=[float(r[3]) for r in rows])
+
+
+def watch_end_to_end(rng, tmp: str) -> dict:
+    """Phase 14 (c): `index` of num=500, k=21 sketches of 4 generated genomes
+    into an SBT, then `watch --dna --ksize 21` of records of 100 kbp cut from
+    genome 0: K1 or K2 must run, the FOUND line must name genome 0 at the
+    host's similarity, and `-o`'s sketch must equal the native host loop's."""
+    import io
+
+    from sourmash_tpu_torch import MinHash, SourmashSignature, load_signatures_from_json
+    from sourmash_tpu_torch.save_load import SaveSignaturesToLocation
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genomes = [rng.choice(acgt, size=int(rng.integers(1_000_000, 2_000_001))).tobytes()
+               for _ in range(WATCH_GENOMES)]
+    sketches, sig_paths = [], []
+    with native_host_loop():
+        for i, g in enumerate(genomes):
+            mh = MinHash(500, 21)
+            mh.add_sequence(g)
+            sketches.append(mh)
+            sig_paths.append(os.path.join(tmp, f"watch_genome_{i}.sig"))
+            with SaveSignaturesToLocation(sig_paths[-1]) as save:
+                save.add(SourmashSignature(mh, name=f"watch genome {i}"))
+    tree = os.path.join(tmp, "watch.sbt.zip")
+    index_wall, _ = run_counted(["index", tree, *sig_paths, "-q"], {})
+    cut = genomes[0][: 8 * WATCH_RECORD]
+    records = [(f"piece {j} of watch genome 0", cut[j * WATCH_RECORD:(j + 1) * WATCH_RECORD])
+               for j in range(8)]
+    fa = os.path.join(tmp, "watch_records.fa")
+    write_records(fa, records)
+    w_sig = os.path.join(tmp, "watch_w.sig")
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        wall, launches = run_counted(["watch", "--dna", "--ksize", "21", tree, fa, "-o", w_sig],
+                                     {})
+    want = MinHash(500, 21)
+    with native_host_loop():
+        for _name, seq in records:
+            want.add_sequence(seq)
+    got = next(iter(load_signatures_from_json(w_sig))).minhash
+    same_sketch("watch -o", got, want)
+    found = f"FOUND: watch genome 0, at {want.similarity(sketches[0], ignore_abundance=True):.3f}"
+    if stdout.getvalue().strip() != found:
+        raise AssertionError(f"watch printed {stdout.getvalue()!r}, the host says {found!r}")
+    if len(not_launched(launches, "survivor_slots", "window_hashes")) == 2:
+        raise AssertionError(f"watch: neither K1 nor K2 was launched: {launches}")
+    launched = {n: c for n, c in launches.items() if c}
+    log(f"  index of {WATCH_GENOMES} genomes' num=500 sketches: {index_wall:.2f} s; watch of "
+        f"{len(records)} records of {WATCH_RECORD} bp: {wall:.2f} s wall, {found!r} == host, "
+        f"-o == native host loop; launches {launched}")
+    return dict(index_s=index_wall, wall_s=wall, found=found, launches=launched)
+
+
+def profile_hook_start(rng, tmp: str) -> dict:
+    """Phase 14 (d), started: `sketch dna` of one 4 Mbp record in a
+    subprocess under SOURMASH_TORCH_PROFILE, left to run beside (a)-(c)
+    (its launches count in its own process); `profile_hook_check` waits."""
+    import sourmash_tpu_torch
+
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    fa = os.path.join(tmp, "profile_record.fa")
+    write_records(fa, [("profiled record", rng.choice(acgt, size=PROFILE_MBP * 1_000_000)
+                        .tobytes())])
+    trace_dir = os.path.join(tmp, "torch_profile")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(sourmash_tpu_torch.__file__)))
+    env = dict(os.environ, SOURMASH_TORCH_PROFILE=trace_dir,
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    proc = subprocess.Popen([sys.executable, "-m", "sourmash_tpu_torch", "sketch", "dna", fa,
+                             "-o", os.path.join(tmp, "profiled.sig"), "-q"],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return dict(proc=proc, trace_dir=trace_dir, t0=time.time())
+
+
+def profile_hook_check(started: dict) -> dict:
+    """Phase 14 (d): the subprocess's Chrome trace must be valid JSON and
+    name K1's survivor_slots_kernel among its kernel events."""
+    import glob
+
+    proc = started["proc"]
+    try:
+        _out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    wall = time.time() - started["t0"]
+    if proc.returncode != 0:
+        raise AssertionError(f"profiled sketch dna returned {proc.returncode}: {err[-2000:]}")
+    traces = glob.glob(os.path.join(started["trace_dir"], "sourmash_torch.*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profiler hook wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [ev["name"] for ev in events if ev.get("cat") == "kernel"]
+    k1 = [name for name in kernels if "survivor_slots_kernel" in name]
+    if not k1:
+        raise AssertionError(f"the trace names no survivor_slots_kernel among {len(kernels)} "
+                             f"kernel events: {sorted(set(kernels))[:10]}")
+    log(f"  SOURMASH_TORCH_PROFILE sketch dna of {PROFILE_MBP} Mbp in a subprocess (beside "
+        f"(a)-(c)): {wall:.2f} s from its start, trace {os.path.getsize(traces[0])} bytes, "
+        f"{len(events)} events, {len(kernels)} kernel events, {len(k1)} of K1 ({k1[0][:60]!r})")
+    return dict(wall_s=wall, trace_bytes=os.path.getsize(traces[0]), events=len(events),
+                kernel_events=len(kernels), k1_events=len(k1))
+
+
+def info_end_to_end(card: str) -> dict:
+    "Phase 14 (e): `info -v` must print the card's name as nvidia-smi gives it."
+    import io
+
+    from sourmash_tpu_torch import logging as port_logging
+    from sourmash_tpu_torch.__main__ import main as cli_main
+
+    name = card.split(",")[0].strip()
+    port_logging.set_quiet(False)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(["info", "-v"])
+    if rc not in (None, 0) or name not in err.getvalue():
+        raise AssertionError(f"info -v returned {rc} and printed no {name!r}: "
+                             f"{err.getvalue()[-1500:]}")
+    line = next(ln for ln in err.getvalue().splitlines() if ln.startswith("torch devices:"))
+    log(f"  info -v: {line!r}")
+    return dict(devices_line=line)
+
+
+def last_slice_end_to_end(rng, tmp: str, world: dict, card: str) -> dict:
+    """Phase 14: (a)-(e), each part's wall and launches on lines of their own;
+    (d)'s subprocess runs beside (a)-(c), its wall counted from its start."""
+    from sourmash_tpu_torch.cli import SourmashParser
+
+    SourmashParser.print_citation()  # once a process: out of each command's output
+    walls, out = {}, {}
+    started = profile_hook_start(rng, tmp)
+    for part, fn in (("a", lambda: compute_end_to_end(rng, tmp)),
+                     ("b", lambda: categorize_end_to_end(tmp, world)),
+                     ("c", lambda: watch_end_to_end(rng, tmp)),
+                     ("d", lambda: profile_hook_check(started)),
+                     ("e", lambda: info_end_to_end(card))):
+        t0 = time.time()
+        out[part] = fn()
+        walls[part] = time.time() - t0
+    out["walls_s"] = walls
+    log("  phase 14 walls: " + ", ".join(f"({k}) {v:.1f} s" for k, v in walls.items()))
+    launches = {f"compute {tag}": r["launches"] for tag, r in out["a"]["runs"].items()}
+    launches.update({"categorize": {"counts_rows": out["b"]["counts_rows"]},
+                     "watch": out["c"]["launches"]})
+    log("  phase 14 launches: " + json.dumps(launches))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -5624,6 +5926,11 @@ def main(argv=None) -> int:
         kmers = sig_kmers_end_to_end(rng, tmp)
         kmers["wall_s"] = time.time() - t0
         log(f"phase 13 done in {kmers['wall_s']:.1f} s ({card})")
+        t0 = time.time()
+        log("phase 14: compute, categorize, watch, the profiler hook and info -v")
+        last = last_slice_end_to_end(rng, tmp, world, card)
+        last["wall_s"] = time.time() - t0
+        log(f"phase 14 done in {last['wall_s']:.1f} s ({card})")
 
     # each kernel's launches come from the phase that runs its path
     gather_launches = gath["runs"]["scheduled"]["launches"]
@@ -5673,6 +5980,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, sm_clock_hz=clock_hz, timings=timings, end_to_end=e2e,
                            protein=prot, translate=trans, gather=gath, multi=multi, compare=cmp,
                            persistent=pers, sbt_lca=sbt_lca, parallel=par, sig_kmers=kmers,
+                           last_slice=last,
                            instrument_launches=instr, k3_against=k3_against), f, indent=1)
     log(f"chip_smoke: the whole run took {time.time() - t_start:.1f} s")
     log(card)

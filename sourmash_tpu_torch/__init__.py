@@ -46,6 +46,11 @@ __all__ = [
     "load_file_as_index",
     "load_file_as_signatures",
     "DEFAULT_LOAD_K",
+    "DEFAULT_SEED",
+    "MAX_HASH",
+    "create_sbt_index",
+    "load_sbt_index",
+    "search_sbt_index",
 ]
 
 DEFAULT_LOAD_K = 31
@@ -80,3 +85,81 @@ def load_file_as_signatures(
         progress=progress,
         pattern=pattern,
     )
+
+
+# -- deprecated aliases (reference __init__.py:31-75; remove in 5.0) ------
+
+
+def load_one_signature(*args, **kwargs):
+    "Deprecated: use load_one_signature_from_json / load_file_as_signatures."
+    import warnings
+
+    warnings.warn(
+        "load_one_signature is deprecated; use load_one_signature_from_json",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return load_one_signature_from_json(*args, **kwargs)
+
+
+def load_signatures(*args, **kwargs):
+    "Deprecated: use load_signatures_from_json."
+    import warnings
+
+    warnings.warn(
+        "load_signatures is deprecated; use load_signatures_from_json",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return load_signatures_from_json(*args, **kwargs)
+
+
+def save_signatures(*args, **kwargs):
+    "Deprecated: use save_signatures_to_json."
+    import warnings
+
+    warnings.warn(
+        "save_signatures is deprecated; use save_signatures_to_json",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return save_signatures_to_json(*args, **kwargs)
+
+
+DEFAULT_SEED = get_minhash_default_seed()
+MAX_HASH = get_minhash_max_hash()
+
+
+def create_sbt_index(*args, **kwargs):
+    "Create an empty SBT index (reference __init__.py:143)."
+    from .sbtmh import create_sbt_index as _impl
+
+    return _impl(*args, **kwargs)
+
+
+def load_sbt_index(*args, **kwargs):
+    "Deprecated: use load_file_as_index (reference __init__.py:106-118)."
+    import warnings
+
+    warnings.warn(
+        "load_sbt_index is deprecated; use load_file_as_index",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from .sbtmh import load_sbt_index as _impl
+
+    return _impl(*args, **kwargs)
+
+
+def search_sbt_index(*args, **kwargs):
+    "Deprecated: use Index.search (reference __init__.py:121-140)."
+    import warnings
+
+    warnings.warn(
+        "search_sbt_index is deprecated; use index.search(...)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from .sbtmh import search_sbt_index as _impl
+
+    return _impl(*args, **kwargs)

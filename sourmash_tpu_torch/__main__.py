@@ -1,17 +1,23 @@
 """Entry point: `python -m sourmash_tpu_torch sketch dna ...`, `... gather
 query.sig db.zip` and so on (counterpart of `sourmash_tpu/__main__.py`;
-`sketch`, `compare`, `search`, `gather`, `multigather`, `prefetch`,
-`index`, `sbt_combine`, `migrate`, `storage convert`, `sig`, `lca` and
-`tax` are ported)."""
+every command of it is ported).
+
+SOURMASH_TORCH_PROFILE=DIR wraps the whole command in `torch.profiler` and
+writes a Chrome trace into DIR (the counterpart of SOURMASH_TPU_PROFILE):
+CPU activity always, and CUDA activity when the command's device
+(`ops.resolve_device()`) is CUDA."""
 
 from __future__ import annotations
 
 import importlib
 import sys
 
+PROFILE_ENV = "SOURMASH_TORCH_PROFILE"
+
+# command -> function of the same name in commands.py
 _COMMANDS = (
-    "compare", "search", "gather", "multigather", "prefetch", "index",
-    "sbt_combine", "migrate",
+    "compare", "plot", "search", "gather", "multigather", "prefetch", "categorize",
+    "index", "info", "import_csv", "sbt_combine", "migrate", "watch",
 )
 
 # `lca` subcommand -> (module under lca/, function)
@@ -25,6 +31,51 @@ _LCA_COMMANDS = {
 
 
 def main(arglist=None):
+    import os
+
+    trace_dir = os.environ.get(PROFILE_ENV)
+    if trace_dir:
+        return _profiled(trace_dir, arglist)
+    return _dispatch(arglist)
+
+
+def _profiled(trace_dir, arglist):
+    """The command under torch.profiler, its Chrome trace written into
+    `trace_dir` as `sourmash_torch.<pid>.<ns>.pt.trace.json`, also when the
+    command fails. CUDA activity is recorded when the command's device is
+    CUDA; a profiler that cannot record it raises rather than write a trace
+    without the kernels."""
+    import os
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    from .ops import resolve_device
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device().type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                f"{PROFILE_ENV} is set and the command runs on CUDA, but this "
+                f"torch.profiler cannot record CUDA activity"
+            )
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"sourmash_torch.{os.getpid()}.{time.time_ns()}.pt.trace.json")
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            try:
+                return _dispatch(arglist)
+            finally:
+                if ProfilerActivity.CUDA in activities:
+                    torch.cuda.synchronize()
+    finally:  # after the profile has stopped, also when the command failed
+        prof.export_chrome_trace(path)
+
+
+def _dispatch(arglist=None):
     from . import cli, command_sketch
 
     args = cli.parse_args(arglist)
@@ -33,6 +84,16 @@ def main(arglist=None):
         from . import commands
 
         return getattr(commands, cmd)(args)
+    if cmd == "compute":
+        from .command_compute import compute
+
+        return compute(args)
+    if cmd in ("scripts", "ext"):
+        obj = cli._scripts_extension_dict.get(getattr(args, "subcmd", None))
+        if obj is None:
+            cli.get_parser().parse_args([cmd, "--help"])
+            return 1
+        return obj.main(args)
     if cmd == "storage":
         from .sbt import convert_cmd
 

@@ -1,12 +1,9 @@
-"""Command-line interface of the port: the `sketch` subtree, `compare`,
-`search`, `gather`, `multigather`, `prefetch`, `index`, `sbt_combine`,
-`migrate`, `storage convert` and the `sig`, `lca` and `tax` subtrees.
-
-Parity: `sourmash_tpu/cli/__init__.py` (itself reference
-`src/sourmash/cli/__init__.py`) — same command names, flags and defaults
-for these commands (`tests/test_torch_cli_tree.py`); `compute`, `plot`,
-`categorize`, `import_csv`, `watch`, `info`, `scripts` and `ext` are not
-ported yet. The shared flag groups are in `utils.py`.
+"""Command-line interface of the port: every command of
+`sourmash_tpu/cli/__init__.py` (itself reference
+`src/sourmash/cli/__init__.py`), with the same command names, flags and
+defaults, in the same order (`tests/test_torch_cli_tree.py`). The shared
+flag groups are in `utils.py`; `scripts` (alias `ext`) holds the
+'sourmash.cli_script' plugins' commands (`scripts.py`).
 """
 
 from __future__ import annotations
@@ -15,13 +12,15 @@ import sys
 from argparse import ArgumentParser, RawDescriptionHelpFormatter, SUPPRESS
 
 from .. import VERSION
-from ..sourmash_args import check_scaled_bounds
+from ..sourmash_args import check_scaled_bounds, check_num_bounds
 from .utils import (
     add_ksize_arg,
     add_moltype_args,
+    add_construct_moltype_args,
     add_picklist_args,
     add_pattern_args,
     add_scaled_arg,
+    add_num_arg,
 )
 
 
@@ -115,6 +114,38 @@ def _add_compare(sub):
     add_pattern_args(p)
     add_scaled_arg(p)
     p.set_defaults(func="compare")
+
+
+def _add_plot(sub):
+    p = sub.add_parser("plot", description="plot distance matrix")
+    p.add_argument("distances", help="output from 'sourmash compare'")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("--pdf", action="store_true", help="output PDF, not PNG")
+    p.add_argument("--labels", action="store_true", default=None,
+                   help="show sample labels on dendrogram/matrix")
+    p.add_argument("--no-labels", action="store_false", dest="labels")
+    p.add_argument("--labeltext",
+                   help="filename containing list of labels; implies --labels")
+    p.add_argument("--indices", action="store_true", default=None,
+                   help="show sample indices but not labels; overridden by --labels")
+    p.add_argument("--no-indices", action="store_false", dest="indices")
+    p.add_argument("--labels-from", "--labels-load", dest="labels_from",
+                   help="a CSV file containing label information to use on plot;"
+                        " implies --labels")
+    p.add_argument("--vmax", default=1.0, type=float,
+                   help="upper limit of heatmap scale (default: 1.0)")
+    p.add_argument("--vmin", default=0.0, type=float,
+                   help="lower limit of heatmap scale (default: 0.0)")
+    p.add_argument("--subsample", type=int, metavar="N",
+                   help="randomly downsample to this many samples, max")
+    p.add_argument("--subsample-seed", type=int, default=1, metavar="S",
+                   help="random seed for --subsample; default=1")
+    p.add_argument("-f", "--force", action="store_true",
+                   help="forcibly plot non-distance matrices")
+    p.add_argument("--output-dir", help="directory for output plots")
+    p.add_argument("--csv", metavar="F",
+                   help="write clustered matrix and labels out in CSV format")
+    p.set_defaults(func="plot")
 
 
 def _add_search(sub):
@@ -244,6 +275,75 @@ def _add_multigather(sub):
     add_moltype_args(p)
     add_scaled_arg(p, 0)
     p.set_defaults(func="multigather")
+
+
+from . import scripts  # noqa: E402
+
+# alias kept for __main__ dispatch; same dict object as scripts._extension_dict
+_scripts_extension_dict = scripts._extension_dict
+
+
+def _add_scripts(sub):
+    """'sourmash scripts' plugin commands (parity: reference
+    `cli/scripts/__init__.py`)."""
+    scripts.subparser(sub)
+
+
+def _add_storage(sub):
+    "'sourmash storage convert' (parity: reference `cli/storage/convert.py`)."
+    p = sub.add_parser("storage", description="SBT storage-backend utilities")
+    p.set_defaults(cmd="storage")
+    ssub = p.add_subparsers(dest="subcmd", metavar="subcmd")
+    sp = ssub.add_parser("convert")
+    sp.add_argument("sbt", help="name to save SBT into")
+    sp.add_argument("-b", "--backend", type=str, help="Backend to convert to")
+    sp.add_argument("-q", "--quiet", action="store_true")
+    sp.set_defaults(subfunc="storage_convert")
+
+
+def _ksize_list_parser(value):
+    "parse '21,31,51' (or '21 31 51') into a list of ints"
+    value = value.replace(" ", ",")
+    return [int(k) for k in value.split(",") if k]
+
+
+def _add_compute(sub):
+    p = sub.add_parser(
+        "compute", description="compute signatures for sequences (legacy; use 'sketch')"
+    )
+    p.add_argument("filenames", nargs="+", help="file(s) of sequences")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-k", "--ksizes", default="21,31,51", type=_ksize_list_parser,
+                   help="comma-separated list of k-mer sizes; default=%(default)s")
+    add_num_arg(p, 500)
+    p.add_argument("--track-abundance", action="store_true",
+                   help="track k-mer abundances in the generated signature")
+    p.add_argument("--scaled", type=float, default=0,
+                   help="choose number of hashes as 1 in FRACTION of input k-mers")
+    add_construct_moltype_args(p)
+    p.add_argument("--input-is-protein", action="store_true",
+                   help="Consume protein sequences - no translation needed.")
+    p.add_argument("--seed", type=int, default=42,
+                   help="seed used by MurmurHash; default=42")
+    p.add_argument("-f", "--force", action="store_true",
+                   help="recompute signatures even if the file exists")
+    p.add_argument("-o", "--output",
+                   help="output computed signatures to this file")
+    p.add_argument("--output-dir", "--outdir",
+                   help="output computed signatures to this directory")
+    p.add_argument("--singleton", action="store_true",
+                   help="compute a signature for each sequence record individually")
+    p.add_argument("--merge", "--name", dest="merge", type=str, default="",
+                   help="merge all input files into one signature with this name")
+    p.add_argument("--name-from-first", action="store_true",
+                   help="name the signature after the first record in each file")
+    p.add_argument("--randomize", action="store_true",
+                   help="shuffle the list of input filenames randomly")
+    p.add_argument("--license", default="CC0", type=str,
+                   help="signature license. Currently only CC0 is supported.")
+    p.add_argument("--check-sequence", action="store_true",
+                   help="complain if input sequence is invalid")
+    p.set_defaults(func="compute", from_file=None)
 
 
 def _add_prefetch(sub):
@@ -386,26 +486,68 @@ def _add_index(sub):
     add_picklist_args(p)
 
 
-def _add_sbt_tools(sub):
-    "'sbt_combine', 'migrate' and 'storage convert' (`sourmash_tpu/cli/__init__.py`)."
+def _add_misc(sub):
+    p = sub.add_parser("info", description="display sourmash version and other information")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="report versions of software dependencies")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.set_defaults(func="info")
+
+    p = sub.add_parser("import_csv", description="import a mash CSV")
+    p.add_argument("mash_csvfile", help="a mash CSV file")
+    p.add_argument("-o", "--output", default="-",
+                   help="save signature to this file (default stdout)")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.set_defaults(func="import_csv")
+
     p = sub.add_parser("sbt_combine", description="combine multiple SBTs into a new one")
     p.add_argument("sbt_name", help="name to save the new SBT into")
     p.add_argument("sbts", nargs="+", help="SBTs to combine to a new SBT")
     p.add_argument("-x", "--bf-size", metavar="S", type=float, default=1e5)
     p.add_argument("-q", "--quiet", action="store_true")
+    p.set_defaults(func="sbt_combine")
 
     p = sub.add_parser("migrate", description="migrate an SBT to the latest version")
     p.add_argument("sbt_name", help="name to save SBT into")
     p.add_argument("-q", "--quiet", action="store_true")
+    p.set_defaults(func="migrate")
 
-    p = sub.add_parser("storage", description="SBT storage-backend utilities")
-    p.set_defaults(cmd="storage")
-    ssub = p.add_subparsers(dest="subcmd", metavar="subcmd")
-    sp = ssub.add_parser("convert")
-    sp.add_argument("sbt", help="name to save SBT into")
-    sp.add_argument("-b", "--backend", type=str, help="Backend to convert to")
-    sp.add_argument("-q", "--quiet", action="store_true")
-    sp.set_defaults(subfunc="storage_convert")
+    p = sub.add_parser("watch", description="watch a stream of sequences and look for matches")
+    p.add_argument("sbt_name", help="name of SBT to search")
+    p.add_argument("inp_file", nargs="?", default="/dev/stdin",
+                   help="input file of sequences")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-o", "--output",
+                   help="save the computed signature to this file")
+    p.add_argument("--threshold", metavar="T", default=0.05, type=float,
+                   help="minimum threshold for matches; default=0.05")
+    p.add_argument("--input-is-protein", action="store_true",
+                   help="consume protein sequences")
+    p.add_argument("-n", "--num-hashes", type=check_num_bounds, default=500,
+                   metavar="N",
+                   help="number of hashes to use in each sketch; default=500")
+    p.add_argument("--name", type=str, default="stdin", metavar="NAME",
+                   help="name to use for the signature")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    p.set_defaults(func="watch")
+
+    p = sub.add_parser("categorize", description="categorize query signatures against a database")
+    p.add_argument("database", help="location of signature collection/database to load")
+    p.add_argument("queries", nargs="+",
+                   help="locations of signatures to categorize")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("--threshold", metavar="T", default=0.08, type=float,
+                   help="minimum threshold for reporting matches; default=0.08")
+    p.add_argument("--ignore-abundance", action="store_true",
+                   help="do NOT use k-mer abundances if present")
+    p.add_argument("--csv", metavar="F",
+                   help="output summary CSV to this file")
+    p.add_argument("--load-csv", default=None,
+                   help="load a directory CSV from this file")
+    add_ksize_arg(p)
+    add_moltype_args(p)
+    p.set_defaults(func="categorize")
 
 
 def get_parser():
@@ -426,13 +568,17 @@ def get_parser():
     sub = parser.add_subparsers(title="Instructions", dest="cmd", metavar="cmd",
                                 help=SUPPRESS)
     _add_compare(sub)
+    _add_plot(sub)
     _add_search(sub)
     _add_gather(sub)
     _add_multigather(sub)
+    _add_compute(sub)
     _add_prefetch(sub)
     _add_sketch(sub)
     _add_index(sub)
-    _add_sbt_tools(sub)
+    _add_misc(sub)
+    _add_scripts(sub)
+    _add_storage(sub)
 
     from . import sig as _sig_cli
     from . import lca as _lca_cli

@@ -122,6 +122,21 @@ class ComputeParameters:
         self.scaled = int(self.scaled)
         self.ksizes = list(self.ksizes)
 
+    @classmethod
+    def from_args(cls, args):
+        """Build from an argparse namespace, copying any matching fields
+        (reference command_compute.py:483-494)."""
+        from dataclasses import fields as _fields
+
+        ret = cls()
+        names = {f.name for f in _fields(cls)}
+        for arg, value in vars(args).items():
+            if arg in names:
+                setattr(ret, arg, value)
+        ret.scaled = int(ret.scaled)
+        ret.ksizes = list(ret.ksizes)
+        return ret
+
     @property
     def moltype(self):
         if self.dna:

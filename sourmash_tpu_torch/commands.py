@@ -1,8 +1,8 @@
-"""Top-level commands of the port: `compare`, `search`, `gather`,
-`multigather`, `prefetch`, `index`, `sbt_combine` and `migrate` (the port
-of `sourmash_tpu/commands.py:119-354`, `:484-596`, `:791-1398` and
-`:1405-1604`, reference `src/sourmash/commands.py`). `index` builds an SBT
-by default and a disk revindex with `-F revindex`.
+"""Top-level commands of the port: `compare`, `plot`, `search`,
+`categorize`, `gather`, `multigather`, `prefetch`, `index`, `sbt_combine`,
+`migrate`, `import_csv`, `watch` and `info` (the port of
+`sourmash_tpu/commands.py`, reference `src/sourmash/commands.py`). `index`
+builds an SBT by default and a disk revindex with `-F revindex`.
 
 The command is organized around reusable pipeline stages:
 
@@ -352,8 +352,132 @@ def _write_compare_outputs(args, matrix, siglist, labeltext):
                 w.writerow([str(v) for v in row])
 
 
+def _resolve_plot_labels(args, n_rows):
+    """Work out the label list + whether to display labels at all
+    (reference commands.py:325-372, sourmash#2790): full labels by default,
+    bare indices with --indices, nothing with --no-labels."""
+    if args.labeltext or args.labels or args.labels_from:
+        if args.labeltext and args.labels_from:
+            notify("ERROR: cannot supply both --labeltext and --labels-from")
+            sys.exit(-1)
+        display = True
+        args.labels = True  # override => labels always true
+    elif args.labels is None and not args.indices:
+        args.labels = True
+        display = True
+    elif args.indices or (not args.labels and args.indices is None):
+        args.indices = True
+        display = True
+    else:
+        display = False
+
+    if args.labels_from:
+        notify(f"loading labels from CSV file '{args.labels_from}'")
+        with sourmash_args.FileInputCSV(args.labels_from) as r:
+            ordered = sorted((int(row["sort_order"]), row["label"]) for row in r)
+        labeltext = [label for _, label in ordered]
+    elif args.labels:
+        labelfilename = args.labeltext or (args.distances + ".labels.txt")
+        notify(f"loading labels from text file '{labelfilename}'")
+        with open(labelfilename) as f:
+            labeltext = [x.strip() for x in f]
+        if len(labeltext) != n_rows:
+            error("{} labels != matrix size, exiting", len(labeltext))
+            sys.exit(-1)
+    elif args.indices:
+        labeltext = [str(i + 1) for i in range(n_rows)]
+    else:
+        assert not display
+        labeltext = [""] * n_rows
+
+    return labeltext, display
+
+
+def plot(args):
+    "Produce a clustering matrix and plot."
+    import matplotlib as mpl
+
+    mpl.use("Agg")
+    import pylab
+    import scipy.cluster.hierarchy as sch
+
+    from . import fig as sourmash_fig
+
+    D_filename = args.distances
+
+    notify(f"loading comparison matrix from {D_filename}...")
+    with open(D_filename, "rb") as f:
+        D = numpy.load(f)
+    notify(f"...got {D.shape[0]} x {D.shape[1]} matrix.", *D.shape)
+
+    labeltext, display_labels = _resolve_plot_labels(args, D.shape[0])
+
+    # output file naming: <basename>.{dendro,matrix,hist}.{png,pdf}
+    ext = ".pdf" if args.pdf else ".png"
+    basename = os.path.basename(D_filename)
+    outnames = {
+        kind: basename + "." + kind + ext for kind in ("dendro", "matrix", "hist")
+    }
+    if args.output_dir:
+        if not os.path.isdir(args.output_dir):
+            os.mkdir(args.output_dir)
+        outnames = {
+            kind: os.path.join(args.output_dir, name)
+            for kind, name in outnames.items()
+        }
+
+    # histogram of matrix values
+    notify(f"saving histogram of matrix values => {outnames['hist']}")
+    fig = pylab.figure(figsize=(8, 5))
+    pylab.hist(numpy.array(D.flat), bins=100)
+    fig.savefig(outnames["hist"])
+
+    # optional random subsample of the rows before clustering
+    if args.subsample:
+        numpy.random.seed(args.subsample_seed)
+        sample_idx = list(range(len(labeltext)))
+        numpy.random.shuffle(sample_idx)
+        sample_idx = sample_idx[: args.subsample]
+        np_idx = numpy.array(sample_idx)
+        D = D[numpy.ix_(np_idx, np_idx)]
+        labeltext = [labeltext[idx] for idx in sample_idx]
+
+    # dendrogram alone
+    fig = pylab.figure(figsize=(8, 5))
+    ax1 = fig.add_axes([0.1, 0.1, 0.7, 0.8])
+    ax1.set_xticks([])
+    ax1.set_yticks([])
+    Y = sch.linkage(D, method="single")
+    sch.dendrogram(
+        Y, orientation="right", labels=labeltext, no_labels=not display_labels
+    )
+    fig.savefig(outnames["dendro"])
+    notify(f"wrote dendrogram to: {outnames['dendro']}")
+
+    # dendrogram + matrix composite
+    fig, rlabels, rmat = sourmash_fig.plot_composite_matrix(
+        D, labeltext, show_labels=display_labels,
+        vmin=args.vmin, vmax=args.vmax, force=args.force,
+    )
+    fig.savefig(outnames["matrix"])
+    notify(f"wrote numpy distance matrix to: {outnames['matrix']}")
+
+    if len(labeltext) < 30:
+        # for small matrices, print out sample numbering for FYI.
+        for i, name in enumerate(labeltext):
+            print_results("{}\t{}", i, name)
+
+    if args.csv:
+        with FileOutputCSV(args.csv) as csv_fp:
+            w = csv.writer(csv_fp)
+            w.writerow(rlabels)
+            for row in rmat:
+                w.writerow([f"{v}" for v in row])
+        notify(f"Wrote clustered matrix and labels out to {args.csv}")
+
+
 # ===========================================================================
-# search
+# search & categorize
 # ===========================================================================
 
 
@@ -469,6 +593,73 @@ def search(args):
     if jaccard_ani_untrustworthy:
         notify("WARNING: Jaccard estimation for at least one of these comparisons"
                " is likely inaccurate. Could not estimate ANI for these comparisons.")
+
+
+def categorize(args):
+    "Use a database to find the best match to many signatures."
+    from .index import MultiIndex
+    from .search import make_jaccard_search_query
+
+    set_quiet(args.quiet)
+    moltype = sourmash_args.calculate_moltype(args)  # from --dna/--protein/...
+
+    # skip any queries already present in --load-csv
+    already_names = set()
+    if args.load_csv:
+        with open(args.load_csv, newline="") as fp:
+            already_names.update(row[0] for row in csv.reader(fp))
+
+    db = sourmash_args.load_file_as_index(args.database)
+    if args.ksize or moltype:
+        db = db.select(ksize=args.ksize, moltype=moltype)
+
+    def queries_with_locations():
+        for filename in args.queries:
+            mi = MultiIndex.load_from_path(filename, False)
+            mi = mi.select(ksize=args.ksize, moltype=moltype)
+            yield from mi.signatures_with_location()
+
+    csv_w = csv_fp = None
+    if args.csv:
+        csv_fp = open(args.csv, "w", newline="")
+        csv_w = csv.writer(csv_fp)
+
+    search_obj = make_jaccard_search_query(threshold=args.threshold)
+    for orig_query, loc in queries_with_locations():
+        if loc in already_names:
+            continue
+
+        notify(
+            f"loaded query: {str(orig_query)[:30]}... (k={orig_query.minhash.ksize}, {orig_query.minhash.moltype})"
+        )
+
+        if orig_query.minhash.track_abundance and not args.ignore_abundance:
+            notify(
+                "ERROR: this search cannot be done on signatures calculated with abundance."
+            )
+            notify("ERROR: please specify --ignore-abundance.")
+            sys.exit(-1)
+
+        query = _flattened_copy(orig_query) if args.ignore_abundance else orig_query.copy()
+
+        # best match, excluding self-hits by md5
+        hits = []
+        for sr in db.find(search_obj, query):
+            match = sr.signature
+            if match.md5sum() != query.md5sum():
+                hits.append((orig_query.similarity(match), match))
+
+        if hits:
+            hits.sort(key=lambda x: -x[0])
+            best_sim, best_match = hits[0]
+            notify(f"for {query}, found: {best_sim:.2f} {best_match}")
+            if csv_w:
+                csv_w.writerow([loc, query, best_match.name, best_sim])
+        else:
+            notify(f"for {query}, no match found")
+
+    if csv_fp:
+        csv_fp.close()
 
 
 # ===========================================================================
@@ -1420,3 +1611,186 @@ def migrate(args):
 
     notify(f'saving SBT under "{args.sbt_name}".')
     tree.save(args.sbt_name, structure_only=True)
+
+
+# ===========================================================================
+# odds and ends: import_csv, watch, info
+# ===========================================================================
+
+
+def import_csv(args):
+    "Import a mash CSV file full of signatures/hashes."
+    from .minhash import MinHash
+
+    set_quiet(args.quiet)
+
+    with open(args.mash_csvfile, newline="") as fp:
+        siglist = []
+        for row in csv.reader(fp):
+            hashfn = row[0]
+            hashseed = int(row[1])
+
+            assert hashfn == "murmur64"
+            assert hashseed == 42
+
+            _, _, ksize, name, hashes = row
+            mins = [int(h) for h in hashes.strip().split(" ")]
+
+            e = MinHash(len(mins), int(ksize))
+            e.add_many(mins)
+            s = sig.SourmashSignature(e, filename=name)
+            siglist.append(s)
+            notify(f"loaded signature: {name} {s.md5sum()[:8]}")
+
+        notify(f"saving {len(siglist)} signatures to JSON")
+        with SaveSignaturesToLocation(args.output) as save_sig:
+            save_sig.add_many(siglist)
+
+
+# watch's moltype flag resolution: (moltype name, is_protein, dayhoff, hp)
+_WATCH_MOLTYPES = {
+    "dna": ("DNA", False, False, False),
+    "protein": ("protein", True, False, False),
+    "dayhoff": ("dayhoff", True, True, False),
+    "hp": ("hp", True, False, True),
+}
+
+
+def watch(args):
+    "Build a signature from raw FASTA/FASTQ on stdin; search an SBT."
+    from .minhash import MinHash
+    from .sbtmh import load_sbt_index
+    from .sequence_io import iter_records
+
+    set_quiet(args.quiet)
+
+    if args.input_is_protein and args.dna:
+        notify("WARNING: input is protein, turning off nucleotide hashing.")
+        args.dna = False
+        args.protein = True
+
+    if args.dna and args.protein:
+        notify('ERROR: cannot use "watch" with both nucleotide and protein.')
+
+    for flag in ("dna", "protein", "dayhoff", "hp"):
+        if getattr(args, flag, False):
+            moltype, is_protein, dayhoff, hp = _WATCH_MOLTYPES[flag]
+            break
+    else:
+        moltype, is_protein, dayhoff, hp = _WATCH_MOLTYPES["hp"]
+
+    tree = load_sbt_index(args.sbt_name)
+
+    ksize = args.ksize
+    if ksize is None:
+        # pick up the tree's ksize from any leaf
+        leaf = next(iter(tree.leaves()))
+        ksize = leaf.data.minhash.ksize
+
+    notify(f"Computing signature for k={ksize}, {moltype} from stdin")
+
+    clf = _StreamClassifier(
+        tree,
+        MinHash(
+            ksize=ksize, n=args.num_hashes, is_protein=is_protein,
+            dayhoff=dayhoff, hp=hp,
+        ),
+        name=args.name,
+        threshold=args.threshold,
+        add=(
+            (lambda mh, s: mh.add_protein(s))
+            if args.input_is_protein
+            else (lambda mh, s: mh.add_sequence(s, False))
+        ),
+    )
+
+    notify("reading sequences from stdin")
+    n_read = clf.feed(iter_records(args.inp_file), check_every=WATERMARK_SIZE)
+
+    hits = clf.matches()
+    if hits:
+        similarity, found_sig = max(hits, key=lambda x: x[0])
+        print_results("FOUND: {}, at {:.3f}", found_sig, similarity)
+    else:
+        notify(f"... read {n_read} sequences, no matches found.")
+
+    if args.output:
+        notify(f"saving signature to '{args.output}'")
+        with SaveSignaturesToLocation(args.output) as save_sig:
+            save_sig.add(clf.signature())
+
+
+class _StreamClassifier:
+    """Incremental classify-against-SBT state for `watch`: accumulate
+    records into a growing MinHash, re-search the tree every
+    `check_every` records, stop at the first hit (reference semantics,
+    `src/sourmash/commands.py:1389-1483`)."""
+
+    def __init__(self, tree, mh, *, name, threshold, add):
+        self.tree = tree
+        self.mh = mh
+        self.name = name
+        self.threshold = threshold
+        self._add = add
+
+    def signature(self):
+        return sig.SourmashSignature(self.mh, filename="stdin", name=self.name)
+
+    def matches(self):
+        "(similarity, match) pairs for the current accumulated sketch."
+        found = self.tree.search(
+            self.signature(),
+            threshold=self.threshold,
+            best_only=True,
+            ignore_abundance=True,
+            do_containment=False,
+        )
+        return [(similarity, match) for similarity, match, _ in found]
+
+    def feed(self, records, *, check_every):
+        "Consume records until a periodic check hits; return records read."
+        n = 0
+        next_check = check_every
+        for n, record in enumerate(records):
+            if n >= next_check:
+                notify(f"\r... read {n} sequences", end="")
+                next_check += check_every
+                if self.matches():
+                    break
+            self._add(self.mh, record.sequence)
+        return n
+
+
+def _torch_devices():
+    "The visible CUDA cards by name, or that there is none."
+    import torch
+
+    if not torch.cuda.is_available():
+        return "none (no CUDA device)"
+    return [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+
+
+def info(args):
+    "Report version and environment information."
+    from . import VERSION
+
+    notify(f"sourmash version {VERSION}")
+    notify("- loaded from path: {}".format(os.path.dirname(__file__)))
+    notify("")
+
+    if args.verbose:
+        # reference cli/info.py:27-33 reports dependency versions; khmer is
+        # not a dependency here (internal Nodegraph), and neither is screed:
+        # sequence files are read by the port's own sequence_io.
+        notify("khmer version: None (internal Nodegraph)")
+        notify("")
+        notify("screed version: None (internal sequence_io)")
+
+        import torch
+
+        notify(f"torch version {torch.__version__}")
+        notify(f"torch devices: {_torch_devices()}")
+
+        from .plugins import list_all_plugins
+
+        list_all_plugins()

@@ -10,6 +10,9 @@ collection, and the trailing FASTA/FASTQ error.
 
 Saving: `SaveSignaturesToLocation(location)` picks a saver by location
 shape: None, 'dir/', '.zip', '.sqldb', '-' or a `.sig[.gz]` file.
+
+Plugins join both: loaders through the 'sourmash.load_from' entry point,
+savers through 'sourmash.save_to' (`plugins.py`), each at its priority.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import traceback
 import zipfile
 from io import StringIO
 
+from . import plugins as sourmash_plugins
 from . import signature as sigmod
 from .exceptions import SourmashError
 from .index import LinearIndex, MultiIndex, ZipFileLinearIndex
@@ -48,9 +52,15 @@ def add_loader(name, priority):
     return register
 
 
+def _iter_loaders():
+    "Built-in + plugin loader functions, in priority order."
+    plugin_fns = sourmash_plugins.get_load_from_functions()
+    yield from sorted(itertools.chain(_loader_functions, plugin_fns))
+
+
 def _load_database(filename, traverse_yield_all, *, cache_size=None):
     "Try loader functions in priority order; return the first Index."
-    for priority, desc, load_fn in sorted(_loader_functions):
+    for priority, desc, load_fn in _iter_loaders():
         debug_literal(f"_load_databases: trying loader fn - priority {priority} - '{desc}'")
         try:
             db = load_fn(filename, traverse_yield_all=traverse_yield_all, cache_size=cache_size)
@@ -171,12 +181,27 @@ def _expand_to_single_sketches(siglist):
         yield from sigmod.expand_signatures(ss)
 
 
+# kept under the reference helper's name for API familiarity
+_one_minhash_per_sig = _expand_to_single_sketches
+
+
 class Base_SaveSignaturesToLocation:
     """Base signature saver: context manager tracking location + count.
-    Subclasses override open/close/add as needed."""
+
+    Subclasses set `location_suffix` (or override `matches`) to claim a
+    location shape, and override open/close/add as needed."""
+
+    location_suffix = None
 
     def __init__(self, location):
         self.location, self.count = location, 0
+
+    @classmethod
+    def matches(cls, location):
+        if cls.location_suffix is None:
+            raise NotImplementedError
+        if location:
+            return location.endswith(cls.location_suffix)
 
     def __repr__(self):
         return f"{type(self).__name__}('{self.location}')"
@@ -210,10 +235,13 @@ class SaveSignatures_NoOutput(Base_SaveSignaturesToLocation):
     def __repr__(self):
         return "SaveSignatures_NoOutput()"
 
+    matches = classmethod(lambda cls, location: location is None)
+
 
 class SaveSignatures_SqliteIndex(Base_SaveSignaturesToLocation):
     "Save signatures into a sqlite database (.sqldb)."
 
+    location_suffix = ".sqldb"
     _COMMIT_EVERY = 1000
 
     def __init__(self, location):
@@ -248,6 +276,10 @@ class SaveSignatures_SigFile(Base_SaveSignaturesToLocation):
         self.keep = []
         self.compress = 1 if self.location.endswith(".gz") else 0
 
+    @classmethod
+    def matches(cls, location):
+        return bool(location)  # the catch-all fallback
+
     def close(self):
         if self.location == "-":
             sigmod.save_signatures_to_json(self.keep, sys.stdout)
@@ -266,6 +298,8 @@ class SaveSignatures_SigFile(Base_SaveSignaturesToLocation):
 
 class SaveSignatures_Directory(Base_SaveSignaturesToLocation):
     "Save signatures within a directory, using md5sum names."
+
+    location_suffix = "/"
 
     def open(self):
         try:
@@ -295,6 +329,7 @@ class SaveSignatures_ZipFile(Base_SaveSignaturesToLocation):
     with a manifest; an existing collection is appended to through its
     manifest."""
 
+    location_suffix = ".zip"
     _MANIFEST_NAME = "SOURMASH-MANIFEST.csv"
 
     def __init__(self, location):
@@ -363,19 +398,36 @@ class SaveSignatures_ZipFile(Base_SaveSignaturesToLocation):
             super().add(ss)
 
 
+_save_classes = [
+    (10, SaveSignatures_NoOutput),
+    (20, SaveSignatures_Directory),
+    (30, SaveSignatures_ZipFile),
+    (40, SaveSignatures_SqliteIndex),
+    (1000, SaveSignatures_SigFile),  # catch-all: any other non-empty location
+]
+
+
 def SaveSignaturesToLocation(location):
     """Context manager that saves signatures in the output format matching
     `location`: None (no output), 'dir/', '.zip', '.sqldb', '-' (stdout) or
-    any other name as a .sig[.gz] file; the order of `sourmash_tpu`'s
-    savers."""
-    if location is None:
-        return SaveSignatures_NoOutput(location)
-    if not location:
-        raise ValueError("cannot save signatures to an empty location")
-    if location.endswith("/"):
-        return SaveSignatures_Directory(location)
-    if location.endswith(".zip"):
-        return SaveSignatures_ZipFile(location)
-    if location.endswith(".sqldb"):
-        return SaveSignatures_SqliteIndex(location)
-    return SaveSignatures_SigFile(location)
+    any other name as a .sig[.gz] file, after the 'save_to' plugins of a
+    lower priority number."""
+    candidates = itertools.chain(
+        _save_classes, sourmash_plugins.get_save_to_functions()
+    )
+    for priority, cls in sorted(candidates, key=lambda x: x[0]):
+        debug_literal(f"trying to match save function {cls}, priority={priority}")
+        if cls.matches(location):
+            debug_literal(f"{cls} is a match!")
+            return cls(location)
+
+    raise Exception(
+        f"cannot determine how to open location {location} for saving; this should never happen!?"
+    )
+
+
+def _get_signatures_from_rust(siglist):
+    """Split multi-sketch signature records into one-minhash signatures by
+    JSON roundtrip (reference `save_load.py:297-304`)."""
+    json_str = sigmod.save_signatures_to_json(siglist)
+    yield from sigmod.load_signatures_from_json(json_str)

@@ -1,6 +1,7 @@
 """sourmash_tpu_torch stands alone: importing it (every module) brings in
-neither jax nor any sourmash_tpu module, and asking it for a CUDA device
-that is not there raises instead of running on the CPU."""
+neither jax nor any sourmash_tpu module nor the root `screed` shim (whose
+`open` reaches sourmash_tpu), and asking it for a CUDA device that is not
+there raises instead of running on the CPU."""
 
 import ast
 import os
@@ -37,7 +38,8 @@ def test_import_every_module_leaves_jax_and_sourmash_tpu_out():
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'sourmash_tpu' or m.startswith('sourmash_tpu.'))\n"
+        "             or m == 'sourmash_tpu' or m.startswith('sourmash_tpu.')\n"
+        "             or m == 'screed' or m.startswith('screed.'))\n"
         "print(json.dumps(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -54,6 +56,8 @@ def test_import_every_module_leaves_jax_and_sourmash_tpu_out():
     assert "sourmash_tpu_torch.sig.__main__" in modules
     assert "sourmash_tpu_torch.tax.__main__" in modules
     assert "sourmash_tpu_torch.cli.utils" in modules
+    for name in ("plugins", "hll", "fig", "command_compute", "cli.scripts", "cli.compute"):
+        assert f"sourmash_tpu_torch.{name}" in modules
 
 
 @pytest.mark.parametrize(
@@ -66,6 +70,7 @@ def test_import_every_module_leaves_jax_and_sourmash_tpu_out():
     ) + ["chip_smoke.py"],
 )
 def test_no_file_imports_jax_or_sourmash_tpu(path):
+    "Nor the root `screed` shim: the port reads sequence files with its own sequence_io."
     with open(os.path.join(REPO, path)) as f:
         tree = ast.parse(f.read(), filename=path)
     names = []
@@ -76,7 +81,7 @@ def test_no_file_imports_jax_or_sourmash_tpu(path):
             names.append(node.module or "")
     for name in names:
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "sourmash_tpu"), (path, name)
+        assert top not in ("jax", "jaxlib", "sourmash_tpu", "screed"), (path, name)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
